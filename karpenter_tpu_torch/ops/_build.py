@@ -1,0 +1,99 @@
+"""Build the CUDA kernels with nvcc at first use and load them with ctypes.
+
+Each `csrc/<name>.cu` compiles on its own into a shared library with a
+plain C interface under `build/karpenter_tpu_torch/` at the repository
+root (listed in .gitignore), named by a digest of its source, so an edited
+source rebuilds and an unchanged one loads the library already built. The
+target is Hopper (`sm_90a`); the build never uses --use_fast_math and
+forbids FMA contraction (`-fmad=false`), because the solve must agree bit
+for bit with the reference's f32 expressions.
+
+Nothing here runs at import: tests on a machine without nvcc import every
+module, and only a launch on a CUDA tensor reaches `load`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "karpenter_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCES = ("screen_k", "solve_scan")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found (looked on PATH and in "
+                           "/usr/local/cuda/bin): the CUDA kernels cannot "
+                           "be built")
+    return found
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str) -> Optional[subprocess.Popen]:
+    """Start nvcc for one source unless its library is already built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    log = open(BUILD_DIR / f"{name}.log", "w")
+    try:
+        proc = subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=log, stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+    proc.tmp, proc.out, proc.name = tmp, out, name  # type: ignore[attr-defined]
+    return proc
+
+
+def _finish(proc: Optional[subprocess.Popen]) -> None:
+    if proc is None:
+        return
+    rc = proc.wait()
+    if rc != 0:
+        text = (BUILD_DIR / f"{proc.name}.log").read_text()
+        raise RuntimeError(f"nvcc failed for {proc.name}.cu (exit {rc}):\n"
+                           f"{text}")
+    os.replace(proc.tmp, proc.out)
+
+
+def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Compile every source at once (one nvcc each, all started together)
+    and return {name: nvcc log}, which holds the -Xptxas -v resource
+    report of each kernel."""
+    procs = [_start(n) for n in names]
+    for p in procs:
+        _finish(p)
+    logs = {}
+    for n in names:
+        log = BUILD_DIR / f"{n}.log"
+        logs[n] = log.read_text() if log.exists() else ""
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        _finish(_start(name))
+        lib = ctypes.CDLL(str(_target(name)))
+        _libs[name] = lib
+    return lib

@@ -5,20 +5,24 @@
 Phases (any failure exits non-zero):
   1. build   the CUDA kernels from karpenter_tpu_torch/csrc/ with nvcc
   2. check   each kernel against its plain PyTorch version at small shapes
-             (kernel A: the four reference test shapes, atol 0; kernel B:
-             golden-style solves incl. conflicts, resume and zone overhead,
-             packed vectors equal)
+             (kernel A: the four reference test shapes, atol 0; kernels B0
+             and B: golden-style solves incl. conflicts, resume and zone
+             overhead, B0's outputs and the packed vectors equal; kernel B
+             also at a node budget that takes the largest cluster and at
+             one whose node slices live in global scratch)
   3. main    the full-width main path: the generated catalog (810 types)
              and 100,000 pods drawn from a seeded (cpu, memory) grid,
              solve_device on the card, validate_solution, the host oracle
              on a 10k-pod subset, then consolidation_screen over the placed
              nodes. Launch counts are zeroed just before and read just
-             after; every kernel must have launched.
+             after; every kernel must have launched, the scan exactly once.
   4. check   each kernel against its plain version at the main path's own
-             inputs (kernel A atol 0; kernel B outputs equal)
-  5. time    median wall times of the solve and the screen; per-kernel
-             device time from CUDA events beside its bound, its plain
-             version's time and (kernel A) one torch expression's time.
+             inputs (kernel A atol 0; kernels B0 and B outputs equal)
+  5. time    median wall times of the solve and the screen, stage by stage;
+             per-kernel device time from torch.profiler and CUDA events
+             beside its bound, its plain version's time and one torch
+             expression's time where one computes the same function;
+             kernel B at every cluster size at the main path's inputs.
 
 The last two lines of output are the kernels JSON line and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
@@ -27,6 +31,7 @@ of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import inspect
 import json
 import statistics
 import subprocess
@@ -39,6 +44,8 @@ N_SUBSET = 10_000
 CPU_GRID = ("100m", "250m", "500m", "750m", "1", "1500m", "2", "3", "4", "6")
 MEM_GRID = ("128Mi", "256Mi", "512Mi", "1Gi", "2Gi", "3Gi", "4Gi", "8Gi",
             "16Gi")
+N_MAX_LARGEST_CLUSTER = 16_384   # golden input at CL 16, slices in shared
+N_MAX_GLOBAL_SLICES = 262_144    # golden input past the cluster's capacity
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 
@@ -140,11 +147,43 @@ class Recorder:
         setattr(self.module, self.name, self.real)
 
 
+def offer_args(ss, args, kwargs) -> dict:
+    """offer_argmin's arguments, taken from one solve_scan call's."""
+    bound = inspect.signature(ss.solve_scan_plain).bind(*args, **kwargs)
+    bound.apply_defaults()
+    names = inspect.signature(ss.offer_argmin_plain).parameters
+    return {k: bound.arguments[k] for k in names}
+
+
+def scan_layout_of(ss, args, kwargs):
+    """The layout kernel B takes for one solve_scan call's arguments."""
+    b = inspect.signature(ss.solve_scan_plain).bind(*args, **kwargs)
+    b.apply_defaults()
+    a = b.arguments
+    T, Z, C = a["price"].shape
+    Gp, Rk = a["requests"].shape
+    W = -(-Gp // 32) if a["track_conflicts"] else 0
+    return ss._scan_layout(a["n_max"], Rk, W, Z, C, T, a["zone_ovh"])
+
+
+def check_offer(ss, args, kwargs, what: str) -> None:
+    """Kernel B0 against offer_argmin_plain on one solve's inputs."""
+    import torch
+    oa = offer_args(ss, args, kwargs)
+    got = ss.offer_argmin_cuda(**oa)
+    torch.cuda.synchronize()
+    want = ss.offer_argmin_plain(**oa)
+    for x, y, name in zip(got, want, ("t_star", "s", "ok", "t_avail_z",
+                                      "t_avail_c")):
+        check(torch.equal(x.to(y.dtype), y),
+              f"offer_argmin != plain ({what}: {name})")
+
+
 def phase_build():
     from karpenter_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
-    log(f"[build] {len(logs)} kernels in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] {len(logs)} kernel sources in {time.perf_counter() - t0:.1f} s "
         f"with {' '.join(_build.NVCC_FLAGS)}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -170,17 +209,19 @@ def phase_check_small(dev) -> None:
     from karpenter_tpu_torch import catalog, models
     from karpenter_tpu_torch.models import labels as L
     from karpenter_tpu_torch.ops import screen_k as sk
+    from karpenter_tpu_torch.ops import solve_scan as ss, solver
     from karpenter_tpu_torch.ops.binpack import solve_host
     from karpenter_tpu_torch.ops.encode import encode_catalog, encode_pods
-    from karpenter_tpu_torch.ops.solver import solve_packed
 
-    for shape in [(300, 37, 6), (8, 1, 1), (257, 129, 9), (64, 128, 4)]:
+    for shape in [(300, 37, 6), (8, 1, 1), (257, 129, 9), (64, 128, 4),
+                  (7, 3, 2)]:
         head, req, elig = screen_inputs(7, *shape, dev)
         got = sk.screen_k_cuda(head, req, elig)
         torch.cuda.synchronize()
         want = sk.screen_k_plain(head, req, elig)
         check(torch.equal(got, want), f"screen_k != plain at {shape}")
-    log("[check] screen_k == plain (atol 0) at the four test shapes")
+    log("[check] screen_k == plain (atol 0) at the four test shapes and a "
+        "ragged 7x3")
 
     cat = encode_catalog(catalog.small_catalog())
     anti = [models.PodAffinityTerm(topology_key=L.HOSTNAME,
@@ -204,14 +245,30 @@ def phase_check_small(dev) -> None:
     zovh = np.zeros((cat.T, cat.Z, cat.allocatable.shape[1]), np.float32)
     zovh[:, 0, 0] = np.float32(0.5)
     zcat = dataclasses.replace(cat, zone_overhead=zovh)
-    cases = {"fresh+conflicts": (cat, []), "resumed+prior+banned": (cat, existing),
-             "zone_overhead": (zcat, [])}
-    for name, (c, ex) in cases.items():
-        got, st = solve_packed(c, enc, ex, device=dev)
-        want, _ = solve_packed(c, enc, ex, device="cpu")
+    cases = {"fresh+conflicts": (cat, [], None),
+             "resumed+prior+banned": (cat, existing, None),
+             "zone_overhead": (zcat, [], None),
+             "largest_cluster": (cat, [], N_MAX_LARGEST_CLUSTER),
+             "global_slices": (cat, [], N_MAX_GLOBAL_SLICES)}
+    for name, (c, ex, n_max) in cases.items():
+        with Recorder(solver, "solve_scan") as rec:
+            got, st = solver.solve_packed(c, enc, ex, n_max=n_max, device=dev)
+        torch.cuda.synchronize()
+        want, _ = solver.solve_packed(c, enc, ex, n_max=n_max, device="cpu")
         check(np.array_equal(got, want), f"solve_scan != plain ({name})")
-    log(f"[check] solve_scan packed == plain on {len(cases)} golden-style "
-        f"solves ({', '.join(cases)})")
+        (args, kw), = rec.calls
+        lay = scan_layout_of(ss, args, kw)
+        check_offer(ss, args, kw, name)
+        log(f"[check] {name}: offer_argmin == plain, solve_scan packed == "
+            f"plain at n_max={st['n_max']}; layout cl={lay.cl} "
+            f"slice={lay.slice} nodes_in_shared={lay.nodes_smem} "
+            f"catalog_in_shared={lay.cat_smem} smem={lay.smem_bytes} B")
+        if name == "largest_cluster":
+            check(lay.cl == ss.CL_MAX and lay.nodes_smem,
+                  f"{name} did not take the largest cluster: {lay}")
+        if name == "global_slices":
+            check(not lay.nodes_smem, f"{name} kept its slices in shared "
+                  f"memory: {lay}")
 
 
 def main() -> None:
@@ -262,6 +319,7 @@ def main() -> None:
         f"encode {encode_ms:.1f} ms")
 
     ss.launches = 0
+    ss.offer_launches = 0
     sk.launches = 0
     with Recorder(solver, "solve_scan") as rec_b:
         result = solver.solve_device(cat, enc)
@@ -277,15 +335,25 @@ def main() -> None:
     with Recorder(consolidate, "screen_k") as rec_a:
         screen, slack = consolidate.consolidation_screen(cat, enc, views,
                                                          counts)
-    launches = {"solve_scan": ss.launches, "screen_k": sk.launches}
+    launches = {"screen_k": sk.launches, "offer_argmin": ss.offer_launches,
+                "solve_scan": ss.launches}
     log(f"[main] solve: {n_nodes} nodes, {n_unsched} unschedulable, "
         f"{len(result.launches)} launches; screen: {int(screen.sum())} of "
         f"{n_nodes} candidates pass; kernel launches {launches}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
+    check(launches["solve_scan"] == 1 and launches["offer_argmin"] == 1,
+          f"one solve_device must scan once: {launches}")
 
-    # the plain version of the same solve, on the same card
+    # the plain versions of the same solve, on the same card
     (sargs, skw), = rec_b.calls[-1:]
+    lay = scan_layout_of(ss, sargs, skw)
+    cl_max = ss.max_cluster(lay.smem_bytes)
+    log(f"[main] kernel B layout: cl={lay.cl} slice={lay.slice} "
+        f"nodes_in_shared={lay.nodes_smem} catalog_in_shared={lay.cat_smem} "
+        f"smem={lay.smem_bytes} B a block, record {lay.rec_words} words; "
+        f"largest cluster the card co-schedules at that smem: {cl_max}")
+    check_offer(ss, sargs, skw, "main path")
     out_k = ss.solve_scan_cuda(*sargs, **skw)
     out_p = ss.solve_scan_plain(*sargs, **skw)
     torch.cuda.synchronize()
@@ -301,9 +369,9 @@ def main() -> None:
     check(plain_nodes == n_nodes, "node count differs from the plain version")
     check(plain_unsched == n_unsched,
           "unschedulable count differs from the plain version")
-    log(f"[check] solve_scan == plain at the main path: ntype/takes/unsched/"
-        f"nused/overflow and the packed vector equal; plain: {plain_nodes} nodes, {plain_unsched} "
-        f"unschedulable")
+    log(f"[check] offer_argmin == plain and solve_scan == plain at the main "
+        f"path: ntype/takes/unsched/nused/overflow and the packed vector "
+        f"equal; plain: {plain_nodes} nodes, {plain_unsched} unschedulable")
 
     # the host oracle on a 10k-pod subset
     sub = encode_pods(pods[:N_SUBSET], cat)
@@ -360,13 +428,15 @@ def main() -> None:
         return out
     nb = timed("node_budget", lambda: solver._auto_node_budget(cat, enc, 0))
     st = timed("stage_upload", lambda: solver._stage(cat, enc, [], dev))
+    scan_out = timed("scan", lambda: solver._scan(st, nb))
     kb = solver._bucket(2 * nb)
-    buf = timed("scan_pack_read", lambda: solver._dispatch(st, nb, kb).cpu().numpy())
+    buf = timed("pack_read", lambda: ss.pack_solution(
+        *scan_out, kb).cpu().numpy())
     nnz0 = int(buf[2])
     if nnz0 > kb:
         kb = solver._bucket(nnz0)
-        buf = timed("scan_pack_read_regrown",
-                    lambda: solver._dispatch(st, nb, kb).cpu().numpy())
+        buf = timed("pack_read_regrown", lambda: ss.pack_solution(
+            *scan_out, kb).cpu().numpy())
     nused, _, nnz, unsched, ntype, idx, vals = solver._parse_packed(
         buf, st.Gp, nb, kb)
     timed("decode", lambda: solver._decode_solution(
@@ -375,23 +445,37 @@ def main() -> None:
     log(f"[time] solve stages (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items())
         + f"; n_max {nb}, nnz {nnz0} vs first k_max {solver._bucket(2 * nb)}"
-        f" -> k_max {kb}")
+        f" -> k_max {kb} (re-packed, not re-scanned)")
     ev = device_kernel_us(lambda: solver.solve_device(cat, enc))
     busy = sum(us for us, _ in ev.values()) / 1e3
     if ev:
-        top = sorted(ev.items(), key=lambda kv: -kv[1][0])[:6]
+        top = sorted(ev.items(), key=lambda kv: -kv[1][0])[:8]
         log(f"[time] one solve_device: device busy {busy:.3f} ms of "
             f"{solve_ms:.3f} ms median wall (idle share "
-            f"{1 - busy / solve_ms:.4f}); top kernels (us, launches): "
+            f"{1 - busy / solve_ms:.4f}); {sum(n for _, n in ev.values())} "
+            f"device kernels; top (us, launches): "
             + "; ".join(f"{n[:48]} {us:.1f} x{c}" for n, (us, c) in top))
     else:
         log("[time] torch.profiler recorded no device events: device busy "
             "share not measured")
+
+    oa = offer_args(ss, sargs, skw)
+    sb = inspect.signature(ss.solve_scan_plain).bind(*sargs, **skw)
+    sb.apply_defaults()
+    sa = sb.arguments
+
+    def offer_table():
+        return ss._offer_table(
+            sa["alloc"], sa["price"], sa["avail"], sa["requests"],
+            sa["counts"], sa["compat"], sa["allow_zone"], sa["allow_cap"],
+            sa["max_per_node"], sa["prior"], sa["banned"], sa["conflict"],
+            sa["zovh"], sa["zone_ovh"], sa["track_conflicts"])
     ev_a = device_kernel_us(lambda: [sk.screen_k_cuda(head, req, elig)
                                      for _ in range(20)])
     ev_b = device_kernel_us(lambda: [ss.solve_scan_cuda(*sargs, **skw)
                                      for _ in range(5)])
     a_kernel = kernel_ms(ev_a, "screen_k_kernel")
+    b0_kernel = kernel_ms(ev_b, "offer_argmin_kernel")
     b_kernel = kernel_ms(ev_b, "solve_scan_kernel")
 
     a_ms = cuda_ms(lambda: sk.screen_k_cuda(head, req, elig), 200)
@@ -410,42 +494,108 @@ def main() -> None:
     a_ops = 4 * N * G * R
     a_bound = max(a_bytes / HBM_BYTES_PER_S, a_ops / FP32_OPS_PER_S) * 1e3
 
+    T, Z, C = sa["price"].shape
+    Gp_b, Rk = sa["requests"].shape
+    n_max = out_k[1].shape[1]
+    ZC = Z * C
+    b0_ms = cuda_ms(offer_table, 100)
+    b0_plain = cuda_ms(lambda: ss.offer_argmin_plain(**oa), 20)
+
+    def library_cps():
+        # the torch expression that builds cps and takes its argmin (the
+        # yardstick for kernel B0; the port never calls it)
+        rq, mp = oa["requests"], oa["max_per_node"]
+        slots = torch.where(rq[:, None, :] > 0, torch.floor(
+            oa["alloc"][None] / torch.where(rq > 0, rq, 1.0)[:, None, :]
+            + eps), 1e9).amin(dim=2).clamp_min(0.0)
+        slots = torch.minimum(slots, torch.where(mp == 0, 1e9, mp)[:, None])
+        feas = (oa["avail"][None] & oa["compat"][:, :, None, None]
+                & oa["allow_zone"][:, None, :, None]
+                & oa["allow_cap"][:, None, None, :]
+                & (slots >= 1)[:, :, None, None])
+        cps = torch.where(feas, oa["price"][None]
+                          / slots.clamp_min(1.0)[:, :, None, None],
+                          torch.finfo(torch.float32).max)
+        return torch.argmin(cps.reshape(Gp_b, -1), 1)
+    b0_lib = cuda_ms(library_cps, 20)
+    b0_bytes = (4 * T * ZC + T * ZC + 4 * T * Rk + Gp_b * (4 * Rk + T + Z + C
+                                                            + 8)
+                + 4 * Gp_b * lay.rec_words + 8 * T)
+    b0_ops = Gp_b * (T * (4 * Rk) + T * ZC * 2)
+    b0_bound = max(b0_bytes / HBM_BYTES_PER_S, b0_ops / FP32_OPS_PER_S) * 1e3
+
     b_ms = cuda_ms(lambda: ss.solve_scan_cuda(*sargs, **skw), 20)
     b_plain = cuda_ms(lambda: ss.solve_scan_plain(*sargs, **skw), 3)
-    T, Z, C = sargs[1].shape
-    Gp_b, Rk = sargs[3].shape
-    n_max = out_k[1].shape[1]
-    b_bytes = (4 * T * Rk + 4 * T * Z * C + T * Z * C
+    b_bytes = (4 * T * Rk + 4 * T * ZC + T * ZC
                + Gp_b * (4 * Rk + 4 + T + Z + C + 4)
                + n_max * (4 + 4 * Rk + Z + C + 1)
                + 4 * Gp_b * n_max + 4 * Gp_b + 8)
-    b_ops = Gp_b * (n_max * (4 * Rk + Z * C + 6) + T * (4 * Rk + 2 * Z * C))
+    b_ops = Gp_b * (n_max * (4 * Rk + ZC + 6) + T * (4 * Rk + 2 * ZC))
     b_bound = max(b_bytes / HBM_BYTES_PER_S, b_ops / FP32_OPS_PER_S) * 1e3
-    log(f"[time] kernel-only device time (profiler): screen_k "
-        f"{a_kernel} ms, solve_scan {b_kernel} ms")
+    log(f"[time] kernel-only device time (profiler): screen_k {a_kernel} ms, "
+        f"offer_argmin {b0_kernel} ms, solve_scan {b_kernel} ms")
     log(f"[time] screen_k {a_ms:.4f} ms (bound {a_bound:.5f} ms, bytes "
         f"{a_bytes}); plain {a_plain:.4f} ms; one torch expression "
         f"{a_lib:.4f} ms")
-    log(f"[time] solve_scan {b_ms:.4f} ms per launch incl. wrapper input "
-        f"conversions (bound {b_bound:.5f} ms, bytes {b_bytes}, ops {b_ops});"
-        f" plain {b_plain:.3f} ms")
+    log(f"[time] offer_argmin {b0_ms:.4f} ms per wrapper call (bound "
+        f"{b0_bound:.5f} ms, bytes {b0_bytes}, ops {b0_ops}); plain "
+        f"{b0_plain:.4f} ms; cps + torch.argmin {b0_lib:.4f} ms")
+    log(f"[time] solve_scan {b_ms:.4f} ms per wrapper call, B0 + B + "
+        f"wrapper (bound {b_bound:.5f} ms, bytes {b_bytes}, ops {b_ops});"
+        f" plain {b_plain:.3f} ms; wrapper beside the two kernels "
+        + (f"{b_ms - b_kernel - b0_kernel:.4f} ms"
+           if b_kernel is not None and b0_kernel is not None
+           else "not measured"))
 
+    # kernel B at every cluster size the node state fits, same inputs
+    per_cl = {}
+    W = -(-Gp_b // 32) if sa["track_conflicts"] else 0
+    for cl in (1, 2, 4, 8, 16):
+        if cl > cl_max or not lay.nodes_smem:
+            continue
+        S = ss._round_up(-(-n_max // cl), 4)
+        slab = ss._round_up(S * (12 + 4 * Rk + 4 * W), 16)
+        forced = ss.ScanLayout(cl=cl, slice=S, nodes_smem=True,
+                               cat_smem=lay.cat_smem,
+                               smem_bytes=lay.smem_bytes - lay.slab_bytes + slab,
+                               slab_bytes=slab, rec_words=lay.rec_words)
+        if forced.smem_bytes > ss.SMEM_LIMIT - ss.STATIC_SMEM:
+            continue
+        o = ss.solve_scan_cuda(*sargs, **skw, layout=forced)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(o, out_k)),
+              f"kernel B at cl={cl} differs from the chosen layout's output")
+        evc = device_kernel_us(lambda: [ss.solve_scan_cuda(
+            *sargs, **skw, layout=forced) for _ in range(5)])
+        per_cl[cl] = kernel_ms(evc, "solve_scan_kernel")
+    log("[time] kernel B alone (profiler ms) by cluster size at the main "
+        "path, outputs equal: " + ", ".join(
+            f"cl={k} {v}" for k, v in per_cl.items()))
+
+    def bound_by(nbytes, ops):
+        return ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S
+                else "operations")
     kernels = [
         {"name": "screen_k", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/screen_k.cu",
          "replaces": "karpenter_tpu/ops/pallas_screen.py:69",
          "launches": launches["screen_k"], "max_abs_err": err_a,
          "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
-         "bound_by": "bytes" if a_bytes / HBM_BYTES_PER_S
-         >= a_ops / FP32_OPS_PER_S else "operations",
+         "bound_by": bound_by(a_bytes, a_ops),
          "library_ms": a_lib, "kernel_ms": a_kernel},
+        {"name": "offer_argmin", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/solve_scan.cu",
+         "replaces": "karpenter_tpu/ops/solver.py:425",
+         "launches": launches["offer_argmin"], "max_abs_err": 0.0,
+         "ms": b0_ms, "plain_ms": b0_plain, "bound_ms": b0_bound,
+         "bound_by": bound_by(b0_bytes, b0_ops),
+         "library_ms": b0_lib, "kernel_ms": b0_kernel},
         {"name": "solve_scan", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/solve_scan.cu",
          "replaces": "karpenter_tpu/ops/solver.py:348",
          "launches": launches["solve_scan"], "max_abs_err": 0.0,
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
-         "bound_by": "bytes" if b_bytes / HBM_BYTES_PER_S
-         >= b_ops / FP32_OPS_PER_S else "operations",
+         "bound_by": bound_by(b_bytes, b_ops),
          "library_ms": None, "kernel_ms": b_kernel},
     ]
     log(json.dumps({"kernels": kernels}))

@@ -1,83 +1,100 @@
-// solve_scan: the provisioning solve's group scan, one thread block per
-// solve.
+// solve_scan: the provisioning solve's group scan on Hopper, in two kernels.
 //
 // Replaces the XLA program karpenter_tpu/ops/solver.py::_solve_kernel (the
-// `lax.scan` over pod groups, solver.py:347-483). In eager PyTorch each
-// group step would be ~40 small launches; here the whole scan is ONE
-// launch: the block loops over the Gp groups in order and strides the
-// node axis (n_max) across its threads, in tiles of NT nodes.
+// `lax.scan` over pod groups, solver.py:347-483).
 //
-// Per group step, in the reference's order:
-//   1. per-node k_cap = min_r floor(headroom / req + EPS), with the
-//      zone-overhead reservation subtracted when zone_ovh;
-//   2. eligibility: open & compat & (zone & captype masks meet an
-//      available offering) & !banned & !conflict-hosted;
-//   3. a block-wide exclusive prefix over min(k, count) (int64, so it can
-//      neither wrap nor round) and the clamped take;
-//   4. the first-index argmin of price / slots over the T*Z*C offerings,
-//      a block reduction on (value, index), ties to the lower index;
-//   5. min(ceil(rem / s), n_max - nused) new nodes at that offering.
+// Kernel B0, offer_argmin_kernel: one block per group, every group at once.
+//   The reference's step 2 (solver.py:425-448) reads only the group's row
+//   and the catalog, never node state, so it runs before the scan: slots
+//   per type (alloc_eff with the zone-overhead branch, the max_per_node
+//   clamp), the first-index argmin of price / max(slots, 1) over the T*Z*C
+//   offerings, t_star, s = max(slots[t_star], 1), the `best < FLT_MAX` flag
+//   and t_star's available zone and captype bits. It also packs what the
+//   scan reads per group as bit sets (zone | captype << Z, the compat row,
+//   the conflict row) into one record of RW int32 words per group, and
+//   each type's available offerings into availbits[T].
 //
-// State: node type, cum [n_max, Rk], zone and captype masks (as bit sets),
-// the open flag and, when tracking conflicts, the hosted-group bit sets
-// live in global scratch the wrapper allocates and initialises; the kernel
-// updates them in place. Output: takes [Gp, n_max], unsched [Gp],
-// hdr = {nused, overflow}; ntype is the node-type scratch itself.
+// Kernel B, solve_scan_kernel: the scan, as ONE thread-block cluster of CL
+//   blocks (cudaLaunchKernelEx). Block b owns the contiguous node slice
+//   [b*S, (b+1)*S), so rank order is node order and first-fit order holds.
+//   For the whole scan each block keeps in dynamic shared memory its slice's
+//   node state (type with -1 = closed, zone | captype << Z bits, a kf
+//   scratch, cum [Rk][S], hosted-group words) and the catalog rows it reads
+//   per node (alloc, availbits, zovh). Where no cluster of <= 16 blocks
+//   holds the node state, the slices live in global scratch: the same code
+//   through a pointer, chosen by size (ops/solve_scan._scan_layout). Each
+//   thread owns a few contiguous nodes of its block's slice for the whole
+//   scan, so node state needs no barrier of its own. Per group step:
+//     1. wait for the group's record (cp.async into a shared double buffer
+//        while the previous step ran) and prefetch the next one;
+//     2. each thread computes kf = min(k, count) for its nodes and sums them
+//        (k = min_r floor(headroom / req + EPS) capped by max_per_node -
+//        prior; 0 where the node is closed or not eligible);
+//     3. one block scan of the thread sums: warp shuffles + one shared array;
+//     4. warp 0 pushes the block total into slot [parity][rank] of every
+//        rank's shared memory with st.async, each store completing 4 bytes
+//        of that rank's mbarrier for the parity (a slot is rewritten two
+//        steps later, after its readers are past the step between);
+//     5. each block waits on its own mbarrier for the CL totals;
+//     6. each thread sums them locally: the lower ranks' sum is the block's
+//        carry, all of them `placed` (sums saturate at count, which keeps
+//        them in 32 bits and leaves the takes exact);
+//     7. each thread writes its nodes' takes, updates their state, and opens
+//        the new nodes [nused, nused + n_new) that fall in its range, from
+//        B0's record (nused is replicated in every thread).
+//   cluster.sync() runs twice: after the prologue (every block started, its
+//   mbarriers initialised) and at the end (no block leaves while a peer may
+//   still store to it).
 //
 // Bound: counted as the bytes it must move (inputs once, takes out once:
-// ~2.6 MB at the main path, under a microsecond at HBM rate) it is
-// bytes-bound, and the work per step, O(n_max * Rk + T*Z*C), is far
-// below the card's rates. What limits it in practice is neither: the
-// dependent chain of Gp steps, with a few block barriers each, on one
-// SM. Shared-memory residency of the node state is later work.
+// ~2.6 MB at the main path, under a microsecond at HBM rate) the scan is
+// bytes-bound and its operations are far below the card's rates. What
+// limits it is the dependent chain of Gp steps; the design keeps each
+// step to two block barriers and one mbarrier exchange of CL words, and
+// its loads in shared memory.
 //
 // Numerics (must match the reference's f32 expressions bit for bit):
-//   - divides are __fdiv_rn; the EPS add is a separate rounded add;
+//   - divides are __fdiv_rn, subtractions __fsub_rn; the EPS add is a
+//     separate rounded add; the build uses -fmad=false;
 //   - cum + take * req is __fadd_rn(cum, __fmul_rn(take, req)): no FMA
 //     contraction (the host decode recomputes cum in numpy);
 //   - the reference's f32 prefix is exact below 2^24 and moot once it
-//     passes count, so the int64 prefix gives the same takes;
-//   - the argmin sentinel is FLT_MAX, the reference's float32 max.
+//     passes count; here the prefix is integer, its partial sums saturated
+//     at count (a prefix at or past count takes nothing), so the takes are
+//     the same;
+//   - the argmin sentinel is FLT_MAX, the reference's float32 max; ties go
+//     to the lower flat index; nothing feasible gives index 0.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <limits.h>
 #include <stdint.h>
 
-#define NT 512           // threads per block
-#define NWARP (NT / 32)
-#define MAX_RK 32        // projected resource columns
+namespace cg = cooperative_groups;
+
+#define MAX_RK 32
 #define BIG_I 1000000000
 #define BIG_F 1.0e9f
-#define EPS_F 1.0e-4f    // == np.float32(1e-4)
+#define EPS_F 1.0e-4f  // == np.float32(1e-4)
 
-// Inclusive block scan of one int64 per thread; *total gets the block sum.
-__device__ __forceinline__ long long block_incl_scan(long long v,
-                                                     long long* s_warp,
-                                                     long long* total) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long t = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += t;
-  }
-  if (lane == 31) s_warp[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    long long w = lane < NWARP ? s_warp[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long t = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += t;
-    }
-    if (lane < NWARP) s_warp[lane] = w;
-  }
-  __syncthreads();
-  const long long off = wid > 0 ? s_warp[wid - 1] : 0;
-  *total = s_warp[NWARP - 1];
-  __syncthreads();  // s_warp is reused by the next call
-  return v + off;
-}
+#define NT0 256  // B0 threads per block
+#define NWARP0 (NT0 / 32)
+#define NT 512   // B threads per block
+#define NWARP (NT / 32)
+#define CL_MAX 16
+
+// the per-group record (int32 words) B0 writes and B reads
+#define REC_COUNT 0
+#define REC_CAP 1     // max_per_node, BIG_I for 0
+#define REC_GBITS 2   // allow_zone | allow_cap << Z
+#define REC_TSTAR 3
+#define REC_S 4       // max(slots[t_star], 1)
+#define REC_OK 5      // best cost-per-slot < FLT_MAX
+#define REC_TBITS 6   // t_star's available zones | captypes << Z
+#define REC_PRIOR 7   // prior[g, 0] (prior_w == 1)
+#define REC_BANNED 8  // banned[g, 0] (banned_w == 1)
+#define REC_HDR 12    // then req[Rk] (f32 bits), compat bits, conflict words
 
 // (value, index) order of the argmin: smaller value, then lower index.
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
@@ -101,266 +118,715 @@ __device__ __forceinline__ float fit_ratio(float room, float q) {
   return q > 0.0f ? floorf(__fadd_rn(__fdiv_rn(room, q), EPS_F)) : BIG_F;
 }
 
-__global__ void __launch_bounds__(NT) solve_scan_kernel(
-    const float* __restrict__ alloc,               // [T, Rk]
-    const float* __restrict__ price,               // [T*Z*C]
-    const unsigned long long* __restrict__ availbits,  // [T], bit z*C+c
-    const float* __restrict__ zovh,                // [T, Z, Rk] or null
-    const float* __restrict__ req,                 // [Gp, Rk]
-    const int* __restrict__ counts,                // [Gp]
-    const uint8_t* __restrict__ compat,            // [Gp, T]
-    const int* __restrict__ gzone,                 // [Gp] zone bits
-    const int* __restrict__ gcap,                  // [Gp] captype bits
-    const int* __restrict__ maxpn,                 // [Gp], 0 = unlimited
-    const int* __restrict__ prior, int prior_w,    // [Gp, prior_w]
-    const uint8_t* __restrict__ banned, int banned_w,  // [Gp, banned_w]
-    const unsigned* __restrict__ confbits, int W,  // [Gp, W] or null
-    int* __restrict__ ntype,                       // [n_max] in/out
-    float* __restrict__ cum,                       // [n_max, Rk] in/out
-    int* __restrict__ zbits,                       // [n_max] in/out
-    int* __restrict__ cbits,                       // [n_max] in/out
-    uint8_t* __restrict__ nopen,                   // [n_max] in/out
-    unsigned* __restrict__ hosted,                 // [n_max, W] or null
-    int* __restrict__ takes,                       // [Gp, n_max] out
-    int* __restrict__ unsched,                     // [Gp] out
-    int* __restrict__ hdr,                         // [2] out
-    int T, int Z, int C, int Rk, int Gp, int n_max, int n_used0) {
-  __shared__ float s_req[MAX_RK];
-  __shared__ long long s_warp[NWARP];
-  __shared__ float s_bv[NWARP];
-  __shared__ int s_bi[NWARP];
-  __shared__ int s_bs[NWARP];
-  __shared__ int s_nused, s_tstar, s_s, s_nnew, s_tz, s_tc, s_rem;
-  __shared__ int s_overflow;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
-  const int tid = threadIdx.x;
+// ---------------------------------------------------------------------------
+// Kernel B0: the offer argmin pre-pass
+// ---------------------------------------------------------------------------
+
+struct OfferArgs {
+  const float* alloc;     // [T, Rk]
+  const float* price;     // [T*Z*C]
+  const uint8_t* avail;   // [T*Z*C]
+  const float* zovh;      // [T, Z, Rk] or null
+  const float* req;       // [Gp, Rk], row stride req_stride
+  const int* counts;      // [Gp]
+  const uint8_t* compat;  // [Gp, T]
+  const uint8_t* gzone;   // [Gp, Z]
+  const uint8_t* gcap;    // [Gp, C]
+  const int* maxpn;       // [Gp], 0 = unlimited
+  const int* prior;       // [Gp, prior_w]
+  const uint8_t* banned;  // [Gp, banned_w]
+  const uint8_t* conflict;  // [Gp, conf_w] or null
+  int* recs;              // out [Gp, RW]
+  unsigned long long* availbits;  // out [T], bit z*C+c
+  int req_stride, prior_w, banned_w, conf_w, RW;
+  int T, Z, C, Rk, W;
+};
+
+__global__ void __launch_bounds__(NT0) offer_argmin_kernel(OfferArgs a) {
+  extern __shared__ int s_slots[];  // [T]
+  __shared__ float s_req[MAX_RK];
+  __shared__ float s_bv[NWARP0];
+  __shared__ int s_bi[NWARP0];
+  const int g = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, wid = tid >> 5;
-  const int ZC = Z * C;
-  const bool track = confbits != nullptr;
-  if (tid == 0) {
-    s_nused = n_used0;
-    s_overflow = 0;
+  const int T = a.T, Z = a.Z, C = a.C, Rk = a.Rk, ZC = Z * C;
+  // the group's scalars, loaded up front so their latency overlaps the work
+  const int count = a.counts[g], mp = a.maxpn[g];
+  const int prior0 = a.prior[(size_t)g * a.prior_w];
+  const bool banned0 = a.banned[(size_t)g * a.banned_w] != 0;
+  const unsigned gz = __ballot_sync(
+      0xffffffffu, lane < Z && a.gzone[(size_t)g * Z + lane] != 0);
+  const unsigned gc = __ballot_sync(
+      0xffffffffu, lane < C && a.gcap[(size_t)g * C + lane] != 0);
+  const int cap_per = mp == 0 ? BIG_I : mp;
+  if (tid < Rk) s_req[tid] = a.req[(size_t)g * a.req_stride + tid];
+
+  // each type's available offerings as one word (the grid shares the types)
+  for (int t = g * NT0 + tid; t < T; t += gridDim.x * NT0) {
+    unsigned long long ab = 0;
+    for (int f = 0; f < ZC; ++f)
+      if (a.avail[(size_t)t * ZC + f]) ab |= 1ull << f;
+    a.availbits[t] = ab;
   }
+  __syncthreads();  // s_req
+
+  // slots per type, for every type (s reads slots[t_star] even when no
+  // offering is feasible, as the reference does)
+  const uint8_t* gcompat = a.compat + (size_t)g * T;
+  for (int t = tid; t < T; t += NT0) {
+    unsigned zm_open = 0;
+    if (a.zovh != nullptr)
+      for (int z = 0; z < Z; ++z) {
+        if (!((gz >> z) & 1u)) continue;
+        for (int c = 0; c < C; ++c)
+          if (a.avail[(size_t)t * ZC + z * C + c]) {
+            zm_open |= 1u << z;
+            break;
+          }
+      }
+    float st = BIG_F;
+    for (int r = 0; r < Rk; ++r) {
+      float al = a.alloc[(size_t)t * Rk + r];
+      if (a.zovh != nullptr)
+        al = __fsub_rn(al, zone_reserve(a.zovh, t, r, zm_open, Z, Rk));
+      st = fminf(st, fit_ratio(al, s_req[r]));
+    }
+    const int si = (int)fmaxf(st, 0.0f);
+    s_slots[t] = si < cap_per ? si : cap_per;
+  }
+  __syncthreads();
+
+  // first-index argmin of price / max(slots, 1) over the feasible offerings;
+  // each thread walks its types' offerings in index order
+  float bv = FLT_MAX;
+  int bi = INT_MAX;
+  for (int t = tid; t < T; t += NT0) {
+    const int si = s_slots[t];
+    const bool tok = gcompat[t] && si >= 1;
+    const float sf = (float)(si > 1 ? si : 1);
+    const uint8_t* av = a.avail + (size_t)t * ZC;
+    const float* pr = a.price + (size_t)t * ZC;
+    for (int zc = 0, z = 0, c = 0; zc < ZC; ++zc) {
+      const bool feas = tok && ((gz >> z) & 1u) && ((gc >> c) & 1u) && av[zc];
+      const float v = feas ? __fdiv_rn(pr[zc], sf) : FLT_MAX;
+      if (better(v, t * ZC + zc, bv, bi)) {
+        bv = v;
+        bi = t * ZC + zc;
+      }
+      if (++c == C) {
+        c = 0;
+        ++z;
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_down_sync(0xffffffffu, bv, o);
+    const int oi = __shfl_down_sync(0xffffffffu, bi, o);
+    if (better(ov, oi, bv, bi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  if (lane == 0) {
+    s_bv[wid] = bv;
+    s_bi[wid] = bi;
+  }
+  __syncthreads();
+
+  // warp 0 reduces the warps' candidates; every lane then knows t_star,
+  // and lane zc reads t_star's offering zc
+  int* rec = a.recs + (size_t)g * a.RW;
+  if (wid == 0) {
+    bv = lane < NWARP0 ? s_bv[lane] : FLT_MAX;
+    bi = lane < NWARP0 ? s_bi[lane] : INT_MAX;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (better(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    const int t_star = bi == INT_MAX ? 0 : bi / ZC;
+    const unsigned long long ab =
+        (unsigned long long)__ballot_sync(
+            0xffffffffu, lane < ZC && a.avail[(size_t)t_star * ZC + lane]) |
+        ((unsigned long long)__ballot_sync(
+             0xffffffffu,
+             lane + 32 < ZC && a.avail[(size_t)t_star * ZC + lane + 32])
+         << 32);
+    if (lane == 0) {
+      unsigned tz = 0, tc = 0;
+      for (int z = 0; z < Z; ++z)
+        for (int c = 0; c < C; ++c)
+          if ((ab >> (z * C + c)) & 1ull) {
+            tz |= 1u << z;
+            tc |= 1u << c;
+          }
+      rec[REC_COUNT] = count;
+      rec[REC_CAP] = cap_per;
+      rec[REC_GBITS] = (int)(gz | (gc << Z));
+      rec[REC_TSTAR] = t_star;
+      rec[REC_S] = s_slots[t_star] > 1 ? s_slots[t_star] : 1;
+      rec[REC_OK] = bv < FLT_MAX ? 1 : 0;
+      rec[REC_TBITS] = (int)(tz | (tc << Z));
+      rec[REC_PRIOR] = prior0;
+      rec[REC_BANNED] = banned0 ? 1 : 0;
+      for (int i = REC_BANNED + 1; i < REC_HDR; ++i) rec[i] = 0;
+    }
+  }
+  if (tid < Rk) rec[REC_HDR + tid] = __float_as_int(s_req[tid]);
+  // bit sets, one warp per word: compat row, then conflict row
+  const int CW = (T + 31) / 32;
+  for (int w = wid; w < CW; w += NWARP0) {
+    const int t = w * 32 + lane;
+    const unsigned word = __ballot_sync(0xffffffffu, t < T && gcompat[t]);
+    if (lane == 0) rec[REC_HDR + Rk + w] = (int)word;
+  }
+  for (int w = wid; w < a.W; w += NWARP0) {
+    const int j = w * 32 + lane;
+    const bool bit =
+        j < a.conf_w && a.conflict[(size_t)g * a.conf_w + j] != 0;
+    const unsigned word = __ballot_sync(0xffffffffu, bit);
+    if (lane == 0) rec[REC_HDR + Rk + CW + w] = (int)word;
+  }
+  for (int i = REC_HDR + Rk + CW + a.W + tid; i < a.RW; i += NT0) rec[i] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel B: the scan, one thread-block cluster
+// ---------------------------------------------------------------------------
+
+struct ScanArgs {
+  const float* alloc;                   // [T, Rk]
+  const unsigned long long* availbits;  // [T] (B0)
+  const float* zovh;                    // [T, Z, Rk] or null
+  const int* recs;                      // [Gp, RW] (B0)
+  const int* prior;                     // [Gp, prior_w]
+  const uint8_t* banned;                // [Gp, banned_w]
+  const int* node_type;                 // [n_max]
+  const float* node_cum;                // [n_max, Rk], row stride cum_stride
+  const uint8_t* node_zmask;            // [n_max, Z]
+  const uint8_t* node_cmask;            // [n_max, C]
+  const uint8_t* node_open;             // [n_max]
+  int* ntype_out;                       // [n_max]
+  int* takes;                           // [Gp, n_max]
+  int* unsched;                         // [Gp]
+  int* hdr;                             // [2]: nused, overflow
+  unsigned char* scratch;               // CL global slabs, or null = shared
+  long long slab_bytes;
+  int RW, prior_w, banned_w, cum_stride;
+  int T, Z, C, Rk, W, Gp, n_max, n_used0, S, track;
+};
+
+__device__ __forceinline__ unsigned sat_add(unsigned x, unsigned y,
+                                            unsigned cap) {
+  const unsigned z = x + y;  // x, y <= cap < 2^31: no wrap
+  return z < cap ? z : cap;
+}
+
+// Sums of the first k of 16 shared values and of all 16 (each <= cap),
+// saturated at cap: four 16-byte loads and a tree of adds, no serial chain.
+__device__ __forceinline__ void sums16(const unsigned* p, int k, unsigned cap,
+                                       unsigned* below, unsigned* all) {
+  const uint4* q = (const uint4*)p;
+  unsigned long long lo = 0, tot = 0;  // 16 values < 2^31: no wrap
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint4 u = q[j];
+    const unsigned x[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      tot += x[e];
+      lo += 4 * j + e < k ? x[e] : 0u;
+    }
+  }
+  *below = lo < cap ? (unsigned)lo : cap;
+  *all = tot < cap ? (unsigned)tot : cap;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The shared::cluster address of rank r's copy of a shared variable.
+__device__ __forceinline__ unsigned mapa(unsigned addr, int r) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(addr), "r"(r));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// NODES_SMEM / CAT_SMEM: node slices / catalog rows in shared memory (else
+// in global scratch / read in place). One source, instantiated per layout,
+// so shared accesses compile to shared-memory loads.
+template <bool NODES_SMEM, bool CAT_SMEM>
+__global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  static_assert(NWARP == 16 && CL_MAX == 16, "sums16 reads 16 values");
+  __shared__ __align__(16) unsigned s_warp[NWARP];
+  // [parity][rank], pushed by each rank; ranks >= CL stay 0
+  __shared__ __align__(16) unsigned s_tot[2][CL_MAX];
+  // [parity]: completes when all CL totals of a step have landed
+  __shared__ __align__(8) unsigned long long s_bar[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int CL = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int T = a.T, Z = a.Z, C = a.C, Rk = a.Rk, W = a.W, S = a.S;
+  const int RW = a.RW, n_max = a.n_max, Gp = a.Gp;
+  const bool zon = a.zovh != nullptr;
+  const int CW = (T + 31) / 32;
+
+  // --- carve shared memory: records, catalog, node slice ---
+  int* rec_buf = (int*)smem;  // [2][RW]
+  unsigned char* p = smem + (size_t)2 * RW * 4;
+  const unsigned long long* c_avail;
+  const float* c_alloc;
+  const float* c_zovh;
+  if constexpr (CAT_SMEM) {
+    unsigned long long* sa = (unsigned long long*)p;
+    float* sl = (float*)(p + (size_t)T * 8);
+    float* sz = sl + (size_t)T * Rk;
+    for (int i = tid; i < T; i += NT) sa[i] = a.availbits[i];
+    for (int i = tid; i < T * Rk; i += NT) sl[i] = a.alloc[i];
+    if (zon)
+      for (int i = tid; i < T * Z * Rk; i += NT) sz[i] = a.zovh[i];
+    c_avail = sa;
+    c_alloc = sl;
+    c_zovh = sz;
+    const size_t cat = (size_t)T * 8 + (size_t)T * Rk * 4 +
+                       (zon ? (size_t)T * Z * Rk * 4 : 0);
+    p += (cat + 15) & ~(size_t)15;
+  } else {
+    c_avail = a.availbits;
+    c_alloc = a.alloc;
+    c_zovh = a.zovh;
+  }
+  unsigned char* slab;
+  if constexpr (NODES_SMEM) {
+    slab = p;
+  } else {
+    slab = a.scratch + (size_t)rank * a.slab_bytes;
+  }
+  int* s_type = (int*)slab;                   // [S], -1 = closed
+  unsigned* s_bits = (unsigned*)(s_type + S);  // [S], zone | captype << Z
+  int* s_kf = (int*)(s_bits + S);              // [S]
+  float* s_cum = (float*)(s_kf + S);           // [Rk][S]
+  unsigned* s_host = (unsigned*)(s_cum + (size_t)Rk * S);  // [S][W]
+
+  // --- prologue: the slice's node state, once ---
+  const int lo = rank * S;
+  const int Sb = max(0, min(S, n_max - lo));  // valid nodes of the slice
+  for (int i = tid; i < S; i += NT) {
+    const int n = lo + i;
+    int t = -1;
+    unsigned bits = 0;
+    if (i < Sb) {
+      if (a.node_open[n]) t = a.node_type[n];
+      for (int z = 0; z < Z; ++z)
+        bits |= (unsigned)(a.node_zmask[(size_t)n * Z + z] != 0) << z;
+      for (int c = 0; c < C; ++c)
+        bits |= (unsigned)(a.node_cmask[(size_t)n * C + c] != 0) << (Z + c);
+    }
+    s_type[i] = t;
+    s_bits[i] = bits;
+    s_kf[i] = 0;
+    for (int r = 0; r < Rk; ++r)
+      s_cum[(size_t)r * S + i] =
+          i < Sb ? a.node_cum[(size_t)n * a.cum_stride + r] : 0.0f;
+    for (int w = 0; w < W; ++w) s_host[(size_t)i * W + w] = 0u;
+  }
+  if (tid < 2 * CL_MAX) s_tot[tid / CL_MAX][tid % CL_MAX] = 0u;
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                     smem_u32(&s_bar[0]))
+                 : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                     smem_u32(&s_bar[1]))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // record prefetches are issued by the highest threads, which own the
+  // fewest nodes
+  const int nchunk = RW / 4;  // 16-byte chunks of a record
+  for (int i = NT - 1 - tid; i < nchunk; i += NT)
+    cp_async16(rec_buf + 4 * i, a.recs + 4 * i);
+  cp_async_commit();
+  cluster.sync();  // every block has started, its barriers initialised
+
+  const int P = (S + NT - 1) / NT;  // nodes a thread owns
+  const int i0 = tid * P;
+  const int i1 = min(i0 + P, Sb);
+  const unsigned zlow = (1u << Z) - 1u;
+  int nused = a.n_used0, overflow = 0;
 
   for (int g = 0; g < Gp; ++g) {
-    const int count = counts[g];
-    const int cap_per = maxpn[g] == 0 ? BIG_I : maxpn[g];
-    const unsigned gz = (unsigned)gzone[g], gc = (unsigned)gcap[g];
-    const uint8_t* gcompat = compat + (size_t)g * T;
-    if (tid < Rk) s_req[tid] = req[(size_t)g * Rk + tid];
-    __syncthreads();  // s_req, s_nused of the previous step
+    // --- 1. this group's record; prefetch the next ---
+    cp_async_wait_all();
+    __syncthreads();  // record g visible; every thread is done with g - 1
+    const int* rec = rec_buf + (g & 1) * RW;
+    if (g + 1 < Gp) {
+      int* nxt = rec_buf + ((g + 1) & 1) * RW;
+      const int* src = a.recs + (size_t)(g + 1) * RW;
+      for (int i = NT - 1 - tid; i < nchunk; i += NT)
+        cp_async16(nxt + 4 * i, src + 4 * i);
+    }
+    cp_async_commit();
+    const int count = rec[REC_COUNT], cap_per = rec[REC_CAP];
+    const unsigned cnt = (unsigned)count;
+    const unsigned gbits = (unsigned)rec[REC_GBITS];
+    const float* req = (const float*)(rec + REC_HDR);
+    const unsigned* ccompat = (const unsigned*)(rec + REC_HDR + Rk);
+    const unsigned* conf = ccompat + CW;
 
-    // --- 1-3. fill open nodes in index order (first-fit) ---
-    long long carry = 0;  // exclusive prefix at the tile's first node
-    for (int base = 0; base < n_max; base += NT) {
-      const int n = base + tid;
-      long long kf = 0;
-      unsigned zm2 = 0, cm2 = 0;
-      if (n < n_max && nopen[n]) {
-        const int t = ntype[n];
-        zm2 = (unsigned)zbits[n] & gz;
-        cm2 = (unsigned)cbits[n] & gc;
-        bool elig = gcompat[t] != 0;
+    // --- 2. kf for this thread's nodes; sums saturate at count (a prefix
+    // at or past count takes nothing, so the takes are exact) ---
+    unsigned tsum = 0;
+    for (int i = i0; i < i1; ++i) {
+      const int t = s_type[i];
+      int kf = 0;
+      if (t >= 0 && count > 0) {
+        const int n = lo + i;
+        const unsigned b2 = s_bits[i] & gbits;
+        const unsigned zm2 = b2 & zlow, cm2 = b2 >> Z;
+        bool elig = (ccompat[t >> 5] >> (t & 31)) & 1u;
         if (elig) {
-          const unsigned long long ab = availbits[t];
+          const unsigned long long ab = c_avail[t];
           bool off = false;
-          for (int z = 0; z < Z && !off; ++z) {
-            if (!((zm2 >> z) & 1u)) continue;
-            for (int c = 0; c < C; ++c)
-              if (((cm2 >> c) & 1u) && ((ab >> (z * C + c)) & 1ull)) {
-                off = true;
-                break;
-              }
-          }
+          for (int z = 0; z < Z && !off; ++z)
+            off = ((zm2 >> z) & 1u) &&
+                  ((ab >> (z * C)) & (unsigned long long)cm2) != 0ull;
           elig = off;
         }
-        if (elig) elig = !banned[(size_t)g * banned_w + (banned_w > 1 ? n : 0)];
-        if (elig && track) {
+        if (elig)
+          elig = !(a.banned_w > 1 ? a.banned[(size_t)g * a.banned_w + n] != 0
+                                  : rec[REC_BANNED] != 0);
+        if (elig && a.track)
           for (int w = 0; w < W; ++w)
-            if (hosted[(size_t)n * W + w] & confbits[(size_t)g * W + w]) {
+            if (s_host[(size_t)i * W + w] & conf[w]) {
               elig = false;
               break;
             }
-        }
         if (elig) {
           float kc = BIG_F;
           for (int r = 0; r < Rk; ++r) {
-            float ta = alloc[(size_t)t * Rk + r];
-            if (zovh != nullptr)
-              ta = __fsub_rn(ta, zone_reserve(zovh, t, r, zm2, Z, Rk));
-            const float room = __fsub_rn(ta, cum[(size_t)n * Rk + r]);
-            kc = fminf(kc, fit_ratio(room, s_req[r]));
+            float ta = c_alloc[(size_t)t * Rk + r];
+            if (zon) ta = __fsub_rn(ta, zone_reserve(c_zovh, t, r, zm2, Z, Rk));
+            const float room = __fsub_rn(ta, s_cum[(size_t)r * S + i]);
+            kc = fminf(kc, fit_ratio(room, req[r]));
           }
-          const long long k_cap = (long long)fmaxf(kc, 0.0f);
-          const int pn = prior[(size_t)g * prior_w + (prior_w > 1 ? n : 0)];
-          const long long cap_eff = cap_per - pn > 0 ? cap_per - pn : 0;
-          long long k = k_cap < cap_eff ? k_cap : cap_eff;
-          kf = k < count ? k : count;
+          const int k_cap = (int)fmaxf(kc, 0.0f);  // kc <= BIG_F < 2^31
+          const int pn = a.prior_w > 1 ? a.prior[(size_t)g * a.prior_w + n]
+                                       : rec[REC_PRIOR];
+          const int cap_eff = cap_per - pn > 0 ? cap_per - pn : 0;
+          kf = min(min(k_cap, cap_eff), count);
         }
       }
-      long long tile_total;
-      const long long incl = block_incl_scan(kf, s_warp, &tile_total);
-      if (n < n_max) {
-        const long long prefix = carry + incl - kf;
-        long long tk = (long long)count - prefix;
-        tk = kf < tk ? kf : tk;
-        const int take = tk > 0 ? (int)tk : 0;
-        takes[(size_t)g * n_max + n] = take;
-        if (take > 0) {
-          const float tf = (float)take;
-          for (int r = 0; r < Rk; ++r) {
-            float* cp = cum + (size_t)n * Rk + r;
-            *cp = __fadd_rn(*cp, __fmul_rn(tf, s_req[r]));
-          }
-          zbits[n] = (int)zm2;
-          cbits[n] = (int)cm2;
-          if (track) hosted[(size_t)n * W + (g >> 5)] |= 1u << (g & 31);
-        }
-      }
-      carry += tile_total;
+      s_kf[i] = kf;
+      tsum = sat_add(tsum, (unsigned)kf, cnt);
     }
-    // placed = min(sum(take), count) = min(sum(kf), count)
-    const int rem = count - (int)(carry < count ? carry : count);
 
-    // --- 4. cost-per-slot argmin over the offerings (only when needed) ---
-    if (rem > 0) {
-      float bv = FLT_MAX;
-      int bi = INT_MAX, bs = 0;
-      for (int t = tid; t < T; t += NT) {
-        const unsigned long long ab = availbits[t];
-        int si = 0;
-        if (gcompat[t]) {
-          unsigned zm_open = 0;
-          if (zovh != nullptr)
-            for (int z = 0; z < Z; ++z)
-              if (((gz >> z) & 1u) && ((ab >> (z * C)) & ((1ull << C) - 1)))
-                zm_open |= 1u << z;
-          float st = BIG_F;
-          for (int r = 0; r < Rk; ++r) {
-            float a = alloc[(size_t)t * Rk + r];
-            if (zovh != nullptr)
-              a = __fsub_rn(a, zone_reserve(zovh, t, r, zm_open, Z, Rk));
-            st = fminf(st, fit_ratio(a, s_req[r]));
-          }
-          si = (int)fmaxf(st, 0.0f);
-          si = si < cap_per ? si : cap_per;
-        }
-        const float slots_f = (float)(si > 1 ? si : 1);
-        for (int zc = 0; zc < ZC; ++zc) {
-          const int z = zc / C, c = zc % C;
-          const bool feas = gcompat[t] && ((gz >> z) & 1u) &&
-                            ((gc >> c) & 1u) && ((ab >> zc) & 1ull) && si >= 1;
-          const int f = t * ZC + zc;
-          const float v = feas ? __fdiv_rn(price[f], slots_f) : FLT_MAX;
-          if (better(v, f, bv, bi)) {
-            bv = v;
-            bi = f;
-            bs = si;
-          }
-        }
-      }
+    // --- 3. block scan of the thread sums (saturating) ---
+    unsigned v = tsum;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, bv, o);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, o);
-        const int os = __shfl_down_sync(0xffffffffu, bs, o);
-        if (better(ov, oi, bv, bi)) {
-          bv = ov;
-          bi = oi;
-          bs = os;
-        }
-      }
-      if (lane == 0) {
-        s_bv[wid] = bv;
-        s_bi[wid] = bi;
-        s_bs[wid] = bs;
-      }
-      __syncthreads();
-      if (tid == 0) {
-        for (int w = 1; w < NWARP; ++w)
-          if (better(s_bv[w], s_bi[w], bv, bi)) {
-            bv = s_bv[w];
-            bi = s_bi[w];
-            bs = s_bs[w];
-          }
-        const bool sched = bv < FLT_MAX;
-        const int t_star = bi == INT_MAX ? 0 : bi / ZC;
-        const long long s = bs > 1 ? bs : 1;
-        const long long want = sched ? (rem + s - 1) / s : 0;
-        const int nused = s_nused;
-        const long long room = n_max - nused > 0 ? n_max - nused : 0;
-        const long long n_new = want < room ? want : room;
-        if (n_new < want) s_overflow = 1;
-        const long long placed_new =
-            n_new * s < rem ? n_new * s : (long long)rem;
-        unsched[g] = sched ? (int)(rem - placed_new) : rem;
-        const unsigned long long ab = T > 0 ? availbits[t_star] : 0ull;
-        unsigned tz = 0, tc = 0;
-        for (int z = 0; z < Z; ++z)
-          for (int c = 0; c < C; ++c)
-            if ((ab >> (z * C + c)) & 1ull) {
-              tz |= 1u << z;
-              tc |= 1u << c;
-            }
-        s_tstar = t_star;
-        s_s = (int)s;
-        s_nnew = (int)n_new;
-        s_tz = (int)tz;
-        s_tc = (int)tc;
-        s_rem = rem;
-      }
-      __syncthreads();
-
-      // --- 5. open the new nodes ---
-      const int nused = s_nused, n_new = s_nnew, s = s_s, r0 = s_rem;
-      const int t_star = s_tstar;
-      for (int n = tid; n < n_max; n += NT) {
-        const int pos = n - nused;
-        if (pos < 0 || pos >= n_new) continue;
-        long long on = (long long)r0 - (long long)pos * s;
-        on = on < s ? on : s;
-        const int take = on > 0 ? (int)on : 0;
-        takes[(size_t)g * n_max + n] = take;
-        ntype[n] = t_star;
-        const float tf = (float)take;
-        for (int r = 0; r < Rk; ++r)
-          cum[(size_t)n * Rk + r] = __fmul_rn(tf, s_req[r]);
-        zbits[n] = (int)(gz & (unsigned)s_tz);
-        cbits[n] = (int)(gc & (unsigned)s_tc);
-        nopen[n] = 1;
-        if (track && take > 0)
-          hosted[(size_t)n * W + (g >> 5)] |= 1u << (g & 31);
-      }
-      __syncthreads();  // every thread has read s_nused
-      if (tid == 0) s_nused = nused + n_new;
-    } else if (tid == 0) {
-      unsched[g] = rem;
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned x = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v = sat_add(v, x, cnt);
     }
-    __syncthreads();  // node state of this step is visible to the next
+    unsigned excl = __shfl_up_sync(0xffffffffu, v, 1);
+    excl = lane > 0 ? excl : 0u;
+    if (lane == 31) s_warp[wid] = v;
+    __syncthreads();
+    unsigned woff, btot;
+    sums16(s_warp, wid, cnt, &woff, &btot);
+    // --- 4-6. push the block total into every rank's slot (st.async,
+    // which completes 4 bytes of the rank's mbarrier transaction); wait
+    // for all CL totals to land here; read them locally ---
+    const int par = g & 1;
+    const unsigned bar = smem_u32(&s_bar[par]);
+    if (tid == 0)  // the phase's one arrival; a peer's bytes may land first
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                       "r"(bar),
+                   "r"(CL * 4)
+                   : "memory");
+    if (wid == 0 && lane < CL)
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], "
+          "%1, [%2];" ::"r"(mapa(smem_u32(&s_tot[par][rank]), lane)),
+          "r"(btot), "r"(mapa(bar, lane))
+          : "memory");
+    mbar_wait(bar, (unsigned)((g >> 1) & 1));
+    unsigned low, tot;
+    sums16(s_tot[par], rank, cnt, &low, &tot);
+
+    // --- 7. takes, node state, new nodes ---
+    const unsigned rem = cnt - tot;  // tot = min(sum of kf, count) = placed
+    const bool sched = rec[REC_OK] != 0 && rem > 0;
+    const unsigned s = (unsigned)rec[REC_S];  // >= 1
+    const unsigned want = sched ? (rem + s - 1u) / s : 0u;  // < 2^32
+    const unsigned room = n_max > nused ? (unsigned)(n_max - nused) : 0u;
+    const unsigned n_new = want < room ? want : room;
+    if (n_new < want) overflow = 1;
+    if (rank == 0 && tid == 0) {
+      const unsigned long long put = (unsigned long long)n_new * s;
+      a.unsched[g] = (int)(sched ? (put < rem ? rem - put : 0ull) : rem);
+    }
+    const int t_star = rec[REC_TSTAR];
+    const unsigned nbits = gbits & (unsigned)rec[REC_TBITS];
+    // exclusive prefix at node i0 (each term <= count: no overflow)
+    long long run = (long long)low + sat_add(woff, excl, cnt);
+    for (int i = i0; i < i1; ++i) {
+      const int n = lo + i;
+      const int kf = s_kf[i];
+      long long take = 0;
+      if (kf > 0) {
+        const long long left = (long long)count - run;
+        take = kf < left ? kf : left;
+        take = take > 0 ? take : 0;
+        run += kf;
+      }
+      if (take > 0) {
+        const float tf = (float)take;
+        for (int r = 0; r < Rk; ++r) {
+          float* cp = s_cum + (size_t)r * S + i;
+          *cp = __fadd_rn(*cp, __fmul_rn(tf, req[r]));
+        }
+        s_bits[i] &= gbits;
+      }
+      const int pos = n - nused;
+      long long on = 0;
+      if (pos >= 0 && (unsigned)pos < n_new) {
+        on = (long long)rem - (long long)pos * s;
+        on = on < (long long)s ? on : (long long)s;
+        on = on > 0 ? on : 0;
+        s_type[i] = t_star;
+        const float tf = (float)on;
+        for (int r = 0; r < Rk; ++r)
+          s_cum[(size_t)r * S + i] = __fmul_rn(tf, req[r]);
+        s_bits[i] = nbits;
+      }
+      const long long gt = take + on;
+      if (a.track && gt > 0) s_host[(size_t)i * W + (g >> 5)] |= 1u << (g & 31);
+      a.takes[(size_t)g * n_max + n] = (int)gt;
+    }
+    nused += (int)n_new;
   }
-  if (tid == 0) {
-    hdr[0] = s_nused;
-    hdr[1] = s_overflow;
+
+  cp_async_wait_all();
+  cluster.sync();  // no block leaves while a peer may still store to it
+  for (int i = i0; i < i1; ++i) {
+    const int n = lo + i;
+    const int t = s_type[i];
+    a.ntype_out[n] = t >= 0 ? t : a.node_type[n];
+  }
+  if (rank == 0 && tid == 0) {
+    a.hdr[0] = nused;
+    a.hdr[1] = overflow;
   }
 }
 
-// C interface (bound with ctypes). Pointers are device pointers; null
-// zovh / confbits / hosted switch zone overhead / conflict tracking off.
-// The kernel runs on `stream` and does not synchronise. Returns the
-// cudaError_t of the launch (0 = launched).
-extern "C" int solve_scan_launch(
-    const float* alloc, const float* price, const unsigned long long* availbits,
-    const float* zovh, const float* req, const int* counts,
-    const uint8_t* compat, const int* gzone, const int* gcap, const int* maxpn,
-    const int* prior, int prior_w, const uint8_t* banned, int banned_w,
-    const unsigned* confbits, int W, int* ntype, float* cum, int* zbits,
-    int* cbits, uint8_t* nopen, unsigned* hosted, int* takes, int* unsched,
-    int* hdr, int T, int Z, int C, int Rk, int Gp, int n_max, int n_used0,
+// ---------------------------------------------------------------------------
+// C interface (bound with ctypes). Pointers are device pointers; kernels run
+// on `stream` and do not synchronise. Each returns the cudaError_t of its
+// launch (0 = launched), -1 for arguments the kernel does not take, or -2
+// (kernel B) when the card cannot co-schedule a cluster of CL blocks.
+// ---------------------------------------------------------------------------
+
+static bool shapes_ok(int T, int Z, int C, int Rk, int Gp) {
+  return T >= 1 && Gp >= 1 && Rk >= 1 && Rk <= MAX_RK && Z >= 1 && C >= 1 &&
+         Z <= 31 && C <= 31 && Z * C <= 64 && Z + C <= 32;
+}
+
+extern "C" int offer_argmin_launch(
+    const float* alloc, const float* price, const uint8_t* avail,
+    const float* zovh, const float* req, int req_stride, const int* counts,
+    const uint8_t* compat, const uint8_t* gzone, const uint8_t* gcap,
+    const int* maxpn, const int* prior, int prior_w, const uint8_t* banned,
+    int banned_w, const uint8_t* conflict, int conf_w, int* recs, int RW,
+    unsigned long long* availbits, int T, int Z, int C, int Rk, int Gp, int W,
     void* stream) {
-  if (Rk > MAX_RK || Rk < 1 || Z > 31 || C > 31 || Z * C > 64) return -1;
-  solve_scan_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(
-      alloc, price, availbits, zovh, req, counts, compat, gzone, gcap, maxpn,
-      prior, prior_w, banned, banned_w, confbits, W, ntype, cum, zbits, cbits,
-      nopen, hosted, takes, unsched, hdr, T, Z, C, Rk, Gp, n_max, n_used0);
+  if (!shapes_ok(T, Z, C, Rk, Gp) || RW % 4 != 0) return -1;
+  OfferArgs a;
+  a.alloc = alloc;
+  a.price = price;
+  a.avail = avail;
+  a.zovh = zovh;
+  a.req = req;
+  a.counts = counts;
+  a.compat = compat;
+  a.gzone = gzone;
+  a.gcap = gcap;
+  a.maxpn = maxpn;
+  a.prior = prior;
+  a.banned = banned;
+  a.conflict = conflict;
+  a.recs = recs;
+  a.availbits = availbits;
+  a.req_stride = req_stride;
+  a.prior_w = prior_w;
+  a.banned_w = banned_w;
+  a.conf_w = conf_w;
+  a.RW = RW;
+  a.T = T;
+  a.Z = Z;
+  a.C = C;
+  a.Rk = Rk;
+  a.W = W;
+  const size_t smem = sizeof(int) * (size_t)T;
+  static size_t smem_set = 48 * 1024;
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        offer_argmin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  offer_argmin_kernel<<<Gp, NT0, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Kernel B's launch: one cluster of CL blocks.
+static cudaLaunchConfig_t cluster_cfg(int CL, int smem_bytes, void* stream,
+                                      cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL, 1, 1);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <bool NS, bool CS>
+static cudaError_t scan_attributes(int CL, int smem_bytes) {
+  cudaError_t e = cudaFuncSetAttribute(
+      solve_scan_kernel<NS, CS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (e == cudaSuccess && CL > 8)
+    e = cudaFuncSetAttribute(solve_scan_kernel<NS, CS>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+template <bool NS, bool CS>
+static int launch_scan(const ScanArgs& a, int CL, int smem_bytes,
+                       void* stream) {
+  cudaError_t e = scan_attributes<NS, CS>(CL, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_cfg(CL, smem_bytes, stream, attr);
+  // a cluster that cannot be co-scheduled is refused here, not run partly
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(
+      &clusters, (const void*)solve_scan_kernel<NS, CS>, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (clusters < 1) return -2;
+  e = cudaLaunchKernelEx(&cfg, solve_scan_kernel<NS, CS>, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int solve_scan_launch(
+    const float* alloc, const unsigned long long* availbits,
+    const float* zovh, const int* recs, int RW, const int* prior, int prior_w,
+    const uint8_t* banned, int banned_w, const int* node_type,
+    const float* node_cum, int cum_stride, const uint8_t* node_zmask,
+    const uint8_t* node_cmask, const uint8_t* node_open, int* ntype_out,
+    int* takes, int* unsched, int* hdr, unsigned char* scratch,
+    long long slab_bytes, int T, int Z, int C, int Rk, int W, int Gp,
+    int n_max, int n_used0, int S, int cat_smem, int track, int CL,
+    int smem_bytes, int nodes_smem, void* stream) {
+  if (!shapes_ok(T, Z, C, Rk, Gp) || RW % 4 != 0 || CL < 1 || CL > CL_MAX ||
+      S < 1 || (long long)S * CL < n_max || (nodes_smem != 0) != (scratch == nullptr))
+    return -1;
+  ScanArgs a;
+  a.alloc = alloc;
+  a.availbits = availbits;
+  a.zovh = zovh;
+  a.recs = recs;
+  a.prior = prior;
+  a.banned = banned;
+  a.node_type = node_type;
+  a.node_cum = node_cum;
+  a.node_zmask = node_zmask;
+  a.node_cmask = node_cmask;
+  a.node_open = node_open;
+  a.ntype_out = ntype_out;
+  a.takes = takes;
+  a.unsched = unsched;
+  a.hdr = hdr;
+  a.scratch = scratch;
+  a.slab_bytes = slab_bytes;
+  a.RW = RW;
+  a.prior_w = prior_w;
+  a.banned_w = banned_w;
+  a.cum_stride = cum_stride;
+  a.T = T;
+  a.Z = Z;
+  a.C = C;
+  a.Rk = Rk;
+  a.W = W;
+  a.Gp = Gp;
+  a.n_max = n_max;
+  a.n_used0 = n_used0;
+  a.S = S;
+  a.track = track;
+
+  if (nodes_smem)
+    return cat_smem ? launch_scan<true, true>(a, CL, smem_bytes, stream)
+                    : launch_scan<true, false>(a, CL, smem_bytes, stream);
+  return cat_smem ? launch_scan<false, true>(a, CL, smem_bytes, stream)
+                  : launch_scan<false, false>(a, CL, smem_bytes, stream);
+}
+
+// The largest cluster (a power of two <= 16) of kernel B that the card can
+// co-schedule with `smem_bytes` of dynamic shared memory per block; 0 when
+// none can. chip_smoke.py logs it beside the chosen layout.
+extern "C" int solve_scan_max_cluster(int smem_bytes) {
+  if (scan_attributes<true, true>(CL_MAX, smem_bytes) != cudaSuccess) return 0;
+  int best = 0;
+  for (int cl = 1; cl <= CL_MAX; cl *= 2) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_cfg(cl, smem_bytes, nullptr, attr);
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(
+            &n, (const void*)solve_scan_kernel<true, true>, &cfg) ==
+            cudaSuccess &&
+        n >= 1)
+      best = cl;
+  }
+  return best;
 }

@@ -49,7 +49,7 @@ def _screen_body(alloc, avail, node_type, node_cum, node_zmask, node_cmask,
     Z, C = allow_zone.shape[1], allow_cap.shape[1]
     talloc = alloc[node_type]                                 # [N, R]
     headroom = talloc - node_cum                              # [N, R]
-    ok_t = compat[:, node_type].T                             # [N, G]
+    ok_t = compat.T[node_type]                                # [N, G]
     # an available offering surviving both masks: the reference's f32
     # einsum "nz,gz,nc,gc,nzc->ng" > 0, computed here as a boolean any
     # (exact, and no TF32 question arises)

@@ -12,8 +12,9 @@ kernel is opt-in and a fused XLA expression is the default; here the
 hand-written kernel is the only path on the card.
 
 Bound: bytes (one elig byte read and one f32 written per (m, g)); at the
-main path's shape the kernel is launch-bound. See PERF.md for its time
-beside that bound.
+main path's shape the kernel is launch-bound. Its layout is one wave of
+blocks striding over the flat N*G output, four outputs a thread. See
+PERF.md for its time beside that bound.
 
 The wrapper takes the plain version for tensors on the CPU and launches the
 kernel for CUDA tensors; there is no fallback between the two.
@@ -62,7 +63,8 @@ def _lib():
     from ._build import load
     lib = load("screen_k")
     fn = lib.screen_k_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, I, P, P, I, I, I, P]
     fn.restype = ctypes.c_int
     _fn = fn
     return fn
@@ -70,26 +72,34 @@ def _lib():
 
 def screen_k_cuda(head: torch.Tensor, req: torch.Tensor,
                   elig: torch.Tensor) -> torch.Tensor:
-    """Launch kernel A on the current stream (no synchronisation)."""
+    """Launch kernel A on the current stream (no synchronisation). head:
+    f32 [N, R]; req: f32 [G, R] (a row-strided view of a packed upload is
+    read in place); elig: bool [N, G]. An input is copied only where its
+    layout does not fit."""
     global launches
     N, R = head.shape
     G = req.shape[0]
     if req.shape[1] != R or tuple(elig.shape) != (N, G):
         raise ValueError(f"screen_k shapes: head {tuple(head.shape)}, "
                          f"req {tuple(req.shape)}, elig {tuple(elig.shape)}")
-    if R > 384:
-        raise ValueError(f"screen_k supports at most 384 resources, got {R}")
-    head = head.to(torch.float32).contiguous()
-    req = req.to(torch.float32).contiguous()
-    elig = elig.to(torch.bool).contiguous()
-    for t in (head, req, elig):
-        if t.device != head.device:
-            raise ValueError("screen_k inputs must share one CUDA device")
+    if (head.dtype, req.dtype, elig.dtype) != (torch.float32, torch.float32,
+                                               torch.bool):
+        raise ValueError("screen_k takes f32 head and req and bool elig")
+    if not head.is_contiguous():
+        head = head.contiguous()
+    if not elig.is_contiguous():
+        elig = elig.contiguous()
+    if req.stride(1) != 1 and R > 1:
+        req = req.contiguous()
+    if req.device != head.device or elig.device != head.device:
+        raise ValueError("screen_k inputs must share one CUDA device")
     out = torch.empty((N, G), dtype=torch.float32, device=head.device)
     if N == 0 or G == 0:
         return out
-    rc = _lib()(head.data_ptr(), req.data_ptr(), elig.data_ptr(),
-                out.data_ptr(), N, G, R,
+    if elig.data_ptr() % 4:
+        elig = elig.clone()  # the kernel reads elig four bytes at a time
+    rc = _lib()(head.data_ptr(), req.data_ptr(), req.stride(0),
+                elig.data_ptr(), out.data_ptr(), N, G, R,
                 torch.cuda.current_stream(head.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"screen_k launch failed: cudaError {rc}")

@@ -1,21 +1,27 @@
-"""The provisioning solve's group scan: kernel B (`csrc/solve_scan.cu`) and
-its plain PyTorch version, plus the packing of the scan's output into the
-reference's single int32 result vector.
+"""The provisioning solve's group scan: kernels B0 and B
+(`csrc/solve_scan.cu`) and their plain PyTorch versions, plus the packing
+of the scan's output into the reference's single int32 result vector.
 
 Replaces the XLA program `karpenter_tpu/ops/solver.py::_solve_kernel` (a
 `lax.scan` over pod groups) and the packing tail of `_solve_onebuf_impl`.
-Eager PyTorch would issue ~40 small launches per group step; kernel B runs
-the whole scan in one launch, one thread block per solve looping over the
-groups in order. What bounds it is that dependent chain of steps, not
-bytes or arithmetic rate (see PERF.md).
 
-`solve_scan` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; there is no fallback between the two.
+The reference's step 2 (the cost-per-slot argmin that picks the offering
+new nodes open at) reads only the group's row and the catalog, never node
+state, so it is hoisted out of the scan: kernel B0 (`offer_argmin`) runs
+it for every group at once, one block per group. Kernel B (`solve_scan`)
+then runs the dependent chain of group steps as one thread-block cluster
+whose node state stays in the blocks' shared memory (`_scan_layout` picks
+the cluster size and slice; past the cluster's capacity the slices live in
+global scratch, the same kernel code through a pointer).
+
+`solve_scan` and `offer_argmin` take the plain version for CPU tensors and
+launch the kernels for CUDA tensors; there is no fallback between the two.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
@@ -23,13 +29,57 @@ import torch
 
 from .binpack import BIG, EPS
 
-launches = 0  # kernel launches since import (chip_smoke resets and reads it)
+launches = 0        # kernel B launches since import (chip_smoke resets and reads)
+offer_launches = 0  # kernel B0 launches since import
 
 _EPS = float(np.float32(EPS))
 _F32_MAX = float(np.finfo(np.float32).max)
 
 ScanOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                 torch.Tensor]
+OfferOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                 torch.Tensor]
+
+
+def offer_argmin_plain(alloc, price, avail, requests, compat, allow_zone,
+                       allow_cap, max_per_node, zovh,
+                       zone_ovh: bool = False) -> OfferOut:
+    """The reference's step 2 (`solver.py:425-448`) for every group at once,
+    vectorised over [Gp, T, Z, C]. Returns (t_star i64 [Gp], s i64 [Gp] =
+    max(slots[t_star], 1), ok bool [Gp] = best cost-per-slot < f32 max,
+    t_avail_z bool [Gp, Z], t_avail_c bool [Gp, C]); the scan opens nodes
+    only where ok and the group has pods left."""
+    dev = alloc.device
+    T, Z, C = price.shape
+    Gp = requests.shape[0]
+    big_f = torch.tensor(float(BIG), dtype=torch.float32, device=dev)
+    f32_max = torch.tensor(_F32_MAX, dtype=torch.float32, device=dev)
+    cap_per = torch.where(max_per_node == 0, BIG,
+                          max_per_node).to(torch.int64)             # [Gp]
+    with_req = torch.where(requests > 0, requests, torch.ones_like(requests))
+    alloc_eff = alloc[None]                                         # [1, T, R]
+    if zone_ovh:
+        zm_open = allow_zone[:, None, :] & avail.any(dim=2)[None]   # [Gp, T, Z]
+        alloc_eff = alloc[None] - torch.where(
+            zm_open[..., None], zovh[None], 0.0).amax(dim=2)        # [Gp, T, R]
+    slots = torch.where(requests[:, None, :] > 0,
+                        torch.floor(alloc_eff / with_req[:, None, :] + _EPS),
+                        big_f).amin(dim=2)                          # [Gp, T]
+    slots = torch.minimum(slots.clamp_min(0.0).to(torch.int64),
+                          cap_per[:, None])
+    adm = (avail[None] & compat[:, :, None, None]
+           & allow_zone[:, None, :, None] & allow_cap[:, None, None, :])
+    feasible = adm & (slots >= 1)[:, :, None, None]                 # [Gp, T, Z, C]
+    cps = torch.where(feasible,
+                      price[None] / slots.clamp_min(1)[:, :, None, None]
+                      .to(torch.float32),
+                      f32_max).reshape(Gp, -1)
+    flat = torch.argmin(cps, dim=1)            # the first index of the minimum
+    best = cps.gather(1, flat[:, None])[:, 0]
+    t_star = flat // (Z * C)
+    s = slots.gather(1, t_star[:, None])[:, 0].clamp_min(1)
+    return (t_star, s, best < f32_max, avail[t_star].any(dim=2),
+            avail[t_star].any(dim=1))
 
 
 def solve_scan_plain(alloc, price, avail, requests, counts, compat,
@@ -39,15 +89,15 @@ def solve_scan_plain(alloc, price, avail, requests, counts, compat,
                      track_conflicts: bool = False,
                      zone_ovh: bool = False) -> ScanOut:
     """A Python loop over groups that mirrors the reference's scan `step`
-    line by line. Returns (ntype i32 [n_max], takes i32 [Gp, n_max],
-    unsched i32 [Gp], nused i32 [], overflow bool []).
+    line by line, with step 2's argmin taken from offer_argmin_plain.
+    Returns (ntype i32 [n_max], takes i32 [Gp, n_max], unsched i32 [Gp],
+    nused i32 [], overflow bool []).
 
     The one deliberate difference: the first-fit prefix runs in int64
     where the reference's runs in f32. The f32 prefix is exact below 2^24,
     and above it the take is already clamped to zero, so both give the same
     takes (an int64 prefix can neither round nor wrap)."""
     dev = alloc.device
-    T, Z, C = price.shape
     Gp = requests.shape[0]
     node_ids = torch.arange(n_max, device=dev)
     ntype = node_type.to(torch.int64).clone()
@@ -61,9 +111,10 @@ def solve_scan_plain(alloc, price, avail, requests, counts, compat,
     takes = torch.zeros((Gp, n_max), dtype=torch.int32, device=dev)
     unsched = torch.zeros(Gp, dtype=torch.int32, device=dev)
     clamped_any = torch.zeros((), dtype=torch.bool, device=dev)
-    avail_z_any = avail.any(dim=2)                                  # [T, Z]
     big_f = torch.tensor(float(BIG), dtype=torch.float32, device=dev)
-    f32_max = torch.tensor(_F32_MAX, dtype=torch.float32, device=dev)
+    t_stars, slots_s, oks, t_zs, t_cs = offer_argmin_plain(
+        alloc, price, avail, requests, compat, allow_zone, allow_cap,
+        max_per_node, zovh, zone_ovh)
 
     for g in range(Gp):
         req = requests[g]
@@ -105,29 +156,8 @@ def solve_scan_plain(alloc, price, avail, requests, counts, compat,
         cmask = torch.where(got[:, None], cmask2, cmask)
 
         # --- 2. open new nodes at the cost-per-slot argmin offering ---
-        adm = (avail & gcompat[:, None, None] & gzone[None, :, None]
-               & gcap[None, None, :])                               # [T, Z, C]
-        alloc_eff = alloc
-        if zone_ovh:
-            zm_open = gzone[None, :] & avail_z_any                  # [T, Z]
-            alloc_eff = alloc - torch.where(zm_open[:, :, None], zovh,
-                                            0.0).amax(dim=1)
-        slots_t = torch.where(req > 0,
-                              torch.floor(alloc_eff / with_req[None, :] + _EPS),
-                              big_f).amin(dim=1)
-        slots_t = torch.minimum(slots_t.clamp_min(0.0).to(torch.int64),
-                                cap_per)                            # [T]
-        feasible = adm & (slots_t[:, None, None] >= 1)
-        cps = torch.where(feasible,
-                          price / slots_t.clamp_min(1)[:, None, None]
-                          .to(torch.float32),
-                          f32_max)
-        flat = torch.argmin(cps.reshape(-1))
-        best_cps = cps.reshape(-1)[flat]
-        t_star = flat // (Z * C)
-        schedulable = (best_cps < f32_max) & (rem > 0)
-
-        s = slots_t[t_star].clamp_min(1)
+        t_star, s = t_stars[g], slots_s[g]
+        schedulable = oks[g] & (rem > 0)
         n_new_want = torch.where(schedulable, (rem + s - 1) // s, 0)
         n_new = torch.minimum(n_new_want, (n_max - nused).clamp_min(0))
         clamped = n_new < n_new_want
@@ -138,15 +168,13 @@ def solve_scan_plain(alloc, price, avail, requests, counts, compat,
         overflow = torch.where(schedulable,
                                (rem - new_take.sum()).clamp_min(0), 0)
 
-        t_avail_z = avail[t_star].any(dim=1)                        # [Z]
-        t_avail_c = avail[t_star].any(dim=0)                        # [C]
         ntype = torch.where(is_new, t_star, ntype)
         cum = torch.where(is_new[:, None],
                           new_take[:, None].to(torch.float32) * req[None, :],
                           cum)
-        zmask = torch.where(is_new[:, None], (gzone & t_avail_z)[None, :],
+        zmask = torch.where(is_new[:, None], (gzone & t_zs[g])[None, :],
                             zmask)
-        cmask = torch.where(is_new[:, None], (gcap & t_avail_c)[None, :],
+        cmask = torch.where(is_new[:, None], (gcap & t_cs[g])[None, :],
                             cmask)
         nopen = nopen | is_new
         nused = nused + n_new
@@ -161,119 +189,284 @@ def solve_scan_plain(alloc, price, avail, requests, counts, compat,
             clamped_any)
 
 
-def _bits(mask: torch.Tensor) -> torch.Tensor:
-    """bool [..., K] (K <= 63) -> int64 [...] with bit k set where mask[k]."""
-    K = mask.shape[-1]
-    w = torch.ones(K, dtype=torch.int64, device=mask.device) << torch.arange(
-        K, device=mask.device)
-    return (mask.to(torch.int64) * w).sum(dim=-1)
+# ---------------------------------------------------------------------------
+# kernel B's layout: cluster size, node slice, where the slices live
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448     # shared memory one block may use on an H100
+STATIC_SMEM = 1_024      # kernel B's static shared arrays, rounded up
+CL_MAX = 16              # the largest (non-portable) cluster on Hopper
+NODES_PER_BLOCK = 512    # one node for each of kernel B's 512 threads
+REC_HDR = 12             # int32 header words of B0's per-group record
 
 
-def _word_bits(mask: torch.Tensor) -> torch.Tensor:
-    """bool [G, K] -> int32 [G, ceil(K/32)] bit sets (bit k%32 of word k//32),
-    the two's-complement view of each uint32 word."""
-    G, K = mask.shape
-    W = max(1, -(-K // 32))
-    padded = torch.zeros((G, W * 32), dtype=torch.bool, device=mask.device)
-    padded[:, :K] = mask
-    words = _bits(padded.reshape(G, W, 32))
-    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
-    return words.to(torch.int32).contiguous()
+def _round_up(x: int, q: int) -> int:
+    return -(-x // q) * q
 
 
-_fn = None  # the configured ctypes entry point, once loaded
+@dataclass(frozen=True)
+class ScanLayout:
+    """How kernel B is launched for one problem size."""
+
+    cl: int            # blocks in the cluster (1, 2, 4, 8 or 16)
+    slice: int         # nodes each block owns (the last block may own fewer)
+    nodes_smem: bool   # node slices in shared memory (else global scratch)
+    cat_smem: bool     # catalog rows in shared memory (else read in place)
+    smem_bytes: int    # dynamic shared memory per block
+    slab_bytes: int    # bytes of one block's node slice
+    rec_words: int     # int32 words of one group record (a multiple of 4)
+
+
+def _rec_words(Rk: int, T: int, W: int) -> int:
+    """Words of B0's record: header, req[Rk], compat bits, conflict words,
+    padded to whole 16-byte chunks (the scan prefetches it with cp.async)."""
+    return _round_up(REC_HDR + Rk + -(-T // 32) + W, 4)
+
+
+def _scan_layout(n_max: int, Rk: int, W: int, Z: int, C: int, T: int,
+                 zone_ovh: bool = False) -> ScanLayout:
+    """Kernel B's cluster size and node slice, from sizes alone.
+
+    Per block: two group records (the cp.async double buffer), the catalog
+    rows (alloc, availability bits, zone overhead) when they take at most
+    half the block's shared memory, and the node slice at 12 + 4*Rk + 4*W
+    bytes a node (type, zone|captype bits, kf scratch, cum, hosted words).
+    The cluster is the smallest power of two that both holds the node state
+    and gives each block at most NODES_PER_BLOCK nodes, up to CL_MAX. Past
+    CL_MAX blocks' capacity the slices live in global scratch (CL_MAX
+    blocks). The cluster only grows with n_max."""
+    budget = SMEM_LIMIT - STATIC_SMEM
+    rec = _rec_words(Rk, T, W)
+    fixed = 2 * rec * 4
+    cat = _round_up(T * 8 + T * Rk * 4 + (T * Z * Rk * 4 if zone_ovh else 0),
+                    16)
+    if fixed > budget:
+        raise ValueError(f"solve_scan: a group record of {rec} words does not "
+                         f"fit in shared memory (T={T})")
+    cat_smem = fixed + cat <= budget // 2
+    base = fixed + (cat if cat_smem else 0)
+    node_bytes = 12 + 4 * Rk + 4 * W
+    cap = (budget - base) // node_bytes           # nodes one block can hold
+    cl_par = 1
+    while cl_par < CL_MAX and cl_par * NODES_PER_BLOCK < n_max:
+        cl_par *= 2
+    cl_fit = 1
+    while cl_fit <= CL_MAX and cl_fit * cap < n_max:
+        cl_fit *= 2
+    nodes_smem = cl_fit <= CL_MAX
+    cl = max(cl_par, cl_fit) if nodes_smem else CL_MAX
+    S = _round_up(-(-max(n_max, 1) // cl), 4)
+    slab = _round_up(S * node_bytes, 16)
+    smem = base + (slab if nodes_smem else 0)
+    return ScanLayout(cl=cl, slice=S, nodes_smem=nodes_smem,
+                      cat_smem=cat_smem, smem_bytes=smem, slab_bytes=slab,
+                      rec_words=rec)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA wrappers
+# ---------------------------------------------------------------------------
+
+_fns: dict = {}  # the configured ctypes entry points, once loaded
 
 
 def _lib():
-    global _fn
-    if _fn is not None:
-        return _fn
+    if _fns:
+        return _fns
     from ._build import load
     lib = load("solve_scan")
-    fn = lib.solve_scan_launch
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([P] * 10 + [P, I, P, I, P, I] + [P] * 9 + [I] * 7 + [P])
-    fn.restype = ctypes.c_int
-    _fn = fn
-    return fn
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    b0 = lib.offer_argmin_launch
+    b0.argtypes = ([P] * 5 + [I] + [P] * 6 + [I, P, I, P, I, P, I, P]
+                   + [I] * 6 + [P])
+    b0.restype = ctypes.c_int
+    b = lib.solve_scan_launch
+    b.argtypes = ([P] * 4 + [I, P, I, P, I, P, P, I] + [P] * 8 + [L]
+                  + [I] * 14 + [P])
+    b.restype = ctypes.c_int
+    mc = lib.solve_scan_max_cluster
+    mc.argtypes, mc.restype = [I], ctypes.c_int
+    _fns.update(offer=b0, scan=b, max_cluster=mc)
+    return _fns
+
+
+def max_cluster(smem_bytes: int) -> int:
+    """The largest cluster of kernel B (a power of two <= CL_MAX) the card
+    can co-schedule at `smem_bytes` of shared memory a block; 0 if none."""
+    return int(_lib()["max_cluster"](int(smem_bytes)))
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _check_shapes(alloc, price, requests):
+    T, Z, C = price.shape
+    Gp, Rk = requests.shape
+    if Rk < 1 or Rk > 32:
+        raise ValueError(f"solve_scan supports 1..32 resource columns, got {Rk}")
+    if Z > 31 or C > 31 or Z * C > 64 or Z + C > 32:
+        raise ValueError(f"solve_scan supports Z*C <= 64 offerings per type "
+                         f"and Z + C <= 32, got Z={Z}, C={C}")
+    if T < 1 or Gp < 1:
+        raise ValueError(f"solve_scan needs T >= 1 and Gp >= 1, got {T}, {Gp}")
+    if tuple(alloc.shape) != (T, Rk):
+        raise ValueError(f"solve_scan shapes: alloc {tuple(alloc.shape)}, "
+                         f"Rk {Rk}")
+    return T, Z, C, Gp, Rk
+
+
+def _on(x: torch.Tensor, dev: torch.device, dtype,
+        rows: bool = False) -> torch.Tensor:
+    """x as `dtype`, contiguous, on the kernels' device; with rows=True only
+    its columns need unit stride (a row-strided view of a packed upload is
+    taken as it is). A tensor whose type and layout fit is not copied."""
+    if x.device != dev:
+        raise ValueError("solve_scan inputs must share one CUDA device")
+    x = x.to(dtype)
+    if rows and x.stride(-1) == 1:
+        return x
+    return x.contiguous()
+
+
+def _offer_table(alloc, price, avail, requests, counts, compat, allow_zone,
+                 allow_cap, max_per_node, prior, banned, conflict, zovh,
+                 zone_ovh: bool, track: bool):
+    """Launch kernel B0: ([Gp, rec_words] int32 records, [T] int64
+    availability bits, W). Inputs are taken as they come where their type
+    and layout already fit (no copies, no bit-packing on the host side)."""
+    global offer_launches
+    dev = alloc.device
+    T, Z, C, Gp, Rk = _check_shapes(alloc, price, requests)
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+
+    def c(x, dtype):
+        return _on(x, dev, dtype)
+
+    alloc_c, price_c, avail_c = c(alloc, f32), c(price, f32), c(avail, b8)
+    zovh_c = c(zovh, f32) if zone_ovh else None
+    if zovh_c is not None and tuple(zovh_c.shape) != (T, Z, Rk):
+        raise ValueError(f"zovh shape {tuple(zovh_c.shape)} != {(T, Z, Rk)}")
+    req_c = _on(requests, dev, f32, rows=True)
+    prior_c, banned_c = c(prior, i32), c(banned, b8)
+    conf_c = c(conflict, b8) if track else None
+    if conf_c is not None and tuple(conf_c.shape) != (Gp, Gp):
+        raise ValueError(f"conflict shape {tuple(conf_c.shape)} != {(Gp, Gp)}")
+    W = -(-Gp // 32) if track else 0
+    RW = _rec_words(Rk, T, W)
+    if T * 4 > SMEM_LIMIT:
+        raise ValueError(f"offer_argmin supports T <= {SMEM_LIMIT // 4}")
+    recs = torch.empty((Gp, RW), dtype=i32, device=dev)
+    availbits = torch.empty(T, dtype=torch.int64, device=dev)
+    rc = _lib()["offer"](
+        _ptr(alloc_c), _ptr(price_c), _ptr(avail_c), _ptr(zovh_c),
+        _ptr(req_c), req_c.stride(0), _ptr(c(counts, i32)),
+        _ptr(c(compat, b8)), _ptr(c(allow_zone, b8)), _ptr(c(allow_cap, b8)),
+        _ptr(c(max_per_node, i32)), _ptr(prior_c), prior_c.shape[1],
+        _ptr(banned_c), banned_c.shape[1], _ptr(conf_c), Gp if track else 0,
+        _ptr(recs), RW, _ptr(availbits), T, Z, C, Rk, Gp, W,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"offer_argmin launch failed: cudaError {rc}")
+    offer_launches += 1
+    return recs, availbits, W
+
+
+def offer_argmin_cuda(alloc, price, avail, requests, compat, allow_zone,
+                      allow_cap, max_per_node, zovh,
+                      zone_ovh: bool = False) -> OfferOut:
+    """Launch kernel B0 and read its records back as offer_argmin_plain's
+    tuple (what the scan itself reads is the record table)."""
+    dev = alloc.device
+    T, Z, C = price.shape
+    Gp = requests.shape[0]
+    zeros_i = torch.zeros((Gp, 1), dtype=torch.int32, device=dev)
+    zeros_b = torch.zeros((Gp, 1), dtype=torch.bool, device=dev)
+    recs, _, _ = _offer_table(
+        alloc, price, avail, requests,
+        torch.zeros(Gp, dtype=torch.int32, device=dev), compat, allow_zone,
+        allow_cap, max_per_node, zeros_i, zeros_b, zeros_b, zovh, zone_ovh,
+        False)
+    recs = recs.to(torch.int64)
+    tbits = recs[:, 6]
+    zs = torch.arange(Z, device=dev)
+    cs = torch.arange(C, device=dev)
+    return (recs[:, 3], recs[:, 4], recs[:, 5] != 0,
+            ((tbits[:, None] >> zs) & 1) != 0,
+            ((tbits[:, None] >> (Z + cs)) & 1) != 0)
+
+
+def offer_argmin(*args, **kwargs) -> OfferOut:
+    """Step 2 for every group: the plain version for CPU tensors, kernel B0
+    for CUDA tensors (arguments as offer_argmin_plain)."""
+    dev = args[0].device if args else kwargs["alloc"].device
+    if dev.type == "cpu":
+        return offer_argmin_plain(*args, **kwargs)
+    if dev.type != "cuda":
+        raise ValueError(f"offer_argmin runs on cpu or cuda, not {dev}")
+    return offer_argmin_cuda(*args, **kwargs)
 
 
 def solve_scan_cuda(alloc, price, avail, requests, counts, compat,
                     allow_zone, allow_cap, max_per_node, prior, banned,
                     conflict, zovh, node_type, node_cum, node_zmask,
                     node_cmask, node_open, n_used: int, n_max: int,
-                    track_conflicts: bool = False,
-                    zone_ovh: bool = False) -> ScanOut:
-    """Launch kernel B on the current stream (no synchronisation). Same
-    arguments and results as solve_scan_plain."""
+                    track_conflicts: bool = False, zone_ovh: bool = False,
+                    layout: Optional[ScanLayout] = None) -> ScanOut:
+    """Launch kernels B0 and B on the current stream (no synchronisation).
+    Same arguments and results as solve_scan_plain; `layout` overrides
+    `_scan_layout`'s choice (to time another cluster size)."""
     global launches
     dev = alloc.device
-    T, Z, C = price.shape
-    Gp, Rk = requests.shape
-    if Rk < 1 or Rk > 32:
-        raise ValueError(f"solve_scan supports 1..32 resource columns, got {Rk}")
-    if Z > 31 or C > 31 or Z * C > 64:
-        raise ValueError(f"solve_scan supports Z*C <= 64 offerings per type, "
-                         f"got Z={Z}, C={C}")
-    if tuple(alloc.shape) != (T, Rk) or tuple(node_cum.shape) != (n_max, Rk):
-        raise ValueError(f"solve_scan shapes: alloc {tuple(alloc.shape)}, "
-                         f"node_cum {tuple(node_cum.shape)}, Rk {Rk}")
-    f32, i32 = torch.float32, torch.int32
-
-    def c(x, dtype):
-        if x.device != dev:
-            raise ValueError("solve_scan inputs must share one CUDA device")
-        return x.to(dtype).contiguous()
-
-    alloc_c = c(alloc, f32)
-    price_c = c(price, f32).reshape(-1)
-    availbits = _bits(c(avail, torch.bool).reshape(T, Z * C))
-    zovh_c = c(zovh, f32) if zone_ovh else None
-    if zovh_c is not None and tuple(zovh_c.shape) != (T, Z, Rk):
-        raise ValueError(f"zovh shape {tuple(zovh_c.shape)} != {(T, Z, Rk)}")
-    req_c = c(requests, f32)
-    counts_c = c(counts, i32)
-    compat_c = c(compat, torch.bool)
-    gzone = _bits(c(allow_zone, torch.bool)).to(i32)
-    gcap = _bits(c(allow_cap, torch.bool)).to(i32)
-    maxpn = c(max_per_node, i32)
-    prior_c = c(prior, i32)
-    banned_c = c(banned, torch.bool)
-    if prior_c.shape[1] not in (1, n_max) or banned_c.shape[1] not in (1, n_max):
+    T, Z, C, Gp, Rk = _check_shapes(alloc, price, requests)
+    if tuple(node_cum.shape) != (n_max, Rk):
+        raise ValueError(f"node_cum shape {tuple(node_cum.shape)} != "
+                         f"{(n_max, Rk)}")
+    if prior.shape[1] not in (1, n_max) or banned.shape[1] not in (1, n_max):
         raise ValueError("prior/banned must be [Gp, 1] or [Gp, n_max]")
-    confbits = _word_bits(c(conflict, torch.bool)) if track_conflicts else None
-    W = confbits.shape[1] if confbits is not None else 0
-    ntype = c(node_type, i32).clone()
-    cum = c(node_cum, f32).clone()
-    zbits = _bits(c(node_zmask, torch.bool)).to(i32)
-    cbits = _bits(c(node_cmask, torch.bool)).to(i32)
-    nopen = c(node_open, torch.bool).clone()
-    hosted = (torch.zeros((n_max, W), dtype=i32, device=dev)
-              if track_conflicts else None)
+    recs, availbits, W = _offer_table(
+        alloc, price, avail, requests, counts, compat, allow_zone, allow_cap,
+        max_per_node, prior, banned, conflict, zovh, zone_ovh,
+        track_conflicts)
+    lay = layout or _scan_layout(n_max, Rk, W, Z, C, T, zone_ovh)
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    alloc_c = _on(alloc, dev, f32)
+    zovh_c = _on(zovh, dev, f32) if zone_ovh else None
+    prior_c, banned_c = _on(prior, dev, i32), _on(banned, dev, b8)
+    ntype_in = _on(node_type, dev, i32)
+    cum_in = _on(node_cum, dev, f32, rows=True)
+    zm_in, cm_in, open_in = (_on(node_zmask, dev, b8),
+                             _on(node_cmask, dev, b8), _on(node_open, dev, b8))
+    ntype = torch.empty(n_max, dtype=i32, device=dev)
     takes = torch.empty((Gp, n_max), dtype=i32, device=dev)
     unsched = torch.empty(Gp, dtype=i32, device=dev)
     hdr = torch.empty(2, dtype=i32, device=dev)
-
-    def ptr(x: Optional[torch.Tensor]):
-        return None if x is None else x.data_ptr()
-
-    rc = _lib()(ptr(alloc_c), ptr(price_c), ptr(availbits), ptr(zovh_c),
-                ptr(req_c), ptr(counts_c), ptr(compat_c), ptr(gzone),
-                ptr(gcap), ptr(maxpn), ptr(prior_c), prior_c.shape[1],
-                ptr(banned_c), banned_c.shape[1], ptr(confbits), W,
-                ptr(ntype), ptr(cum), ptr(zbits), ptr(cbits), ptr(nopen),
-                ptr(hosted), ptr(takes), ptr(unsched), ptr(hdr),
-                T, Z, C, Rk, Gp, n_max, int(n_used),
-                torch.cuda.current_stream(dev).cuda_stream)
+    scratch = (None if lay.nodes_smem else
+               torch.empty(lay.cl * lay.slab_bytes, dtype=torch.uint8,
+                           device=dev))
+    rc = _lib()["scan"](
+        _ptr(alloc_c), _ptr(availbits), _ptr(zovh_c), _ptr(recs),
+        lay.rec_words, _ptr(prior_c), prior_c.shape[1], _ptr(banned_c),
+        banned_c.shape[1], _ptr(ntype_in), _ptr(cum_in), cum_in.stride(0),
+        _ptr(zm_in), _ptr(cm_in), _ptr(open_in), _ptr(ntype), _ptr(takes),
+        _ptr(unsched), _ptr(hdr), _ptr(scratch), lay.slab_bytes,
+        T, Z, C, Rk, W, Gp, n_max, int(n_used), lay.slice,
+        int(lay.cat_smem), int(track_conflicts), lay.cl, lay.smem_bytes,
+        int(lay.nodes_smem), torch.cuda.current_stream(dev).cuda_stream)
+    if rc == -2:
+        raise RuntimeError(f"solve_scan: the card cannot co-schedule a "
+                           f"cluster of {lay.cl} blocks at {lay.smem_bytes} "
+                           f"bytes of shared memory a block")
     if rc != 0:
-        raise RuntimeError(f"solve_scan launch failed: cudaError {rc}")
+        raise RuntimeError(f"solve_scan launch failed: cudaError {rc} "
+                           f"(layout {lay})")
     launches += 1
     return ntype, takes, unsched, hdr[0], hdr[1] != 0
 
 
 def solve_scan(*args, **kwargs) -> ScanOut:
-    """The group scan: the plain version for CPU tensors, kernel B for CUDA
-    tensors (arguments as solve_scan_plain)."""
+    """The group scan: the plain version for CPU tensors, kernels B0 and B
+    for CUDA tensors (arguments as solve_scan_plain)."""
     dev = args[0].device if args else kwargs["alloc"].device
     if dev.type == "cpu":
         return solve_scan_plain(*args, **kwargs)
@@ -295,8 +488,9 @@ def pack_solution(ntype: torch.Tensor, takes: torch.Tensor,
     ascending order, zero-filled past nnz; vals = flat[idx], so a filled
     slot repeats flat[0] exactly as jnp.nonzero(size=, fill_value=0)
     followed by a gather does. nnz counts every nonzero take even past
-    k_max (the caller regrows the budget). Compaction is a cumsum of
-    flat > 0 and a scatter, all on the device with no host sync."""
+    k_max (the caller re-packs the same scan output at a larger budget).
+    Compaction is a cumsum of flat > 0 and a scatter, all on the device
+    with no host sync."""
     dev = takes.device
     flat = takes.reshape(-1)
     pos = flat > 0

@@ -5,9 +5,10 @@ side is the reference's own numpy (copied here): group padding and
 packing, the node-budget estimate, the projected resource columns, the
 packed-result parse and the decode. The device side is one packed upload
 of the group matrix (plus the node matrix when resuming), the group scan
-(`ops/solve_scan`: kernel B on the card), the compaction into the
-reference's int32 result layout, and ONE host read. The k_max regrow and
-the node-budget regrow loop are the reference's.
+(`ops/solve_scan`: kernels B0 and B on the card), the compaction into the
+reference's int32 result layout, and ONE host read. The node-budget
+regrow loop is the reference's; a sparse budget (k_max) too small for the
+takes re-packs the same scan output instead of scanning again.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`, which
 runs the same path with the scan's plain PyTorch version. Multi-device
@@ -27,7 +28,7 @@ import torch
 from .binpack import BIG, EPS, SolveResult, VirtualNode
 from .encode import (CatalogTensors, EncodedPods, align_resources,
                      align_zone_overhead)
-from .solve_scan import pack_solution, solve_scan
+from .solve_scan import ScanOut, pack_solution, solve_scan
 
 
 def resolve_device(device=None) -> torch.device:
@@ -294,16 +295,16 @@ def _decode_solution(cat: CatalogTensors, enc: EncodedPods,
 # ---------------------------------------------------------------------------
 
 
-def _solve_onebuf(dcat: DeviceCatalog, gbuf: torch.Tensor,
-                  prior: Optional[torch.Tensor],
-                  banned: Optional[torch.Tensor],
-                  conflict: Optional[torch.Tensor],
-                  nbuf: Optional[torch.Tensor], n_existing: int,
-                  n_max: int, k_max: int, cols: tuple,
-                  track_conflicts: bool, zone_ovh: bool) -> torch.Tensor:
+def _scan_onebuf(dcat: DeviceCatalog, gbuf: torch.Tensor,
+                 prior: Optional[torch.Tensor],
+                 banned: Optional[torch.Tensor],
+                 conflict: Optional[torch.Tensor],
+                 nbuf: Optional[torch.Tensor], n_existing: int,
+                 n_max: int, cols: tuple, track_conflicts: bool,
+                 zone_ovh: bool) -> ScanOut:
     """Unpack gbuf/nbuf by static offsets on the device, synthesize what
-    was not shipped, run the scan, pack the output (pack_solution). The
-    port of the reference's `_solve_onebuf_impl`."""
+    was not shipped, run the scan. With pack_solution, the port of the
+    reference's `_solve_onebuf_impl`."""
     dev = gbuf.device
     T, Z, C = dcat.price.shape
     Rk = len(cols)
@@ -340,12 +341,11 @@ def _solve_onebuf(dcat: DeviceCatalog, gbuf: torch.Tensor,
         node_open = nbuf[:, 1 + Rk + Z + C] > 0
         # resumed nodes are exactly the open prefix
         n_used = n_existing
-    ntype, takes, unsched, nused, overflow = solve_scan(
+    return solve_scan(
         alloc_k, dcat.price, dcat.avail, requests, counts, compat,
         allow_zone, allow_cap, max_per_node, prior_, banned_, conflict_,
         zovh_, node_type, node_cum, node_zmask, node_cmask, node_open,
         n_used, n_max, track_conflicts=track_conflicts, zone_ovh=zone_ovh)
-    return pack_solution(ntype, takes, unsched, nused, overflow, k_max)
 
 
 @dataclass
@@ -404,9 +404,10 @@ def _stage(cat: CatalogTensors, enc: EncodedPods,
                                   for n in existing))
 
 
-def _dispatch(st: _Staged, n_max: int, k_max: int) -> torch.Tensor:
-    """The device call at one (n_max, k_max) budget: the packed int32
-    result, still on the device."""
+def _scan(st: _Staged, n_max: int) -> ScanOut:
+    """The group scan at one node budget: its outputs, still on the device
+    (they do not depend on the sparse budget k_max; only the packing
+    does)."""
     dev = st.gbuf.device
     existing, Gp = st.existing, st.Gp
     n_existing = len(existing)
@@ -426,10 +427,16 @@ def _dispatch(st: _Staged, n_max: int, k_max: int) -> torch.Tensor:
                              _pad_to(st.node_cmask, n_max),
                              _pad_to(np.ones(n_existing, bool), n_max),
                              list(st.cols)), dev))
-    return _solve_onebuf(
+    return _scan_onebuf(
         st.dcat, st.gbuf, _put(prior, dev) if st.has_prior else None,
         _put(banned, dev) if st.has_banned else None, st.conflict, nbuf,
-        n_existing, n_max, k_max, st.cols, st.track, st.zone_ovh)
+        n_existing, n_max, st.cols, st.track, st.zone_ovh)
+
+
+def _dispatch(st: _Staged, n_max: int, k_max: int) -> torch.Tensor:
+    """The device call at one (n_max, k_max) budget: the packed int32
+    result, still on the device."""
+    return pack_solution(*_scan(st, n_max), k_max)
 
 
 def solve_device(cat: CatalogTensors, enc: EncodedPods,
@@ -449,21 +456,25 @@ def solve_device(cat: CatalogTensors, enc: EncodedPods,
     if auto_n:
         n_max = _auto_node_budget(cat, enc, n_existing)
     st = _stage(cat, enc, existing, dev)
-    # sparse-take budget: nnz ~ n_used + cross-node sharing, far below the
-    # [Gp * n_max] flat size; regrown + rerun on overflow (rare)
-    k_max = _bucket(2 * n_max)
     while True:
-        buf = _dispatch(st, n_max, k_max).cpu().numpy()  # ONE host read
+        out = _scan(st, n_max)  # ONE scan per node budget
+        # sparse-take budget: nnz ~ n_used + cross-node sharing, far below
+        # the [Gp * n_max] flat size
+        k_max = _bucket(2 * n_max)
+        buf = pack_solution(*out, k_max).cpu().numpy()  # ONE host read
         (nused, overflowed, nnz, unsched, ntype, idx,
          vals) = _parse_packed(buf, st.Gp, n_max, k_max)
         if nnz > k_max:
-            # sparse budget too small: takes were truncated — regrow & rerun
+            # takes were truncated: re-pack the same scan at a larger budget
             k_max = _bucket(nnz)
-            continue
+            buf = pack_solution(*out, k_max).cpu().numpy()
+            (nused, overflowed, nnz, unsched, ntype, idx,
+             vals) = _parse_packed(buf, st.Gp, n_max, k_max)
         if not overflowed or not auto_n or n_max >= n_existing + total_pods:
             break
+        # node budget too small: regrow it and scan again (the reference's
+        # loop)
         n_max = min(_bucket(n_max * 2), _bucket(n_existing + total_pods))
-        k_max = _bucket(2 * n_max)
 
     return _decode_solution(cat, enc, existing, st.node_cum, st.node_zmask,
                             st.node_cmask, nused, ntype, idx, vals, nnz,

@@ -8,6 +8,7 @@ the card and without jax it runs alone:
 """
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from karpenter_tpu_torch import catalog, models
 from karpenter_tpu_torch.models import labels as L
 from karpenter_tpu_torch.ops import screen_k as sk
 from karpenter_tpu_torch.ops import solve_scan as ss
+from karpenter_tpu_torch.ops import solver as solver_mod
 from karpenter_tpu_torch.ops.binpack import solve_host, validate_solution
 from karpenter_tpu_torch.ops.encode import encode_catalog, encode_pods
 from karpenter_tpu_torch.ops.solver import solve_device, solve_packed
@@ -32,7 +34,7 @@ def cuda():
 
 
 @pytest.mark.parametrize("shape", [(300, 37, 6), (8, 1, 1), (257, 129, 9),
-                                   (64, 128, 4), (4250, 90, 2)])
+                                   (64, 128, 4), (4250, 90, 2), (7, 3, 2)])
 def test_screen_k_kernel_matches_plain(cuda, shape):
     N, G, R = shape
     rng = np.random.default_rng(3)
@@ -67,8 +69,7 @@ def _golden():
     return cat, encode_pods(pods, cat)
 
 
-@pytest.mark.parametrize("case", ["fresh", "resumed", "zone_overhead"])
-def test_solve_scan_kernel_matches_plain(cuda, case):
+def _golden_case(case):
     cat, enc = _golden()
     existing = []
     if case == "resumed":
@@ -81,10 +82,55 @@ def test_solve_scan_kernel_matches_plain(cuda, case):
         zovh = np.zeros((cat.T, cat.Z, cat.allocatable.shape[1]), np.float32)
         zovh[:, 0, 0] = np.float32(0.5)
         cat = dataclasses.replace(cat, zone_overhead=zovh)
-    n0 = ss.launches
+    return cat, enc, existing
+
+
+@pytest.mark.parametrize("case", ["fresh", "resumed", "zone_overhead"])
+def test_solve_scan_kernel_matches_plain(cuda, case):
+    cat, enc, existing = _golden_case(case)
+    n0, b0 = ss.launches, ss.offer_launches
     got, _ = solve_packed(cat, enc, existing, device=cuda)
-    assert ss.launches == n0 + 1
+    assert ss.launches == n0 + 1 and ss.offer_launches == b0 + 1
     want, _ = solve_packed(cat, enc, existing, device="cpu")
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["fresh", "resumed", "zone_overhead"])
+def test_offer_argmin_kernel_matches_plain(cuda, case, monkeypatch):
+    cat, enc, existing = _golden_case(case)
+    calls = []
+    real = solver_mod.solve_scan
+
+    def rec(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+    monkeypatch.setattr(solver_mod, "solve_scan", rec)
+    solve_packed(cat, enc, existing, device=cuda)
+    (a, kw), = calls
+    bound = inspect.signature(ss.solve_scan_plain).bind(*a, **kw)
+    bound.apply_defaults()
+    oa = {k: bound.arguments[k]
+          for k in inspect.signature(ss.offer_argmin_plain).parameters}
+    got = ss.offer_argmin(**oa)
+    torch.cuda.synchronize()
+    for x, y in zip(got, ss.offer_argmin_plain(**oa)):
+        assert torch.equal(x.to(y.dtype), y)
+
+
+@pytest.mark.parametrize("n_max,cl,in_shared", [(64, 1, True),
+                                                (16_384, 16, True),
+                                                (262_144, 16, False)])
+def test_solve_scan_cluster_layouts(cuda, n_max, cl, in_shared):
+    """Kernel B at CL 1, at the largest cluster, and with its node slices
+    in global scratch: the same packed vector as the plain version."""
+    cat, enc, _ = _golden_case("fresh")
+    _, st = solve_packed(cat, enc, n_max=n_max, device="cpu")
+    W = -(-st["Gp"] // 32) if st["track_conflicts"] else 0
+    lay = ss._scan_layout(n_max, len(st["cols"]), W, cat.Z, cat.C, cat.T,
+                          st["zone_ovh"])
+    assert (lay.cl, lay.nodes_smem) == (cl, in_shared)
+    got, _ = solve_packed(cat, enc, n_max=n_max, device=cuda)
+    want, _ = solve_packed(cat, enc, n_max=n_max, device="cpu")
     np.testing.assert_array_equal(got, want)
 
 

@@ -315,6 +315,42 @@ def test_explicit_small_n_max_regrows_sparse_budget(small):
     assert sum(n.pod_count() for n in d.nodes) == 40
 
 
+def _small_n_max_pods(kind):
+    if kind == "small_n_max":   # test_explicit_small_n_max_regrows_sparse_budget
+        return [Pod(name=f"m-{i}", requests=Resources.parse(
+            {"cpu": f"{10 + i}m", "memory": "64Mi"})) for i in range(40)]
+    # 200 one-pod groups on a few nodes: nnz 200 > the first k_max 128
+    return [Pod(name=f"w-{i}", requests=Resources.parse(
+        {"cpu": f"{10 + i}m", "memory": "64Mi"})) for i in range(200)]
+
+
+@pytest.mark.parametrize("kind", ["small_n_max", "nnz_past_k_max"])
+def test_sparse_budget_regrow_scans_once(small, kind, monkeypatch):
+    """One solve_device scans once per node budget: when nnz passes the
+    sparse budget it re-packs the same scan output at a larger k_max
+    instead of scanning again, and the result still equals the
+    reference's."""
+    enc = encode_pods(_small_n_max_pods(kind), small)
+    pcat = convert.catalog_from_arrays(vars(small))
+    penc = convert.pods_from_arrays(
+        {k: v for k, v in vars(enc).items() if k != "groups"})
+    got, st = port_solver.solve_packed(pcat, penc, n_max=64, device="cpu")
+    assert (got[2] > st["k_max"]) == (kind == "nnz_past_k_max")
+    calls = []
+    real = port_solver.solve_scan
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    monkeypatch.setattr(port_solver, "solve_scan", counted)
+    d = port_solver.solve_device(pcat, penc, n_max=64, device="cpu")
+    assert len(calls) == 1
+    monkeypatch.undo()
+    _same(solve_host(small, enc), d, "reference host vs port")
+    assert sum(n.pod_count() for n in d.nodes) == enc.counts.sum()
+    check(small, enc, n_max=64)
+
+
 def test_node_budget_regrow():
     """An explicit budget below the solve's node count is not regrown
     (the caller fixed it); the auto budget regrows until nothing spills."""

@@ -18,19 +18,35 @@ Phases (any failure exits non-zero):
              after; every kernel must have launched, the scan exactly once.
   4. check   each kernel against its plain version at the main path's own
              inputs (kernel A atol 0; kernels B0 and B outputs equal)
+  4b. facade the port's main path as users enter it: Solver(provider,
+             backend="device").solve over the provider's catalog, one tainted
+             NodePool, two daemonsets and 100,000 pods whose shares drive
+             the zone-spread, zone-affinity, colocation and taint passes
+             (facade_cluster). Its SolveOutput must equal the native rung's
+             (and the host rung's on a 10k subset), and a resumed solve onto
+             the first solve's launches too; B0 and B must launch inside it
+             and equal their plain versions at its inputs; any fallback,
+             integrity violation or logged degradation fails the phase.
+             Then its median wall, one run split by stage (the facade's
+             tracer spans), and the device/native wall from 1k to 100k pods
+             on that mix and on the grid pods of phase 3 (the crossover
+             that Solver.DEVICE_MIN_PODS is held against).
   5. time    median wall times of the solve and the screen, stage by stage;
              per-kernel device time from torch.profiler and CUDA events
              beside its bound, its plain version's time and one torch
              expression's time where one computes the same function;
-             kernel B at every cluster size at the main path's inputs.
+             kernels B0 and B at the facade solve's scan inputs and at the
+             solve_device cell's, kernel B at every cluster size at both.
 
-The last two lines of output are the kernels JSON line and
-{"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
+The kernels line reports B0's and B's launches and times from the facade
+solve (the main path) and kernel A's from the screen. The last two lines
+of output are that line and {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import copy
 import inspect
 import json
 import statistics
@@ -125,6 +141,18 @@ def kernel_ms(events: dict, needle: str):
     if not hits:
         return None
     return sum(us for us, _ in hits) / 1e3 / sum(n for _, n in hits)
+
+
+def profiled_ms(fn, *needles, tries: int = 3) -> list:
+    """kernel_ms of each needle in fn()'s profile. A profile that misses
+    one of them (the trace drops a kernel's events now and then) is taken
+    again, up to `tries` times; a kernel never seen stays None."""
+    for _ in range(tries):
+        ev = device_kernel_us(fn)
+        got = [kernel_ms(ev, n) for n in needles]
+        if None not in got:
+            break
+    return got
 
 
 class Recorder:
@@ -271,6 +299,412 @@ def phase_check_small(dev) -> None:
                   f"memory: {lay}")
 
 
+# --- the facade phase: Solver.solve, the entry point users call ----------
+
+FACADE_SUBSET = 10_000       # pods checked against the host rung
+FACADE_RESUME = 10_000       # new pods of the resumed solve
+FACADE_REPS = 5             # runs of the median facade wall
+CROSSOVER_SIZES = (1_000, 2_000, 4_000, 6_000, 8_000, 16_000, 32_000,
+                   100_000)
+CROSSOVER_REPS = 4
+TOLERATE = ("dedicated", "batch")    # the pool's taint (key, value)
+
+
+def facade_cluster(models, n: int, seed: int):
+    """(pool, daemonsets, pods): n pods, mostly (cpu, memory) grid pods,
+    plus the shares that drive the facade's pre-passes (counts scale with
+    n; at 100,000 pods): 3 zone-spread deployments of 1,000 pods, 2,000
+    pods with required zone node-affinity, 200 with hostname
+    anti-affinity, 99 with zone anti-affinity, 300 in 100 bundles of 3
+    joined by required positive hostname affinity, and 1,000 that do not
+    tolerate the pool's taint. The list is shuffled, so its prefixes keep
+    the mix."""
+    import numpy as np
+    from karpenter_tpu_torch.models import labels as L
+    rng = np.random.default_rng(seed)
+    tol = [models.Toleration(key=TOLERATE[0], value=TOLERATE[1],
+                             effect="NoSchedule")]
+    pool = models.NodePool(
+        name="default", labels={"team": "batch"},
+        taints=[models.Taint(key=TOLERATE[0], value=TOLERATE[1],
+                             effect="NoSchedule")])
+    daemonsets = [
+        models.DaemonSet(name="logging", tolerations=tol,
+                         requests=models.Resources.parse(
+                             {"cpu": "100m", "memory": "128Mi"})),
+        models.DaemonSet(name="gpu-agent", tolerations=tol,
+                         requests=models.Resources.parse({"cpu": "250m"}),
+                         node_selector={L.INSTANCE_GPU_MANUFACTURER: "nvidia"})]
+    scale = n / 100_000
+
+    def cnt(c):
+        return max(1, int(round(c * scale)))
+
+    def grid(m, prefix, **kw):
+        ci = rng.integers(0, len(CPU_GRID), m)
+        mi = rng.integers(0, len(MEM_GRID), m)
+        kw.setdefault("tolerations", tol)
+        return [models.Pod(name=f"{prefix}{i}", requests=models.Resources.parse(
+            {"cpu": CPU_GRID[c], "memory": MEM_GRID[mm]}), **kw)
+            for i, (c, mm) in enumerate(zip(ci.tolist(), mi.tolist()))]
+    pods = []
+    for d in range(3):
+        app = f"spread-{d}"
+        pods += grid(cnt(1_000), f"{app}-", labels={"app": app}, owner=app,
+                     topology_spread=[models.TopologySpreadConstraint(
+                         topology_key=L.ZONE, max_skew=1,
+                         label_selector={"app": app})])
+    pods += grid(cnt(2_000), "zone-", node_affinity=[{
+        "key": L.ZONE, "operator": "In", "values": ("zone-a", "zone-b")}])
+    pods += grid(cnt(200), "solo-", labels={"app": "solo"},
+                 affinity_terms=[models.PodAffinityTerm(
+                     topology_key=L.HOSTNAME, label_selector={"app": "solo"},
+                     anti=True)])
+    for z in range(3):
+        pods += grid(cnt(33), f"zanti{z}-", labels={"app": f"zanti{z}"},
+                     affinity_terms=[models.PodAffinityTerm(
+                         topology_key=L.ZONE, anti=True,
+                         label_selector={"app": f"zanti{(z + 1) % 3}"})])
+    for b in range(cnt(100)):
+        pods += grid(3, f"bundle{b}-", labels={"bundle": f"b{b}"},
+                     affinity_terms=[models.PodAffinityTerm(
+                         topology_key=L.HOSTNAME,
+                         label_selector={"bundle": f"b{b}"})])
+    pods += grid(cnt(1_000), "untolerated-", tolerations=[])
+    pods += grid(n - len(pods), "p")
+    order = rng.permutation(len(pods))
+    return pool, daemonsets, [pods[i] for i in order.tolist()]
+
+
+def out_tuple(out):
+    """Everything a SolveOutput decides, stats excluded."""
+    return ([(l.instance_type, l.zone, l.capacity_type, l.price,
+              list(l.overrides), list(l.pod_keys), dict(l.requests),
+              dict(l.labels)) for l in out.launches],
+            {k: list(v) for k, v in out.existing_placements.items()},
+            list(out.unschedulable))
+
+
+class FacadeWatch:
+    """The facade phase's failure conditions, kept while it runs: the
+    backend each run_prepared returned, the exceptions _degrade caught,
+    and every warning the port logged."""
+
+    def __init__(self, facade):
+        import logging
+        self.facade, self.backends, self.faults, self.records = facade, [], [], []
+        real_run, real_degrade = facade.run_prepared, facade._degrade
+
+        def run_prepared(prep):
+            result, backend = real_run(prep)
+            self.backends.append(backend)
+            return result, backend
+
+        def degrade(from_backend, cat, err, run_sp):
+            self.faults.append(f"{type(err).__name__}: {err}")
+            return real_degrade(from_backend, cat, err, run_sp)
+        facade.run_prepared, facade._degrade = run_prepared, degrade
+        watch = self
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                watch.records.append(record.getMessage())
+        self.handler = Keep(level=logging.WARNING)
+        logging.getLogger("karpenter_tpu_torch").addHandler(self.handler)
+
+    def check(self, what: str) -> None:
+        for f in self.faults:
+            log(f"[facade] _degrade caught {f}")
+        for r in self.records:
+            log(f"[facade] logged: {r}")
+        st = self.facade.stats
+        check(not self.faults and not self.records
+              and set(self.backends) == {"device"}
+              and st["device_fallbacks"] == 0
+              and st["integrity_violations"] == 0,
+              f"{what}: the facade left the device rung (backends "
+              f"{sorted(set(self.backends))}, stats {st})")
+
+
+def span_ms(spans) -> dict:
+    """{span name: total ms} over the given spans."""
+    out: dict = {}
+    for sp in spans:
+        out[sp.name] = out.get(sp.name, 0.0) + sp.duration * 1e3
+    return out
+
+
+def phase_facade():
+    """Solver.solve at full width on the card against the native rung (and
+    the host rung on a subset), a resumed solve, the launch counts, the
+    wall and its stages, and the device/native crossover on two pod mixes.
+    Returns B0's and B's launch counts in the first solve and the
+    solve_scan arguments that solve gave them."""
+    import torch
+    from karpenter_tpu_torch import catalog, models
+    from karpenter_tpu_torch.obs.tracer import TRACER
+    from karpenter_tpu_torch.ops import facade as F
+    from karpenter_tpu_torch.ops import solve_scan as ss, solver
+
+    types = catalog.generate_catalog()
+    pool, daemonsets, pods = facade_cluster(models, N_PODS, SEED)
+    kw = dict(daemonsets=daemonsets)
+    sync = torch.cuda.synchronize
+
+    def facade(backend):
+        return F.Solver(catalog.CatalogProvider(lambda: types),
+                        backend=backend)
+    dev_f, nat_f = facade("device"), facade("native")
+    watch = FacadeWatch(dev_f)
+
+    t0 = time.perf_counter()
+    ss.launches = 0
+    ss.offer_launches = 0
+    with Recorder(solver, "solve_scan") as rec:
+        got = dev_f.solve(pods, pool, **kw)
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"offer_argmin": ss.offer_launches, "solve_scan": ss.launches}
+    want = nat_f.solve(pods, pool, **kw)
+    watch.check("100k solve")
+    log(f"[facade] Solver.solve({N_PODS} pods, backend='device'): "
+        f"{len(got.launches)} launches, "
+        f"{sum(map(len, got.existing_placements.values()))} existing "
+        f"placements, {len(got.unschedulable)} unschedulable; first call "
+        f"{first_ms:.1f} ms (catalog view cold); kernel launches {launches}")
+    check(out_tuple(got) == out_tuple(want),
+          "facade device output != native rung output")
+    check(all(n > 0 for n in launches.values()),
+          f"B0/B did not launch inside the facade solve: {launches}")
+    (sargs, skw), = rec.calls[-1:]
+    check_offer(ss, sargs, skw, "facade path")
+    out_k = ss.solve_scan_cuda(*sargs, **skw)
+    out_p = ss.solve_scan_plain(*sargs, **skw)
+    sync()
+    for a, b, what in zip(out_k, out_p, ("ntype", "takes", "unsched",
+                                         "nused", "overflow")):
+        check(torch.equal(a.to(b.dtype).reshape(b.shape), b),
+              f"solve_scan != plain at the facade path ({what})")
+    b = inspect.signature(ss.solve_scan_plain).bind(*sargs, **skw)
+    Gp, Rk = b.arguments["requests"].shape
+    log(f"[check] facade device == native: every launch's type, zone, "
+        f"captype, price, overrides, pod keys, requests, labels, and the "
+        f"existing placements and unschedulable keys; B0 and B == plain at "
+        f"the facade's scan inputs (Gp={Gp}, Rk={Rk}, "
+        f"n_max={b.arguments['n_max']})")
+
+    sub = pods[:FACADE_SUBSET]
+    host = facade("host").solve(sub, pool, **kw)
+    check(out_tuple(dev_f.solve(sub, pool, **kw)) == out_tuple(host),
+          "facade device output != host rung output on the subset")
+    log(f"[check] {FACADE_SUBSET}-pod subset: facade device == host rung "
+        f"({len(host.launches)} launches)")
+
+    # the next reconcile: the first solve's launches are in-flight claims
+    vcat, by_key = dev_f.tensors(), {f"{p.namespace}/{p.name}": p for p in pods}
+    existing, on_node = [], {}
+    for i, l in enumerate(got.launches):
+        claim = models.NodeClaim(name=f"claim-{i}", nodepool=pool.name,
+                                 instance_type=l.instance_type, zone=l.zone,
+                                 capacity_type=l.capacity_type)
+        existing.append(F.virtual_node_from_claim(claim, vcat, l.requests))
+        on_node[claim.name] = [by_key[k] for k in l.pod_keys]
+    _, _, more = facade_cluster(models, FACADE_RESUME, SEED + 1)
+    for p in more:
+        p.name = "next-" + p.name
+    rkw = dict(kw, existing_pods=on_node)
+    r_dev = dev_f.solve(more, pool, existing=copy.deepcopy(existing), **rkw)
+    r_nat = nat_f.solve(more, pool, existing=copy.deepcopy(existing), **rkw)
+    watch.check("resumed solve")
+    check(out_tuple(r_dev) == out_tuple(r_nat),
+          "resumed facade device output != native rung output")
+    log(f"[check] resumed solve ({FACADE_RESUME} new pods onto "
+        f"{len(existing)} in-flight nodes): device == native; "
+        f"{sum(map(len, r_dev.existing_placements.values()))} pods onto "
+        f"existing nodes, {len(r_dev.launches)} new launches")
+
+    # --- times ---
+    walls = []
+    for _ in range(FACADE_REPS):
+        t0 = time.perf_counter()
+        dev_f.solve(pods, pool, **kw)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    log(f"[time] Solver.solve {N_PODS} pods, backend='device', catalog view "
+        f"and encode cache warm: median wall {wall:.3f} ms over {FACADE_REPS} "
+        f"runs ({', '.join(f'{w:.1f}' for w in walls)})")
+
+    # one solve split by stage: the facade's own tracer spans (host clock;
+    # the card is synced at the trace's edges, and the scan's device time
+    # lands in solve.readback, whose host read waits for it)
+    TRACER.configure(enabled=True)
+    TRACER.recorder.clear()
+    sync()
+    try:
+        with TRACER.trace("facade.solve"):
+            dev_f.solve(pods, pool, **kw)
+            sync()
+    finally:
+        TRACER.configure(enabled=False)
+    tr, = TRACER.recorder.slowest(1)
+    top = tr.children(tr.root)
+    top_ms = span_ms(top)
+    inner_ms = span_ms([c for sp in top if sp.name == "solve.run"
+                            for c in tr.children(sp)])
+    split_wall = tr.root.duration * 1e3
+    log(f"[time] facade stages of one solve (ms, spans; wall "
+        f"{split_wall:.3f}): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in top_ms.items())
+        + f", unattributed {split_wall - sum(top_ms.values()):.3f}")
+    log("[time] inside solve.run (solve_device): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in inner_ms.items())
+        + f", the rest {top_ms.get('solve.run', 0.0) - sum(inner_ms.values()):.3f}")
+    ev = device_kernel_us(lambda: dev_f.solve(pods, pool, **kw))
+    busy = sum(us for us, _ in ev.values()) / 1e3
+    log(f"[time] one Solver.solve: device busy {busy:.3f} ms of "
+        f"{wall:.3f} ms median wall (idle share {1 - busy / wall:.5f})"
+        if ev else "[time] torch.profiler recorded no device events")
+
+    # the device/native crossover on two mixes: the facade mix above and
+    # the solve_device cell's grid pods under an untainted pool; warm
+    # facades, prefixes of one pod list, the rungs in turns (device,
+    # native, native, device)
+    mixes = {"facade mix": (pods, pool, kw),
+             "grid mix": (grid_pods(models, N_PODS, SEED),
+                          models.NodePool(name="default"), {})}
+    for mix, (mpods, mpool, mkw) in mixes.items():
+        cross = []
+        for n in CROSSOVER_SIZES:
+            part = mpods[:n]
+            runs = {"device": [], "native": []}
+            for r in range(CROSSOVER_REPS):
+                for f in (dev_f, nat_f) if r % 2 == 0 else (nat_f, dev_f):
+                    t0 = time.perf_counter()
+                    f.solve(part, mpool, **mkw)
+                    sync()
+                    runs[f.backend].append((time.perf_counter() - t0) * 1e3)
+            cross.append((n, statistics.median(runs["device"]),
+                          statistics.median(runs["native"])))
+        first = next((n for n, d, nt in cross
+                      if all(d2 < nt2 for n2, d2, nt2 in cross if n2 >= n)),
+                     None)
+        log(f"[time] {mix}: facade wall by pods, median of {CROSSOVER_REPS} "
+            f"in turns (ms): " + ", ".join(
+                f"{n}: device {d:.2f} / native {nt:.2f}" for n, d, nt in cross)
+            + f"; device faster from {first} pods on "
+            f"(Solver.DEVICE_MIN_PODS = {F.Solver.DEVICE_MIN_PODS})")
+    watch.check("crossover")
+    return launches, (sargs, skw)
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time for the work: bytes over the memory rate or fp32
+    operations over the peak rate, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S
+    return {"bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            ops / FP32_OPS_PER_S) * 1e3,
+            "bound_by": "bytes" if by_bytes else "operations"}
+
+
+def scan_kernel_times(ss, sargs, skw, where: str):
+    """Kernels B0 and B at one solve_scan call's arguments: the kernel
+    alone (torch.profiler), the wrapper call (CUDA events), the plain
+    version, a torch yardstick for B0, the bound, and kernel B at every
+    cluster size its node state fits (outputs checked equal). Logs them
+    and returns the two rows of the kernels line."""
+    import numpy as np
+    import torch
+    oa = offer_args(ss, sargs, skw)
+    sb = inspect.signature(ss.solve_scan_plain).bind(*sargs, **skw)
+    sb.apply_defaults()
+    sa = sb.arguments
+    lay = scan_layout_of(ss, sargs, skw)
+    T, Z, C = sa["price"].shape
+    Gp, Rk = sa["requests"].shape
+    n_max, ZC = sa["n_max"], Z * C
+    eps = float(np.float32(1e-4))
+
+    def offer_table():
+        return ss._offer_table(
+            sa["alloc"], sa["price"], sa["avail"], sa["requests"],
+            sa["counts"], sa["compat"], sa["allow_zone"], sa["allow_cap"],
+            sa["max_per_node"], sa["prior"], sa["banned"], sa["conflict"],
+            sa["zovh"], sa["zone_ovh"], sa["track_conflicts"])
+
+    def library_cps():
+        # the torch expression that builds cps and takes its argmin (the
+        # yardstick for kernel B0; the port never calls it)
+        rq, mp = oa["requests"], oa["max_per_node"]
+        slots = torch.where(rq[:, None, :] > 0, torch.floor(
+            oa["alloc"][None] / torch.where(rq > 0, rq, 1.0)[:, None, :]
+            + eps), 1e9).amin(dim=2).clamp_min(0.0)
+        slots = torch.minimum(slots, torch.where(mp == 0, 1e9, mp)[:, None])
+        feas = (oa["avail"][None] & oa["compat"][:, :, None, None]
+                & oa["allow_zone"][:, None, :, None]
+                & oa["allow_cap"][:, None, None, :]
+                & (slots >= 1)[:, :, None, None])
+        cps = torch.where(feas, oa["price"][None]
+                          / slots.clamp_min(1.0)[:, :, None, None],
+                          torch.finfo(torch.float32).max)
+        return torch.argmin(cps.reshape(Gp, -1), 1)
+
+    b0_kernel, b_kernel = profiled_ms(
+        lambda: [ss.solve_scan_cuda(*sargs, **skw) for _ in range(5)],
+        "offer_argmin_kernel", "solve_scan_kernel")
+    b0_bytes = (4 * T * ZC + T * ZC + 4 * T * Rk + Gp * (4 * Rk + T + Z + C
+                                                          + 8)
+                + 4 * Gp * lay.rec_words + 8 * T)
+    b0_ops = Gp * (T * (4 * Rk) + T * ZC * 2)
+    b0 = {"ms": cuda_ms(offer_table, 100),
+          "plain_ms": cuda_ms(lambda: ss.offer_argmin_plain(**oa), 10),
+          **bound(b0_bytes, b0_ops), "library_ms": cuda_ms(library_cps, 10),
+          "kernel_ms": b0_kernel}
+    b_bytes = (4 * T * Rk + 4 * T * ZC + T * ZC
+               + Gp * (4 * Rk + 4 + T + Z + C + 4)
+               + n_max * (4 + 4 * Rk + Z + C + 1)
+               + 4 * Gp * n_max + 4 * Gp + 8)
+    b_ops = Gp * (n_max * (4 * Rk + ZC + 6) + T * (4 * Rk + 2 * ZC))
+    bk = {"ms": cuda_ms(lambda: ss.solve_scan_cuda(*sargs, **skw), 20),
+          "plain_ms": cuda_ms(lambda: ss.solve_scan_plain(*sargs, **skw), 2),
+          **bound(b_bytes, b_ops), "library_ms": None,
+          "kernel_ms": b_kernel}
+    log(f"[time] {where} (Gp={Gp}, n_max={n_max}, Rk={Rk}, layout "
+        f"cl={lay.cl} slice={lay.slice} nodes_in_shared={lay.nodes_smem}): "
+        f"offer_argmin kernel {b0_kernel} ms, wrapper call {b0['ms']:.4f} ms "
+        f"(bound {b0['bound_ms']:.5f} ms), plain {b0['plain_ms']:.4f} ms, "
+        f"cps + torch.argmin {b0['library_ms']:.4f} ms; solve_scan kernel "
+        f"{b_kernel} ms, wrapper call (B0 + B + wrapper) {bk['ms']:.4f} ms "
+        f"(bound {bk['bound_ms']:.5f} ms), plain {bk['plain_ms']:.3f} ms")
+
+    # kernel B at every cluster size the node state fits, same inputs
+    out_k = ss.solve_scan_cuda(*sargs, **skw)
+    W = -(-Gp // 32) if sa["track_conflicts"] else 0
+    per_cl = {}
+    for cl in (1, 2, 4, 8, 16) if lay.nodes_smem else ():
+        S = ss._round_up(-(-n_max // cl), 4)
+        slab = ss._round_up(S * (12 + 4 * Rk + 4 * W), 16)
+        forced = ss.ScanLayout(cl=cl, slice=S, nodes_smem=True,
+                               cat_smem=lay.cat_smem,
+                               smem_bytes=lay.smem_bytes - lay.slab_bytes + slab,
+                               slab_bytes=slab, rec_words=lay.rec_words)
+        if (forced.smem_bytes > ss.SMEM_LIMIT - ss.STATIC_SMEM
+                or cl > ss.max_cluster(forced.smem_bytes)):
+            continue
+        o = ss.solve_scan_cuda(*sargs, **skw, layout=forced)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(o, out_k)),
+              f"kernel B at cl={cl} differs from the chosen layout's output "
+              f"({where})")
+        per_cl[cl], = profiled_ms(lambda: [ss.solve_scan_cuda(
+            *sargs, **skw, layout=forced) for _ in range(5)],
+            "solve_scan_kernel")
+    log(f"[time] {where}: kernel B alone (profiler ms) by cluster size, "
+        f"outputs equal: " + (", ".join(f"cl={k} {v}" for k, v in
+                                        per_cl.items()) or "none fits"))
+    return b0, bk
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -408,6 +842,9 @@ def main() -> None:
     log(f"[check] screen == plain (slack atol 0); screen_k == plain at the "
         f"main-path shape N={head.shape[0]} G={req.shape[0]} R={req.shape[1]}")
 
+    # --- 4b. the facade: Solver.solve, counts zeroed just before it ---
+    facade_launches, facade_scan = phase_facade()
+
     # --- 5. times ---
     solve_ms = wall_ms(lambda: solver.solve_device(cat, enc), 5)
     screen_ms = wall_ms(lambda: consolidate.consolidation_screen(
@@ -459,25 +896,8 @@ def main() -> None:
         log("[time] torch.profiler recorded no device events: device busy "
             "share not measured")
 
-    oa = offer_args(ss, sargs, skw)
-    sb = inspect.signature(ss.solve_scan_plain).bind(*sargs, **skw)
-    sb.apply_defaults()
-    sa = sb.arguments
-
-    def offer_table():
-        return ss._offer_table(
-            sa["alloc"], sa["price"], sa["avail"], sa["requests"],
-            sa["counts"], sa["compat"], sa["allow_zone"], sa["allow_cap"],
-            sa["max_per_node"], sa["prior"], sa["banned"], sa["conflict"],
-            sa["zovh"], sa["zone_ovh"], sa["track_conflicts"])
-    ev_a = device_kernel_us(lambda: [sk.screen_k_cuda(head, req, elig)
-                                     for _ in range(20)])
-    ev_b = device_kernel_us(lambda: [ss.solve_scan_cuda(*sargs, **skw)
-                                     for _ in range(5)])
-    a_kernel = kernel_ms(ev_a, "screen_k_kernel")
-    b0_kernel = kernel_ms(ev_b, "offer_argmin_kernel")
-    b_kernel = kernel_ms(ev_b, "solve_scan_kernel")
-
+    a_kernel, = profiled_ms(lambda: [sk.screen_k_cuda(head, req, elig)
+                                     for _ in range(20)], "screen_k_kernel")
     a_ms = cuda_ms(lambda: sk.screen_k_cuda(head, req, elig), 200)
     a_plain = cuda_ms(lambda: sk.screen_k_plain(head, req, elig), 50)
     eps = float(np.float32(1e-4))
@@ -492,111 +912,32 @@ def main() -> None:
     G = req.shape[0]
     a_bytes = 4 * N * R + 4 * G * R + N * G + 4 * N * G
     a_ops = 4 * N * G * R
-    a_bound = max(a_bytes / HBM_BYTES_PER_S, a_ops / FP32_OPS_PER_S) * 1e3
+    a = {"ms": a_ms, "plain_ms": a_plain, **bound(a_bytes, a_ops),
+         "library_ms": a_lib, "kernel_ms": a_kernel}
+    log(f"[time] screen_k {a_ms:.4f} ms, kernel alone {a_kernel} ms (bound "
+        f"{a['bound_ms']:.5f} ms, bytes {a_bytes}); plain {a_plain:.4f} ms; "
+        f"one torch expression {a_lib:.4f} ms")
 
-    T, Z, C = sa["price"].shape
-    Gp_b, Rk = sa["requests"].shape
-    n_max = out_k[1].shape[1]
-    ZC = Z * C
-    b0_ms = cuda_ms(offer_table, 100)
-    b0_plain = cuda_ms(lambda: ss.offer_argmin_plain(**oa), 20)
+    # kernels B0 and B at the solve_device cell's inputs (beside PR 2's
+    # numbers) and at the facade solve's, the main path's (the kernels line)
+    scan_kernel_times(ss, sargs, skw, "solve_device cell")
+    b0, bk = scan_kernel_times(ss, *facade_scan, "facade")
 
-    def library_cps():
-        # the torch expression that builds cps and takes its argmin (the
-        # yardstick for kernel B0; the port never calls it)
-        rq, mp = oa["requests"], oa["max_per_node"]
-        slots = torch.where(rq[:, None, :] > 0, torch.floor(
-            oa["alloc"][None] / torch.where(rq > 0, rq, 1.0)[:, None, :]
-            + eps), 1e9).amin(dim=2).clamp_min(0.0)
-        slots = torch.minimum(slots, torch.where(mp == 0, 1e9, mp)[:, None])
-        feas = (oa["avail"][None] & oa["compat"][:, :, None, None]
-                & oa["allow_zone"][:, None, :, None]
-                & oa["allow_cap"][:, None, None, :]
-                & (slots >= 1)[:, :, None, None])
-        cps = torch.where(feas, oa["price"][None]
-                          / slots.clamp_min(1.0)[:, :, None, None],
-                          torch.finfo(torch.float32).max)
-        return torch.argmin(cps.reshape(Gp_b, -1), 1)
-    b0_lib = cuda_ms(library_cps, 20)
-    b0_bytes = (4 * T * ZC + T * ZC + 4 * T * Rk + Gp_b * (4 * Rk + T + Z + C
-                                                            + 8)
-                + 4 * Gp_b * lay.rec_words + 8 * T)
-    b0_ops = Gp_b * (T * (4 * Rk) + T * ZC * 2)
-    b0_bound = max(b0_bytes / HBM_BYTES_PER_S, b0_ops / FP32_OPS_PER_S) * 1e3
-
-    b_ms = cuda_ms(lambda: ss.solve_scan_cuda(*sargs, **skw), 20)
-    b_plain = cuda_ms(lambda: ss.solve_scan_plain(*sargs, **skw), 3)
-    b_bytes = (4 * T * Rk + 4 * T * ZC + T * ZC
-               + Gp_b * (4 * Rk + 4 + T + Z + C + 4)
-               + n_max * (4 + 4 * Rk + Z + C + 1)
-               + 4 * Gp_b * n_max + 4 * Gp_b + 8)
-    b_ops = Gp_b * (n_max * (4 * Rk + ZC + 6) + T * (4 * Rk + 2 * ZC))
-    b_bound = max(b_bytes / HBM_BYTES_PER_S, b_ops / FP32_OPS_PER_S) * 1e3
-    log(f"[time] kernel-only device time (profiler): screen_k {a_kernel} ms, "
-        f"offer_argmin {b0_kernel} ms, solve_scan {b_kernel} ms")
-    log(f"[time] screen_k {a_ms:.4f} ms (bound {a_bound:.5f} ms, bytes "
-        f"{a_bytes}); plain {a_plain:.4f} ms; one torch expression "
-        f"{a_lib:.4f} ms")
-    log(f"[time] offer_argmin {b0_ms:.4f} ms per wrapper call (bound "
-        f"{b0_bound:.5f} ms, bytes {b0_bytes}, ops {b0_ops}); plain "
-        f"{b0_plain:.4f} ms; cps + torch.argmin {b0_lib:.4f} ms")
-    log(f"[time] solve_scan {b_ms:.4f} ms per wrapper call, B0 + B + "
-        f"wrapper (bound {b_bound:.5f} ms, bytes {b_bytes}, ops {b_ops});"
-        f" plain {b_plain:.3f} ms; wrapper beside the two kernels "
-        + (f"{b_ms - b_kernel - b0_kernel:.4f} ms"
-           if b_kernel is not None and b0_kernel is not None
-           else "not measured"))
-
-    # kernel B at every cluster size the node state fits, same inputs
-    per_cl = {}
-    W = -(-Gp_b // 32) if sa["track_conflicts"] else 0
-    for cl in (1, 2, 4, 8, 16):
-        if cl > cl_max or not lay.nodes_smem:
-            continue
-        S = ss._round_up(-(-n_max // cl), 4)
-        slab = ss._round_up(S * (12 + 4 * Rk + 4 * W), 16)
-        forced = ss.ScanLayout(cl=cl, slice=S, nodes_smem=True,
-                               cat_smem=lay.cat_smem,
-                               smem_bytes=lay.smem_bytes - lay.slab_bytes + slab,
-                               slab_bytes=slab, rec_words=lay.rec_words)
-        if forced.smem_bytes > ss.SMEM_LIMIT - ss.STATIC_SMEM:
-            continue
-        o = ss.solve_scan_cuda(*sargs, **skw, layout=forced)
-        torch.cuda.synchronize()
-        check(all(torch.equal(x, y) for x, y in zip(o, out_k)),
-              f"kernel B at cl={cl} differs from the chosen layout's output")
-        evc = device_kernel_us(lambda: [ss.solve_scan_cuda(
-            *sargs, **skw, layout=forced) for _ in range(5)])
-        per_cl[cl] = kernel_ms(evc, "solve_scan_kernel")
-    log("[time] kernel B alone (profiler ms) by cluster size at the main "
-        "path, outputs equal: " + ", ".join(
-            f"cl={k} {v}" for k, v in per_cl.items()))
-
-    def bound_by(nbytes, ops):
-        return ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S
-                else "operations")
     kernels = [
         {"name": "screen_k", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/screen_k.cu",
          "replaces": "karpenter_tpu/ops/pallas_screen.py:69",
-         "launches": launches["screen_k"], "max_abs_err": err_a,
-         "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
-         "bound_by": bound_by(a_bytes, a_ops),
-         "library_ms": a_lib, "kernel_ms": a_kernel},
+         "launches": launches["screen_k"], "max_abs_err": err_a, **a},
         {"name": "offer_argmin", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/solve_scan.cu",
          "replaces": "karpenter_tpu/ops/solver.py:425",
-         "launches": launches["offer_argmin"], "max_abs_err": 0.0,
-         "ms": b0_ms, "plain_ms": b0_plain, "bound_ms": b0_bound,
-         "bound_by": bound_by(b0_bytes, b0_ops),
-         "library_ms": b0_lib, "kernel_ms": b0_kernel},
+         "launches": facade_launches["offer_argmin"], "max_abs_err": 0.0,
+         **b0},
         {"name": "solve_scan", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/solve_scan.cu",
          "replaces": "karpenter_tpu/ops/solver.py:348",
-         "launches": launches["solve_scan"], "max_abs_err": 0.0,
-         "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
-         "bound_by": bound_by(b_bytes, b_ops),
-         "library_ms": None, "kernel_ms": b_kernel},
+         "launches": facade_launches["solve_scan"], "max_abs_err": 0.0,
+         **bk},
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

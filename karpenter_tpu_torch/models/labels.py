@@ -8,7 +8,7 @@ The framework's own label group is `karpenter.tpu/…` (the reference uses
 labels). We define the same *capability surface*: category/family/generation/
 size/cpu/memory/accelerator/network labels that instance-type requirements
 expose for pod nodeAffinity to match on, plus the core well-known labels
-(arch, os, instance-type, zone, region, capacity-type).
+(arch, os, instance-type, zone, region, capacity-type, nodepool).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ INSTANCE_TYPE = "node.kubernetes.io/instance-type"
 ZONE = "topology.kubernetes.io/zone"
 REGION = "topology.kubernetes.io/region"
 HOSTNAME = "kubernetes.io/hostname"
+NODEPOOL = "karpenter.tpu/nodepool"
 CAPACITY_TYPE = "karpenter.tpu/capacity-type"
 
 # capacity types

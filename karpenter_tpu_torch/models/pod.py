@@ -1,7 +1,7 @@
 """Pod model: the demand side of scheduling.
 
-The port's own copy of `karpenter_tpu/models/pod.py` (DaemonSet and
-PodDisruptionBudget, used only by the controllers, are left out). The
+The port's own copy of `karpenter_tpu/models/pod.py` (PodDisruptionBudget,
+used only by the controllers, is left out). The
 signature intern table is this package's own: pods of the two packages
 never share group ids.
 
@@ -108,6 +108,22 @@ def term_selects(term: PodAffinityTerm, same_ns: bool,
     through here so selector semantics can never diverge."""
     return same_ns and all(labels.get(k) == v
                            for k, v in term.label_selector.items())
+
+
+def required_anti_terms(p: "Pod", topology_key: str) -> List[PodAffinityTerm]:
+    return [t for t in p.affinity_terms
+            if t.anti and t.required and t.topology_key == topology_key]
+
+
+def anti_blocks(a: "Pod", b: "Pod", topology_key: str) -> bool:
+    """Required anti-affinity at `topology_key` forbids a and b sharing
+    that topology domain — symmetric (k8s enforces both directions),
+    same-namespace."""
+    same_ns = a.namespace == b.namespace
+    return (any(term_selects(t, same_ns, b.labels)
+                for t in required_anti_terms(a, topology_key))
+            or any(term_selects(t, same_ns, a.labels)
+                   for t in required_anti_terms(b, topology_key)))
 
 
 @dataclass
@@ -332,3 +348,22 @@ def intern_pods(pods) -> None:
             gid = next(_next_gid)
             intern[sig] = gid
         p._gid = gid
+
+
+@dataclass
+class DaemonSet:
+    """A per-node workload whose pods run on every compatible node —
+    the scheduler reserves its requests on each virtual node BEFORE
+    placing workloads (reference core: daemonset overhead in the
+    scheduling simulation; the scale suite's GetDaemonSetCount adjusts
+    density expectations for it, test/suites/scale)."""
+
+    name: str
+    requests: Resources = field(default_factory=Resources)
+    namespace: str = "default"
+    node_selector: Dict[str, str] = field(default_factory=dict)
+    tolerations: List[Toleration] = field(default_factory=list)
+    labels: Dict[str, str] = field(default_factory=dict)
+
+    def scheduling_requirements(self) -> Requirements:
+        return Requirements.from_labels(self.node_selector)

@@ -193,6 +193,16 @@ class Requirements:
             self.add(r)
 
     # --- construction ---
+    def single_values(self) -> Dict[str, str]:
+        """Keys pinned to exactly one value -> node labels (reference:
+        pkg/cloudprovider/cloudprovider.go instanceToNodeClaim derives node
+        labels from single-valued requirements the same way)."""
+        out = {}
+        for k, vs in self._sets.items():
+            if not vs.complement and len(vs.values) == 1:
+                (out[k],) = vs.values
+        return out
+
     @classmethod
     def from_labels(cls, labels: "Dict[str, str] | None") -> "Requirements":
         r = cls()

@@ -8,6 +8,11 @@ target is Hopper (`sm_90a`); the build never uses --use_fast_math and
 forbids FMA contraction (`-fmad=false`), because the solve must agree bit
 for bit with the reference's f32 expressions.
 
+The host library of the native rung (`native/ffd.cpp`, the C++ group FFD
+the reference's `ops/native.py` loads) is built the same way with g++ into
+the same directory: the source under `native/` is only read, never
+written beside.
+
 Nothing here runs at import: tests on a machine without nvcc import every
 module, and only a launch on a CUDA tensor reaches `load`.
 """
@@ -27,6 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "karpenter_tpu_torch
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("screen_k", "solve_scan")
+NATIVE_SRC = Path(__file__).resolve().parents[2] / "native" / "ffd.cpp"
+GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -96,4 +103,26 @@ def load(name: str) -> ctypes.CDLL:
         _finish(_start(name))
         lib = ctypes.CDLL(str(_target(name)))
         _libs[name] = lib
+    return lib
+
+
+def load_native() -> ctypes.CDLL:
+    """The native FFD library, built from `native/ffd.cpp` with g++ into
+    BUILD_DIR if needed. Raises OSError / CalledProcessError when g++ or
+    the source is missing."""
+    lib = _libs.get("ffd")
+    if lib is None:
+        digest = hashlib.sha256(NATIVE_SRC.read_bytes()
+                                + " ".join(GXX_FLAGS).encode()
+                                ).hexdigest()[:12]
+        out = BUILD_DIR / f"libffd-{digest}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp),
+                            str(NATIVE_SRC)],
+                           check=True, capture_output=True, text=True)
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _libs["ffd"] = lib
     return lib

@@ -541,3 +541,18 @@ def validate_solution(cat: CatalogTensors, enc: EncodedPods,
                                 f"nodes {a},{b}: zone-conflicting groups "
                                 f"{i},{j} may share a zone")
     return errors
+
+
+def copy_virtual_node(vn: VirtualNode) -> VirtualNode:
+    """Independent copy of a VirtualNode (masks/cum/placement maps are
+    fresh objects) — the facade's colocation branch works on copies,
+    since callers reuse their VirtualNodes across many solves. A copy of
+    the reference's `state/cluster.copy_virtual_node` (the port has no
+    `state` package)."""
+    return VirtualNode(
+        type_idx=vn.type_idx, zone_mask=vn.zone_mask.copy(),
+        cap_mask=vn.cap_mask.copy(), cum=vn.cum.copy(),
+        pods_by_group=dict(vn.pods_by_group),
+        prior_by_group=dict(vn.prior_by_group),
+        banned_groups=vn.banned_groups,
+        existing_name=vn.existing_name)

@@ -1,8 +1,9 @@
 """Tensorization: flatten catalog + pods into dense arrays for the solver.
 
-The port's own copy of `karpenter_tpu/ops/encode.py`, uncached path only:
-the encode cache, staging arena and recompute meters are not part of this
-package. Every array it produces equals the reference's byte for byte.
+The port's own copy of `karpenter_tpu/ops/encode.py`, cold and cached
+paths (the encode cache and staging arena are `ops/encode_cache.py`); the
+recompute-ledger meters are left out. Every array it produces equals the
+reference's byte for byte.
 
 This is the host→device boundary of the build plan (SURVEY.md §7):
 
@@ -111,6 +112,13 @@ class CatalogTensors:
     # daemonset simulation). Zone-invariant overhead is baked into
     # `allocatable` instead (apply_daemonset_overhead). None = absent.
     zone_overhead: Optional[np.ndarray] = None
+    # encode-cache key for THIS immutable catalog view (ops/encode_cache):
+    # the facade stamps it from the (nodeclass-hash, catalog-epoch) tensor
+    # key and extends it for every derived view (block gating, daemonset
+    # overhead). None = view not cache-addressable; encode_pods then
+    # computes every row fresh. Callers that mutate tensors in place
+    # (tests poking availability holes) must clear or re-key it.
+    cache_token: Optional[tuple] = None
 
     @property
     def T(self) -> int:
@@ -243,6 +251,15 @@ def group_pods(pods: Sequence[Pod]) -> List[PodGroup]:
         [PodGroup(pods=v, representative=v[0]) for v in by_gid.values()])
 
 
+def groups_from_lists(lists: Sequence[Sequence[Pod]]) -> List[PodGroup]:
+    """PodGroups from pre-bucketed pod lists (the store's admission-time
+    pending-group index) — no per-pod pass. Each inner list must be one
+    signature-equal set; the lists are consumed (may be mutated)."""
+    return _finalize_groups(
+        [PodGroup(pods=list(ps) if not isinstance(ps, list) else ps,
+                  representative=ps[0]) for ps in lists if ps])
+
+
 def _finalize_groups(groups: List[PodGroup]) -> List[PodGroup]:
     if len(groups) > 1:
         # intern-rotation safety: the gid table rotates at capacity, so
@@ -308,6 +325,12 @@ class EncodedPods:
     # representative doesn't tolerate the NodePool taints) — the facade
     # reads this instead of re-scanning O(pods) for the difference
     dropped_keys: Optional[List[str]] = None
+    # encode-cache accounting for THIS encode (groups served from /
+    # inserted into the EncodeContext); zero when encoded uncached.
+    # Informational only — rebuilt encodings (affinity/spread splits)
+    # don't carry it forward
+    cache_hits: int = 0
+    cache_misses: int = 0
 
     @property
     def G(self) -> int:
@@ -517,10 +540,11 @@ def _axis_allow(reqs: Requirements, key: str, axis_values: Sequence[str]) -> np.
 
 @dataclass
 class _Row:
-    """One signature's tensor row — a pure function of
-    (constraint_signature, catalog view, pool context). `differs_*` record
-    whether preferred-affinity narrowing changed each axis (the encode
-    keeps the hard rows only when some row differs)."""
+    """One signature's tensor row — the pure function of
+    (constraint_signature, catalog view, pool context) the EncodeContext
+    persists. `differs_*` record whether preferred-affinity narrowing
+    changed each axis (they reproduce the batch-level
+    `(hard != work).any()` hard-rows-or-None decision on gather)."""
     compat: np.ndarray
     zone: np.ndarray
     capm: np.ndarray
@@ -587,7 +611,9 @@ def _group_row(rep: Pod, cat: CatalogTensors,
 def encode_pods(pods: Sequence[Pod], cat: CatalogTensors,
                 extra_requirements: Optional[Requirements] = None,
                 taints: Optional[List[Taint]] = None,
+                pregrouped: Optional[Sequence[Sequence[Pod]]] = None,
                 template_labels: Optional[Dict[str, str]] = None,
+                cache=None, arena=None,
                 ) -> EncodedPods:
     """Group + tensorize pods against a catalog.
 
@@ -599,10 +625,119 @@ def encode_pods(pods: Sequence[Pod], cat: CatalogTensors,
     is every member's verdict (caller routes dropped pods to another
     NodePool via EncodedPods.dropped_keys).
 
-    Every row is computed fresh (the reference's cold path).
+    pregrouped: optional pre-bucketed signature-equal pod lists (the
+    store's admission-time pending-group index) — skips the per-pod
+    grouping pass entirely; `pods` is then ignored for grouping.
+
+    cache: an ops.encode_cache.EncodeContext for this exact
+    (catalog view, extra_requirements, taints, template) combination —
+    per-signature rows persist across solves and a warm re-encode
+    becomes one gather. The caller owns the keying contract (the facade
+    derives it from CatalogTensors.cache_token); rows returned are
+    never aliased into the cache, so downstream in-place narrowing
+    stays private to this encode.
+
+    arena: an ops.encode_cache.EncodeArena supplying reusable staging
+    buffers. Arrays in the returned EncodedPods are then valid only
+    until the next encode that leases the same arena.
     """
-    groups = group_pods(pods)
+    groups = (groups_from_lists(pregrouped) if pregrouped is not None
+              else group_pods(pods))
+    lease = arena is not None and arena.acquire()
+    try:
+        return _encode_groups(groups, cat, extra_requirements, taints,
+                              template_labels, cache,
+                              arena if lease else None)
+    finally:
+        if lease:
+            arena.release()
+
+
+def _take(arena, name, shape, dtype, zero=False):
+    if arena is not None:
+        return arena.take(name, shape, dtype, zero=zero)
+    return np.zeros(shape, dtype) if zero else np.empty(shape, dtype)
+
+
+def _encode_groups(groups: List[PodGroup], cat: CatalogTensors,
+                   extra_requirements, taints, template_labels,
+                   cache, arena) -> EncodedPods:
+    from .encode_cache import DROPPED
     dropped_keys: List[str] = []
+    hits = misses = 0
+
+    if cache is not None:
+        # --- cached path: lookup per signature, compute only the misses,
+        # then ONE vectorized gather over the context's columnar rows ---
+        cache.begin()  # batch boundary: a full row store rotates here
+        kept: List[PodGroup] = []
+        row_ids: List[Optional[int]] = []
+        pend: List[Tuple[int, PodGroup, tuple]] = []  # (kept-slot, g, sig)
+        for g in groups:
+            sig = g.representative.constraint_signature()
+            rid = cache.lookup(sig)
+            if rid is None:
+                misses += 1
+                if taints and not tolerates_all(
+                        g.representative.tolerations, taints):
+                    cache.insert_dropped(sig)
+                    dropped_keys.extend(f"{p.namespace}/{p.name}"
+                                        for p in g.pods)
+                    continue
+                pend.append((len(kept), g, sig))
+                kept.append(g)
+                row_ids.append(None)
+            elif rid == DROPPED:
+                hits += 1
+                dropped_keys.extend(f"{p.namespace}/{p.name}"
+                                    for p in g.pods)
+            else:
+                hits += 1
+                kept.append(g)
+                row_ids.append(rid)
+        # settle the resource axis BEFORE computing rows: to_vector may
+        # auto-register custom resources (cached reps registered theirs
+        # at first encode — the axis only grows within a process)
+        pend_vecs = [g.representative.requests.to_vector()
+                     for _, g, _ in pend]
+        R = num_resources()
+        if pend:
+            exotic = exotic_mask(cat)
+            exotic = exotic if exotic.any() else None
+            for (slot, g, sig), vec in zip(pend, pend_vecs):
+                row = _group_row(g.representative, cat, extra_requirements,
+                                 template_labels, exotic, vec, R)
+                row_ids[slot] = cache.insert(sig, row)
+        cache.stats["hits"] += hits
+        cache.stats["misses"] += misses
+        groups = kept
+        G = len(groups)
+        if G == 0:
+            enc = EncodedPods(
+                groups=[], requests=np.zeros((0, R), np.float32),
+                counts=np.zeros(0, np.int32),
+                compat=np.zeros((0, cat.T), bool),
+                allow_zone=np.zeros((0, cat.Z), bool),
+                allow_cap=np.zeros((0, cat.C), bool),
+                max_per_node=np.zeros(0, np.int32),
+                spread_zone=np.zeros(0, bool),
+                spread_soft=np.zeros(0, bool),
+                dropped_keys=dropped_keys or None)
+        else:
+            got = cache.gather(row_ids, R, arena)
+            counts = np.fromiter((g.count for g in groups), np.int32, G)
+            gs = groups  # bind for the memo-miss builder
+            conflict = cache.conflicts(tuple(row_ids),
+                                       lambda: build_conflicts(gs))
+            enc = EncodedPods(groups=groups, counts=counts,
+                              conflict=conflict,
+                              dropped_keys=dropped_keys or None, **got)
+        enc.cache_hits, enc.cache_misses = hits, misses
+        _meter_cache(hits, misses)
+        return enc
+
+    # --- cold path: every row computed fresh (identical bytes to the
+    # cached path by construction — both run _group_row) ---
     if taints:
         filtered = []
         for g in groups:
@@ -616,18 +751,18 @@ def encode_pods(pods: Sequence[Pod], cat: CatalogTensors,
     req_vecs = [g.representative.requests.to_vector() for g in groups]
     R = num_resources()
     G = len(groups)
-    requests = np.zeros((G, R), np.float32)
+    requests = _take(arena, "requests", (G, R), np.float32, zero=True)
     counts = (np.fromiter((g.count for g in groups), np.int32, G)
               if G else np.zeros(0, np.int32))
-    compat = np.empty((G, cat.T), bool)
-    allow_zone = np.empty((G, cat.Z), bool)
-    allow_cap = np.empty((G, cat.C), bool)
+    compat = _take(arena, "compat", (G, cat.T), bool)
+    allow_zone = _take(arena, "zone", (G, cat.Z), bool)
+    allow_cap = _take(arena, "capm", (G, cat.C), bool)
     max_per_node = np.zeros(G, np.int32)
     spread_zone = np.zeros(G, bool)
     spread_soft = np.zeros(G, bool)
-    hard = np.empty((G, cat.T), bool)
-    hard_z = np.empty((G, cat.Z), bool)
-    hard_c = np.empty((G, cat.C), bool)
+    hard = _take(arena, "hard_t", (G, cat.T), bool)
+    hard_z = _take(arena, "hard_z", (G, cat.Z), bool)
+    hard_c = _take(arena, "hard_c", (G, cat.C), bool)
     any_dt = any_dz = any_dc = False
 
     exotic = exotic_mask(cat)
@@ -649,15 +784,25 @@ def encode_pods(pods: Sequence[Pod], cat: CatalogTensors,
         any_dz |= row.differs_z
         any_dc |= row.differs_c
 
+    from ..obs.tracer import TRACER
+    with TRACER.span("encode.conflicts", groups=G):
+        conflict = build_conflicts(groups)
     return EncodedPods(groups=groups, requests=requests, counts=counts,
                        compat=compat, allow_zone=allow_zone, allow_cap=allow_cap,
                        max_per_node=max_per_node, spread_zone=spread_zone,
-                       conflict=build_conflicts(groups),
-                       spread_soft=spread_soft,
+                       conflict=conflict, spread_soft=spread_soft,
                        compat_hard=hard if any_dt else None,
                        zone_hard=hard_z if any_dz else None,
                        cap_hard=hard_c if any_dc else None,
                        dropped_keys=dropped_keys or None)
+
+
+def _meter_cache(hits: int, misses: int) -> None:
+    from ..metrics import ENCODE_CACHE
+    if hits:
+        ENCODE_CACHE.inc(hits, event="hit")
+    if misses:
+        ENCODE_CACHE.inc(misses, event="miss")
 
 
 def _apply_preferred(rep: Pod, compat_row: np.ndarray, zone_row: np.ndarray,

@@ -25,10 +25,51 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.tracer import NOOP_SPAN, TRACER
 from .binpack import BIG, EPS, SolveResult, VirtualNode
 from .encode import (CatalogTensors, EncodedPods, align_resources,
                      align_zone_overhead)
 from .solve_scan import ScanOut, pack_solution, solve_scan
+
+
+class InjectedFault(RuntimeError):
+    """A device fault raised by the dispatch-fault hook. It is the one
+    exception the facade's device rung degrades on (metered, rerouted to
+    the native or host rung for a cooldown); a kernel that fails to build,
+    refuses its shapes or fails to launch raises its own error out of
+    `Solver.solve` instead."""
+
+
+# fault-injection seams, nil-guarded (None costs one identity check a
+# solve). The dispatch hook is called with the backend name just before
+# the scan and raises InjectedFault to model the card failing mid-solve.
+# The corruption hook is called as hook("result", SolveResult) after the
+# decode and returns a (silently wrong) replacement or None; while it is
+# armed, an integrity violation on the device rung is treated as the
+# injected corruption it is (quarantine and recovery) instead of raising.
+_dispatch_fault_hook = None
+_corruption_hook = None
+
+
+def set_dispatch_fault_hook(fn) -> None:
+    global _dispatch_fault_hook
+    _dispatch_fault_hook = fn
+
+
+def set_corruption_hook(fn) -> None:
+    global _corruption_hook
+    _corruption_hook = fn
+
+
+def _maybe_corrupt(target: str, obj):
+    if _corruption_hook is None:
+        return obj
+    out = _corruption_hook(target, obj)
+    return obj if out is None else out
+
+
+def _span(name: str):
+    return TRACER.span(name) if TRACER.enabled else NOOP_SPAN
 
 
 def resolve_device(device=None) -> torch.device:
@@ -77,24 +118,91 @@ def device_catalog(cat: CatalogTensors, R: int,
                else None))
 
 
-# per-catalog device cache for solve_device / consolidation_screen callers:
-# keyed on (id(cat), device) with a weakref finalizer so a freed
-# CatalogTensors' reused address never aliases a stale entry. Callers that
-# mutate a catalog's arrays in place after a solve must use a new object.
+# per-catalog device cache for callers without their own (bare solve_device
+# and consolidation_screen calls): keyed on (id(cat), device) with a weakref
+# finalizer so a freed CatalogTensors' reused address never aliases a stale
+# entry. Callers that mutate a catalog's arrays in place after a solve must
+# use a new object.
+#
+# Views minted by the facade's SharedCatalogCache carry a CONTENT-
+# authoritative token ("shared", nodeclass-hash, fingerprint) and key here by
+# token instead of id, so the per-solve derived copies (block gating,
+# daemonset overhead) share ONE device upload across every tenant facade.
+# Only "shared"-rooted tokens qualify: a facade's own (nodeclass-hash, epoch)
+# token is unique per provider, not per content — two providers' epoch
+# counters can agree while their availability differs.
 _dcat_cache: dict = {}
+_DCAT_TOKEN_MAX = 32  # bound for token-keyed entries (no weakref owner)
+# evictions observed inside weakref finalizers queue here and flush to the
+# metric from caller context: a finalizer runs inside GC, which can fire on
+# a thread already holding the metric's (non-reentrant) lock
+_dcat_evict_pending: list = []
+
+
+def _count_dcat_eviction(reason: str) -> None:
+    from ..metrics import DCAT_EVICTIONS
+    DCAT_EVICTIONS.inc(reason=reason)
+
+
+def _finalize_dcat(key) -> None:
+    """weakref-finalizer eviction of an id-keyed entry (GC context: dict
+    ops only, metric deferred)."""
+    if _dcat_cache.pop(key, None) is not None:
+        _dcat_evict_pending.append("weakref")
+
+
+def release_shared_views(prefix: tuple) -> int:
+    """Drop every token-keyed device-catalog entry whose content token
+    starts with `prefix` — the SharedCatalogCache calls this when it evicts
+    a view, so a dead shared view never pins device buffers past its own
+    eviction. Returns the number of entries released."""
+    victims = [k for k in _dcat_cache
+               if isinstance(k[0], tuple) and k[0][:len(prefix)] == prefix]
+    for k in victims:
+        _dcat_cache.pop(k, None)
+        _count_dcat_eviction("view_evicted")
+    return len(victims)
+
+
+def _dcat_fits(dcat: DeviceCatalog, cat: CatalogTensors, R: int,
+               device: torch.device) -> bool:
+    """Can this device catalog serve a solve of `cat` at R resource
+    columns on `device`?"""
+    on = dcat.alloc.device
+    return (dcat.alloc.shape[1] >= R and on.type == device.type
+            and (device.index is None or on.index == device.index)
+            and (dcat.ovh_z is not None) == (cat.zone_overhead is not None))
 
 
 def _auto_dcat(cat: CatalogTensors, R: int,
                device: torch.device) -> DeviceCatalog:
-    key = (id(cat), str(device))
+    """Epoch-cached device catalog. Every eviction path meters
+    dcat_evictions_total{reason}: churn here is re-upload cost."""
+    while _dcat_evict_pending:  # flush GC-deferred weakref evictions
+        _count_dcat_eviction(_dcat_evict_pending.pop())
+    device = torch.device(device)
+    tok = cat.cache_token
+    by_token = tok is not None and len(tok) > 0 and tok[0] == "shared"
+    key = ((tuple(tok), str(device)) if by_token
+           else (id(cat), str(device)))
     ent = _dcat_cache.get(key)
-    if (ent is not None and ent.alloc.shape[1] >= R
-            and (ent.ovh_z is not None) == (cat.zone_overhead is not None)):
+    if ent is not None and _dcat_fits(ent, cat, R, device):
         return ent
-    if ent is None:
-        weakref.finalize(cat, _dcat_cache.pop, key, None)
+    if ent is not None:
+        # present but unusable (resource axis grew / overhead flipped)
+        _count_dcat_eviction("stale")
+    if ent is None and not by_token:
+        weakref.finalize(cat, _finalize_dcat, key)
     dcat = device_catalog(cat, R, device)
     _dcat_cache[key] = dcat
+    if by_token:
+        # token-keyed entries deliberately OUTLIVE any one CatalogTensors
+        # object (derived per-solve copies die at end of solve; their
+        # upload must not) — bound them FIFO instead of by weakref
+        tkeys = [k for k in _dcat_cache if isinstance(k[0], tuple)]
+        for k in tkeys[:max(0, len(tkeys) - _DCAT_TOKEN_MAX)]:
+            _dcat_cache.pop(k, None)
+            _count_dcat_eviction("fifo")
     return dcat
 
 
@@ -370,11 +478,13 @@ class _Staged:
 
 
 def _stage(cat: CatalogTensors, enc: EncodedPods,
-           existing: List[VirtualNode], dev: torch.device) -> _Staged:
+           existing: List[VirtualNode], dev: torch.device,
+           dcat: Optional[DeviceCatalog] = None) -> _Staged:
     R = enc.requests.shape[1]
     n_existing = len(existing)
     Gp = _bucket(enc.G, 8)
-    dcat = _auto_dcat(cat, R, dev)
+    if dcat is None or not _dcat_fits(dcat, cat, R, dev):
+        dcat = _auto_dcat(cat, R, dev)
     node_type = np.zeros(n_existing, np.int32)
     node_cum = np.zeros((n_existing, R), np.float32)
     node_zmask = np.zeros((n_existing, cat.Z), bool)
@@ -441,11 +551,21 @@ def _dispatch(st: _Staged, n_max: int, k_max: int) -> torch.Tensor:
 
 def solve_device(cat: CatalogTensors, enc: EncodedPods,
                  existing: Optional[List[VirtualNode]] = None,
-                 n_max: Optional[int] = None, device=None,
+                 n_max: Optional[int] = None,
+                 dcat: Optional[DeviceCatalog] = None, device=None,
                  mesh=None) -> SolveResult:
     """Run the solve on `device` (default: the CUDA card) and decode the
     result to the SolveResult solve_host produces. `enc` must be
-    spread-free (split_spread_groups)."""
+    spread-free (split_spread_groups).
+
+    dcat: the catalog already on the device (the facade's per-view cache);
+    one that cannot serve this solve (too few resource columns, another
+    device, zone overhead flipped) is replaced by the process cache's.
+
+    With tracing on, each stage is a span (the reference's names):
+    solve.prep (node budget), solve.device_put (staging and uploads),
+    solve.dispatch (the scan, enqueued), solve.readback (packing and the
+    one host read, which waits for the card), solve.decode."""
     reject_mesh(mesh)
     dev = resolve_device(device)
     assert not enc.spread_zone.any(), "run split_spread_groups before solve"
@@ -454,31 +574,40 @@ def solve_device(cat: CatalogTensors, enc: EncodedPods,
     total_pods = int(enc.counts.sum())
     auto_n = n_max is None
     if auto_n:
-        n_max = _auto_node_budget(cat, enc, n_existing)
-    st = _stage(cat, enc, existing, dev)
+        with _span("solve.prep"):
+            n_max = _auto_node_budget(cat, enc, n_existing)
+    with _span("solve.device_put"):
+        st = _stage(cat, enc, existing, dev, dcat)
+    if _dispatch_fault_hook is not None:
+        _dispatch_fault_hook("device")
     while True:
-        out = _scan(st, n_max)  # ONE scan per node budget
-        # sparse-take budget: nnz ~ n_used + cross-node sharing, far below
-        # the [Gp * n_max] flat size
-        k_max = _bucket(2 * n_max)
-        buf = pack_solution(*out, k_max).cpu().numpy()  # ONE host read
-        (nused, overflowed, nnz, unsched, ntype, idx,
-         vals) = _parse_packed(buf, st.Gp, n_max, k_max)
-        if nnz > k_max:
-            # takes were truncated: re-pack the same scan at a larger budget
-            k_max = _bucket(nnz)
-            buf = pack_solution(*out, k_max).cpu().numpy()
+        with _span("solve.dispatch"):
+            out = _scan(st, n_max)  # ONE scan per node budget
+        with _span("solve.readback"):
+            # sparse-take budget: nnz ~ n_used + cross-node sharing, far
+            # below the [Gp * n_max] flat size
+            k_max = _bucket(2 * n_max)
+            buf = pack_solution(*out, k_max).cpu().numpy()  # ONE host read
             (nused, overflowed, nnz, unsched, ntype, idx,
              vals) = _parse_packed(buf, st.Gp, n_max, k_max)
+            if nnz > k_max:
+                # takes were truncated: re-pack the same scan at a larger
+                # budget
+                k_max = _bucket(nnz)
+                buf = pack_solution(*out, k_max).cpu().numpy()
+                (nused, overflowed, nnz, unsched, ntype, idx,
+                 vals) = _parse_packed(buf, st.Gp, n_max, k_max)
         if not overflowed or not auto_n or n_max >= n_existing + total_pods:
             break
         # node budget too small: regrow it and scan again (the reference's
         # loop)
         n_max = min(_bucket(n_max * 2), _bucket(n_existing + total_pods))
 
-    return _decode_solution(cat, enc, existing, st.node_cum, st.node_zmask,
-                            st.node_cmask, nused, ntype, idx, vals, nnz,
-                            unsched, n_max)
+    with _span("solve.decode"):
+        res = _decode_solution(cat, enc, existing, st.node_cum,
+                               st.node_zmask, st.node_cmask, nused, ntype,
+                               idx, vals, nnz, unsched, n_max)
+    return _maybe_corrupt("result", res)
 
 
 def solve_packed(cat: CatalogTensors, enc: EncodedPods,

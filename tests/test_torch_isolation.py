@@ -92,6 +92,30 @@ def test_entry_points_raise_without_cuda():
     assert screen.shape == (len(views),)
 
 
+def test_solver_facade_needs_a_card_or_a_device():
+    """Solver(prov, backend="device") — and "hybrid" — without a card and
+    without device= raises, as solve_device does; device="cpu" runs the
+    plain versions, "auto" resolves to a host rung, "mesh" is not
+    ported."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from karpenter_tpu_torch.catalog import CatalogProvider, small_catalog
+    from karpenter_tpu_torch.models import NodePool, Pod, Resources
+    from karpenter_tpu_torch.ops.facade import Solver
+    types = small_catalog()
+    prov = CatalogProvider(lambda: types)
+    for backend in ("device", "hybrid"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Solver(prov, backend=backend)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Solver(prov, backend="mesh")
+    assert Solver(prov, backend="auto").backend in ("native", "host")
+    out = Solver(prov, backend="device", device="cpu").solve(
+        [Pod(name="p", requests=Resources.parse({"cpu": "1"}))],
+        NodePool(name="default"))
+    assert len(out.launches) == 1 and not out.unschedulable
+
+
 def test_wrappers_refuse_other_devices():
     """The kernel wrappers take the plain version only for CPU tensors."""
     from karpenter_tpu_torch.ops.screen_k import screen_k

@@ -31,6 +31,19 @@ Phases (any failure exits non-zero):
              tracer spans), and the device/native wall from 1k to 100k pods
              on that mix and on the grid pods of phase 3 (the crossover
              that Solver.DEVICE_MIN_PODS is held against).
+  4c. operator the control loop as users enter it: the port's
+             make_sim(backend="device") on the 810-type catalog with the
+             reference's fast cloud (its c8 cell), optimizer off: 10,000
+             grid pods scaled up until bound, 60% of them deleted and the
+             engine run until disruption is quiet (no pending decision, no
+             new one for 3 passes), then 5 bursts of 32 pods, each through
+             one provisioner reconcile. The same run on the native rung
+             must end in the same state_hash, disruption decisions and
+             controller stats; A, B0 and B must launch inside the device
+             run and equal their plain versions at inputs recorded there.
+             Times: each stage's wall, the reconcile walls by controller,
+             the tracer's spans, the card's idle share over one disruption
+             reconcile.
   5. time    median wall times of the solve and the screen, stage by stage;
              per-kernel device time from torch.profiler and CUDA events
              beside its bound, its plain version's time and one torch
@@ -38,9 +51,11 @@ Phases (any failure exits non-zero):
              kernels B0 and B at the facade solve's scan inputs and at the
              solve_device cell's, kernel B at every cluster size at both.
 
-The kernels line reports B0's and B's launches and times from the facade
-solve (the main path) and kernel A's from the screen. The last two lines
-of output are that line and {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
+The kernels line reports each kernel's launches in the operator phase
+(with `launches_by_phase` for the main path, the facade and the operator
+phase) and its times at an input recorded inside the loop (B0 and B at
+the last re-solve, A at the last screen). The last two lines of output
+are that line and {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
 
@@ -48,7 +63,9 @@ from __future__ import annotations
 
 import copy
 import inspect
+import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -157,16 +174,22 @@ def profiled_ms(fn, *needles, tries: int = 3) -> list:
 
 class Recorder:
     """Wraps a module attribute to keep the arguments of its calls (the
-    main path's kernel inputs), calling through unchanged."""
+    main path's kernel inputs), calling through unchanged. keep=2 keeps
+    only the first call and the latest one; `n` counts every call."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name = module, name
+    def __init__(self, module, name: str, keep=None):
+        self.module, self.name, self.keep = module, name, keep
         self.real = getattr(module, name)
         self.calls = []
+        self.n = 0
 
     def __enter__(self):
         def shim(*args, **kwargs):
-            self.calls.append((args, kwargs))
+            self.n += 1
+            if self.keep is None or len(self.calls) < self.keep:
+                self.calls.append((args, kwargs))
+            else:
+                self.calls[-1] = (args, kwargs)
             return self.real(*args, **kwargs)
         setattr(self.module, self.name, shim)
         return self
@@ -598,6 +621,325 @@ def phase_facade():
     return launches, (sargs, skw)
 
 
+# --- the operator phase: make_sim, the control loop on the card -----------
+
+# scale-up: grid pods (seed 0). Cut from 20,000 (804 nodes), where each
+# rung of the phase took over 4 minutes of host-bound wall beside one
+# NVIDIA H100 80GB HBM3 (PERF.md)
+OP_PODS = 10_000
+OP_DELETE = 0.6             # scale-down: share of the pods deleted (seed 1)
+OP_QUIET = 3                # disruption passes without a new decision
+OP_SCALE_UP_CAP = 900.0     # sim seconds
+OP_SCALE_DOWN_CAP = 3600.0  # sim seconds
+OP_BURSTS = 5               # steady state: bursts of OP_BURST pods
+OP_BURST = 32
+# the fast cloud of the reference's c8 cell (bench.py)
+OP_CLOUD = dict(node_ready_delay=1.0, register_delay=0.5,
+                create_fleet_rate=1e6, create_fleet_burst=10**6)
+DECISION_STATS = ("empty", "drift", "expired", "consolidated",
+                  "multi_consolidated")
+
+
+class OperatorRun:
+    """One run of the operator phase on one rung of the port's make_sim:
+    scale-up, scale-down until disruption is quiet, steady-state bursts.
+    Times every controller reconcile (host wall; each one ends in host
+    reads) and counts the solves and screens of each stage."""
+
+    def __init__(self, backend: str, profile_pass: bool):
+        from karpenter_tpu_torch import catalog, sim as S
+        from karpenter_tpu_torch.cloud import fake
+        from karpenter_tpu_torch.cloud.fake import FakeCloudConfig
+        from karpenter_tpu_torch.models import nodeclaim, pod
+        os.environ["KARPENTER_TPU_OPTIMIZER"] = "0"  # the greedy path
+        # both rungs mint claim names, pod uids and instance ids from the
+        # same start: names break ties in the loop's orderings
+        nodeclaim._seq = itertools.count()
+        pod._uid = itertools.count()
+        fake._ids = itertools.count(1)
+        self.backend, self.profile_pass = backend, profile_pass
+        self.sim = S.make_sim(types=catalog.generate_catalog(),
+                              backend=backend,
+                              cloud_config=FakeCloudConfig(**OP_CLOUD))
+        self.stage = "setup"
+        self.walls: dict = {}     # (stage, controller) -> [ms]
+        self.solves: dict = {}    # stage -> Solver.solve calls
+        self.quiet = 0
+        self.burst_ms = []        # the provisioner reconcile of each burst
+        self.profiled = None      # (busy ms, wall ms) of one disruption pass
+        for c in self.sim.engine.controllers:
+            c.reconcile = self._timed(c, c.reconcile)
+        real_solve = self.sim.solver.solve
+
+        def solve(*a, **kw):
+            self.solves[self.stage] = self.solves.get(self.stage, 0) + 1
+            return real_solve(*a, **kw)
+        self.sim.solver.solve = solve
+
+    def _timed(self, c, reconcile):
+        def run(now):
+            profile = (self.profile_pass and c.name == "disruption"
+                       and self.stage == "scale_down"
+                       and self.profiled is None)
+            box = []
+            t0 = time.perf_counter()
+            if profile:
+                ev = device_kernel_us(lambda: box.append(reconcile(now)))
+            else:
+                box.append(reconcile(now))
+            ms = (time.perf_counter() - t0) * 1e3
+            self.walls.setdefault((self.stage, c.name), []).append(ms)
+            if c.name == "disruption":
+                self._after_pass()
+            if profile:
+                self.profiled = (sum(us for us, _ in ev.values()) / 1e3, ms)
+            return box[0]
+        return run
+
+    def _after_pass(self) -> None:
+        d = self.sim.disruption
+        sig = (tuple(d.stats.get(k, 0) for k in DECISION_STATS),
+               len(self.decisions()))
+        quiet = (not d._pending and sig == getattr(self, "_sig", None)
+                 and not any(c.is_deleting()
+                             for c in self.sim.store.nodeclaims.values())
+                 and self.bound_all())
+        self.quiet = self.quiet + 1 if quiet else 0
+        self._sig = sig
+
+    def decisions(self):
+        return [e for e in self.sim.store.events if e[0] == "disruption"]
+
+    def bound_all(self) -> bool:
+        return all(p.node_name is not None
+                   for p in self.sim.store.pods.values())
+
+    def drive(self) -> dict:
+        import numpy as np
+        from karpenter_tpu_torch import models
+        s = self.sim
+        t_phase = time.perf_counter()
+        times = {}
+        self.stage = "scale_up"
+        pods = grid_pods(models, OP_PODS, SEED)
+        for p in pods:
+            s.store.add_pod(p)
+        t0 = time.perf_counter()
+        ok = s.engine.run_until(self.bound_all, timeout=OP_SCALE_UP_CAP,
+                                step=1.0)
+        check(ok, f"{self.backend}: {OP_PODS} pods not all bound within "
+              f"{OP_SCALE_UP_CAP} sim seconds")
+        times["scale_up_ms"] = (time.perf_counter() - t0) * 1e3
+        times["nodes_after_scale_up"] = len(s.store.nodeclaims)
+
+        self.stage = "scale_down"
+        rng = np.random.default_rng(1)
+        for i in rng.permutation(len(pods))[: int(len(pods) * OP_DELETE)]:
+            s.store.delete_pod(pods[i].namespace, pods[i].name)
+        self.quiet, self._sig = 0, None
+        t0, sim0 = time.perf_counter(), s.clock.now()
+        ok = s.engine.run_until(lambda: self.quiet >= OP_QUIET,
+                                timeout=OP_SCALE_DOWN_CAP, step=5.0)
+        check(ok, f"{self.backend}: disruption not quiet within "
+              f"{OP_SCALE_DOWN_CAP} sim seconds")
+        check(self.bound_all(), f"{self.backend}: pods unbound after the "
+              f"scale-down")
+        times["scale_down_ms"] = (time.perf_counter() - t0) * 1e3
+        times["scale_down_sim_s"] = s.clock.now() - sim0
+        times["nodes_after_scale_down"] = len(s.store.nodeclaims)
+
+        self.stage = "burst"
+        for b in range(OP_BURSTS):
+            for i in range(OP_BURST):
+                s.store.add_pod(models.Pod(
+                    name=f"burst-{b}-{i}", requests=models.Resources.parse(
+                        {"cpu": "100m", "memory": "128Mi"})))
+            # one provisioner reconcile serves the burst, then the loop
+            # binds it
+            t0 = time.perf_counter()
+            s.provisioner.reconcile(s.clock.now())
+            self.burst_ms.append((time.perf_counter() - t0) * 1e3)
+            check(s.engine.run_until(self.bound_all, timeout=120.0,
+                                     step=1.0),
+                  f"{self.backend}: burst {b} not bound")
+        times["phase_ms"] = (time.perf_counter() - t_phase) * 1e3
+        return times
+
+    def stats(self) -> dict:
+        return {c.name: dict(c.stats) for c in self.sim.engine.controllers
+                if hasattr(c, "stats")}
+
+
+def phase_operator(dev):
+    """The port's control loop as users enter it: make_sim(backend="device")
+    on the full catalog, OP_PODS grid pods scaled up, 60% of them deleted
+    and disruption run to quiet, then 5 bursts of 32 pods; the same run on
+    the native rung must end in the same state, decisions and stats.
+    Returns the kernels' launches in the device run and one recorded input
+    of each (the scale-up solve's and the last re-solve's scan, the last
+    screen's k)."""
+    import numpy as np
+    import torch
+    from karpenter_tpu_torch import sim as S
+    from karpenter_tpu_torch.obs.tracer import TRACER
+    from karpenter_tpu_torch.ops import consolidate, screen_k as sk
+    from karpenter_tpu_torch.ops import solve_scan as ss, solver
+
+    spans: dict = {}
+
+    def sink(trace):
+        for sp in trace.spans:
+            if sp.name.startswith(("reconcile:", "solve.", "disruption.",
+                                   "provision.", "integrity.")):
+                spans[sp.name] = spans.get(sp.name, 0.0) + sp.duration * 1e3
+
+    t0 = time.perf_counter()
+    run_d = OperatorRun("device", profile_pass=True)
+    TRACER.add_sink(sink)
+    TRACER.configure(enabled=True)
+    ss.launches = 0
+    ss.offer_launches = 0
+    sk.launches = 0
+    try:
+        with Recorder(solver, "solve_scan", keep=2) as rec_b, \
+                Recorder(consolidate, "screen_k", keep=2) as rec_a:
+            times_d = run_d.drive()
+            torch.cuda.synchronize()
+    finally:
+        TRACER.configure(enabled=False)
+        TRACER._sinks.remove(sink)
+    launches = {"screen_k": sk.launches, "offer_argmin": ss.offer_launches,
+                "solve_scan": ss.launches}
+    wall_d = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    run_n = OperatorRun("native", profile_pass=False)
+    times_n = run_n.drive()
+    wall_n = (time.perf_counter() - t0) * 1e3
+
+    hd, hn = S.state_hash(run_d.sim), S.state_hash(run_n.sim)
+    log(f"[operator] make_sim(backend='device') on {len(run_d.sim.cloud.types)} "
+        f"types: {OP_PODS} pods -> {times_d['nodes_after_scale_up']} nodes; "
+        f"{int(OP_DELETE * 100)}% deleted -> "
+        f"{times_d['nodes_after_scale_down']} nodes after "
+        f"{times_d['scale_down_sim_s']:.0f} sim s; {OP_BURSTS} bursts of "
+        f"{OP_BURST}; disruption stats {run_d.sim.disruption.stats}; "
+        f"decisions {len(run_d.decisions())}; kernel launches {launches}")
+    check(hd == hn, f"operator state_hash device {hd} != native {hn}")
+    check(run_d.decisions() == run_n.decisions(),
+          "operator disruption decision log differs from the native rung")
+    check(run_d.stats() == run_n.stats(),
+          f"operator controller stats differ: {run_d.stats()} vs "
+          f"{run_n.stats()}")
+    # an uninjected device fault or wrong device answer raises out of the
+    # loop; what the facade recovers from (the reference's quarantine) is
+    # an oracle violation the fallback rung's answer shares: an input
+    # already over capacity. Count it: each one sends the next
+    # FALLBACK_COOLDOWN solves to the native rung, as in the reference
+    check("screen_errors" not in run_d.sim.disruption.stats,
+          "the screen degraded in the device run")
+    log(f"[operator] solver stats: device run {run_d.sim.solver.stats}; "
+        f"native run {run_n.sim.solver.stats}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched inside the loop")
+    log(f"[check] operator device == native: state_hash {hd[:16]}, "
+        f"{len(run_d.decisions())} disruption decisions and every "
+        f"controller's stats equal")
+
+    # each kernel against its plain version at inputs recorded in the loop
+    where = ("scale-up solve", "last re-solve")
+    for (sargs, skw), what in zip(rec_b.calls, where):
+        check_offer(ss, sargs, skw, f"operator {what}")
+        out_k = ss.solve_scan_cuda(*sargs, **skw)
+        out_p = ss.solve_scan_plain(*sargs, **skw)
+        torch.cuda.synchronize()
+        for a, b, field in zip(out_k, out_p, ("ntype", "takes", "unsched",
+                                              "nused", "overflow")):
+            check(torch.equal(a.to(b.dtype).reshape(b.shape), b),
+                  f"solve_scan != plain at the operator {what} ({field})")
+        b = inspect.signature(ss.solve_scan_plain).bind(*sargs, **skw)
+        log(f"[check] operator {what}: offer_argmin == plain and solve_scan "
+            f"== plain (Gp={b.arguments['requests'].shape[0]}, "
+            f"n_max={b.arguments['n_max']})")
+    (aargs, akw) = rec_a.calls[-1]
+    k_got = sk.screen_k_cuda(*aargs, **akw)
+    torch.cuda.synchronize()
+    k_want = sk.screen_k_plain(*aargs, **akw)
+    err_a = float((k_got - k_want).abs().max()) if k_got.numel() else 0.0
+    check(err_a == 0.0, f"screen_k != plain at the operator's screen: {err_a}")
+    log(f"[check] operator screen: screen_k == plain (atol 0) at N="
+        f"{aargs[0].shape[0]} G={aargs[1].shape[0]}; {rec_a.n} screens, "
+        f"{run_d.solves} Solver.solve calls by stage")
+
+    # --- times ---
+    dis = [ms for (st, c), v in run_d.walls.items() if c == "disruption"
+           and st == "scale_down" for ms in v]
+    prov_up = run_d.walls.get(("scale_up", "provisioner"), [])
+    bursts = run_d.burst_ms
+    log(f"[time] operator phase: device run {wall_d:.1f} ms, native run "
+        f"{wall_n:.1f} ms; device run stages: scale-up "
+        f"{times_d['scale_up_ms']:.1f} ms (provisioner reconciles "
+        f"{len(prov_up)}, max {max(prov_up):.1f} ms, sum "
+        f"{sum(prov_up):.1f} ms), scale-down {times_d['scale_down_ms']:.1f} "
+        f"ms, bursts and the rest {times_d['phase_ms'] - times_d['scale_up_ms'] - times_d['scale_down_ms']:.1f} ms")
+    log(f"[time] operator disruption reconciles in the scale-down: "
+        f"{len(dis)} passes, median {statistics.median(dis):.1f} ms, max "
+        f"{max(dis):.1f} ms, sum {sum(dis):.1f} ms; exact re-solves "
+        f"{run_d.solves.get('scale_down', 0)}, screens (cache misses) "
+        f"{rec_a.n}; burst provisioner reconcile median "
+        f"{statistics.median(bursts):.2f} ms ({', '.join(f'{b:.1f}' for b in bursts)})")
+    per_ctrl = {}
+    for (st, c), v in run_d.walls.items():
+        per_ctrl[c] = per_ctrl.get(c, 0.0) + sum(v)
+    log("[time] operator device run, reconcile wall by controller (ms): "
+        + ", ".join(f"{c} {v:.1f}" for c, v in
+                    sorted(per_ctrl.items(), key=lambda kv: -kv[1])))
+    log("[time] operator device run, tracer spans (ms, totals; nested spans "
+        "are inside their parents): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in sorted(spans.items(),
+                                              key=lambda kv: -kv[1])))
+    if run_d.profiled is not None and run_d.profiled[0] > 0:
+        busy, wall = run_d.profiled
+        log(f"[time] one disruption reconcile (the first of the scale-down, "
+            f"under torch.profiler): device busy {busy:.3f} ms of {wall:.1f} "
+            f"ms wall (idle share {1 - busy / wall:.5f})")
+    else:
+        log("[time] torch.profiler recorded no device events in the profiled "
+            "disruption reconcile: idle share not measured")
+    return launches, rec_b.calls[-1], (aargs, akw), err_a
+
+
+def screen_kernel_times(sk, head, req, elig, where: str) -> dict:
+    """Kernel A at one screen_k call's arguments: the kernel alone
+    (torch.profiler), the wrapper call (CUDA events), the plain version, one
+    torch expression for the same function, and the bound. Logs them and
+    returns the row of the kernels line."""
+    import numpy as np
+    import torch
+    a_kernel, = profiled_ms(lambda: [sk.screen_k_cuda(head, req, elig)
+                                     for _ in range(20)], "screen_k_kernel")
+    a_ms = cuda_ms(lambda: sk.screen_k_cuda(head, req, elig), 200)
+    a_plain = cuda_ms(lambda: sk.screen_k_plain(head, req, elig), 50)
+    eps = float(np.float32(1e-4))
+
+    def library_k():
+        safe = torch.where(req > 0, req, 1.0)
+        return torch.where(elig, torch.where(
+            req[None] > 0, torch.floor(head[:, None, :] / safe[None] + eps),
+            1e9).amin(dim=2).clamp_min(0.0), 0.0)
+    a_lib = cuda_ms(library_k, 200)
+    N, R = head.shape
+    G = req.shape[0]
+    a_bytes = 4 * N * R + 4 * G * R + N * G + 4 * N * G
+    a_ops = 4 * N * G * R
+    a = {"ms": a_ms, "plain_ms": a_plain, **bound(a_bytes, a_ops),
+         "library_ms": a_lib, "kernel_ms": a_kernel}
+    log(f"[time] {where} (N={N}, G={G}, R={R}): screen_k {a_ms:.4f} ms, "
+        f"kernel alone {a_kernel} ms (bound {a['bound_ms']:.5f} ms, bytes "
+        f"{a_bytes}); plain {a_plain:.4f} ms; one torch expression "
+        f"{a_lib:.4f} ms")
+    return a
+
+
 def bound(nbytes: int, ops: int) -> dict:
     """The least time for the work: bytes over the memory rate or fp32
     operations over the peak rate, whichever is larger."""
@@ -717,6 +1059,7 @@ def main() -> None:
         from karpenter_tpu_torch.ops import solve_scan as ss, solver
         from karpenter_tpu_torch.ops.binpack import solve_host, validate_solution
         from karpenter_tpu_torch.ops.encode import encode_catalog, encode_pods
+        from karpenter_tpu_torch.state.cluster import NodeView
     except ImportError as e:
         fail(f"karpenter_tpu_torch is not importable ({e}): run from the root "
              f"of a checkout")
@@ -765,7 +1108,9 @@ def main() -> None:
     for i, n in enumerate(result.nodes):
         for g, c in n.pods_by_group.items():
             counts[i, g] = c
-    views = [consolidate.NodeView(virtual=n) for n in result.nodes]
+    views = [NodeView(claim=models.NodeClaim(name=f"n{i}", nodepool="d"),
+                      node=None, pods=[], virtual=n, price=0.0)
+             for i, n in enumerate(result.nodes)]
     with Recorder(consolidate, "screen_k") as rec_a:
         screen, slack = consolidate.consolidation_screen(cat, enc, views,
                                                          counts)
@@ -845,6 +1190,9 @@ def main() -> None:
     # --- 4b. the facade: Solver.solve, counts zeroed just before it ---
     facade_launches, facade_scan = phase_facade()
 
+    # --- 4c. the operator: make_sim's loop, counts zeroed just before it ---
+    op_launches, op_scan, op_screen, op_err_a = phase_operator(dev)
+
     # --- 5. times ---
     solve_ms = wall_ms(lambda: solver.solve_device(cat, enc), 5)
     screen_ms = wall_ms(lambda: consolidate.consolidation_screen(
@@ -896,48 +1244,36 @@ def main() -> None:
         log("[time] torch.profiler recorded no device events: device busy "
             "share not measured")
 
-    a_kernel, = profiled_ms(lambda: [sk.screen_k_cuda(head, req, elig)
-                                     for _ in range(20)], "screen_k_kernel")
-    a_ms = cuda_ms(lambda: sk.screen_k_cuda(head, req, elig), 200)
-    a_plain = cuda_ms(lambda: sk.screen_k_plain(head, req, elig), 50)
-    eps = float(np.float32(1e-4))
-
-    def library_k():
-        safe = torch.where(req > 0, req, 1.0)
-        return torch.where(elig, torch.where(
-            req[None] > 0, torch.floor(head[:, None, :] / safe[None] + eps),
-            1e9).amin(dim=2).clamp_min(0.0), 0.0)
-    a_lib = cuda_ms(library_k, 200)
-    N, R = head.shape
-    G = req.shape[0]
-    a_bytes = 4 * N * R + 4 * G * R + N * G + 4 * N * G
-    a_ops = 4 * N * G * R
-    a = {"ms": a_ms, "plain_ms": a_plain, **bound(a_bytes, a_ops),
-         "library_ms": a_lib, "kernel_ms": a_kernel}
-    log(f"[time] screen_k {a_ms:.4f} ms, kernel alone {a_kernel} ms (bound "
-        f"{a['bound_ms']:.5f} ms, bytes {a_bytes}); plain {a_plain:.4f} ms; "
-        f"one torch expression {a_lib:.4f} ms")
+    screen_kernel_times(sk, head, req, elig, "main-path screen")
 
     # kernels B0 and B at the solve_device cell's inputs (beside PR 2's
-    # numbers) and at the facade solve's, the main path's (the kernels line)
+    # numbers), at the facade solve's, and at the operator loop's last
+    # re-solve; kernel A at the operator loop's last screen (the loop's
+    # rows make the kernels line)
     scan_kernel_times(ss, sargs, skw, "solve_device cell")
-    b0, bk = scan_kernel_times(ss, *facade_scan, "facade")
+    scan_kernel_times(ss, *facade_scan, "facade")
+    b0, bk = scan_kernel_times(ss, *op_scan, "operator loop re-solve")
+    (ahead, areq, aelig), _ = op_screen
+    a_op = screen_kernel_times(sk, ahead, areq, aelig, "operator loop screen")
+    by_phase = {k: {"main": launches[k], "facade": facade_launches.get(k),
+                    "operator": op_launches[k]} for k in op_launches}
 
     kernels = [
         {"name": "screen_k", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/screen_k.cu",
          "replaces": "karpenter_tpu/ops/pallas_screen.py:69",
-         "launches": launches["screen_k"], "max_abs_err": err_a, **a},
+         "launches": op_launches["screen_k"], "max_abs_err": op_err_a,
+         **a_op, "launches_by_phase": by_phase["screen_k"]},
         {"name": "offer_argmin", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/solve_scan.cu",
          "replaces": "karpenter_tpu/ops/solver.py:425",
-         "launches": facade_launches["offer_argmin"], "max_abs_err": 0.0,
-         **b0},
+         "launches": op_launches["offer_argmin"], "max_abs_err": 0.0,
+         **b0, "launches_by_phase": by_phase["offer_argmin"]},
         {"name": "solve_scan", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/solve_scan.cu",
          "replaces": "karpenter_tpu/ops/solver.py:348",
-         "launches": facade_launches["solve_scan"], "max_abs_err": 0.0,
-         **bk},
+         "launches": op_launches["solve_scan"], "max_abs_err": 0.0,
+         **bk, "launches_by_phase": by_phase["solve_scan"]},
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Framework metrics: the port's own copy of the metric families the
-facade path touches (`karpenter_tpu/metrics/__init__.py` defines them all).
+facade path and the control loop touch (`karpenter_tpu/metrics/__init__.py`
+defines them all).
 Names, labels and buckets are the reference's, so a dashboard reads either
 package the same way. The registry is this package's own: samples of the
 two packages never mix."""
@@ -100,5 +101,120 @@ INTEGRITY_VERDICTS = REGISTRY.counter(
     "healthy run are the zero-false-positive contract breaking; the "
     "watchdog's integrity_breach invariant pages on them",
     ("check", "outcome", "tenant"), label_defaults=_TENANT)
+
+# the families the control loop touches (controllers/, state/, cloud/fake)
+NODECLAIMS_CREATED = REGISTRY.counter(
+    "karpenter_tpu_nodeclaims_created_total",
+    "NodeClaims launched", ("nodepool", "instance_type", "capacity_type"))
+NODECLAIMS_TERMINATED = REGISTRY.counter(
+    "karpenter_tpu_nodeclaims_terminated_total",
+    "NodeClaims terminated", ("nodepool", "reason"))
+PODS_SCHEDULED = REGISTRY.counter(
+    "karpenter_tpu_pods_scheduled_total", "pods nominated to nodes", ())
+PODS_UNSCHEDULABLE = REGISTRY.gauge(
+    "karpenter_tpu_pods_unschedulable", "pods no pool could place",
+    ("tenant",), label_defaults=_TENANT)
+DISRUPTION_DECISIONS = REGISTRY.counter(
+    "karpenter_tpu_voluntary_disruption_decisions_total",
+    "disruption decisions", ("reason", "consolidation_type"))
+OFFERING_AVAILABLE = REGISTRY.gauge(
+    "karpenter_tpu_cloudprovider_instance_type_offering_available",
+    "offering availability", ("instance_type", "zone", "capacity_type"))
+OFFERING_PRICE = REGISTRY.gauge(
+    "karpenter_tpu_cloudprovider_instance_type_offering_price_estimate",
+    "offering price", ("instance_type", "zone", "capacity_type"))
+ICE_ERRORS = REGISTRY.counter(
+    "karpenter_tpu_cloudprovider_insufficient_capacity_errors_total",
+    "ICE launch failures", ("capacity_type",))
+INTERRUPTION_MESSAGES = REGISTRY.counter(
+    "karpenter_tpu_interruption_messages_total",
+    "interruption queue messages", ("kind",))
+INTERRUPTION_PARSE_FAILURES = REGISTRY.counter(
+    "karpenter_tpu_interruption_message_parse_failures_total",
+    "interruption payloads that failed wire-format parsing (counted and "
+    "deleted, never retried — poison messages must not wedge the queue)")
+LIFECYCLE_DURATION = REGISTRY.histogram(
+    "karpenter_nodeclaims_lifecycle_duration_seconds",
+    "Seconds from creation to each lifecycle phase (reference: "
+    "karpenter_nodeclaims_instance_termination/registration duration "
+    "families)", ("phase",),
+    buckets=(1, 2, 5, 10, 30, 60, 120, 300, 600, 1800))
+TERMINATION_DURATION = REGISTRY.histogram(
+    "karpenter_nodeclaims_termination_duration_seconds",
+    "Seconds from deletion timestamp to finalization",
+    buckets=(1, 2, 5, 10, 30, 60, 120, 300, 600, 1800))
+CLUSTER_NODES = REGISTRY.gauge(
+    "karpenter_cluster_state_node_count",
+    "Nodes currently in cluster state (reference cluster_state family)",
+    ("tenant",), label_defaults=_TENANT)
+CLUSTER_PODS = REGISTRY.gauge(
+    "karpenter_cluster_state_pod_count",
+    "Pods currently tracked, by phase", ("phase", "tenant"),
+    label_defaults=_TENANT)
+CLUSTER_UTILIZATION = REGISTRY.gauge(
+    "karpenter_cluster_utilization_percent",
+    "Requested / allocatable across ready nodes, per resource",
+    ("resource", "tenant"), label_defaults=_TENANT)
+RECONCILE_DURATION = REGISTRY.histogram(
+    "karpenter_tpu_controller_reconcile_duration_seconds",
+    "Per-controller reconcile pass wall time (the controller-runtime "
+    "workqueue/reconcile families, reference metrics.md workqueue group)",
+    ("controller",),
+    buckets=(.0005, .001, .005, .01, .05, .1, .5, 1, 5, 30))
+RECONCILE_ERRORS = REGISTRY.counter(
+    "karpenter_tpu_controller_reconcile_errors_total",
+    "Reconcile passes that raised, by disposition (backoff = retryable "
+    "cloud throttle, crash = survived unexpected error)",
+    ("controller", "disposition"))
+NODEPOOL_USAGE = REGISTRY.gauge(
+    "karpenter_nodepools_usage",
+    "Resources consumed by a NodePool's claims — reference series name, "
+    "so existing dashboards/alerts match", ("nodepool", "resource", "tenant"),
+    label_defaults=_TENANT)
+NODEPOOL_LIMIT = REGISTRY.gauge(
+    "karpenter_nodepools_limit",
+    "A NodePool's spec.limits (reference karpenter_nodepools_limit)",
+    ("nodepool", "resource", "tenant"), label_defaults=_TENANT)
+LAUNCH_DEDUP = REGISTRY.counter(
+    "karpenter_tpu_launch_dedup_total",
+    "CreateFleet requests the cloud deduplicated by idempotency token: a "
+    "replayed launch (crash-restart resending a journaled request, or a "
+    "retry racing its own in-flight attempt) returned the instance the "
+    "token already minted instead of provisioning a second one — nonzero "
+    "after a crash is the resilience layer WORKING; a double-provision "
+    "would show up as a duplicate-launch invariant violation instead",
+    ("tenant",), label_defaults=_TENANT)
+INTENT_JOURNAL_OPEN = REGISTRY.gauge(
+    "karpenter_tpu_intent_journal_open",
+    "Provisioning intents currently open in the write-ahead intent "
+    "journal (state/journal.py): launches recorded before their "
+    "CreateFleet call whose commit has not resolved yet. Steady-state "
+    "this is 0 between reconciles; a persistently nonzero value means a "
+    "launch died between the wire call and the commit and is waiting "
+    "for restart replay — the GC sweep will not touch its instance. "
+    "Tenant-dimensioned (SET-style): each fleet shard's journal "
+    "publishes its own open count",
+    ("tenant",), label_defaults=_TENANT)
+RESTART_ADOPTIONS = REGISTRY.counter(
+    "karpenter_tpu_restart_adoptions_total",
+    "Open-intent resolutions during restart rehydration "
+    "(state/rehydrate.replay_intents), by outcome: adopted = a live "
+    "token-tagged instance was re-bound to its rebuilt NodeClaim, "
+    "aborted = the crash landed before the wire call (nothing "
+    "launched), reaped = a live instance whose claim could not be "
+    "rebuilt was terminated immediately instead of leaking until GC",
+    ("outcome",))
+CONSOLIDATION_SAVINGS = REGISTRY.counter(
+    "karpenter_tpu_consolidation_savings_total",
+    "Realized $/hr price delta of EXECUTED consolidation disruptions "
+    "(victims' price minus replacements' price), by decision source: "
+    "'greedy' = the reference-style screen + prefix selection, "
+    "'optimizer' = the global subset search "
+    "(karpenter_tpu/optimizer/). Only consolidations meter here — "
+    "drift/expiration replacements are compliance, not savings. The "
+    "optimizer-vs-greedy split is the bench c14 headline: optimizer "
+    "savings above the greedy baseline are consolidations the prefix "
+    "search structurally cannot see",
+    ("source", "tenant"), label_defaults=_TENANT)
 
 __all__ = ["REGISTRY", "Registry", "Counter", "Gauge", "Histogram"]

@@ -1,8 +1,8 @@
 """InstanceType + Offering: the supply side of scheduling.
 
 The port's own copy of `karpenter_tpu/models/instancetype.py` (the
-price-ordering and truncation helpers, which this port's path does not
-run, are left out).
+price-ordering and truncation helpers, which the port does not run, are
+left out).
 
 Mirrors the reference core's `cloudprovider.InstanceType{Name, Requirements,
 Offerings, Capacity, Overhead}` and `Offering{Price, Available, Requirements,
@@ -14,7 +14,7 @@ pkg/providers/instancetype/offering/offering.go:103-196).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from . import labels as L
 from .requirements import Operator, Requirement, Requirements
@@ -77,3 +77,9 @@ class InstanceType:
     def zones(self) -> List[str]:
         return sorted({o.zone for o in self.offerings})
 
+    def node_labels(self, zone: str, capacity_type: str) -> Dict[str, str]:
+        out = self.requirements.single_values()
+        out[L.INSTANCE_TYPE] = self.name
+        out[L.ZONE] = zone
+        out[L.CAPACITY_TYPE] = capacity_type
+        return out

@@ -20,8 +20,18 @@ INSTANCE_TYPE = "node.kubernetes.io/instance-type"
 ZONE = "topology.kubernetes.io/zone"
 REGION = "topology.kubernetes.io/region"
 HOSTNAME = "kubernetes.io/hostname"
-NODEPOOL = "karpenter.tpu/nodepool"
 CAPACITY_TYPE = "karpenter.tpu/capacity-type"
+NODEPOOL = "karpenter.tpu/nodepool"
+# pod annotation: the NodeClaim a pending pod is nominated to (the
+# provisioner's in-flight placement marker; the store's pending-group
+# index keys off its presence)
+NOMINATED = "karpenter.tpu/nominated-nodeclaim"
+# NoSchedule taint cordoning a node: applied at DISRUPTION DECISION time
+# (before replacements boot — reference step order, disruption.md:14-27)
+# and again at drain start; the provisioner never reuses a node carrying it
+DISRUPTED_TAINT_KEY = "karpenter.tpu/disrupted"
+NODE_INITIALIZED = "karpenter.tpu/initialized"
+NODE_REGISTERED = "karpenter.tpu/registered"
 
 # capacity types
 CAPACITY_ON_DEMAND = "on-demand"
@@ -71,3 +81,35 @@ NUMERIC_LABELS = frozenset({
 # labels that vary per-offering rather than per-type: handled by the solver's
 # (zone, capacity-type) axes, not by the per-type label mask
 OFFERING_LABELS = frozenset({ZONE, CAPACITY_TYPE})
+
+# instance adoption tags, stamped at launch and read back by restart
+# rehydration (state/rehydrate.py) — the writer (provisioner) and reader
+# must share one spelling or instances silently become unadoptable
+TAG_NODECLAIM = f"{_G}/nodeclaim"
+TAG_NODEPOOL = NODEPOOL
+TAG_NODECLASS = f"{_G}/nodeclass"
+TAG_NODECLASS_HASH = f"{_G}/nodeclass-hash"
+TAG_NODECLASS_HASH_VERSION = f"{_G}/nodeclass-hash-version"
+TAG_NODEPOOL_HASH = f"{_G}/nodepool-hash"
+TAG_NODEPOOL_HASH_VERSION = f"{_G}/nodepool-hash-version"
+# launch idempotency token (state/journal.launch_token), stamped on the
+# instance at launch: restart replay matches open intents to the
+# instances they actually minted by this tag, and the GC sweep skips
+# instances whose token still has an open intent (launch in flight)
+TAG_LAUNCH_TOKEN = f"{_G}/launch-token"
+
+# restricted: users may not set these directly on NodePool templates
+RESTRICTED_LABELS = frozenset({NODEPOOL, NODE_INITIALIZED, NODE_REGISTERED, HOSTNAME})
+
+WELL_KNOWN = frozenset({
+    ARCH, OS, INSTANCE_TYPE, ZONE, REGION, CAPACITY_TYPE, NODEPOOL,
+    INSTANCE_CATEGORY, INSTANCE_FAMILY, INSTANCE_GENERATION, INSTANCE_SIZE,
+    INSTANCE_CPU, INSTANCE_CPU_MANUFACTURER,
+    INSTANCE_CPU_SUSTAINED_CLOCK_SPEED_MHZ, INSTANCE_MEMORY,
+    INSTANCE_EBS_BANDWIDTH, INSTANCE_NETWORK_BANDWIDTH, INSTANCE_GPU_NAME,
+    INSTANCE_GPU_MANUFACTURER, INSTANCE_GPU_COUNT, INSTANCE_GPU_MEMORY,
+    INSTANCE_ACCELERATOR_NAME, INSTANCE_ACCELERATOR_MANUFACTURER,
+    INSTANCE_ACCELERATOR_COUNT, INSTANCE_HYPERVISOR,
+    INSTANCE_ENCRYPTION_IN_TRANSIT, INSTANCE_LOCAL_NVME,
+    INSTANCE_NETWORK_FAST_INTERFACE,
+})

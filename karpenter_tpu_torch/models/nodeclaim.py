@@ -1,5 +1,8 @@
 r"""NodeClaim: the node lifecycle object.
 
+The port's own copy of `karpenter_tpu/models/nodeclaim.py`, unchanged in
+semantics; the name sequence `_seq` is this package's own.
+
 The reconcile loop's unit of work (reference ships the core NodeClaim CRD,
 karpenter.sh_nodeclaims.yaml; the AWS provider converts instances <->
 NodeClaims at pkg/cloudprovider/cloudprovider.go:381-444). Lifecycle:
@@ -87,3 +90,37 @@ class NodeClaim:
 
     def is_running(self) -> bool:
         return self.phase in (Phase.LAUNCHED, Phase.REGISTERED, Phase.INITIALIZED)
+
+
+@dataclass
+class Node:
+    """A materialized cluster node (the fake cloud's kubelet-side object)."""
+
+    name: str
+    provider_id: str
+    labels: Dict[str, str] = field(default_factory=dict)
+    annotations: Dict[str, str] = field(default_factory=dict)
+    taints: List[Taint] = field(default_factory=list)
+    capacity: Resources = field(default_factory=Resources)
+    allocatable: Resources = field(default_factory=Resources)
+    ready: bool = False
+    conditions: Dict[str, bool] = field(default_factory=dict)
+    nodeclaim: Optional[str] = None
+    created_at: float = 0.0
+    deletion_timestamp: Optional[float] = None
+
+
+def new_nodeclaim_name(nodepool: str) -> str:
+    return f"{nodepool}-{next(_seq):06d}"
+
+
+def advance_name_sequence(past: int) -> None:
+    """Ensure future generated names use suffixes > `past`.
+
+    The sequence is process-local, so after a true restart it resets to 0
+    while adopted claims keep their old names — without this, a fresh
+    launch would mint a colliding name, silently overwrite the adopted
+    claim in the store, and expose its live instance to GC."""
+    global _seq
+    current = next(_seq)
+    _seq = itertools.count(max(current, past + 1))

@@ -1,9 +1,8 @@
 """Pod model: the demand side of scheduling.
 
-The port's own copy of `karpenter_tpu/models/pod.py` (PodDisruptionBudget,
-used only by the controllers, is left out). The
-signature intern table is this package's own: pods of the two packages
-never share group ids.
+The port's own copy of `karpenter_tpu/models/pod.py` (`Taint.evicts`,
+which the port does not call, is left out). The signature intern table is
+this package's own: pods of the two packages never share group ids.
 
 Carries exactly the scheduling-relevant surface the reference's core
 scheduler consumes (website/content/en/docs/concepts/scheduling.md):
@@ -20,6 +19,8 @@ from typing import Dict, List, Optional, Tuple
 
 from .requirements import Operator, Requirement, Requirements
 from .resources import Resources
+
+DO_NOT_DISRUPT = "karpenter.tpu/do-not-disrupt"
 
 _uid = itertools.count()
 # constraint-signature → int intern table backing Pod.group_key(). Bounded:
@@ -166,6 +167,9 @@ class Pod:
                               tuple(term.get("values", ()))))
         return r
 
+    def do_not_disrupt(self) -> bool:
+        return self.annotations.get(DO_NOT_DISRUPT) == "true"
+
     def has_self_anti_affinity(self) -> bool:
         """Required hostname anti-affinity against the pod's own labels
         (max 1/node); preferred terms never block."""
@@ -235,6 +239,13 @@ class Pod:
                          for t in self.affinity_terms)) if self.affinity_terms else empty,
         )
         return self._sig
+
+    def invalidate_group_key(self) -> None:
+        """Drop the cached signature/intern id after a constraint-bearing
+        field changed post-admission (e.g. a PVC binding injected a zone
+        selector) — callers must re-run store indexing afterwards."""
+        self._sig = None
+        self._gid = None
 
     def group_key(self) -> int:
         """Process-interned int id of constraint_signature().
@@ -367,3 +378,43 @@ class DaemonSet:
 
     def scheduling_requirements(self) -> Requirements:
         return Requirements.from_labels(self.node_selector)
+
+
+@dataclass
+class PodDisruptionBudget:
+    """Voluntary-disruption guard for a workload (the k8s PDB the
+    reference core consults: nodes whose pods' PDBs would be violated
+    are excluded from disruption candidates, and eviction during drain
+    is paced to disruptionsAllowed — SURVEY §3 disruption call stack).
+
+    Exactly one of min_available / max_unavailable should be set; each
+    is an absolute count or a percent string over the matching-pod
+    total."""
+
+    name: str
+    label_selector: Dict[str, str]
+    namespace: str = "default"
+    min_available: Optional[object] = None   # int | "50%"
+    max_unavailable: Optional[object] = None
+
+    def matches(self, pod: "Pod") -> bool:
+        return (pod.namespace == self.namespace
+                and all(pod.labels.get(k) == v
+                        for k, v in self.label_selector.items()))
+
+    @staticmethod
+    def _abs(value, total: int) -> int:
+        if isinstance(value, str) and value.endswith("%"):
+            import math
+            return math.ceil(total * float(value[:-1]) / 100.0)
+        return int(value)
+
+    def disruptions_allowed(self, total: int, healthy: int) -> int:
+        """k8s semantics: healthy − desiredHealthy (never negative)."""
+        if self.max_unavailable is not None:
+            desired = total - self._abs(self.max_unavailable, total)
+        elif self.min_available is not None:
+            desired = self._abs(self.min_available, total)
+        else:
+            return total  # no constraint
+        return max(0, healthy - desired)

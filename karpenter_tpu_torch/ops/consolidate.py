@@ -17,25 +17,15 @@ plain PyTorch on the device. Multi-device (`mesh=`) is not ported.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from .binpack import VirtualNode
 from .encode import CatalogTensors, EncodedPods, align_zone_overhead
 from .screen_k import screen_k
 from .solver import (_auto_dcat, _put, _request_cols, reject_mesh,
                      resolve_device)
-
-
-@dataclass
-class NodeView:
-    """A consolidation candidate: only `.virtual` is read (the reference's
-    state.cluster.NodeView carries the same attribute)."""
-
-    virtual: VirtualNode
 
 
 def _screen_body(alloc, avail, node_type, node_cum, node_zmask, node_cmask,
@@ -159,14 +149,20 @@ def consolidation_screen(cat: CatalogTensors, enc: EncodedPods,
                          views: "List", group_counts: np.ndarray,
                          device=None, mesh=None
                          ) -> Tuple[np.ndarray, np.ndarray]:
-    """views: objects with `.virtual` (NodeView); group_counts [N, G] =
-    pods of group g on node n. Returns (screen [N] bool, slack [N, G]),
-    after ONE host read."""
+    """views: `state.cluster.NodeView`s (only `.virtual` is read);
+    group_counts [N, G] = pods of group g on node n. Returns (screen [N]
+    bool, slack [N, G]), after ONE host read."""
     reject_mesh(mesh)
     dev = resolve_device(device)
     N = len(views)
     if N == 0:
         return np.zeros(0, bool), np.zeros((0, enc.G), np.float32)
+    from . import solver as _solver_mod
+    # same fault seam as the solve kernels: a fault plan can take the
+    # device out at screen dispatch too (the disruption controller meters
+    # an InjectedFault and degrades to cost order; anything else raises)
+    if _solver_mod._dispatch_fault_hook is not None:
+        _solver_mod._dispatch_fault_hook("screen")
     buf = screen_packed(cat, enc, views, group_counts, dev).cpu().numpy()
     screen = buf[:N] > 0.5
     slack = buf[N: N + N * enc.G].reshape(N, enc.G)

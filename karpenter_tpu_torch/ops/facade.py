@@ -914,7 +914,9 @@ class Solver:
         Returns the (possibly recovered) (result, backend). Read-only on
         the happy path; a violation re-runs the solve on the fallback
         backend and suspends the device path (the same never-wrong-twice
-        suspension a mid-solve device fault earns)."""
+        suspension a mid-solve device fault earns). An uninjected device
+        violation that the fallback's answer does not share raises
+        IntegrityError instead."""
         from ..integrity import integrity_enabled
         if not integrity_enabled() or prep.enc is None:
             return result, backend
@@ -954,14 +956,6 @@ class Solver:
                 # breach) and ship what we have
                 INTEGRITY.record_recovery(False)
                 return result, backend
-            from . import solver as _solver
-            if _solver._corruption_hook is None:
-                # nothing was injected: the device path itself answered
-                # wrongly — raise instead of serving another rung's answer
-                INTEGRITY.record_recovery(False)
-                from ..integrity import IntegrityError
-                raise IntegrityError(violations)
-            self._integrity_quarantine(prep, backend)
             fallback = self._fallback_backend(prep.cat)
             if fallback == "native":
                 from .native import solve_native
@@ -969,6 +963,21 @@ class Solver:
             else:
                 recovered = solve_host(prep.cat, prep.enc, prep.existing)
             still = verify_result(prep.cat, prep.enc, recovered)
+            from . import solver as _solver
+            if (_solver._corruption_hook is None
+                    and not {str(x) for x in violations}
+                    <= {str(x) for x in still}):
+                # nothing was injected and the fallback rung's answer does
+                # not fail the same checks: the device path itself
+                # answered wrongly — raise instead of serving another
+                # rung's answer. (When the fallback fails the same checks,
+                # the violation lies in the input — an existing node
+                # already over its capacity — and the port recovers as
+                # the reference does.)
+                INTEGRITY.record_recovery(False)
+                from ..integrity import IntegrityError
+                raise IntegrityError(violations)
+            self._integrity_quarantine(prep, backend)
             INTEGRITY.record_recovery(not still)
             if still:
                 for vio in still:

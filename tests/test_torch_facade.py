@@ -719,6 +719,35 @@ def test_wrong_device_answer_raises_out_of_solve(monkeypatch, _quiet_planes):
     assert _fallback_counts(PORT_FALLBACKS) == p0
 
 
+def test_over_capacity_input_recovers_like_the_reference(_quiet_planes):
+    """An existing node already over its capacity (a state the reference's
+    control loop reaches after large scale-downs) fails the oracle on every
+    rung. That is the input's fault, not the device's: the port does what
+    the reference does — quarantine, re-solve on the fallback rung, ship
+    its answer, suspend the device path — with the same output, stats and
+    SOLVER_FALLBACKS delta."""
+    c = scenario("existing")
+    node = c.existing[0]
+    node.cum = node.cum.copy()
+    node.cum[0] += np.float32(1000.0)
+    rprov, rc = _ref_side(c)
+    pprov, pc = _port_side(c)
+    ref = RefSolver(rprov, backend="device")
+    port = PortSolver(pprov, backend="device", device="cpu")
+    counts = lambda m: {to: m.value(from_backend="device", to_backend=to)
+                        for to in ("native", "host")}
+    r0, p0 = counts(REF_FALLBACKS), counts(PORT_FALLBACKS)
+    want, got = _solve(ref, rc), _solve(port, pc)
+    assert out_tuple(got) == out_tuple(want)
+    assert port.stats == ref.stats
+    assert port.stats["device_fallbacks"] == 1
+    assert port.stats["integrity_violations"] >= 1
+    r1, p1 = counts(REF_FALLBACKS), counts(PORT_FALLBACKS)
+    assert {k: p1[k] - p0[k] for k in p1} == {k: r1[k] - r0[k] for k in r1}
+    assert port._device_suspended == ref._device_suspended == \
+        PortSolver.FALLBACK_COOLDOWN
+
+
 def test_traced_solve_spans_every_stage(_quiet_planes):
     """With tracing on, one facade solve yields a span for each stage
     (the split chip_smoke.py prints): catalog view, colocation, encode,

@@ -78,13 +78,17 @@ def test_entry_points_raise_without_cuda():
     raise, and device='cpu' is the only way to run them on the host."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from karpenter_tpu_torch.ops.consolidate import NodeView, consolidation_screen
+    from karpenter_tpu_torch.models.nodeclaim import NodeClaim
+    from karpenter_tpu_torch.ops.consolidate import consolidation_screen
+    from karpenter_tpu_torch.state.cluster import NodeView
     from karpenter_tpu_torch.ops.solver import solve_device
     cat, enc = _tiny_problem()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         solve_device(cat, enc)
     res = solve_device(cat, enc, device="cpu")
-    views = [NodeView(virtual=n) for n in res.nodes]
+    views = [NodeView(claim=NodeClaim(name=f"n{i}", nodepool="d"), node=None,
+                      pods=[], virtual=n, price=0.0)
+             for i, n in enumerate(res.nodes)]
     counts = np.zeros((len(views), enc.G), np.int32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         consolidation_screen(cat, enc, views, counts)
@@ -114,6 +118,21 @@ def test_solver_facade_needs_a_card_or_a_device():
         [Pod(name="p", requests=Resources.parse({"cpu": "1"}))],
         NodePool(name="default"))
     assert len(out.launches) == 1 and not out.unschedulable
+
+
+def test_make_sim_needs_a_card_or_a_device(monkeypatch):
+    """The port's sim without a card and without device= raises on every
+    rung (the consolidation screen runs on the device on every rung);
+    device="cpu" builds it."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from karpenter_tpu_torch.sim import make_sim
+    for backend in ("device", "native", "host"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_sim(backend=backend)
+    monkeypatch.setenv("KARPENTER_TPU_OPTIMIZER", "0")
+    sim = make_sim(backend="device", device="cpu")
+    assert sim.solver.device.type == "cpu"
 
 
 def test_wrappers_refuse_other_devices():

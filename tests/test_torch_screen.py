@@ -34,7 +34,9 @@ from karpenter_tpu_torch.catalog import generate_catalog as p_generate_catalog
 from karpenter_tpu_torch.models.pod import Pod as PPod
 from karpenter_tpu_torch.models.resources import Resources as PResources
 from karpenter_tpu_torch.ops import binpack as port_binpack
-from karpenter_tpu_torch.ops.consolidate import NodeView, consolidation_screen
+from karpenter_tpu_torch.models.nodeclaim import NodeClaim as PNodeClaim
+from karpenter_tpu_torch.ops.consolidate import consolidation_screen
+from karpenter_tpu_torch.state.cluster import NodeView
 from karpenter_tpu_torch.ops.encode import encode_catalog as p_encode_catalog
 from karpenter_tpu_torch.ops.encode import encode_pods as p_encode_pods
 from karpenter_tpu_torch.ops.screen_k import screen_k
@@ -46,6 +48,13 @@ def _rotate_reference_intern_table():
     rotation; see test_torch_encode.py)."""
     yield
     ref_pod._sig_intern.clear()
+
+
+def _pview(i, vn):
+    """The port's NodeView of virtual node `vn` (only `.virtual` is read
+    by the screen)."""
+    return NodeView(claim=PNodeClaim(name=f"n{i}", nodepool="d"), node=None,
+                    pods=[], virtual=vn, price=0.1)
 
 
 def _k_inputs(seed, N, G, R):
@@ -100,7 +109,7 @@ def _views_from_solve(cat, enc, result):
         rows.append(row)
         views.append(RefNodeView(claim=NodeClaim(name=f"n{i}", nodepool="d"),
                                  node=None, pods=[], virtual=n, price=0.1))
-        pviews.append(NodeView(virtual=convert.nodes_from_arrays([vars(n)])[0]))
+        pviews.append(_pview(i, convert.nodes_from_arrays([vars(n)])[0]))
     counts = (np.stack(rows) if rows else np.zeros((0, enc.G), np.int32))
     return views, pviews, counts
 
@@ -156,8 +165,8 @@ def test_consolidation_screen_synthetic_nodes():
     views = [RefNodeView(claim=NodeClaim(name=f"n{i}", nodepool="d"),
                          node=None, pods=[], virtual=n, price=0.1)
              for i, n in enumerate(nodes)]
-    pviews = [NodeView(virtual=v) for v in
-              convert.nodes_from_arrays(vars(n) for n in nodes)]
+    pviews = [_pview(i, v) for i, v in
+              enumerate(convert.nodes_from_arrays(vars(n) for n in nodes))]
     _compare(cat, enc, views, counts, convert.catalog_from_arrays(vars(cat)),
              convert.pods_from_arrays(vars(enc)), pviews)
 
@@ -234,7 +243,7 @@ def test_screen_has_no_false_negatives_random(seed):
         for g, c in n.pods_by_group.items():
             row[g] = c
         rows.append(row)
-        views.append(NodeView(virtual=n))
+        views.append(_pview(i, n))
     counts = (np.stack(rows) if rows else np.zeros((0, enc.G), np.int32))
     screen, _ = consolidation_screen(cat, enc, views, counts, device="cpu")
     sig_to_g = {g.representative.constraint_signature(): i

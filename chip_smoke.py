@@ -831,14 +831,20 @@ def phase_operator(dev):
           f"operator controller stats differ: {run_d.stats()} vs "
           f"{run_n.stats()}")
     # an uninjected device fault or wrong device answer raises out of the
-    # loop; what the facade recovers from (the reference's quarantine) is
-    # an oracle violation the fallback rung's answer shares: an input
-    # already over capacity. Count it: each one sends the next
-    # FALLBACK_COOLDOWN solves to the native rung, as in the reference
-    check("screen_errors" not in run_d.sim.disruption.stats,
-          "the screen degraded in the device run")
+    # loop; nothing may have moved a device solve to another rung or
+    # degraded the screen, and the oracle must have flagged no solve (an
+    # input over capacity would be flagged on both rungs:
+    # tests/test_torch_sim_overcap.py)
     log(f"[operator] solver stats: device run {run_d.sim.solver.stats}; "
         f"native run {run_n.sim.solver.stats}")
+    check("screen_errors" not in run_d.sim.disruption.stats,
+          "the screen degraded in the device run")
+    check(run_d.sim.solver.stats == run_n.sim.solver.stats,
+          "operator solver stats differ between the device and native runs")
+    check(run_d.sim.solver.stats["device_fallbacks"] == 0,
+          "the device run served solves from another rung")
+    check(run_d.sim.solver.stats["integrity_violations"] == 0,
+          "the integrity oracle flagged solves of the operator phase")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched inside the loop")
     log(f"[check] operator device == native: state_hash {hd[:16]}, "
@@ -1244,37 +1250,41 @@ def main() -> None:
         log("[time] torch.profiler recorded no device events: device busy "
             "share not measured")
 
-    screen_kernel_times(sk, head, req, elig, "main-path screen")
-
-    # kernels B0 and B at the solve_device cell's inputs (beside PR 2's
-    # numbers), at the facade solve's, and at the operator loop's last
-    # re-solve; kernel A at the operator loop's last screen (the loop's
-    # rows make the kernels line)
-    scan_kernel_times(ss, sargs, skw, "solve_device cell")
-    scan_kernel_times(ss, *facade_scan, "facade")
-    b0, bk = scan_kernel_times(ss, *op_scan, "operator loop re-solve")
+    # each kernel timed at the inputs of every phase that launches it: A at
+    # the main path's 4,250-node screen and the operator loop's last
+    # screen; B0 and B at the solve_device cell's inputs, the facade
+    # solve's and the operator loop's last re-solve. The kernels line takes
+    # its times at full size (A: the main path; B0, B: the facade, as in
+    # earlier PRs), its launches from the operator phase, and carries
+    # every phase's launches and times beside them
+    a_main = screen_kernel_times(sk, head, req, elig, "main-path screen")
+    b_main = scan_kernel_times(ss, sargs, skw, "solve_device cell")
+    b_fac = scan_kernel_times(ss, *facade_scan, "facade")
+    b_op = scan_kernel_times(ss, *op_scan, "operator loop re-solve")
     (ahead, areq, aelig), _ = op_screen
     a_op = screen_kernel_times(sk, ahead, areq, aelig, "operator loop screen")
-    by_phase = {k: {"main": launches[k], "facade": facade_launches.get(k),
-                    "operator": op_launches[k]} for k in op_launches}
-
+    times = {"screen_k": {"main": a_main, "operator": a_op}}
+    for i, k in enumerate(("offer_argmin", "solve_scan")):
+        times[k] = {"main": b_main[i], "facade": b_fac[i],
+                    "operator": b_op[i]}
+    phase_launches = {"main": launches, "facade": facade_launches,
+                      "operator": op_launches}
+    by_phase = {k: {ph: {"launches": phase_launches[ph].get(k), **row}
+                    for ph, row in times[k].items()} for k in times}
+    headline = {"screen_k": a_main, "offer_argmin": b_fac[0],
+                "solve_scan": b_fac[1]}
     kernels = [
-        {"name": "screen_k", "route": "cuda",
-         "source": "karpenter_tpu_torch/csrc/screen_k.cu",
-         "replaces": "karpenter_tpu/ops/pallas_screen.py:69",
-         "launches": op_launches["screen_k"], "max_abs_err": op_err_a,
-         **a_op, "launches_by_phase": by_phase["screen_k"]},
-        {"name": "offer_argmin", "route": "cuda",
-         "source": "karpenter_tpu_torch/csrc/solve_scan.cu",
-         "replaces": "karpenter_tpu/ops/solver.py:425",
-         "launches": op_launches["offer_argmin"], "max_abs_err": 0.0,
-         **b0, "launches_by_phase": by_phase["offer_argmin"]},
-        {"name": "solve_scan", "route": "cuda",
-         "source": "karpenter_tpu_torch/csrc/solve_scan.cu",
-         "replaces": "karpenter_tpu/ops/solver.py:348",
-         "launches": op_launches["solve_scan"], "max_abs_err": 0.0,
-         **bk, "launches_by_phase": by_phase["solve_scan"]},
-    ]
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": op_launches[name],
+         "max_abs_err": err, **headline[name],
+         "by_phase": by_phase[name]}
+        for name, source, replaces, err in (
+            ("screen_k", "karpenter_tpu_torch/csrc/screen_k.cu",
+             "karpenter_tpu/ops/pallas_screen.py:69", max(err_a, op_err_a)),
+            ("offer_argmin", "karpenter_tpu_torch/csrc/solve_scan.cu",
+             "karpenter_tpu/ops/solver.py:425", 0.0),
+            ("solve_scan", "karpenter_tpu_torch/csrc/solve_scan.cu",
+             "karpenter_tpu/ops/solver.py:348", 0.0))]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,7 @@ where it sits:
 - every exact re-solve (`_simulate_removal`, `_revalidate`) goes through
   the port's `Solver.solve` (kernels B0 and B on the card's rung);
 - the screen (`_screen_state`) calls the port's `consolidation_screen`
-  (kernel A) on `device` — the sim's device on every rung — and degrades
+  (kernel A) on the solver's device on every rung, and degrades
   to cost order only for an injected fault (`ops/solver.InjectedFault`);
   a kernel's build, shape or launch error raises out of `reconcile`;
 - the global optimizer (`_multi_node_optimizer`, the reference's default)
@@ -92,9 +92,6 @@ class DisruptionController:
     name: str = "disruption"
     requeue: float = 5.0
     spot_to_spot: bool = True  # SpotToSpotConsolidation feature gate
-    # where the consolidation screen runs (the reference passes
-    # `mesh=solver.screen_mesh(...)`); None = the solver's device
-    device: object = None
     _pending: List[PendingDisruption] = field(default_factory=list)
     # memoized consolidation-screen state per pool: (fingerprint,
     # (enc, counts, ok_names, slack)) — re-screening every reconcile
@@ -561,11 +558,10 @@ class DisruptionController:
         try:
             with sp:
                 # the reference passes mesh=solver.screen_mesh(len(views));
-                # the port's screen runs on one device on every rung
+                # the port's screen runs on the solver's device on every
+                # rung
                 screen, slack = consolidation_screen(
-                    cat, enc, views, counts,
-                    device=(self.device if self.device is not None
-                            else self.solver.device))
+                    cat, enc, views, counts, device=self.solver.device)
         except InjectedFault:
             # an injected device fault degrades to plain cost order,
             # metered like the facade's solve fallback so the event is

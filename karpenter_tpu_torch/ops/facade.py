@@ -912,11 +912,18 @@ class Solver:
         resident-state audit joins with the resident state, ROADMAP §1
         item 7).
         Returns the (possibly recovered) (result, backend). Read-only on
-        the happy path; a violation re-runs the solve on the fallback
-        backend and suspends the device path (the same never-wrong-twice
-        suspension a mid-solve device fault earns). An uninjected device
-        violation that the fallback's answer does not share raises
-        IntegrityError instead."""
+        the happy path. A device violation re-runs the solve on the
+        fallback backend. Then:
+        - with a corruption injected, ship the fallback's answer and
+          suspend the device path (the same never-wrong-twice suspension
+          a mid-solve device fault earns);
+        - without one, when the fallback's answer fails the same checks,
+          the violation lies in the input (an existing node already over
+          its capacity): ship the device answer with the violation
+          metered, as the native and host rungs do, and keep the device
+          path. The reference quarantines here too (ROADMAP §3);
+        - without one, otherwise, the device path itself answered
+          wrongly: raise IntegrityError."""
         from ..integrity import integrity_enabled
         if not integrity_enabled() or prep.enc is None:
             return result, backend
@@ -964,17 +971,15 @@ class Solver:
                 recovered = solve_host(prep.cat, prep.enc, prep.existing)
             still = verify_result(prep.cat, prep.enc, recovered)
             from . import solver as _solver
-            if (_solver._corruption_hook is None
-                    and not {str(x) for x in violations}
-                    <= {str(x) for x in still}):
-                # nothing was injected and the fallback rung's answer does
-                # not fail the same checks: the device path itself
-                # answered wrongly — raise instead of serving another
-                # rung's answer. (When the fallback fails the same checks,
-                # the violation lies in the input — an existing node
-                # already over its capacity — and the port recovers as
-                # the reference does.)
+            if _solver._corruption_hook is None:
                 INTEGRITY.record_recovery(False)
+                if {str(x) for x in violations} <= {str(x) for x in still}:
+                    # the input's fault: ship the device answer, metered,
+                    # and keep the device path (no rung swap, no cooldown)
+                    sp.set(outcome="input_violation")
+                    return result, backend
+                # the device path itself answered wrongly: raise instead
+                # of serving another rung's answer
                 from ..integrity import IntegrityError
                 raise IntegrityError(violations)
             self._integrity_quarantine(prep, backend)

@@ -158,7 +158,7 @@ def make_sim(types: Optional[List[InstanceType]] = None,
                                         catalog=catalog)
     disruption = DisruptionController(store=store, solver=solver,
                                       catalog=catalog, provisioner=provisioner,
-                                      termination=termination, device=dev)
+                                      termination=termination)
     interruption = InterruptionController(store=store, cloud=cloud,
                                           catalog=catalog,
                                           termination=termination)

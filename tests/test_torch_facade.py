@@ -720,12 +720,14 @@ def test_wrong_device_answer_raises_out_of_solve(monkeypatch, _quiet_planes):
 
 
 def test_over_capacity_input_recovers_like_the_reference(_quiet_planes):
-    """An existing node already over its capacity (a state the reference's
-    control loop reaches after large scale-downs) fails the oracle on every
-    rung. That is the input's fault, not the device's: the port does what
-    the reference does — quarantine, re-solve on the fallback rung, ship
-    its answer, suspend the device path — with the same output, stats and
-    SOLVER_FALLBACKS delta."""
+    """An existing node already over its capacity (a state both packages'
+    control loops reach after scale-downs, tests/test_torch_sim_overcap.py)
+    fails the oracle on every rung. That is the input's fault, not the
+    device's. The answer equals the reference's and the violations are
+    metered the same, but the port keeps the device rung: it ships the
+    device answer, as its native rung ships its own, with no rung swap and
+    no cooldown. The reference quarantines and ships its fallback's
+    (equal) answer (ROADMAP §3)."""
     c = scenario("existing")
     node = c.existing[0]
     node.cum = node.cum.copy()
@@ -734,18 +736,27 @@ def test_over_capacity_input_recovers_like_the_reference(_quiet_planes):
     pprov, pc = _port_side(c)
     ref = RefSolver(rprov, backend="device")
     port = PortSolver(pprov, backend="device", device="cpu")
+    native = PortSolver(_port_side(c)[0], backend="native")
     counts = lambda m: {to: m.value(from_backend="device", to_backend=to)
                         for to in ("native", "host")}
     r0, p0 = counts(REF_FALLBACKS), counts(PORT_FALLBACKS)
     want, got = _solve(ref, rc), _solve(port, pc)
     assert out_tuple(got) == out_tuple(want)
-    assert port.stats == ref.stats
-    assert port.stats["device_fallbacks"] == 1
+    assert out_tuple(_solve(native, pc)) == out_tuple(got)
     assert port.stats["integrity_violations"] >= 1
+    assert port.stats["integrity_violations"] == \
+        ref.stats["integrity_violations"] == \
+        native.stats["integrity_violations"]
+    assert port.stats["device_fallbacks"] == 0
+    assert ref.stats["device_fallbacks"] == 1
     r1, p1 = counts(REF_FALLBACKS), counts(PORT_FALLBACKS)
-    assert {k: p1[k] - p0[k] for k in p1} == {k: r1[k] - r0[k] for k in r1}
-    assert port._device_suspended == ref._device_suspended == \
-        PortSolver.FALLBACK_COOLDOWN
+    assert p1 == p0 and r1 != r0
+    assert port._device_suspended == 0
+    assert ref._device_suspended == PortSolver.FALLBACK_COOLDOWN
+    # the next solve of the same input stays on the device rung
+    assert port._resolve_backend(len(pc.pods)) == "device"
+    assert out_tuple(_solve(port, pc)) == out_tuple(got)
+    assert port.stats["device_fallbacks"] == 0
 
 
 def test_traced_solve_spans_every_stage(_quiet_planes):

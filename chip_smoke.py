@@ -33,30 +33,41 @@ Phases (any failure exits non-zero):
              that Solver.DEVICE_MIN_PODS is held against).
   4c. operator the control loop as users enter it: the port's
              make_sim(backend="device") on the 810-type catalog with the
-             reference's fast cloud (its c8 cell), optimizer off: 10,000
-             grid pods scaled up until bound, 60% of them deleted and the
-             engine run until disruption is quiet (no pending decision, no
-             new one for 3 passes), then 5 bursts of 32 pods, each through
-             one provisioner reconcile. The same run on the native rung
-             must end in the same state_hash, disruption decisions and
-             controller stats; A, B0 and B must launch inside the device
-             run and equal their plain versions at inputs recorded there.
-             Times: each stage's wall, the reconcile walls by controller,
-             the tracer's spans, the card's idle share over one disruption
-             reconcile.
+             reference's fast cloud (its c8 cell), the global optimizer
+             armed (the reference's default): 10,000 grid pods scaled up
+             until bound, 60% of them deleted and the engine run until
+             disruption is quiet (no pending decision, no new one for 3
+             passes), then 5 bursts of 32 pods, each through one
+             provisioner reconcile. The same run on the native rung (whose
+             subset search scores in NumPy) must end in the same
+             state_hash, disruption decisions and controller stats, with
+             no device fallback, oracle flag or optimizer error; A, B0, B
+             and C must launch inside the device run and equal their plain
+             versions at inputs recorded there. Times: each stage's wall,
+             the reconcile walls by controller, the tracer's spans, the
+             card's idle share over one disruption reconcile.
+  4d. optimizer bench c14's procedure (`optimizer.fixtures.
+             measure_consolidation`, the squeeze fleet) on the device rung,
+             armed and disarmed, and armed on the native rung, at 2 tiles
+             and at OPT_TILES: joint consolidations >= tiles, the armed
+             savings above the disarmed ones, device == native.
   5. time    median wall times of the solve and the screen, stage by stage;
              per-kernel device time from torch.profiler and CUDA events
              beside its bound, its plain version's time and one torch
              expression's time where one computes the same function;
              kernels B0 and B at the facade solve's scan inputs and at the
-             solve_device cell's, kernel B at every cluster size at both.
+             solve_device cell's, kernel B at every cluster size at both;
+             kernel C at the operator loop's first subset search and at a
+             search over phase 3's 4,250-node cluster.
 
 The kernels line reports each kernel's launches in the operator phase
-(with `launches_by_phase` for the main path, the facade and the operator
-phase) and its times at an input recorded inside the loop (B0 and B at
-the last re-solve, A at the last screen). The last two lines of output
-are that line and {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
-of the repository, it exits non-zero and prints no result.
+and its times at a full-size input (A: the main path's screen; B0, B: the
+facade's solve; C: the operator loop's first subset search); `by_phase`
+holds each phase's launches (the main path, the facade, the operator and
+the optimizer phases) and times. The last two lines of
+output are that line and {"ok": true, "device": {...}}. Without a CUDA
+device, or outside a checkout of the repository, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -253,12 +264,67 @@ def screen_inputs(seed: int, N: int, G: int, R: int, dev):
     return tuple(torch.as_tensor(a, device=dev) for a in (head, req, elig))
 
 
+def tournament_inputs(seed: int, S: int, N: int, G: int, Rk: int, dev,
+                      max_k: int = 5):
+    """Seeded inputs of kernel C: raw headroom (some negative), requests
+    with zero columns, integer caps and counts, victim masks of 2..max_k
+    nodes, prices and per-slot prices (one BIG)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    head = rng.uniform(-1.0, 12.0, (N, Rk)).astype(np.float32)
+    req = rng.uniform(0.0, 3.0, (G, Rk)).astype(np.float32)
+    req[rng.random((G, Rk)) < 0.3] = 0.0
+    k = rng.integers(0, 5, (N, G)).astype(np.float32)
+    counts = (rng.random((N, G)) < 0.05).astype(np.float32)
+    masks = np.zeros((S, N), np.float32)
+    for row in masks:
+        row[rng.choice(N, min(N, int(rng.integers(2, max_k + 1))),
+                       replace=False)] = 1.0
+    prices = rng.uniform(0.05, 3.0, N).astype(np.float32)
+    pslot = rng.uniform(0.01, 0.5, G).astype(np.float32)
+    pslot[0] = 1e9
+    return tuple(torch.as_tensor(a, device=dev) for a in
+                 (head, req, k, counts, masks, prices, pslot))
+
+
+def rank(buf) -> list:
+    """plan_repack's two-tier ranking of one packed tournament output:
+    the subset indices in verify order."""
+    import numpy as np
+    from karpenter_tpu_torch.optimizer import RESIDUAL_EPS
+    out = buf.reshape(-1, 4).cpu().numpy()
+    feasible, savings, residual, repl_lb = (out[:, 0] > 0.5, out[:, 1],
+                                            out[:, 2], out[:, 3])
+    net = savings - repl_lb
+    value = np.where(feasible & (residual <= RESIDUAL_EPS),
+                     np.float32(1e6) + savings,
+                     np.where(net > 0, net, np.float32(-1.0)))
+    return [int(i) for i in np.argsort(-value, kind="stable") if value[i] > 0]
+
+
+def check_tournament(tk, args, what: str) -> float:
+    """Kernel C against tournament_plain at one call's arguments: every
+    packed output equal (both add in one order) and the ranked plan equal.
+    Returns the largest absolute difference (0.0)."""
+    import torch
+    got = tk.tournament_cuda(*args)
+    torch.cuda.synchronize()
+    want = tk.tournament_plain(*args)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(torch.equal(got, want), f"tournament != plain ({what}): max abs "
+          f"difference {err}")
+    check(rank(got) == rank(want), f"tournament plan != plain ({what})")
+    return err
+
+
 def phase_check_small(dev) -> None:
     import dataclasses
     import numpy as np
     import torch
     from karpenter_tpu_torch import catalog, models
     from karpenter_tpu_torch.models import labels as L
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
     from karpenter_tpu_torch.ops import screen_k as sk
     from karpenter_tpu_torch.ops import solve_scan as ss, solver
     from karpenter_tpu_torch.ops.binpack import solve_host
@@ -273,6 +339,25 @@ def phase_check_small(dev) -> None:
         check(torch.equal(got, want), f"screen_k != plain at {shape}")
     log("[check] screen_k == plain (atol 0) at the four test shapes and a "
         "ragged 7x3")
+    for shape in [(3, 5, 1, 1), (40, 33, 7, 16), (16, 31, 600, 9),
+                  (64, 300, 90, 3)]:
+        check_tournament(tk, tournament_inputs(5, *shape, dev),
+                         f"S,N,G,Rk={shape}")
+    head, req, k, counts, masks, prices, pslot = tournament_inputs(
+        6, 50, 40, 12, 3, dev)
+    wide = torch.zeros((40, 5 + 12), device=dev)
+    wide[:, 5:] = counts
+    greq = torch.zeros((12, 3 + 8), device=dev)
+    greq[:, :3] = req
+    mbuf = torch.cat([masks, prices[None]])
+    strided = tk.tournament_cuda(head, greq[:, :3], k, wide[:, 5:],
+                                 mbuf[:-1], mbuf[-1], pslot)
+    torch.cuda.synchronize()
+    check(torch.equal(strided, tk.tournament_plain(head, req, k, counts,
+                                                   masks, prices, pslot)),
+          "tournament on row-strided packed views != plain")
+    log("[check] tournament == plain (every packed output, atol 0; the "
+        "ranked plan equal) at four shapes and on row-strided packed views")
 
     cat = encode_catalog(catalog.small_catalog())
     anti = [models.PodAffinityTerm(topology_key=L.HOSTNAME,
@@ -326,10 +411,10 @@ def phase_check_small(dev) -> None:
 
 FACADE_SUBSET = 10_000       # pods checked against the host rung
 FACADE_RESUME = 10_000       # new pods of the resumed solve
-FACADE_REPS = 5             # runs of the median facade wall
+FACADE_REPS = 3             # runs of the median facade wall
 CROSSOVER_SIZES = (1_000, 2_000, 4_000, 6_000, 8_000, 16_000, 32_000,
                    100_000)
-CROSSOVER_REPS = 4
+CROSSOVER_REPS = 2  # keeps the whole script near half its time limit
 TOLERATE = ("dedicated", "batch")    # the pool's taint (key, value)
 
 
@@ -637,7 +722,7 @@ OP_BURST = 32
 OP_CLOUD = dict(node_ready_delay=1.0, register_delay=0.5,
                 create_fleet_rate=1e6, create_fleet_burst=10**6)
 DECISION_STATS = ("empty", "drift", "expired", "consolidated",
-                  "multi_consolidated")
+                  "multi_consolidated", "optimizer_consolidated")
 
 
 class OperatorRun:
@@ -651,7 +736,10 @@ class OperatorRun:
         from karpenter_tpu_torch.cloud import fake
         from karpenter_tpu_torch.cloud.fake import FakeCloudConfig
         from karpenter_tpu_torch.models import nodeclaim, pod
-        os.environ["KARPENTER_TPU_OPTIMIZER"] = "0"  # the greedy path
+        from karpenter_tpu_torch.optimizer import OPTIMIZER
+        # the reference's default: the global optimizer armed
+        os.environ.pop("KARPENTER_TPU_OPTIMIZER", None)
+        self.optimizer0 = OPTIMIZER.totals()
         # both rungs mint claim names, pod uids and instance ids from the
         # same start: names break ties in the loop's orderings
         nodeclaim._seq = itertools.count()
@@ -769,6 +857,14 @@ class OperatorRun:
         return {c.name: dict(c.stats) for c in self.sim.engine.controllers
                 if hasattr(c, "stats")}
 
+    def optimizer(self) -> dict:
+        """The optimizer meter's counts (subsets scored, exact verifies,
+        accepts) since this run started; read it before another run."""
+        from karpenter_tpu_torch.optimizer import OPTIMIZER
+        now = OPTIMIZER.totals()
+        return {k: now[k] - self.optimizer0[k]
+                for k in ("scored", "verified", "accepted", "fallbacks")}
+
 
 def phase_operator(dev):
     """The port's control loop as users enter it: make_sim(backend="device")
@@ -777,21 +873,25 @@ def phase_operator(dev):
     the native rung must end in the same state, decisions and stats.
     Returns the kernels' launches in the device run and one recorded input
     of each (the scale-up solve's and the last re-solve's scan, the last
-    screen's k)."""
+    screen's k, the first subset search's tournament)."""
     import numpy as np
     import torch
     from karpenter_tpu_torch import sim as S
     from karpenter_tpu_torch.obs.tracer import TRACER
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
     from karpenter_tpu_torch.ops import consolidate, screen_k as sk
     from karpenter_tpu_torch.ops import solve_scan as ss, solver
 
     spans: dict = {}
+    span_n: dict = {}
 
     def sink(trace):
         for sp in trace.spans:
             if sp.name.startswith(("reconcile:", "solve.", "disruption.",
-                                   "provision.", "integrity.")):
+                                   "provision.", "integrity.",
+                                   "optimizer.")):
                 spans[sp.name] = spans.get(sp.name, 0.0) + sp.duration * 1e3
+                span_n[sp.name] = span_n.get(sp.name, 0) + 1
 
     t0 = time.perf_counter()
     run_d = OperatorRun("device", profile_pass=True)
@@ -800,16 +900,19 @@ def phase_operator(dev):
     ss.launches = 0
     ss.offer_launches = 0
     sk.launches = 0
+    tk.launches = 0
     try:
         with Recorder(solver, "solve_scan", keep=2) as rec_b, \
-                Recorder(consolidate, "screen_k", keep=2) as rec_a:
+                Recorder(consolidate, "screen_k", keep=2) as rec_a, \
+                Recorder(tk, "tournament", keep=2) as rec_c:
             times_d = run_d.drive()
             torch.cuda.synchronize()
     finally:
         TRACER.configure(enabled=False)
         TRACER._sinks.remove(sink)
     launches = {"screen_k": sk.launches, "offer_argmin": ss.offer_launches,
-                "solve_scan": ss.launches}
+                "solve_scan": ss.launches, "tournament": tk.launches}
+    opt_d = run_d.optimizer()
     wall_d = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     run_n = OperatorRun("native", profile_pass=False)
@@ -845,11 +948,19 @@ def phase_operator(dev):
           "the device run served solves from another rung")
     check(run_d.sim.solver.stats["integrity_violations"] == 0,
           "the integrity oracle flagged solves of the operator phase")
+    for run in (run_d, run_n):
+        check("optimizer_errors" not in run.sim.disruption.stats,
+              f"the subset search degraded in the {run.backend} run")
+    opt_n = run_n.optimizer()
+    log(f"[operator] optimizer meter: device run {opt_d}; native run {opt_n}")
+    check(opt_d == opt_n, "the optimizer's counts differ between the device "
+          "and native runs")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched inside the loop")
     log(f"[check] operator device == native: state_hash {hd[:16]}, "
-        f"{len(run_d.decisions())} disruption decisions and every "
-        f"controller's stats equal")
+        f"{len(run_d.decisions())} disruption decisions "
+        f"({sum('optimizer' in str(e) for e in run_d.decisions())} naming "
+        f"the optimizer) and every controller's stats equal")
 
     # each kernel against its plain version at inputs recorded in the loop
     where = ("scale-up solve", "last re-solve")
@@ -875,6 +986,14 @@ def phase_operator(dev):
     log(f"[check] operator screen: screen_k == plain (atol 0) at N="
         f"{aargs[0].shape[0]} G={aargs[1].shape[0]}; {rec_a.n} screens, "
         f"{run_d.solves} Solver.solve calls by stage")
+    err_c = 0.0
+    for (cargs, _), what in zip(rec_c.calls, ("first", "last")):
+        err_c = max(err_c, check_tournament(tk, cargs, f"operator {what} "
+                                            f"subset search"))
+        S_, N_ = cargs[4].shape
+        log(f"[check] operator {what} subset search: tournament == plain "
+            f"(atol 0, plan equal) at S={S_} N={N_} G={cargs[2].shape[1]} "
+            f"Rk={cargs[0].shape[1]}; {rec_c.n} searches on the card")
 
     # --- times ---
     dis = [ms for (st, c), v in run_d.walls.items() if c == "disruption"
@@ -890,8 +1009,11 @@ def phase_operator(dev):
     log(f"[time] operator disruption reconciles in the scale-down: "
         f"{len(dis)} passes, median {statistics.median(dis):.1f} ms, max "
         f"{max(dis):.1f} ms, sum {sum(dis):.1f} ms; exact re-solves "
-        f"{run_d.solves.get('scale_down', 0)}, screens (cache misses) "
-        f"{rec_a.n}; burst provisioner reconcile median "
+        f"{run_d.solves.get('scale_down', 0)} (the optimizer's verifies "
+        f"over the whole run {opt_d['verified']}, in "
+        f"{span_n.get('optimizer.verify', 0)} verify stages), subset "
+        f"searches {span_n.get('optimizer.search', 0)}, screens (cache "
+        f"misses) {rec_a.n}; burst provisioner reconcile median "
         f"{statistics.median(bursts):.2f} ms ({', '.join(f'{b:.1f}' for b in bursts)})")
     per_ctrl = {}
     for (st, c), v in run_d.walls.items():
@@ -911,7 +1033,122 @@ def phase_operator(dev):
     else:
         log("[time] torch.profiler recorded no device events in the profiled "
             "disruption reconcile: idle share not measured")
-    return launches, rec_b.calls[-1], (aargs, akw), err_a
+    return (launches, rec_b.calls[-1], (aargs, akw), err_a,
+            rec_c.calls[0][0], err_c)
+
+
+# --- the optimizer phase: bench c14's procedure on the card ---------------
+
+# the larger squeeze fleet: 96 nodes (24 tiles, 192 nodes, took 253 s of
+# the script's wall on one H100; PERF.md)
+OPT_TILES = 12
+OPT_RUN_S = 900.0       # sim seconds a measurement runs (bench c14's)
+
+
+def phase_optimizer() -> dict:
+    """measure_consolidation("squeeze", tiles) on make_sim(backend=
+    "device"), armed and disarmed, and armed on the native rung, at 2 tiles
+    and at OPT_TILES. Returns kernel C's launches in the phase."""
+    from karpenter_tpu_torch.cloud import fake
+    from karpenter_tpu_torch.models import nodeclaim, pod
+    from karpenter_tpu_torch.optimizer import fixtures, tournament_k as tk
+    tk.launches = 0
+    for tiles in (2, OPT_TILES):
+        runs = {}
+        for backend, armed in (("device", True), ("device", False),
+                               ("native", True)):
+            nodeclaim._seq = itertools.count()
+            pod._uid = itertools.count()
+            fake._ids = itertools.count(1)
+            t0 = time.perf_counter()
+            r = fixtures.measure_consolidation("squeeze", tiles, armed=armed,
+                                               run_for=OPT_RUN_S,
+                                               backend=backend)
+            r["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            runs[(backend, armed)] = r
+            log(f"[optimizer] squeeze x{tiles} on the {backend} rung, "
+                f"{'armed' if armed else 'disarmed'}: {r}")
+        on, off, nat = (runs[("device", True)], runs[("device", False)],
+                        runs[("native", True)])
+        check(on["joint_consolidations"] >= tiles,
+              f"squeeze x{tiles}: {on['joint_consolidations']} joint "
+              f"consolidations, fewer than the tiles")
+        check(on["savings"] > off["savings"], f"squeeze x{tiles}: optimizer "
+              f"savings {on['savings']} not above greedy {off['savings']}")
+        check(on["all_bound"] and off["all_bound"],
+              f"squeeze x{tiles}: pods left unbound")
+        same = ("state_hash", "savings", "joint_consolidations",
+                "nodes_after", "exact_verifies", "subsets_scored")
+        check({k: on[k] for k in same} == {k: nat[k] for k in same},
+              f"squeeze x{tiles}: device run != native run")
+        log(f"[check] squeeze x{tiles} ({on['nodes_before']} nodes): "
+            f"{on['joint_consolidations']} joint consolidations, savings "
+            f"{on['savings']} $/hr armed vs {off['savings']} disarmed; device "
+            f"== native (state hash, savings, decisions, verifies); walls "
+            f"(ms) device armed {on['wall_ms']:.1f}, disarmed "
+            f"{off['wall_ms']:.1f}, native armed {nat['wall_ms']:.1f}")
+    check(tk.launches > 0, "kernel C was not launched in the optimizer phase")
+    return {"tournament": tk.launches}
+
+
+def grid_tournament_args(cat, enc, views, counts, slack):
+    """Kernel C's arguments for one subset search over phase 3's cluster
+    (every node a candidate, each node priced at its type's cheapest
+    available offering), taken as score_subsets_device hands them over."""
+    import numpy as np
+    from karpenter_tpu_torch import optimizer as O
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    from karpenter_tpu_torch.optimizer.tournament import (
+        group_slot_prices, score_subsets_device)
+    N = len(views)
+    cheapest = np.where(cat.available, cat.price, np.inf).reshape(
+        cat.T, -1).min(axis=1)
+    prices = np.array([cheapest[v.virtual.type_idx] for v in views],
+                      np.float32)
+    cand = list(range(N))
+    guide = O.evictability(slack, counts, prices, cand,
+                           group_slot_prices(cat, enc))
+    S = min(O.MAX_SUBSETS, max(16, O.RELAX_BUDGET // (N * max(enc.G, 1))))
+    subs, _ = O.generate_subsets(N, guide, max_subsets=S)
+    masks = np.zeros((len(subs), N), np.float32)
+    for i, sub in enumerate(subs):
+        masks[i, list(sub)] = 1.0
+    with Recorder(tk, "tournament") as rec:
+        score_subsets_device(cat, enc, views, counts, prices, masks)
+    return rec.calls[0][0]
+
+
+def tournament_kernel_times(tk, args, where: str) -> dict:
+    """Kernel C at one tournament call's arguments: the kernel alone
+    (torch.profiler), the wrapper call (CUDA events), the plain version,
+    the three torch.matmul calls for need, supply and savings (the part
+    of the function one library call computes; the relaxation has none),
+    and the bound. Logs them and returns the row of the kernels line."""
+    from karpenter_tpu_torch.optimizer import RELAX_ITERS
+    head, req, k, counts, masks, prices, pslot = args
+    c_kernel, = profiled_ms(lambda: [tk.tournament_cuda(*args)
+                                     for _ in range(5)], "tournament_kernel")
+    c_ms = cuda_ms(lambda: tk.tournament_cuda(*args), 20)
+    c_plain = cuda_ms(lambda: tk.tournament_plain(*args), 1)
+
+    def library():
+        return masks @ counts, k.sum(dim=0) - masks @ k, masks @ prices
+    c_lib = cuda_ms(library, 50)
+    S, N = masks.shape
+    G, Rk = req.shape
+    # inputs read once, the packed output written once; operations per
+    # subset: the seed (~7 a cell), each iteration's capacity pass (2·Rk+1)
+    # and demand pass (~12), the last capacity pass and the residual sum
+    c_bytes = 4 * (N * Rk + G * Rk + 2 * N * G + S * N + N + G) + 16 * S
+    c_ops = S * N * G * (7 + RELAX_ITERS * (2 * Rk + 13) + 2 * Rk + 2)
+    c = {"ms": c_ms, "plain_ms": c_plain, **bound(c_bytes, c_ops),
+         "library_ms": c_lib, "kernel_ms": c_kernel}
+    log(f"[time] {where} (S={S}, N={N}, G={G}, Rk={Rk}): tournament kernel "
+        f"{c_kernel} ms, wrapper call {c_ms:.4f} ms (bound "
+        f"{c['bound_ms']:.5f} ms by {c['bound_by']}, {c_bytes} bytes, "
+        f"{c_ops} ops); plain {c_plain:.3f} ms; need/supply/savings as three "
+        f"torch.matmul {c_lib:.4f} ms")
+    return c
 
 
 def screen_kernel_times(sk, head, req, elig, where: str) -> dict:
@@ -1061,6 +1298,7 @@ def main() -> None:
     try:
         import numpy as np
         from karpenter_tpu_torch import catalog, models
+        from karpenter_tpu_torch.optimizer import tournament_k as tk
         from karpenter_tpu_torch.ops import consolidate, screen_k as sk
         from karpenter_tpu_torch.ops import solve_scan as ss, solver
         from karpenter_tpu_torch.ops.binpack import solve_host, validate_solution
@@ -1197,7 +1435,11 @@ def main() -> None:
     facade_launches, facade_scan = phase_facade()
 
     # --- 4c. the operator: make_sim's loop, counts zeroed just before it ---
-    op_launches, op_scan, op_screen, op_err_a = phase_operator(dev)
+    (op_launches, op_scan, op_screen, op_err_a, op_tournament,
+     op_err_c) = phase_operator(dev)
+
+    # --- 4d. the optimizer: bench c14's procedure, counts zeroed inside ---
+    opt_launches = phase_optimizer()
 
     # --- 5. times ---
     solve_ms = wall_ms(lambda: solver.solve_device(cat, enc), 5)
@@ -1263,16 +1505,32 @@ def main() -> None:
     b_op = scan_kernel_times(ss, *op_scan, "operator loop re-solve")
     (ahead, areq, aelig), _ = op_screen
     a_op = screen_kernel_times(sk, ahead, areq, aelig, "operator loop screen")
-    times = {"screen_k": {"main": a_main, "operator": a_op}}
+    # kernel C at the operator loop's first subset search and at one over
+    # phase 3's 4,250-node cluster (checked against its plain version first)
+    grid_args = grid_tournament_args(cat, enc, views, counts, slack)
+    err_c = max(op_err_c, check_tournament(tk, grid_args,
+                                           "grid-mix cluster search"))
+    log(f"[check] grid-mix cluster search: tournament == plain (atol 0, plan "
+        f"equal) at S={grid_args[4].shape[0]} N={grid_args[4].shape[1]} "
+        f"G={grid_args[2].shape[1]}")
+    c_op = tournament_kernel_times(tk, op_tournament,
+                                   "operator loop first subset search")
+    c_grid = tournament_kernel_times(tk, grid_args, "grid-mix cluster search")
+    times = {"screen_k": {"main": a_main, "operator": a_op},
+             "tournament": {"operator": c_op, "grid": c_grid}}
     for i, k in enumerate(("offer_argmin", "solve_scan")):
         times[k] = {"main": b_main[i], "facade": b_fac[i],
                     "operator": b_op[i]}
     phase_launches = {"main": launches, "facade": facade_launches,
-                      "operator": op_launches}
+                      "operator": op_launches, "optimizer": opt_launches}
     by_phase = {k: {ph: {"launches": phase_launches[ph].get(k), **row}
-                    for ph, row in times[k].items()} for k in times}
+                    for ph, row in times[k].items()
+                    if ph in phase_launches} for k in times}
+    by_phase["tournament"]["grid"] = c_grid
+    by_phase["tournament"]["optimizer"] = {
+        "launches": opt_launches["tournament"]}
     headline = {"screen_k": a_main, "offer_argmin": b_fac[0],
-                "solve_scan": b_fac[1]}
+                "solve_scan": b_fac[1], "tournament": c_op}
     kernels = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": op_launches[name],
@@ -1284,7 +1542,9 @@ def main() -> None:
             ("offer_argmin", "karpenter_tpu_torch/csrc/solve_scan.cu",
              "karpenter_tpu/ops/solver.py:425", 0.0),
             ("solve_scan", "karpenter_tpu_torch/csrc/solve_scan.cu",
-             "karpenter_tpu/ops/solver.py:348", 0.0))]
+             "karpenter_tpu/ops/solver.py:348", 0.0),
+            ("tournament", "karpenter_tpu_torch/csrc/tournament.cu",
+             "karpenter_tpu/optimizer/tournament.py:140", err_c))]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,21 @@
 """Disruption controller: drift, expiration, emptiness, consolidation.
 
-The port's own copy of `karpenter_tpu/controllers/disruption.py`, greedy
-path. Its seams differ from the reference's in four places, each marked
-where it sits:
+The port's own copy of `karpenter_tpu/controllers/disruption.py`. Its
+seams differ from the reference's in these places, each marked where it
+sits:
 - every exact re-solve (`_simulate_removal`, `_revalidate`) goes through
   the port's `Solver.solve` (kernels B0 and B on the card's rung);
 - the screen (`_screen_state`) calls the port's `consolidation_screen`
   (kernel A) on the solver's device on every rung, and degrades
   to cost order only for an injected fault (`ops/solver.InjectedFault`);
   a kernel's build, shape or launch error raises out of `reconcile`;
-- the global optimizer (`_multi_node_optimizer`, the reference's default)
-  is not ported: with `KARPENTER_TPU_OPTIMIZER` armed the controller
-  raises at construction, and `_multi_node` is the greedy path the
-  reference runs with the flag off;
+- the global optimizer (`_multi_node_optimizer`, armed by default as in
+  the reference) scores on the solver's device through kernels A and C
+  on the device rung and in NumPy on the host and native rungs; it
+  degrades to the greedy path only for an `InjectedFault`, where the
+  reference absorbs every exception. The reference's delta plane is not
+  ported: a fruitless search is memoized in `_optimizer_noop`, the
+  reference's branch with the plane disarmed;
 - the recompute observatory's `RECOMPUTE.classify` sites (observability
   only) are comments.
 
@@ -35,7 +38,6 @@ sequential heuristic subset search on the CPU).
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -50,16 +52,6 @@ from ..ops.facade import Solver
 from ..state.cluster import NodeView, build_node_views
 from ..state.store import Store
 from .termination import TerminationController
-
-# the reference's optimizer gate (karpenter_tpu/optimizer/__init__.py)
-OPTIMIZER_ENV = "KARPENTER_TPU_OPTIMIZER"
-
-
-def optimizer_enabled() -> bool:
-    """The opt-out gate: KARPENTER_TPU_OPTIMIZER=0 restores the greedy
-    multi-node path byte-for-byte (default: armed)."""
-    return os.environ.get(OPTIMIZER_ENV, "1") not in ("0", "false", "no")
-
 
 SPOT_TO_SPOT_MIN_TYPES = 15  # reference flexibility floor (disruption.md:129)
 # settle window after restart adoption before any voluntary disruption:
@@ -97,17 +89,15 @@ class DisruptionController:
     # (enc, counts, ok_names, slack)) — re-screening every reconcile
     # when nothing changed was pure waste (see _screen_state)
     _screen_cache: Dict[str, tuple] = field(default_factory=dict)
-    # (the reference's optimizer-only `_optimizer_noop` memo sits here)
+    # pool -> the (screen fingerprint, pending/deleting set, budget) a
+    # subset search last proved FRUITLESS on: identical state skips the
+    # search AND its exact verifies until something changes (a steady
+    # cluster must not re-pay up to VERIFY_LIMIT solves per reconcile,
+    # nor grow a fake divergence streak on unchanged state)
+    _optimizer_noop: Dict[str, tuple] = field(default_factory=dict)
     stats: Dict[str, int] = field(default_factory=lambda: {
         "empty": 0, "drift": 0, "expired": 0, "consolidated": 0,
         "multi_consolidated": 0})
-
-    def __post_init__(self) -> None:
-        if optimizer_enabled():
-            raise NotImplementedError(
-                "the global consolidation optimizer is not ported to "
-                "karpenter_tpu_torch (ROADMAP item 11): set "
-                f"{OPTIMIZER_ENV}=0 to run the greedy path")
 
     def reconcile(self, now: float) -> float:
         self._advance_pending(now)
@@ -602,13 +592,167 @@ class DisruptionController:
 
     def _multi_node(self, pool: NodePool, candidates: List[NodeView],
                     now: float, cat, views: List[NodeView]) -> bool:
-        """Multi-node consolidation. The reference runs its global
-        optimizer's subset search first when KARPENTER_TPU_OPTIMIZER is
-        armed; with the flag off — the only setting the port accepts
-        (see __post_init__) — this method IS the greedy path
-        byte-for-byte. (The reference's `_multi_node_optimizer` and
-        `_delta_note_fruitless` sit here: ROADMAP item 11.)"""
+        """Multi-node consolidation. With the global optimizer armed
+        (KARPENTER_TPU_OPTIMIZER, default on) a combinatorial subset
+        search over the candidates runs FIRST — savings that require
+        joint eviction of a non-prefix subset are invisible to the
+        greedy prefix search below. The optimizer only ever EXECUTES a
+        subset that passed a real `Solver.solve()` verification under
+        the same budget/PDB gates; when it proposes nothing provable,
+        the greedy path runs unchanged, and with the flag off this
+        method IS the greedy path byte-for-byte."""
+        from ..optimizer import optimizer_enabled
+        if optimizer_enabled():
+            if self._multi_node_optimizer(pool, candidates, now, cat,
+                                          views):
+                return True
         return self._multi_node_greedy(pool, candidates, now, cat, views)
+
+    def _multi_node_optimizer(self, pool: NodePool,
+                              candidates: List[NodeView], now: float,
+                              cat, views: List[NodeView]) -> bool:
+        """Combinatorial repack search (karpenter_tpu_torch/optimizer):
+        subset generation → one batched tournament + convex-relaxation
+        dispatch → exact verification of the ranked winners. An injected
+        device fault (`ops/solver.InjectedFault`) degrades to the greedy
+        path and meters the fallback; any other error raises."""
+        budget = self._budget(pool, views, "Underutilized", now)
+        if budget < 2 or len(candidates) < 2:
+            return False
+        from ..metrics import OPTIMIZER_SUBSETS, SOLVER_FALLBACKS
+        from ..optimizer import (MAX_K, VERIFY_LIMIT, OPTIMIZER,
+                                 plan_repack)
+        from ..ops.solver import InjectedFault
+        state = self._screen_state(pool, cat, views)
+        if state is None:
+            return False
+        scat, enc, counts, _ok, slack = state
+        name_to_i = {v.name: i for i, v in enumerate(views)}
+        cand_idx = [name_to_i[v.name] for v in candidates]
+        exclude = np.array([self._is_pending_victim(v.name)
+                            or v.claim.is_deleting() for v in views])
+        # fruitless-search memo: same screen fingerprint + same
+        # exclusions + same budget ⇒ the ranked subsets and every
+        # verify verdict would repeat — skip the whole pass
+        fp = self._screen_cache.get(pool.name, (None,))[0]
+        noop_key = (fp,
+                    frozenset(v.name for v, x in zip(views, exclude)
+                              if x),
+                    min(budget, 64))
+        # (the reference serves this verdict from its delta plane when the
+        # plane is armed — ROADMAP item 6 — auditing every
+        # audit_every-th serve; the port keeps the reference's memo for
+        # the plane disarmed, and RECOMPUTE.classify(served) sits here)
+        if self._optimizer_noop.get(pool.name) == noop_key:
+            return False
+        use_device = self.solver.backend in ("device", "mesh")
+        # the reference passes mesh=solver.screen_mesh(len(views)) on the
+        # device rung; the port scores on the solver's device (the card
+        # unless the solver was given one), the host and native rungs in
+        # NumPy as the reference does
+        sp = (TRACER.span("optimizer.search", candidates=len(candidates),
+                          nodes=len(views))
+              if TRACER.enabled else NOOP_SPAN)
+        try:
+            with sp:
+                plan = plan_repack(scat, enc, views, counts, slack,
+                                   cand_idx, max_k=min(budget, MAX_K),
+                                   exclude=exclude,
+                                   use_device=use_device,
+                                   device=self.solver.device)
+            sp.set(scored=plan.scored, feasible=plan.feasible,
+                   backend=plan.backend)
+            # (the reference's RECOMPUTE.classify("optimizer", fp) here)
+        except InjectedFault:
+            # an injected device fault costs one greedy pass, not a
+            # crashed reconcile (the dispatch hook is probed at
+            # "optimizer" inside the device tournament). The reference
+            # absorbs every exception here; the port only the injected
+            # one — a kernel's build, shape or launch error raises out of
+            # reconcile (and Engine.tick re-raises it)
+            SOLVER_FALLBACKS.inc(from_backend="optimizer",
+                                 to_backend="greedy")
+            OPTIMIZER.record_fallback()
+            OPTIMIZER_SUBSETS.inc(event="fallback")
+            self.stats["optimizer_errors"] = (
+                self.stats.get("optimizer_errors", 0) + 1)
+            return False
+        if not plan.subsets:
+            self._optimizer_noop[pool.name] = noop_key
+            # (the reference's _delta_note_fruitless, a no-op with its
+            # delta plane disarmed, sits here and below: item 6)
+            return False
+        vsp = (TRACER.span("optimizer.verify",
+                           ranked=len(plan.subsets))
+               if TRACER.enabled else NOOP_SPAN)
+        executing = False
+        try:
+            with vsp:
+                verified = 0
+                for subset in plan.subsets:
+                    if verified >= VERIFY_LIMIT:
+                        break
+                    victims = [views[i] for i in subset]
+                    if len(victims) > budget:
+                        continue
+                    if any(self._is_pending_victim(v.name)
+                           or v.claim.is_deleting()
+                           or v.has_do_not_disrupt() for v in victims):
+                        continue
+                    if self._pdb_blocked_set(victims):
+                        continue
+                    verified += 1
+                    total_price = sum(v.price for v in victims)
+                    # the exact-verify contract: the optimizer proposes,
+                    # Solver.solve() disposes — nothing executes on the
+                    # relaxation's word alone
+                    out, ok = self._simulate_removal(pool, victims, cat,
+                                                     views, total_price)
+                    if ok and out.launches and not all(
+                            self._spot_floor_ok(v, out, cat)
+                            for v in victims):
+                        ok = False
+                    OPTIMIZER.record_verify(bool(ok))
+                    OPTIMIZER_SUBSETS.inc(
+                        event="verify_pass" if ok else "verify_reject")
+                    if not ok:
+                        continue
+                    executing = True
+                    self._execute(pool, victims, out, "Underutilized",
+                                  now, source="optimizer")
+                    self._pdb_commit(victims)
+                    self.stats["multi_consolidated"] += 1
+                    self.stats["optimizer_consolidated"] = (
+                        self.stats.get("optimizer_consolidated", 0) + 1)
+                    self._optimizer_noop.pop(pool.name, None)
+                    # (the reference's delta-plane diverge / invalidate
+                    # of the stored verdict sits here: item 6)
+                    vsp.set(verified=verified, accepted=len(subset))
+                    return True
+                vsp.set(verified=verified, accepted=0)
+        except InjectedFault:
+            # an injected device fault surfacing inside the verify stage
+            # (the exact solve's own dispatch) degrades to greedy EXACTLY
+            # like a search-stage fault — and the pass is NOT memoized as
+            # fruitless: nothing proved the ranked subsets worthless, the
+            # backend just died. The reference absorbs every exception
+            # here; the port only the injected one
+            if executing:
+                # the winning subset's disruption PARTIALLY EXECUTED
+                # (victims may already be cordoned/terminated): this is
+                # not a verify-stage fault, and degrading to greedy here
+                # would re-disrupt against stale views while hiding the
+                # real bug — surface it
+                raise
+            SOLVER_FALLBACKS.inc(from_backend="optimizer",
+                                 to_backend="greedy")
+            OPTIMIZER.record_fallback()
+            OPTIMIZER_SUBSETS.inc(event="fallback")
+            self.stats["optimizer_errors"] = (
+                self.stats.get("optimizer_errors", 0) + 1)
+            return False
+        self._optimizer_noop[pool.name] = noop_key
+        return False
 
     def _multi_node_greedy(self, pool: NodePool,
                            candidates: List[NodeView], now: float,

@@ -216,5 +216,17 @@ CONSOLIDATION_SAVINGS = REGISTRY.counter(
     "savings above the greedy baseline are consolidations the prefix "
     "search structurally cannot see",
     ("source", "tenant"), label_defaults=_TENANT)
+OPTIMIZER_SUBSETS = REGISTRY.counter(
+    "karpenter_tpu_optimizer_subsets_total",
+    "Global-optimizer search funnel, by event: 'scored' = candidate "
+    "victim subsets scored by the batched repack tournament (one "
+    "dispatch scores the whole batch), 'verify_pass' / 'verify_reject' "
+    "= exact Solver.solve() verifications of ranked winners (every "
+    "executed disruption passed one — the exact-verify contract), "
+    "'fallback' = searches that degraded to the greedy path after a "
+    "fault. A growing verify_reject share is the relaxation ranking "
+    "diverging from solve semantics — the watchdog's "
+    "optimizer_divergence invariant pages on the streak",
+    ("event", "tenant"), label_defaults=_TENANT)
 
 __all__ = ["REGISTRY", "Registry", "Counter", "Gauge", "Histogram"]

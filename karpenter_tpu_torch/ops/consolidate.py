@@ -28,25 +28,33 @@ from .solver import (_auto_dcat, _put, _request_cols, reject_mesh,
                      resolve_device)
 
 
+def eligibility(avail, node_type, node_zmask, node_cmask, node_active,
+                compat, allow_zone, allow_cap) -> torch.Tensor:
+    """bool [N, G]: node n may host group g (type compatible, an available
+    offering surviving both masks, node active). The reference's f32
+    einsum "nz,gz,nc,gc,nzc->ng" > 0 is computed here as a boolean any
+    (exact, and no TF32 question arises). Shared with the optimizer's
+    tournament, so the two headroom views cannot disagree."""
+    N = node_type.shape[0]
+    G = compat.shape[0]
+    Z, C = allow_zone.shape[1], allow_cap.shape[1]
+    ok_t = compat.T[node_type]                                # [N, G]
+    nzc = avail[node_type] & node_zmask[:, :, None] & node_cmask[:, None, :]
+    gzc = allow_zone[:, :, None] & allow_cap[:, None, :]      # [G, Z, C]
+    off = (nzc.reshape(N, 1, Z * C) & gzc.reshape(1, G, Z * C)).any(dim=2)
+    return ok_t & off & node_active[:, None]
+
+
 def _screen_body(alloc, avail, node_type, node_cum, node_zmask, node_cmask,
                  node_active, group_req, compat, allow_zone, allow_cap,
                  node_groups) -> torch.Tensor:
     """ONE packed f32 vector: [0:N] screen (1.0 = candidate may
     consolidate), [N:N+N*G] headroom slack (others' capacity minus need,
     row-major [N, G]). The port of `_screen_kernel_impl`."""
-    N = node_type.shape[0]
-    G = group_req.shape[0]
-    Z, C = allow_zone.shape[1], allow_cap.shape[1]
     talloc = alloc[node_type]                                 # [N, R]
     headroom = talloc - node_cum                              # [N, R]
-    ok_t = compat.T[node_type]                                # [N, G]
-    # an available offering surviving both masks: the reference's f32
-    # einsum "nz,gz,nc,gc,nzc->ng" > 0, computed here as a boolean any
-    # (exact, and no TF32 question arises)
-    nzc = avail[node_type] & node_zmask[:, :, None] & node_cmask[:, None, :]
-    gzc = allow_zone[:, :, None] & allow_cap[:, None, :]      # [G, Z, C]
-    off = (nzc.reshape(N, 1, Z * C) & gzc.reshape(1, G, Z * C)).any(dim=2)
-    elig = ok_t & off & node_active[:, None]                  # [N, G]
+    elig = eligibility(avail, node_type, node_zmask, node_cmask,
+                       node_active, compat, allow_zone, allow_cap)
     k = screen_k(headroom, group_req, elig)                   # [N, G]
     total = k.sum(dim=0)                                      # [G]
     others = total[None, :] - k                               # [N, G]
@@ -79,9 +87,12 @@ def _pack_screen_groups(req, compat, allow_zone, allow_cap,
     ], axis=1)
 
 
-def _screen_onebuf(alloc, avail, nbuf, gbuf, cols: tuple) -> torch.Tensor:
-    """Unpack by static offsets (resource columns projected to `cols`) and
-    run the screen body."""
+def _unpack_screen(alloc, avail, nbuf, gbuf, cols: tuple) -> tuple:
+    """Unpack the packed screen inputs by static offsets (resource columns
+    projected to `cols`): (alloc_k, avail, node_type, node_cum,
+    node_zmask, node_cmask, active, req, compat, allow_zone, allow_cap,
+    counts), the screen body's arguments; the optimizer's tournament
+    reads the same packing."""
     T, Z, C = avail.shape
     Rk = len(cols)
     G = gbuf.shape[0]
@@ -99,9 +110,13 @@ def _screen_onebuf(alloc, avail, nbuf, gbuf, cols: tuple) -> torch.Tensor:
     node_cmask = nbuf[:, o:o + C] > 0; o += C
     active = nbuf[:, o] > 0; o += 1
     counts = nbuf[:, o:o + G]
-    return _screen_body(alloc_k, avail, node_type, node_cum, node_zmask,
-                        node_cmask, active, req, compat, allow_zone,
-                        allow_cap, counts)
+    return (alloc_k, avail, node_type, node_cum, node_zmask, node_cmask,
+            active, req, compat, allow_zone, allow_cap, counts)
+
+
+def _screen_onebuf(alloc, avail, nbuf, gbuf, cols: tuple) -> torch.Tensor:
+    """Unpack by static offsets and run the screen body."""
+    return _screen_body(*_unpack_screen(alloc, avail, nbuf, gbuf, cols))
 
 
 def _screen_args(cat: CatalogTensors, enc: EncodedPods, views):

@@ -17,9 +17,9 @@ the reference's in these places:
   ported and the parameter is left out: it never changes what a run
   does;
 - the cloud is the in-process `FakeCloud` (the reference's tick hook
-  also polls a cloud in another process);
-- the global optimizer is not ported: the disruption controller raises
-  at construction unless KARPENTER_TPU_OPTIMIZER=0.
+  also polls a cloud in another process).
+The global consolidation optimizer is armed by default, as in the
+reference (KARPENTER_TPU_OPTIMIZER=0 runs the greedy path).
 
 The pkg/test.Environment analog (reference environment.go:56-233): every
 real controller + provider runs against in-memory fakes with an injectable

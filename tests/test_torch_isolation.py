@@ -130,18 +130,49 @@ def test_make_sim_needs_a_card_or_a_device(monkeypatch):
     for backend in ("device", "native", "host"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_sim(backend=backend)
-    monkeypatch.setenv("KARPENTER_TPU_OPTIMIZER", "0")
+    monkeypatch.delenv("KARPENTER_TPU_OPTIMIZER", raising=False)
     sim = make_sim(backend="device", device="cpu")
     assert sim.solver.device.type == "cpu"
+
+
+def test_optimizer_tournament_needs_a_card_or_a_device():
+    """The optimizer's device tournament (kernels A and C) without a card
+    and without device= raises, as the screen does; device="cpu" runs
+    the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from karpenter_tpu_torch.models.nodeclaim import NodeClaim
+    from karpenter_tpu_torch.optimizer.tournament import score_subsets_device
+    from karpenter_tpu_torch.ops.solver import solve_device
+    from karpenter_tpu_torch.state.cluster import NodeView
+    cat, enc = _tiny_problem()
+    res = solve_device(cat, enc, device="cpu")
+    views = [NodeView(claim=NodeClaim(name=f"n{i}", nodepool="d"), node=None,
+                      pods=[], virtual=n, price=1.0)
+             for i, n in enumerate(res.nodes * 2)]
+    counts = np.ones((len(views), enc.G), np.int32)
+    prices = np.ones(len(views), np.float32)
+    masks = np.eye(len(views), dtype=np.float32)[:1]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        score_subsets_device(cat, enc, views, counts, prices, masks)
+    feasible, savings, _res, _lb = score_subsets_device(
+        cat, enc, views, counts, prices, masks, device="cpu")
+    assert feasible.shape == (1,) and savings[0] == 1.0
 
 
 def test_wrappers_refuse_other_devices():
     """The kernel wrappers take the plain version only for CPU tensors."""
     from karpenter_tpu_torch.ops.screen_k import screen_k
+    from karpenter_tpu_torch.optimizer.tournament_k import tournament
     meta = torch.empty((4, 2), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         screen_k(meta, torch.empty((3, 2), device="meta"),
                  torch.empty((4, 3), dtype=torch.bool, device="meta"))
+    g3 = torch.empty((4, 3), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tournament(meta, torch.empty((3, 2), device="meta"), g3, g3,
+                   torch.empty((1, 4), device="meta"),
+                   torch.empty(4, device="meta"), torch.empty(3, device="meta"))
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -4,7 +4,8 @@ Each scenario of `tests/test_e2e_slice.py` and `tests/test_disruption.py`
 (plus a discovered-capacity one) runs through the reference's
 `make_sim(backend=X)` (JAX on the CPU) and through the port's
 `make_sim(backend=X, device="cpu")`, with KARPENTER_TPU_OPTIMIZER=0 (the
-greedy path, the only one the port has). Both packages build their pods,
+greedy path; the loop with the optimizer armed, the default, is held
+equal in test_torch_sim_optimizer.py). Both packages build their pods,
 pools and clouds with their own constructors from the same seeds, and the
 process-global sequences (claim names, pod uids, instance ids) start from
 the same value in both before each run.
@@ -562,12 +563,12 @@ def test_kernel_refusal_in_the_screen_raises_out_of_tick(monkeypatch):
 
 
 def test_armed_optimizer_and_unported_options_raise(monkeypatch):
-    """The global optimizer is not ported: armed, the disruption
-    controller (and so make_sim) raises at construction. The fault plan
-    and the warm path raise too."""
-    monkeypatch.setenv("KARPENTER_TPU_OPTIMIZER", "1")
-    with pytest.raises(NotImplementedError, match="KARPENTER_TPU_OPTIMIZER=0"):
-        port_sim.make_sim(device="cpu")
+    """The global optimizer is ported: armed (the default), make_sim
+    constructs (its loop is held equal to the reference's in
+    test_torch_sim_optimizer.py). The fault plan and the warm path are
+    not ported and raise."""
+    monkeypatch.delenv("KARPENTER_TPU_OPTIMIZER")
+    assert port_sim.make_sim(device="cpu").disruption is not None
     monkeypatch.setenv("KARPENTER_TPU_OPTIMIZER", "0")
     with pytest.raises(NotImplementedError, match="not ported"):
         port_sim.make_sim(device="cpu", fault_plan=object())

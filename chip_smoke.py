@@ -264,43 +264,12 @@ def screen_inputs(seed: int, N: int, G: int, R: int, dev):
     return tuple(torch.as_tensor(a, device=dev) for a in (head, req, elig))
 
 
-def tournament_inputs(seed: int, S: int, N: int, G: int, Rk: int, dev,
-                      max_k: int = 5):
-    """Seeded inputs of kernel C: raw headroom (some negative), requests
-    with zero columns, integer caps and counts, victim masks of 2..max_k
-    nodes, prices and per-slot prices (one BIG)."""
-    import numpy as np
-    import torch
-    rng = np.random.default_rng(seed)
-    head = rng.uniform(-1.0, 12.0, (N, Rk)).astype(np.float32)
-    req = rng.uniform(0.0, 3.0, (G, Rk)).astype(np.float32)
-    req[rng.random((G, Rk)) < 0.3] = 0.0
-    k = rng.integers(0, 5, (N, G)).astype(np.float32)
-    counts = (rng.random((N, G)) < 0.05).astype(np.float32)
-    masks = np.zeros((S, N), np.float32)
-    for row in masks:
-        row[rng.choice(N, min(N, int(rng.integers(2, max_k + 1))),
-                       replace=False)] = 1.0
-    prices = rng.uniform(0.05, 3.0, N).astype(np.float32)
-    pslot = rng.uniform(0.01, 0.5, G).astype(np.float32)
-    pslot[0] = 1e9
-    return tuple(torch.as_tensor(a, device=dev) for a in
-                 (head, req, k, counts, masks, prices, pslot))
-
-
 def rank(buf) -> list:
-    """plan_repack's two-tier ranking of one packed tournament output:
-    the subset indices in verify order."""
-    import numpy as np
-    from karpenter_tpu_torch.optimizer import RESIDUAL_EPS
+    """plan_repack's ranking (`optimizer.rank_subsets`) of one packed
+    tournament output: the subset indices in verify order."""
+    from karpenter_tpu_torch.optimizer import rank_subsets
     out = buf.reshape(-1, 4).cpu().numpy()
-    feasible, savings, residual, repl_lb = (out[:, 0] > 0.5, out[:, 1],
-                                            out[:, 2], out[:, 3])
-    net = savings - repl_lb
-    value = np.where(feasible & (residual <= RESIDUAL_EPS),
-                     np.float32(1e6) + savings,
-                     np.where(net > 0, net, np.float32(-1.0)))
-    return [int(i) for i in np.argsort(-value, kind="stable") if value[i] > 0]
+    return rank_subsets(out[:, 0] > 0.5, out[:, 1], out[:, 2], out[:, 3])[0]
 
 
 def check_tournament(tk, args, what: str) -> float:
@@ -341,20 +310,12 @@ def phase_check_small(dev) -> None:
         "ragged 7x3")
     for shape in [(3, 5, 1, 1), (40, 33, 7, 16), (16, 31, 600, 9),
                   (64, 300, 90, 3)]:
-        check_tournament(tk, tournament_inputs(5, *shape, dev),
+        check_tournament(tk, tk.seeded_inputs(5, *shape, dev),
                          f"S,N,G,Rk={shape}")
-    head, req, k, counts, masks, prices, pslot = tournament_inputs(
-        6, 50, 40, 12, 3, dev)
-    wide = torch.zeros((40, 5 + 12), device=dev)
-    wide[:, 5:] = counts
-    greq = torch.zeros((12, 3 + 8), device=dev)
-    greq[:, :3] = req
-    mbuf = torch.cat([masks, prices[None]])
-    strided = tk.tournament_cuda(head, greq[:, :3], k, wide[:, 5:],
-                                 mbuf[:-1], mbuf[-1], pslot)
+    args = tk.seeded_inputs(6, 50, 40, 12, 3, dev)
+    strided = tk.tournament_cuda(*tk.packed_views(args))
     torch.cuda.synchronize()
-    check(torch.equal(strided, tk.tournament_plain(head, req, k, counts,
-                                                   masks, prices, pslot)),
+    check(torch.equal(strided, tk.tournament_plain(*args)),
           "tournament on row-strided packed views != plain")
     log("[check] tournament == plain (every packed output, atol 0; the "
         "ranked plan equal) at four shapes and on row-strided packed views")
@@ -1126,8 +1087,11 @@ def tournament_kernel_times(tk, args, where: str) -> dict:
     and the bound. Logs them and returns the row of the kernels line."""
     from karpenter_tpu_torch.optimizer import RELAX_ITERS
     head, req, k, counts, masks, prices, pslot = args
-    c_kernel, = profiled_ms(lambda: [tk.tournament_cuda(*args)
-                                     for _ in range(5)], "tournament_kernel")
+    # the kernel alone: the colsum prologue and the tournament, per call
+    c_main, c_col = profiled_ms(lambda: [tk.tournament_cuda(*args)
+                                         for _ in range(5)],
+                                "tournament_kernel", "tournament_colsum")
+    c_kernel = (None if None in (c_main, c_col) else c_main + c_col)
     c_ms = cuda_ms(lambda: tk.tournament_cuda(*args), 20)
     c_plain = cuda_ms(lambda: tk.tournament_plain(*args), 1)
 
@@ -1136,16 +1100,16 @@ def tournament_kernel_times(tk, args, where: str) -> dict:
     c_lib = cuda_ms(library, 50)
     S, N = masks.shape
     G, Rk = req.shape
-    # inputs read once, the packed output written once; operations per
-    # subset: the seed (~7 a cell), each iteration's capacity pass (2·Rk+1)
-    # and demand pass (~12), the last capacity pass and the residual sum
+    # inputs read once, the packed output written once; the operations the
+    # function needs at this run's shapes and victims (tk.ops_needed)
     c_bytes = 4 * (N * Rk + G * Rk + 2 * N * G + S * N + N + G) + 16 * S
-    c_ops = S * N * G * (7 + RELAX_ITERS * (2 * Rk + 13) + 2 * Rk + 2)
+    c_ops = tk.ops_needed(S, N, G, Rk, int((masks != 0).sum()), RELAX_ITERS)
     c = {"ms": c_ms, "plain_ms": c_plain, **bound(c_bytes, c_ops),
          "library_ms": c_lib, "kernel_ms": c_kernel}
     log(f"[time] {where} (S={S}, N={N}, G={G}, Rk={Rk}): tournament kernel "
-        f"{c_kernel} ms, wrapper call {c_ms:.4f} ms (bound "
-        f"{c['bound_ms']:.5f} ms by {c['bound_by']}, {c_bytes} bytes, "
+        f"{c_kernel} ms (colsum prologue {c_col} ms), wrapper call "
+        f"{c_ms:.4f} ms (bound {c['bound_ms']:.5f} ms by {c['bound_by']}, "
+        f"{c_bytes} bytes, "
         f"{c_ops} ops); plain {c_plain:.3f} ms; need/supply/savings as three "
         f"torch.matmul {c_lib:.4f} ms")
     return c

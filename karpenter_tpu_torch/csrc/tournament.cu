@@ -18,21 +18,28 @@
 //
 // Bound: operations. The inputs are read once (k and counts [N, G], masks
 // [S, N]: ~0.6 MB at the operator loop's first search, S=232, N=382,
-// G~90), while each of the 2*iters+1 passes touches every (node, group)
-// cell of x and the capacity pass does 2*Rk flops a cell (~0.8 GFLOP
-// there, ~12 us at 67 TFLOP/s fp32).
+// G~90). The function needs, per (subset, node, group) cell, 3 operations
+// for the seed (cap, its sum over nodes, cap * q), 2*Rk+7 an iteration
+// (the load over resources, x * scale, the sum of x, the slack and its
+// sum, the update) and 2*Rk+2 for the last projection and the residual's
+// sum, plus colsum(k) once: 75 a cell at Rk=2 and iters=6, ~0.6 GFLOP
+// there, ~9 us at 67 TFLOP/s fp32. The kernel does 2*Rk+11 an iteration
+// (a demand pass forms the slack twice, once for its sum and once for the
+// update, rather than keeping a second [S, N, G] scratch).
 //
-// Design: one block per subset, NT threads. Warp 0 compacts the mask row
+// Design: a prologue kernel sums k over nodes once per launch (col [G]);
+// then one block per subset, NT threads. Warp 0 compacts the mask row
 // into the victims in ascending node order (ballots), so need, the
-// supply's victim term and savings are gathers over a handful of nodes.
-// x [N, G] sits in a global scratch slice of [S, N, G] (the wrapper
-// allocates it; 32 MB at the relaxation budget, inside the 50 MB L2);
-// need sits in a [S, G] scratch. A capacity pass gives each thread a node
-// (load over g in registers, RMAX columns), a demand pass each thread a
-// group (sums over n in node order); __syncthreads() separates the passes,
-// which also makes the block's global writes visible to its other
-// threads. Shared memory or a cluster for x, and wgmma for the load, are
-// later work.
+// supply's victim term and savings are gathers over a handful of nodes;
+// the block keeps each node's survival 1 - m[n] in a [S, N] scratch, so
+// a cell's cap is one product. x [N, G] sits in a global scratch slice of
+// [S, N, G] (the wrapper allocates it; 32 MB at the relaxation budget,
+// inside the 50 MB L2); need sits in a [S, G] scratch. A capacity pass
+// gives each thread a node (load over g in registers, RMAX columns), a
+// demand pass each thread a group (sums over n in node order);
+// __syncthreads() separates the passes, which also makes the block's
+// global writes visible to its other threads. Shared memory or a cluster
+// for x, and wgmma for the load, are later work.
 //
 // Numerics: f32, built with -fmad=false; every product, sum and quotient
 // is an explicit round-to-nearest intrinsic, as the reference's f32
@@ -58,17 +65,15 @@ struct TournamentArgs {
   const float* masks;   // [S, N], rows masks_stride floats apart
   const float* prices;  // [N]
   const float* pslot;   // [G]
+  const float* col;     // [G] colsum(k), from tournament_colsum_kernel
   float* x;             // scratch [S, N, G]
+  float* surv;          // scratch [S, N]: 1 - masks
   float* need;          // scratch [S, G]
   int* vic;             // scratch [S, N]
   float* out;           // [S, 4]
   int req_stride, counts_stride, masks_stride;
   int S, N, G, Rk, iters;
 };
-
-__device__ __forceinline__ float cap_of(float m, float k) {
-  return __fmul_rn(__fsub_rn(1.0f, m), k);
-}
 
 // x[n, :] *= clip(min_r max(head[n, r], 0) / load[n, r], 0, 1) for the
 // block's nodes (the relaxation's capacity projection)
@@ -100,17 +105,31 @@ __device__ void capacity_pass(const TournamentArgs& a, float* x) {
   }
 }
 
+// col[g] = sum_n k[n, g] in node order: the supply's first term, the same
+// for every subset, so it is summed once per launch
+__global__ void tournament_colsum_kernel(const float* k, float* col, int N,
+                                         int G) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  float c = 0.0f;
+  for (int n = 0; n < N; ++n) c = __fadd_rn(c, __ldg(k + (size_t)n * G + g));
+  col[g] = c;
+}
+
 __global__ void __launch_bounds__(NT) tournament_kernel(TournamentArgs a) {
   const int s = blockIdx.x;
   const int N = a.N, G = a.G;
   const float* m = a.masks + (size_t)s * a.masks_stride;
   float* x = a.x + (size_t)s * N * G;
   float* need = a.need + (size_t)s * G;
+  float* surv = a.surv + (size_t)s * N;
   int* vic = a.vic + (size_t)s * N;
   __shared__ int s_nv;
   __shared__ float s_savings;
 
-  // 1. the victims, ascending (warp 0), and savings in that order
+  // 1. each node's survival; the victims, ascending (warp 0), and savings
+  // in that order
+  for (int n = threadIdx.x; n < N; n += NT) surv[n] = __fsub_rn(1.0f, m[n]);
   if (threadIdx.x < 32) {
     const unsigned lane = threadIdx.x;
     int base = 0;
@@ -135,7 +154,8 @@ __global__ void __launch_bounds__(NT) tournament_kernel(TournamentArgs a) {
   __syncthreads();
   const int nv = s_nv;
 
-  // 2. need, supply, feasibility, and the proportional seed of x
+  // 2. need, supply, feasibility, and the proportional seed of x: x = cap
+  // while its sum runs, then x *= need / (sum + EPS)
   int ok = 1;
   for (int g = threadIdx.x; g < G; g += NT) {
     float nd = 0.0f, sub = 0.0f;
@@ -145,19 +165,21 @@ __global__ void __launch_bounds__(NT) tournament_kernel(TournamentArgs a) {
       nd = __fadd_rn(nd, __fmul_rn(mv, __ldg(a.counts + (size_t)n * a.counts_stride + g)));
       sub = __fadd_rn(sub, __fmul_rn(mv, __ldg(a.k + (size_t)n * G + g)));
     }
-    float col = 0.0f, den = 0.0f;
+    float den = 0.0f;
     for (int n = 0; n < N; ++n) {
-      const float kv = __ldg(a.k + (size_t)n * G + g);
-      col = __fadd_rn(col, kv);
-      den = __fadd_rn(den, cap_of(m[n], kv));
+      const size_t i = (size_t)n * G + g;
+      const float cap = __fmul_rn(surv[n], __ldg(a.k + i));
+      den = __fadd_rn(den, cap);
+      x[i] = cap;
     }
-    const float supply = __fsub_rn(col, sub);
+    const float supply = __fsub_rn(__ldg(a.col + g), sub);
     if (!(nd <= __fadd_rn(supply, T_EPS) || nd == 0.0f)) ok = 0;
     need[g] = nd;
     const float q = __fdiv_rn(nd, __fadd_rn(den, R_EPS));
-    for (int n = 0; n < N; ++n)
-      x[(size_t)n * G + g] =
-          __fmul_rn(cap_of(m[n], __ldg(a.k + (size_t)n * G + g)), q);
+    for (int n = 0; n < N; ++n) {
+      const size_t i = (size_t)n * G + g;
+      x[i] = __fmul_rn(x[i], q);
+    }
   }
   const int feasible = __syncthreads_and(ok);
 
@@ -168,8 +190,9 @@ __global__ void __launch_bounds__(NT) tournament_kernel(TournamentArgs a) {
     for (int g = threadIdx.x; g < G; g += NT) {
       float xs = 0.0f, sd = 0.0f;
       for (int n = 0; n < N; ++n) {
-        const float xv = x[(size_t)n * G + g];
-        const float cap = cap_of(m[n], __ldg(a.k + (size_t)n * G + g));
+        const size_t i = (size_t)n * G + g;
+        const float xv = x[i];
+        const float cap = __fmul_rn(surv[n], __ldg(a.k + i));
         xs = __fadd_rn(xs, xv);
         sd = __fadd_rn(sd, fmaxf(__fsub_rn(cap, xv), 0.0f));
       }
@@ -179,7 +202,7 @@ __global__ void __launch_bounds__(NT) tournament_kernel(TournamentArgs a) {
         const size_t i = (size_t)n * G + g;
         const float xv = x[i];
         const float sl =
-            fmaxf(__fsub_rn(cap_of(m[n], __ldg(a.k + i)), xv), 0.0f);
+            fmaxf(__fsub_rn(__fmul_rn(surv[n], __ldg(a.k + i)), xv), 0.0f);
         x[i] = __fadd_rn(xv, __fmul_rn(sl, q));
       }
     }
@@ -211,19 +234,27 @@ __global__ void __launch_bounds__(NT) tournament_kernel(TournamentArgs a) {
 
 // C interface (bound with ctypes). Pointers are device pointers; req,
 // counts and masks rows are *_stride floats apart, everything else is
-// contiguous. x, need and vic are scratch of S*N*G, S*G and S*N elements.
-// The kernel runs on `stream` and does not synchronise. Returns the
-// cudaError_t of the launch (0 = launched), -1 for arguments it refuses.
+// contiguous. col, x, surv, need and vic are scratch of G, S*N*G, S*N,
+// S*G and S*N elements. Both kernels run on `stream`, in order, and
+// nothing synchronises. Returns the cudaError_t of the launches (0 =
+// launched), -1 for arguments it refuses.
 extern "C" int tournament_launch(const float* head, const float* req,
                                  int req_stride, const float* k,
                                  const float* counts, int counts_stride,
                                  const float* masks, int masks_stride,
                                  const float* prices, const float* pslot,
-                                 float* x, float* need, int* vic, float* out,
-                                 int S, int N, int G, int Rk, int iters,
+                                 float* col, float* x, float* surv,
+                                 float* need, int* vic, float* out, int S,
+                                 int N, int G, int Rk, int iters,
                                  void* stream) {
   if (S <= 0) return 0;
   if (N < 0 || G < 0 || Rk < 1 || Rk > RMAX || iters < 0) return -1;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (G > 0) {
+    tournament_colsum_kernel<<<(G + 127) / 128, 128, 0, st>>>(k, col, N, G);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   TournamentArgs a;
   a.head = head;
   a.req = req;
@@ -232,7 +263,9 @@ extern "C" int tournament_launch(const float* head, const float* req,
   a.masks = masks;
   a.prices = prices;
   a.pslot = pslot;
+  a.col = col;
   a.x = x;
+  a.surv = surv;
   a.need = need;
   a.vic = vic;
   a.out = out;
@@ -244,6 +277,6 @@ extern "C" int tournament_launch(const float* head, const float* req,
   a.G = G;
   a.Rk = Rk;
   a.iters = iters;
-  tournament_kernel<<<S, NT, 0, (cudaStream_t)stream>>>(a);
+  tournament_kernel<<<S, NT, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

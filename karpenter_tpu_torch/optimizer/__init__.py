@@ -75,6 +75,24 @@ class RepackPlan:
     search_s: float = 0.0
 
 
+def rank_subsets(feasible: np.ndarray, savings: np.ndarray,
+                 residual: np.ndarray, repl_lb: np.ndarray):
+    """The verify order of S scored subsets: (indices ranked, the
+    replacement-free mask). Two tiers in one ranking: replacement-FREE
+    repacks (per-group feasible AND ~zero fractional residue) by gross
+    savings, then replacement-BACKED subsets (residue priced by the lower
+    bound) by NET savings — the exact solve re-prices both, this only
+    decides who gets a slot in the verify budget. f32 throughout, ties in
+    generation order."""
+    repack_free = feasible & (residual <= RESIDUAL_EPS)
+    net = savings - repl_lb
+    value = np.where(repack_free, np.float32(1e6) + savings,
+                     np.where(net > 0, net, np.float32(-1.0)))
+    order = [int(i) for i in np.argsort(-value, kind="stable")
+             if value[i] > 0]
+    return order, repack_free
+
+
 def plan_repack(cat, enc, views: Sequence, counts: np.ndarray,
                 slack: np.ndarray, candidate_idx: Sequence[int],
                 max_k: int = MAX_K, *,
@@ -123,17 +141,7 @@ def plan_repack(cat, enc, views: Sequence, counts: np.ndarray,
             headroom, group_req, k, counts, prices, masks, per_slot,
             iters=iters)
         backend = "host"
-    # two tiers in one ranking: replacement-FREE repacks (per-group
-    # feasible AND ~zero fractional residue) by gross savings, then
-    # replacement-BACKED subsets (residue priced by the lower bound) by
-    # NET savings — the exact solve re-prices both, this only decides
-    # who gets a slot in the verify budget
-    repack_free = feasible & (residual <= RESIDUAL_EPS)
-    net = savings - repl_lb
-    value = np.where(repack_free, np.float32(1e6) + savings,
-                     np.where(net > 0, net, np.float32(-1.0)))
-    order = [i for i in np.argsort(-value, kind="stable")
-             if value[i] > 0]
+    order, repack_free = rank_subsets(feasible, savings, residual, repl_lb)
     search_s = time.perf_counter() - t0
     plan = RepackPlan(
         subsets=[tuple(int(c) for c in cand[list(subs[i])])
@@ -150,5 +158,6 @@ def plan_repack(cat, enc, views: Sequence, counts: np.ndarray,
 
 __all__ = ["OPTIMIZER", "OPTIMIZER_ENV", "RepackPlan", "RELAX_BUDGET",
            "RESIDUAL_EPS", "MAX_K", "MAX_SUBSETS", "VERIFY_LIMIT",
-           "optimizer_enabled", "plan_repack", "repack_inputs",
+           "optimizer_enabled", "plan_repack", "rank_subsets",
+           "repack_inputs",
            "generate_subsets", "evictability"]

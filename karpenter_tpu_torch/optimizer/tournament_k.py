@@ -21,24 +21,31 @@ repl_lb. k itself (the screen's per-(node, group) cap) is kernel A's
 (`ops/screen_k`), called at the tournament's inputs by
 `tournament.tournament_onebuf`.
 
-Bound on the H100: operations. Per subset each pass touches every
-(node, group) cell of x a few times and the capacity pass does 2·Rk
-flops a cell, while the inputs (k and counts [N, G], masks [S, N]) are
-read once: at the operator loop's first search (S=232, N=382, G~90) about
-0.6 MB against ~0.8 GFLOP, ~12 us at 67 TFLOP/s fp32. chip_smoke.py
-computes the bound from each run's shapes and reports the kernel's time
-beside it (PERF.md).
+Bound on the H100: operations. The inputs (k and counts [N, G], masks
+[S, N]) are read once, about 0.6 MB at the operator loop's first search
+(S=232, N=382, G~90). The function needs, per (subset, node, group)
+cell, 3 operations for the seed, 2·Rk+7 an iteration (the load over
+resources, x·scale, the sum of x, the slack and its sum, the update) and
+2·Rk+2 for the last projection and the residual's sum, plus colsum(k)
+once: 75 a cell at Rk=2, ~0.6 GFLOP there, ~9 us at 67 TFLOP/s fp32
+(`ops_needed` counts it from the inputs; chip_smoke.py reports the
+kernel's time beside it, PERF.md). The kernel does 2·Rk+11 an iteration:
+a demand pass forms the slack twice rather than keep a second
+[S, N, G] scratch.
 
-Design (a simple kernel that is right first): one block per subset. The
-block compacts its mask row into its victims in ascending node order (one
+Design (a simple kernel that is right first): a prologue kernel sums k
+over nodes once per launch; then one block per subset. The block
+compacts its mask row into its victims in ascending node order (one
 warp, ballots), so need, the supply's victim term and savings are
-gathers over at most a handful of nodes, not dense products. x [N, G]
-lives in a global scratch [S, N, G] the wrapper allocates (32 MB at the
-relaxation budget, inside the 50 MB L2). Each iteration is a node pass
-(thread per node: the load over groups, then its scale) and a group pass
-(thread per group: the sums over nodes, the deficit, the slack
-denominator, the update), separated by __syncthreads(). Keeping x in
-shared memory or a cluster and wgmma for the load are later work.
+gathers over at most a handful of nodes, not dense products, and keeps
+each node's survival 1 - m in a scratch row, so a cell's cap is one
+product. x [N, G] lives in a global scratch [S, N, G] the wrapper
+allocates (32 MB at the relaxation budget, inside the 50 MB L2). Each
+iteration is a node pass (thread per node: the load over groups, then
+its scale) and a group pass (thread per group: the sums over nodes, the
+deficit, the slack denominator, the update), separated by
+__syncthreads(). Keeping x in shared memory or a cluster and wgmma for
+the load are later work.
 
 Numerics: f32 throughout, built with -fmad=false and explicit
 __fadd_rn/__fmul_rn/__fdiv_rn, so every elementwise step rounds as the
@@ -122,7 +129,7 @@ def _lib():
     from ..ops._build import load
     fn = load("tournament").tournament_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, I, P, P, I, P, I, P, P, P, P, P, P,
+    fn.argtypes = [P, P, I, P, P, I, P, I, P, P, P, P, P, P, P, P,
                    I, I, I, I, I, P]
     fn.restype = ctypes.c_int
     _fn = fn
@@ -167,14 +174,18 @@ def tournament_cuda(head: torch.Tensor, req: torch.Tensor, k: torch.Tensor,
     out = torch.empty(S * 4, dtype=torch.float32, device=dev)
     if S == 0:
         return out
-    x = torch.empty((S, N, G), dtype=torch.float32, device=dev)
-    need = torch.empty((S, max(G, 1)), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    col = torch.empty(max(G, 1), **f32)
+    x = torch.empty((S, N, G), **f32)
+    surv = torch.empty((S, max(N, 1)), **f32)
+    need = torch.empty((S, max(G, 1)), **f32)
     vic = torch.empty((S, max(N, 1)), dtype=torch.int32, device=dev)
     rc = _lib()(head.data_ptr(), req.data_ptr(), req.stride(0),
                 k.data_ptr(), counts.data_ptr(), counts.stride(0),
                 masks.data_ptr(), masks.stride(0), prices.data_ptr(),
-                pslot.data_ptr(), x.data_ptr(), need.data_ptr(),
-                vic.data_ptr(), out.data_ptr(), S, N, G, Rk, int(iters),
+                pslot.data_ptr(), col.data_ptr(), x.data_ptr(),
+                surv.data_ptr(), need.data_ptr(), vic.data_ptr(),
+                out.data_ptr(), S, N, G, Rk, int(iters),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tournament launch failed: cudaError {rc}")
@@ -194,3 +205,58 @@ def tournament(head: torch.Tensor, req: torch.Tensor, k: torch.Tensor,
     if head.device.type != "cuda":
         raise ValueError(f"tournament runs on cpu or cuda, not {head.device}")
     return tournament_cuda(head, req, k, counts, masks, prices, pslot, iters)
+
+
+def ops_needed(S: int, N: int, G: int, Rk: int, victims: int,
+               iters: int = RELAX_ITERS) -> int:
+    """The operations the tournament's function needs at these shapes,
+    whatever computes it: per (subset, node, group) cell 3 for the seed
+    (cap, its sum over nodes, cap·q), 2·Rk+7 an iteration (the load, x·scale,
+    the sum of x, the slack (2) and its sum, the update (2)) and 2·Rk+2 for
+    the last projection and the sum of x; colsum(k) once; per victim a
+    group's need and supply term and its price; per (subset, group) 5 for
+    the supply, the feasibility test and the seed's quotient, 4 an
+    iteration for the deficit and its quotient, and 5 for the residual and
+    its two sums. `victims` is the number of nonzero mask entries."""
+    cells = S * N * G * (3 + iters * (2 * Rk + 7) + 2 * Rk + 2)
+    per_group = S * G * (10 + 4 * iters)
+    return cells + N * G + victims * (2 * G + 1) + per_group
+
+
+def seeded_inputs(seed: int, S: int, N: int, G: int, Rk: int, device,
+                  max_k: int = 5) -> tuple:
+    """Seeded arguments of `tournament` on `device`, for its checks: raw
+    headroom (some negative), requests with zero columns, integer caps and
+    counts, victim masks of 2..max_k nodes, prices and per-slot prices (one
+    BIG)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    head = rng.uniform(-1.0, 12.0, (N, Rk)).astype(np.float32)
+    req = rng.uniform(0.0, 3.0, (G, Rk)).astype(np.float32)
+    req[rng.random((G, Rk)) < 0.3] = 0.0
+    k = rng.integers(0, 5, (N, G)).astype(np.float32)
+    counts = (rng.random((N, G)) < 0.05).astype(np.float32)
+    masks = np.zeros((S, N), np.float32)
+    for row in masks:
+        row[rng.choice(N, min(N, int(rng.integers(2, max_k + 1))),
+                       replace=False)] = 1.0
+    prices = rng.uniform(0.05, 3.0, N).astype(np.float32)
+    pslot = rng.uniform(0.01, 0.5, G).astype(np.float32)
+    pslot[0] = 1e9
+    return tuple(torch.as_tensor(a, device=device) for a in
+                 (head, req, k, counts, masks, prices, pslot))
+
+
+def packed_views(args: tuple) -> tuple:
+    """The same arguments with req, counts and masks (and prices) as
+    row-strided views of wider packed buffers, as score_subsets_device
+    hands them over: padding columns beside req and counts, prices as the
+    row after masks."""
+    head, req, k, counts, masks, prices, pslot = args
+    (N, G), Rk = counts.shape, req.shape[1]
+    wide = torch.zeros((N, 5 + G), device=counts.device)
+    wide[:, 5:] = counts
+    greq = torch.zeros((G, Rk + 8), device=req.device)
+    greq[:, :Rk] = req
+    mbuf = torch.cat([masks, prices[None]])
+    return (head, greq[:, :Rk], k, wide[:, 5:], mbuf[:-1], mbuf[-1], pslot)

@@ -152,27 +152,6 @@ def test_full_catalog_solve_on_the_card(cuda):
         assert x.type_idx == y.type_idx and x.pods_by_group == y.pods_by_group
 
 
-def tournament_inputs(seed, S, N, G, Rk, dev, max_k=5):
-    """Seeded inputs of kernel C: raw headroom (some negative), requests
-    with zero columns, integer caps and counts, victim masks of 2..max_k
-    nodes, prices and per-slot prices (one BIG)."""
-    rng = np.random.default_rng(seed)
-    head = rng.uniform(-1.0, 12.0, (N, Rk)).astype(np.float32)
-    req = rng.uniform(0.0, 3.0, (G, Rk)).astype(np.float32)
-    req[rng.random((G, Rk)) < 0.3] = 0.0
-    k = rng.integers(0, 5, (N, G)).astype(np.float32)
-    counts = (rng.random((N, G)) < 0.05).astype(np.float32)
-    masks = np.zeros((S, N), np.float32)
-    for row in masks:
-        row[rng.choice(N, min(N, int(rng.integers(2, max_k + 1))),
-                       replace=False)] = 1.0
-    prices = rng.uniform(0.05, 3.0, N).astype(np.float32)
-    pslot = rng.uniform(0.01, 0.5, G).astype(np.float32)
-    pslot[0] = 1e9
-    return tuple(torch.as_tensor(a, device=dev) for a in
-                 (head, req, k, counts, masks, prices, pslot))
-
-
 @pytest.mark.parametrize("shape", [(232, 382, 90, 3), (20, 4250, 90, 2),
                                    (16, 31, 600, 9), (3, 5, 1, 1),
                                    (40, 33, 7, 16)])
@@ -181,7 +160,7 @@ def test_tournament_kernel_matches_plain(cuda, shape):
     equal (the plain version adds in the kernel's orders: nodes in node
     order, groups in group order)."""
     from karpenter_tpu_torch.optimizer import tournament_k as tk
-    args = tournament_inputs(1, *shape, cuda)
+    args = tk.seeded_inputs(1, *shape, cuda)
     n0 = tk.launches
     got = tk.tournament(*args)
     torch.cuda.synchronize()
@@ -194,15 +173,8 @@ def test_tournament_kernel_reads_packed_views(cuda):
     score_subsets_device hands them over: the same output as contiguous
     copies."""
     from karpenter_tpu_torch.optimizer import tournament_k as tk
-    head, req, k, counts, masks, prices, pslot = tournament_inputs(
-        2, 50, 40, 12, 3, cuda)
-    wide = torch.zeros((40, 5 + 12), device=cuda)
-    wide[:, 5:] = counts
-    greq = torch.zeros((12, 3 + 8), device=cuda)
-    greq[:, :3] = req
-    mbuf = torch.cat([masks, prices[None]])
-    got = tk.tournament_cuda(head, greq[:, :3], k, wide[:, 5:], mbuf[:-1],
-                             mbuf[-1], pslot)
-    want = tk.tournament_cuda(head, req, k, counts, masks, prices, pslot)
+    args = tk.seeded_inputs(2, 50, 40, 12, 3, cuda)
+    got = tk.tournament_cuda(*tk.packed_views(args))
+    want = tk.tournament_cuda(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)

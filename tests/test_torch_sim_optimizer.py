@@ -163,3 +163,35 @@ def test_armed_scale_down_keeps_the_references_nodes(monkeypatch):
     greedy, _ = scale_down(PORT, "native", port_integrity, port_catalog,
                            monkeypatch)
     assert len(port.store.nodeclaims) > len(greedy.store.nodeclaims)
+
+
+def test_armed_scale_down_on_the_device_rung(monkeypatch):
+    """The same scale-down, optimizer armed, on the device rung: the
+    port's subset searches score through kernel A's and kernel C's plain
+    versions (device="cpu"), the first ones above the 32 nodes from which
+    the reference's XLA dot stops adding the savings in node order
+    (ROADMAP §3), and still pick the reference's subsets: both packages
+    end in the same state, decisions and stats."""
+    from karpenter_tpu import integrity as ref_integrity
+    from karpenter_tpu.catalog import generate_catalog as ref_catalog
+    from karpenter_tpu_torch import integrity as port_integrity
+    from karpenter_tpu_torch.catalog import generate_catalog as port_catalog
+
+    from test_torch_sim_overcap import scale_down
+    ref, _ = scale_down(REF, "device", ref_integrity, ref_catalog,
+                        monkeypatch)
+    monkeypatch.delenv("KARPENTER_TPU_OPTIMIZER", raising=False)
+    searches = []
+    real = port_opt.plan_repack
+
+    def counted(*a, **kw):
+        plan = real(*a, **kw)
+        searches.append((plan.backend, len(a[2])))
+        return plan
+    monkeypatch.setattr(port_opt, "plan_repack", counted)
+    port, _ = scale_down(PORT, "device", port_integrity, port_catalog,
+                         monkeypatch)
+    assert_same_run(ref, port)
+    assert port.disruption.stats["optimizer_consolidated"] > 0
+    assert {b for b, _ in searches} == {"device"}
+    assert max(n for _, n in searches) > 32

@@ -9,7 +9,11 @@ Phases (any failure exits non-zero):
              and B: golden-style solves incl. conflicts, resume and zone
              overhead, B0's outputs and the packed vectors equal; kernel B
              also at a node budget that takes the largest cluster and at
-             one whose node slices live in global scratch)
+             one whose node slices live in global scratch; kernel C at
+             seeded inputs, one for each tier of its layout that the
+             recorded inputs do not reach: one block with k resident,
+             clusters of 2 and of 16 with k streamed, the global tier,
+             four subsets a block)
   3. main    the full-width main path: the generated catalog (810 types)
              and 100,000 pods drawn from a seeded (cpu, memory) grid,
              solve_device on the card, validate_solution, the host oracle
@@ -57,8 +61,10 @@ Phases (any failure exits non-zero):
              expression's time where one computes the same function;
              kernels B0 and B at the facade solve's scan inputs and at the
              solve_device cell's, kernel B at every cluster size at both;
-             kernel C at the operator loop's first subset search and at a
-             search over phase 3's 4,250-node cluster.
+             kernel C at the operator loop's first subset search (one
+             block a subset) and at a search over phase 3's 4,250-node
+             cluster (a cluster of 16), each row with its tier, cluster and
+             shared memory.
 
 The kernels line reports each kernel's launches in the operator phase
 and its times at a full-size input (A: the main path's screen; B0, B: the
@@ -287,6 +293,26 @@ def check_tournament(tk, args, what: str) -> float:
     return err
 
 
+# kernel C at the tiers that the recorded inputs (the operator loop's
+# searches: one block a subset, k streamed; the grid-mix search: a cluster
+# of 16, k resident) do not reach: (S, N, G, Rk)
+TOURNAMENT_TIER_INPUTS = (
+    (64, 300, 90, 3),     # one block a subset, k resident
+    (12, 600, 90, 2),     # a cluster of 2
+    (4, 5000, 90, 2),     # a cluster of 16, k streamed
+    (4, 600, 1536, 2),    # 16 blocks, node slices in global scratch
+    (600, 40, 7, 3),      # four subsets a block
+)
+
+
+def layout_note(tk, S: int, N: int, G: int, Rk: int) -> str:
+    lay = tk.tournament_layout(S, N, G, Rk)
+    return (f"tier {lay.tier}, cluster {lay.cl}, slice {lay.slice}, "
+            f"{lay.spb} subset(s) a block, k "
+            f"{'resident' if lay.k_smem else f'streamed in {lay.ch}-row chunks'}"
+            f", {lay.smem_bytes} B shared")
+
+
 def phase_check_small(dev) -> None:
     import dataclasses
     import numpy as np
@@ -309,16 +335,20 @@ def phase_check_small(dev) -> None:
     log("[check] screen_k == plain (atol 0) at the four test shapes and a "
         "ragged 7x3")
     for shape in [(3, 5, 1, 1), (40, 33, 7, 16), (16, 31, 600, 9),
-                  (64, 300, 90, 3)]:
+                  (64, 300, 90, 3)] + list(TOURNAMENT_TIER_INPUTS):
         check_tournament(tk, tk.seeded_inputs(5, *shape, dev),
-                         f"S,N,G,Rk={shape}")
+                         f"S,N,G,Rk={shape}, {layout_note(tk, *shape)}")
     args = tk.seeded_inputs(6, 50, 40, 12, 3, dev)
     strided = tk.tournament_cuda(*tk.packed_views(args))
     torch.cuda.synchronize()
     check(torch.equal(strided, tk.tournament_plain(*args)),
           "tournament on row-strided packed views != plain")
     log("[check] tournament == plain (every packed output, atol 0; the "
-        "ranked plan equal) at four shapes and on row-strided packed views")
+        "ranked plan equal) at four shapes, at one seeded input for each "
+        "tier the recorded inputs do not reach ("
+        + "; ".join(f"{sh}: {layout_note(tk, *sh)}"
+                    for sh in TOURNAMENT_TIER_INPUTS)
+        + ") and on row-strided packed views")
 
     cat = encode_catalog(catalog.small_catalog())
     anti = [models.PodAffinityTerm(topology_key=L.HOSTNAME,
@@ -1087,11 +1117,9 @@ def tournament_kernel_times(tk, args, where: str) -> dict:
     and the bound. Logs them and returns the row of the kernels line."""
     from karpenter_tpu_torch.optimizer import RELAX_ITERS
     head, req, k, counts, masks, prices, pslot = args
-    # the kernel alone: the colsum prologue and the tournament, per call
-    c_main, c_col = profiled_ms(lambda: [tk.tournament_cuda(*args)
-                                         for _ in range(5)],
-                                "tournament_kernel", "tournament_colsum")
-    c_kernel = (None if None in (c_main, c_col) else c_main + c_col)
+    # the kernel alone (one launch a call)
+    c_kernel, = profiled_ms(lambda: [tk.tournament_cuda(*args)
+                                     for _ in range(5)], "tournament_kernel")
     c_ms = cuda_ms(lambda: tk.tournament_cuda(*args), 20)
     c_plain = cuda_ms(lambda: tk.tournament_plain(*args), 1)
 
@@ -1104,10 +1132,15 @@ def tournament_kernel_times(tk, args, where: str) -> dict:
     # function needs at this run's shapes and victims (tk.ops_needed)
     c_bytes = 4 * (N * Rk + G * Rk + 2 * N * G + S * N + N + G) + 16 * S
     c_ops = tk.ops_needed(S, N, G, Rk, int((masks != 0).sum()), RELAX_ITERS)
+    lay = tk.tournament_layout(S, N, G, Rk)
     c = {"ms": c_ms, "plain_ms": c_plain, **bound(c_bytes, c_ops),
-         "library_ms": c_lib, "kernel_ms": c_kernel}
-    log(f"[time] {where} (S={S}, N={N}, G={G}, Rk={Rk}): tournament kernel "
-        f"{c_kernel} ms (colsum prologue {c_col} ms), wrapper call "
+         "library_ms": c_lib, "kernel_ms": c_kernel, "tier": lay.tier,
+         "cluster": lay.cl, "smem_bytes": lay.smem_bytes,
+         "subsets_a_block": lay.spb, "slice": lay.slice,
+         "k_resident": lay.k_smem}
+    log(f"[time] {where} (S={S}, N={N}, G={G}, Rk={Rk}; "
+        f"{layout_note(tk, S, N, G, Rk)}): tournament kernel "
+        f"{c_kernel} ms, wrapper call "
         f"{c_ms:.4f} ms (bound {c['bound_ms']:.5f} ms by {c['bound_by']}, "
         f"{c_bytes} bytes, "
         f"{c_ops} ops); plain {c_plain:.3f} ms; need/supply/savings as three "

@@ -178,3 +178,32 @@ def test_tournament_kernel_reads_packed_views(cuda):
     want = tk.tournament_cuda(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,tier,cl,spb,k_smem", [
+    ((64, 300, 90, 3), "block", 1, 1, True),       # one block, k resident
+    ((232, 382, 90, 2), "block", 1, 1, False),     # one block, k streamed
+    ((12, 600, 90, 2), "cluster", 2, 1, True),     # a cluster of 2
+    ((6, 2001, 90, 2), "cluster", 8, 1, True),     # 8; N not a multiple
+    ((20, 4250, 90, 2), "cluster", 16, 1, True),   # the grid-mix search
+    ((4, 5000, 90, 2), "cluster", 16, 1, False),   # 16, k streamed
+    ((4, 600, 1536, 2), "global", 16, 1, False),   # slices in global scratch
+    ((1000, 382, 90, 2), "block", 1, 1, False),    # many waves of subsets
+    ((600, 40, 7, 3), "block", 1, 4, True),        # several subsets a block
+    ((40, 500, 30, 16), "block", 1, 1, True),      # Rk = 16
+    ((10, 1500, 90, 16), "cluster", 8, 1, True),   # Rk = 16 in a cluster
+])
+def test_tournament_tiers(cuda, shape, tier, cl, spb, k_smem):
+    """Kernel C on each tier of its layout: every packed output equal to
+    tournament_plain (atol 0), contiguous and on row-strided packed
+    views."""
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    lay = tk.tournament_layout(*shape)
+    assert (lay.tier, lay.cl, lay.spb, lay.k_smem) == (tier, cl, spb, k_smem)
+    args = tk.seeded_inputs(7, *shape, cuda)
+    got = tk.tournament_cuda(*args)
+    strided = tk.tournament_cuda(*tk.packed_views(args))
+    torch.cuda.synchronize()
+    want = tk.tournament_plain(*args)
+    assert torch.equal(got, want)
+    assert torch.equal(strided, want)

@@ -152,17 +152,43 @@ def test_armed_scale_down_keeps_the_references_nodes(monkeypatch):
     from karpenter_tpu_torch.catalog import generate_catalog as port_catalog
 
     from test_torch_sim_overcap import scale_down
-    ref, _ = scale_down(REF, "native", ref_integrity, ref_catalog,
-                        monkeypatch)
+    ref, ref_flags = scale_down(REF, "native", ref_integrity, ref_catalog,
+                                monkeypatch)
     monkeypatch.delenv("KARPENTER_TPU_OPTIMIZER", raising=False)
-    port, _ = scale_down(PORT, "native", port_integrity, port_catalog,
-                         monkeypatch)
+    port, port_flags = scale_down(PORT, "native", port_integrity,
+                                  port_catalog, monkeypatch)
     assert_same_run(ref, port)
+    # the same nodes flagged, in the same order; the reference's delta
+    # plane adds its audit re-solves' oracle calls (ROADMAP §3), so the
+    # lists are held equal call for call without it (below)
+    assert [c for c in port_flags if c] == [c for c in ref_flags if c]
+    assert len(port_flags) <= len(ref_flags)
     assert port.disruption.stats["optimizer_consolidated"] > 0
     monkeypatch.setenv("KARPENTER_TPU_OPTIMIZER", "0")
     greedy, _ = scale_down(PORT, "native", port_integrity, port_catalog,
                            monkeypatch)
     assert len(port.store.nodeclaims) > len(greedy.store.nodeclaims)
+
+
+def test_armed_scale_down_flags_without_the_delta_plane(monkeypatch):
+    """The armed scale-down on the native rung with the reference's delta
+    plane off (the port has none): both packages make the same oracle
+    calls on the same solves and flag the same nodes, call for call."""
+    from karpenter_tpu import integrity as ref_integrity
+    from karpenter_tpu.catalog import generate_catalog as ref_catalog
+    from karpenter_tpu_torch import integrity as port_integrity
+    from karpenter_tpu_torch.catalog import generate_catalog as port_catalog
+
+    from test_torch_sim_overcap import scale_down
+    monkeypatch.setenv("KARPENTER_TPU_DELTA", "0")
+    ref, ref_flags = scale_down(REF, "native", ref_integrity, ref_catalog,
+                                monkeypatch)
+    monkeypatch.delenv("KARPENTER_TPU_OPTIMIZER", raising=False)
+    port, port_flags = scale_down(PORT, "native", port_integrity,
+                                  port_catalog, monkeypatch)
+    assert_same_run(ref, port)
+    assert port_flags == ref_flags and len(port_flags) > 0
+    assert port.solver.stats == ref.solver.stats
 
 
 def test_armed_scale_down_on_the_device_rung(monkeypatch):
@@ -178,8 +204,8 @@ def test_armed_scale_down_on_the_device_rung(monkeypatch):
     from karpenter_tpu_torch.catalog import generate_catalog as port_catalog
 
     from test_torch_sim_overcap import scale_down
-    ref, _ = scale_down(REF, "device", ref_integrity, ref_catalog,
-                        monkeypatch)
+    ref, ref_flags = scale_down(REF, "device", ref_integrity, ref_catalog,
+                                monkeypatch)
     monkeypatch.delenv("KARPENTER_TPU_OPTIMIZER", raising=False)
     searches = []
     real = port_opt.plan_repack
@@ -189,9 +215,17 @@ def test_armed_scale_down_on_the_device_rung(monkeypatch):
         searches.append((plan.backend, len(a[2])))
         return plan
     monkeypatch.setattr(port_opt, "plan_repack", counted)
-    port, _ = scale_down(PORT, "device", port_integrity, port_catalog,
-                         monkeypatch)
+    port, port_flags = scale_down(PORT, "device", port_integrity,
+                                  port_catalog, monkeypatch)
     assert_same_run(ref, port)
+    # the same nodes are flagged; the reference also re-checks its
+    # fallback's answer where it flags one, the port stays on the card
+    # (tests/test_torch_sim_overcap.py)
+    flagged = {name for call in port_flags for _, _, name in call}
+    assert flagged == {name for call in ref_flags for _, _, name in call}
+    if ref.solver.stats["device_fallbacks"] == 0:
+        assert [c for c in port_flags if c] == [c for c in ref_flags if c]
+    assert port.solver.stats["device_fallbacks"] == 0
     assert port.disruption.stats["optimizer_consolidated"] > 0
     assert {b for b, _ in searches} == {"device"}
     assert max(n for _, n in searches) > 32

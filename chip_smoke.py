@@ -55,6 +55,23 @@ Phases (any failure exits non-zero):
              armed and disarmed, and armed on the native rung, at 2 tiles
              and at OPT_TILES: joint consolidations >= tiles, the armed
              savings above the disarmed ones, device == native.
+  4e. fleet  the port's SolverService (fleet/service.py) on the 810-type
+             catalog: bench c12's procedure (16 tenants, 10 rounds of a
+             48-pod burst) on a serial device service and a batched one
+             (batch=True), each after a warm round, SolveOutputs equal to a
+             native-rung service's every round, max batch 16 and exactly
+             one B0 and one B launch a batched round; a wide pump of 32
+             tenants x 8,192 grid pods (two buckets of 16, bucket 2
+             dispatched before bucket 1 drains, every packed row equal to
+             the tenant's serial solve_packed vector); batched B0 and B
+             against their plain versions (atol 0) at the wide bucket's
+             inputs and at 1, 5 (padded to 6) and 16 of its requests;
+             bucket 2's dispatch returns with bucket 1 queued behind a
+             busy stream, no synchronising call in it. Any
+             fallback or fault_fallback fails it. Times: solves/s a regime,
+             batch size, occupancy, pipeline_overlap_ratio, the idle share
+             of one batched pump, and the batched kernels against 16
+             serial launches at the same rows, beside the batch's bound.
   5. time    median wall times of the solve and the screen, stage by stage;
              per-kernel device time from torch.profiler and CUDA events
              beside its bound, its plain version's time and one torch
@@ -69,8 +86,9 @@ Phases (any failure exits non-zero):
 The kernels line reports each kernel's launches in the operator phase
 and its times at a full-size input (A: the main path's screen; B0, B: the
 facade's solve; C: the operator loop's first subset search); `by_phase`
-holds each phase's launches (the main path, the facade, the operator and
-the optimizer phases) and times. The last two lines of
+holds each phase's launches (the main path, the facade, the operator, the
+optimizer and, for B0 and B, the fleet's batched rounds) and times (the
+fleet's at its wide bucket: 16 requests in one launch). The last two lines of
 output are that line and {"ok": true, "device": {...}}. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -1082,6 +1100,388 @@ def phase_optimizer() -> dict:
     return {"tournament": tk.launches}
 
 
+FLEET_TENANTS = 16     # bench c12's tenants, rounds and burst (bench.py:736)
+FLEET_ROUNDS = 10
+FLEET_BURST = 48
+FLEET_SHAPES = (("250m", "512Mi"), ("500m", "1Gi"), ("1", "2Gi"),
+                ("2", "4Gi"), ("4", "16Gi"), ("500m", "4Gi"),
+                ("1", "8Gi"), ("250m", "1Gi"))     # bench.py:186
+WIDE_TENANTS = 32      # two buckets of SolverService.MAX_BATCH
+WIDE_PODS = 8_192      # grid pods a tenant (seed = the tenant's index)
+
+
+class FleetWatch:
+    """Keeps every batched dispatch of a pump and the order of dispatches
+    and drains (first readbacks), by wrapping ops/solver.dispatch_batch and
+    InFlightBatch.block."""
+
+    def __init__(self, solver):
+        self.solver, self.batches, self.order = solver, [], []
+
+    def __enter__(self):
+        s, watch = self.solver, self
+        self.real = (s.dispatch_batch, s.InFlightBatch.block)
+        real_dispatch, real_block = self.real
+
+        def dispatch(reqs, mesh=None):
+            ifb = real_dispatch(reqs, mesh)
+            watch.batches.append(ifb)
+            watch.order.append(("dispatch", len(watch.batches) - 1))
+            return ifb
+
+        def block(ifb):
+            if ifb._buf is None and any(b is ifb for b in watch.batches):
+                watch.order.append(("drain", next(
+                    i for i, b in enumerate(watch.batches) if b is ifb)))
+            return real_block(ifb)
+        s.dispatch_batch, s.InFlightBatch.block = dispatch, block
+        return self
+
+    def __exit__(self, *exc):
+        self.solver.dispatch_batch, self.solver.InFlightBatch.block = self.real
+
+
+def fleet_service(backend: str, batch: bool, n: int, types):
+    """A SolverService on `backend` with n tenants t000.. on one catalog."""
+    from karpenter_tpu_torch.catalog import CatalogProvider
+    from karpenter_tpu_torch.fleet import SolverService
+    from karpenter_tpu_torch.utils.clock import FakeClock
+    svc = SolverService(FakeClock(), backend=backend, batch=batch)
+    return svc, [svc.register(f"t{t:03d}", CatalogProvider(lambda: types))
+                 for t in range(n)]
+
+
+def serial_round(clients, bursts, pool) -> list:
+    return [out_tuple(c.solve(b, pool)) for c, b in zip(clients, bursts)]
+
+
+def batched_round(svc, clients, bursts, pool) -> list:
+    tickets = [c.solve_async(b, pool) for c, b in zip(clients, bursts)]
+    svc.pump()
+    return [out_tuple(t.result()) for t in tickets]
+
+
+def row_args(args, b: int):
+    """Request b's solve_scan arguments from solve_scan_batched's (the
+    group inputs, positions 3-11, indexed; the rest shared)."""
+    return args[:3] + tuple(a[b] for a in args[3:12]) + args[12:]
+
+
+def check_batched(ss, args, kw, what: str) -> None:
+    """Batched B0 and B (one launch each) against the per-row plain
+    versions at atol 0."""
+    import torch
+    got = ss.solve_scan_batched_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    want = ss.solve_scan_batched_plain(*args, **kw)
+    for a, b, name in zip(got, want, ("ntype", "takes", "unsched", "nused",
+                                      "overflow")):
+        check(torch.equal(a.to(b.dtype), b),
+              f"batched solve_scan != plain ({what}: {name})")
+    oa = [args[i] for i in (0, 1, 2, 3, 5, 6, 7, 8, 12)]
+    got0 = ss.offer_argmin_batched_cuda(*oa, zone_ovh=kw["zone_ovh"])
+    torch.cuda.synchronize()
+    for b in range(args[3].shape[0]):
+        want0 = ss.offer_argmin_plain(
+            *oa[:3], *(x[b] for x in oa[3:8]), oa[8], zone_ovh=kw["zone_ovh"])
+        for x, y in zip(got0, want0):
+            check(torch.equal(x[b].to(y.dtype), y),
+                  f"batched offer_argmin != plain ({what}, row {b})")
+
+
+def batched_kernel_times(ss, args, kw, where: str):
+    """Kernels B0 and B at one solve_scan_batched call's arguments: each
+    batched kernel alone (torch.profiler) and the wrapper call (CUDA
+    events) against the same rows as Bp serial launches, the plain version,
+    a torch yardstick for B0 and the bound (the catalog and the starting
+    node state read once, each request's rows and outputs once). Logs them
+    and returns the two rows of the kernels line."""
+    import torch
+    b = inspect.signature(ss.solve_scan_batched_plain).bind(*args, **kw)
+    b.apply_defaults()
+    a = b.arguments
+    T, Z, C = a["price"].shape
+    Bp, Gp, Rk = a["requests"].shape
+    n_max, ZC = a["n_max"], Z * C
+    W = -(-Gp // 32) if a["track_conflicts"] else 0
+    lay = ss._scan_layout(n_max, Rk, W, Z, C, T, a["zone_ovh"])
+    rows = [row_args(args, i) for i in range(Bp)]
+    b0_in = [a[k] for k in ("alloc", "price", "avail", "requests", "counts",
+                            "compat", "allow_zone", "allow_cap",
+                            "max_per_node", "prior", "banned", "conflict",
+                            "zovh")]
+    b0_flags = (a["zone_ovh"], a["track_conflicts"])
+
+    def serial_tables():
+        for i in range(Bp):
+            ss._offer_table(*b0_in[:3], *(x[i:i + 1] for x in b0_in[3:12]),
+                            b0_in[12], *b0_flags)
+
+    def serial_scans():
+        for r in rows:
+            ss.solve_scan_cuda(*r, **kw)
+
+    b0_k, b_k = profiled_ms(
+        lambda: [ss.solve_scan_batched_cuda(*args, **kw) for _ in range(5)],
+        "offer_argmin_kernel", "solve_scan_kernel")
+    s0_k, s_k = profiled_ms(serial_scans, "offer_argmin_kernel",
+                            "solve_scan_kernel")
+    oa = {"alloc": a["alloc"], "price": a["price"], "avail": a["avail"],
+          "requests": a["requests"].reshape(Bp * Gp, Rk),
+          "compat": a["compat"].reshape(Bp * Gp, T),
+          "allow_zone": a["allow_zone"].reshape(Bp * Gp, Z),
+          "allow_cap": a["allow_cap"].reshape(Bp * Gp, C),
+          "max_per_node": a["max_per_node"].reshape(Bp * Gp)}
+    cat0 = 4 * T * ZC + T * ZC + 4 * T * Rk + 8 * T
+    req0 = Gp * (4 * Rk + T + Z + C + 8) + 4 * Gp * lay.rec_words
+    b0 = {"ms": cuda_ms(lambda: ss._offer_table(*b0_in, *b0_flags), 50),
+          "plain_ms": cuda_ms(lambda: [ss.offer_argmin_plain(
+              *r[:4], *r[5:9], r[12], zone_ovh=a["zone_ovh"]) for r in rows],
+              2),
+          **bound(cat0 + Bp * req0, Bp * Gp * (T * 4 * Rk + T * ZC * 2)),
+          "library_ms": cuda_ms(lambda: library_cps(oa), 10),
+          "kernel_ms": b0_k, "serial_ms": cuda_ms(serial_tables, 10),
+          "serial_kernel_ms": None if s0_k is None else s0_k * Bp,
+          "requests": Bp}
+    shared = 4 * T * Rk + 4 * T * ZC + T * ZC + n_max * (4 + 4 * Rk + Z + C
+                                                         + 1)
+    per_req = (Gp * (4 * Rk + 4 + T + Z + C + 4) + 4 * Gp * n_max + 4 * Gp
+               + 8 + 4 * n_max)
+    bk = {"ms": cuda_ms(lambda: ss.solve_scan_batched_cuda(*args, **kw), 20),
+          "plain_ms": cuda_ms(lambda: ss.solve_scan_batched_plain(*args,
+                                                                  **kw), 1),
+          **bound(shared + Bp * per_req,
+                  Bp * Gp * (n_max * (4 * Rk + ZC + 6)
+                             + T * (4 * Rk + 2 * ZC))),
+          "library_ms": None, "kernel_ms": b_k,
+          "serial_ms": cuda_ms(serial_scans, 5),
+          "serial_kernel_ms": None if s_k is None else s_k * Bp,
+          "requests": Bp}
+    log(f"[time] {where} (Bp={Bp}, Gp={Gp}, n_max={n_max}, Rk={Rk}, layout "
+        f"cl={lay.cl} nodes_in_shared={lay.nodes_smem}): batched "
+        f"offer_argmin kernel {b0_k} ms a launch vs {Bp} serial launches "
+        f"{b0['serial_kernel_ms']} ms; wrapper call {b0['ms']:.4f} ms vs "
+        f"{Bp} serial {b0['serial_ms']:.4f} ms (bound {b0['bound_ms']:.5f} "
+        f"ms, {b0['bound_by']}), plain {b0['plain_ms']:.3f} ms, cps + "
+        f"torch.argmin {b0['library_ms']:.4f} ms; batched solve_scan kernel "
+        f"{b_k} ms a launch vs {Bp} serial launches {bk['serial_kernel_ms']} "
+        f"ms; wrapper call (B0 + B) {bk['ms']:.4f} ms vs {Bp} serial "
+        f"{bk['serial_ms']:.4f} ms (bound {bk['bound_ms']:.5f} ms, "
+        f"{bk['bound_by']}), plain {bk['plain_ms']:.1f} ms")
+    return b0, bk
+
+
+def phase_fleet() -> tuple:
+    """The port's SolverService on the card, three ways: bench c12 at the
+    reference's sizes (16 tenants, 10 rounds of a 48-pod burst each) on a
+    serial device service and a batched one, against a native-rung
+    service; a wide pump of 32 tenants x 8,192 grid pods (two buckets of
+    16, the second dispatched before the first drains, and without waiting
+    for it); batched B0 and B against their plain versions at the wide
+    bucket's inputs and at 1, 5 (padded to 6) and 16 of its requests.
+    Returns the batched rounds' B0
+    and B launches and the kernels' rows at the wide bucket."""
+    import numpy as np
+    import torch
+    from karpenter_tpu_torch import catalog, models
+    from karpenter_tpu_torch.metrics import FLEET_SHAPE_CLASS
+    from karpenter_tpu_torch.ops import solve_scan as ss, solver
+
+    t_phase = time.perf_counter()
+    types = catalog.generate_catalog()
+    pool = models.NodePool(name="default")
+    bursts = [[models.Pod(name=f"c12-{t}-{i}", requests=models.Resources.parse(
+        {"cpu": FLEET_SHAPES[(t + i) % len(FLEET_SHAPES)][0],
+         "memory": FLEET_SHAPES[(t + i) % len(FLEET_SHAPES)][1]}))
+        for i in range(FLEET_BURST)] for t in range(FLEET_TENANTS)]
+    names = [f"t{t:03d}" for t in range(WIDE_TENANTS)]
+    faults0 = sum(FLEET_SHAPE_CLASS.value(event="fault_fallback", tenant=n)
+                  for n in names)
+
+    # --- c12: serial device and batched services against native ---
+    nat_svc, nat = fleet_service("native", False, FLEET_TENANTS, types)
+    ser_svc, ser = fleet_service("device", False, FLEET_TENANTS, types)
+    bat_svc, bat = fleet_service("device", True, FLEET_TENANTS, types)
+    serial_round(ser, bursts, pool)                 # warm rounds
+    with Recorder(solver, "solve_scan_batched") as rec_c12:
+        batched_round(bat_svc, bat, bursts, pool)
+    walls = {"native": 0.0, "serial device": 0.0, "batched": 0.0}
+    per_round = []
+    fleet_launches = {"offer_argmin": 0, "solve_scan": 0}
+    with FleetWatch(solver) as fw:
+        for r in range(FLEET_ROUNDS):
+            t0 = time.perf_counter()
+            want = serial_round(nat, bursts, pool)
+            t1 = time.perf_counter()
+            got_s = serial_round(ser, bursts, pool)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ss.launches = 0
+            ss.offer_launches = 0
+            got_b = batched_round(bat_svc, bat, bursts, pool)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            n = (ss.offer_launches, ss.launches)
+            per_round.append(n)
+            fleet_launches["offer_argmin"] += n[0]
+            fleet_launches["solve_scan"] += n[1]
+            walls["native"] += t1 - t0
+            walls["serial device"] += t2 - t1
+            walls["batched"] += t3 - t2
+            check(got_s == want and got_b == want,
+                  f"c12 round {r}: SolveOutputs differ across the serial "
+                  f"device, batched and native services")
+    check(all(n == (1, 1) for n in per_round),
+          f"c12: a batched round must launch B0 and B once each: {per_round}")
+    st = bat_svc.stats
+    check(st["max_batch_size"] == FLEET_TENANTS,
+          f"c12: max batch size {st['max_batch_size']}, not {FLEET_TENANTS}")
+    check(sum(b.fallbacks for b in fw.batches) == 0,
+          "c12: a batched row fell back to a serial re-run")
+    solves = FLEET_TENANTS * FLEET_ROUNDS
+    log(f"[fleet] c12 ({FLEET_TENANTS} tenants x {FLEET_ROUNDS} rounds of "
+        f"{FLEET_BURST} pods, 810 types): SolveOutputs equal across the "
+        f"serial device, batched and native services every round; solves/s "
+        + ", ".join(f"{k} {solves / v:.1f}" for k, v in walls.items())
+        + f"; batched: {st['batches']} batches, mean batch size "
+        f"{st['batched_tickets'] / max(st['batches'], 1):.2f}, occupancy "
+        f"{st['batched_tickets'] / max(st['padded_slots'], 1):.3f}, max "
+        f"{st['max_batch_size']}, pipeline_overlap_ratio "
+        f"{bat_svc.pipeline_overlap_ratio():.4f}; B0/B launches a batched "
+        f"round {per_round[0]}")
+    box = {}
+
+    def one_pump():
+        t0 = time.perf_counter()
+        batched_round(bat_svc, bat, bursts, pool)
+        torch.cuda.synchronize()
+        box["wall"] = (time.perf_counter() - t0) * 1e3
+    for _ in range(3):  # the trace drops a short run's events now and then
+        ev = device_kernel_us(one_pump)
+        if ev:
+            break
+    if ev:
+        busy = sum(us for us, _ in ev.values()) / 1e3
+        log(f"[time] one batched c12 pump under torch.profiler: device busy "
+            f"{busy:.3f} ms of {box['wall']:.1f} ms wall (idle share "
+            f"{1 - busy / box['wall']:.5f}); "
+            f"{sum(n for _, n in ev.values())} device kernels")
+    else:
+        log("[time] torch.profiler recorded no device events: the batched "
+            "pump's idle share not measured")
+
+    # --- the wide pump: 32 tenants x 8,192 grid pods, one pump ---
+    t_wide = time.perf_counter()
+    wide = [grid_pods(models, WIDE_PODS, t) for t in range(WIDE_TENANTS)]
+    _, w_nat = fleet_service("native", False, WIDE_TENANTS, types)
+    _, w_ser = fleet_service("device", False, WIDE_TENANTS, types)
+    w_svc, w_bat = fleet_service("device", True, WIDE_TENANTS, types)
+    t0 = time.perf_counter()
+    want = serial_round(w_nat, wide, pool)
+    t1 = time.perf_counter()
+    got_s = serial_round(w_ser, wide, pool)
+    t2 = time.perf_counter()
+    ss.launches = 0
+    ss.offer_launches = 0
+    with FleetWatch(solver) as fw, \
+            Recorder(solver, "solve_scan_batched") as rec_wide:
+        got_b = batched_round(w_svc, w_bat, wide, pool)
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    wide_launches = (ss.offer_launches, ss.launches)
+    check(got_s == want and got_b == want,
+          "wide pump: SolveOutputs differ across the serial device, "
+          "batched and native services")
+    check([b.size for b in fw.batches] == [16, 16]
+          and fw.order == [("dispatch", 0), ("dispatch", 1), ("drain", 0),
+                           ("drain", 1)],
+          f"wide pump: buckets {[b.size for b in fw.batches]}, order "
+          f"{fw.order} (two of 16, the second dispatched before the first "
+          f"drains)")
+    check(wide_launches == (2, 2),
+          f"wide pump: B0/B launches {wide_launches}, not one a bucket")
+    check(sum(b.fallbacks for b in fw.batches) == 0,
+          "wide pump: a batched row fell back to a serial re-run")
+    serial_vec = {}
+    for k, ifb in enumerate(fw.batches):
+        rows = ifb.rows()
+        for i, req in enumerate(ifb.reqs):
+            vec, _ = solver.solve_packed(req.cat, req.enc)
+            serial_vec[(k, i)] = vec
+            check(np.array_equal(rows[i], vec),
+                  f"wide pump: bucket {k} row {i} != serial solve_packed")
+    log(f"[fleet] wide pump ({WIDE_TENANTS} tenants x {WIDE_PODS} grid "
+        f"pods): SolveOutputs equal across the three services; 2 buckets "
+        f"of 16, bucket 2 dispatched before bucket 1 drained; B0/B "
+        f"launches {wide_launches}; every packed row == its serial "
+        f"solve_packed vector; solves/s native "
+        f"{WIDE_TENANTS / (t1 - t0):.2f}, serial device "
+        f"{WIDE_TENANTS / (t2 - t1):.2f}, batched "
+        f"{WIDE_TENANTS / (t3 - t2):.2f}; pipeline_overlap_ratio "
+        f"{w_svc.pipeline_overlap_ratio():.4f}")
+
+    # --- the kernels at the wide bucket's inputs, and at 1, 5 and 16 ---
+    (wargs, wkw), = rec_wide.calls[:1]
+    check_batched(ss, wargs, wkw, "wide bucket")
+    reqs = fw.batches[0].reqs
+    for Bp in (1, 5, 16):
+        with Recorder(solver, "solve_scan_batched") as rec:
+            ifb = solver.dispatch_batch(reqs[:Bp])
+            rows = ifb.rows()
+        check(ifb.padded_size == solver._batch_bucket(Bp),
+              f"Bp={Bp}: padded to {ifb.padded_size}")
+        for i in range(ifb.padded_size):
+            if i < Bp:
+                check(np.array_equal(rows[i], serial_vec[(0, i)]),
+                      f"Bp={Bp}: row {i} != serial solve_packed")
+            else:
+                check(rows[i][0] == 0 and rows[i][2] == 0,
+                      f"Bp={Bp}: padded row {i} placed pods")
+        (a, kw), = rec.calls
+        check_batched(ss, a, kw, f"Bp={Bp}")
+    log("[check] batched offer_argmin and solve_scan == plain (atol 0) at "
+        "the wide bucket's inputs and at Bp 1, 5 (padded to 6) and 16 of "
+        "its requests; rows == serial solve_packed, padded rows inert")
+    # dispatching bucket 2 must not wait for bucket 1: with the stream held
+    # busy behind bucket 1, the dispatch returns before the stream drains,
+    # and torch's sync debug mode raises on any synchronising copy in it
+    first = solver.dispatch_batch(reqs)
+    torch.cuda._sleep(1 << 31)
+    busy = torch.cuda.Event()
+    busy.record()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = solver.dispatch_batch(fw.batches[1].reqs)
+        pending = not busy.query()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t1 = time.perf_counter()
+    check(pending, "dispatch_batch waited for the batch in flight")
+    for k, ifb in enumerate((first, second)):
+        rows = ifb.rows()
+        for i in range(ifb.size):
+            check(np.array_equal(rows[i], serial_vec[(k, i)]),
+                  f"no-wait dispatch: bucket {k} row {i} != serial")
+    log(f"[check] dispatch_batch of the wide pump's bucket 2 returned in "
+        f"{(t1 - t0) * 1e3:.3f} ms with bucket 1 still queued behind a "
+        f"busy stream, no synchronising call (sync debug mode 'error'); "
+        f"rows == serial solve_packed")
+    faults = sum(FLEET_SHAPE_CLASS.value(event="fault_fallback", tenant=n)
+                 for n in names) - faults0
+    dev_fallbacks = sum(c.facade.stats["device_fallbacks"]
+                        for c in ser + bat + w_ser + w_bat)
+    check(faults == 0 and dev_fallbacks == 0,
+          f"fleet: {faults} fault_fallback events, {dev_fallbacks} device "
+          f"fallbacks")
+    (cargs, ckw), = rec_c12.calls[:1]
+    batched_kernel_times(ss, cargs, ckw, "c12 bucket")
+    times = batched_kernel_times(ss, wargs, wkw, "wide bucket")
+    log(f"[fleet] phase wall {time.perf_counter() - t_phase:.1f} s (wide "
+        f"pump and checks {time.perf_counter() - t_wide:.1f} s)")
+    return fleet_launches, times
+
+
 def grid_tournament_args(cat, enc, views, counts, slack):
     """Kernel C's arguments for one subset search over phase 3's cluster
     (every node a candidate, each node priced at its type's cheapest
@@ -1189,13 +1589,34 @@ def bound(nbytes: int, ops: int) -> dict:
             "bound_by": "bytes" if by_bytes else "operations"}
 
 
+def library_cps(oa: dict):
+    """The torch expression that builds cps over [G, T, Z, C] and takes its
+    argmin, at offer_argmin's arguments (the yardstick for kernel B0; the
+    port never calls it)."""
+    import numpy as np
+    import torch
+    eps = float(np.float32(1e-4))
+    rq, mp = oa["requests"], oa["max_per_node"]
+    slots = torch.where(rq[:, None, :] > 0, torch.floor(
+        oa["alloc"][None] / torch.where(rq > 0, rq, 1.0)[:, None, :]
+        + eps), 1e9).amin(dim=2).clamp_min(0.0)
+    slots = torch.minimum(slots, torch.where(mp == 0, 1e9, mp)[:, None])
+    feas = (oa["avail"][None] & oa["compat"][:, :, None, None]
+            & oa["allow_zone"][:, None, :, None]
+            & oa["allow_cap"][:, None, None, :]
+            & (slots >= 1)[:, :, None, None])
+    cps = torch.where(feas, oa["price"][None]
+                      / slots.clamp_min(1.0)[:, :, None, None],
+                      torch.finfo(torch.float32).max)
+    return torch.argmin(cps.reshape(rq.shape[0], -1), 1)
+
+
 def scan_kernel_times(ss, sargs, skw, where: str):
     """Kernels B0 and B at one solve_scan call's arguments: the kernel
     alone (torch.profiler), the wrapper call (CUDA events), the plain
     version, a torch yardstick for B0, the bound, and kernel B at every
     cluster size its node state fits (outputs checked equal). Logs them
     and returns the two rows of the kernels line."""
-    import numpy as np
     import torch
     oa = offer_args(ss, sargs, skw)
     sb = inspect.signature(ss.solve_scan_plain).bind(*sargs, **skw)
@@ -1205,31 +1626,14 @@ def scan_kernel_times(ss, sargs, skw, where: str):
     T, Z, C = sa["price"].shape
     Gp, Rk = sa["requests"].shape
     n_max, ZC = sa["n_max"], Z * C
-    eps = float(np.float32(1e-4))
 
     def offer_table():
         return ss._offer_table(
-            sa["alloc"], sa["price"], sa["avail"], sa["requests"],
-            sa["counts"], sa["compat"], sa["allow_zone"], sa["allow_cap"],
-            sa["max_per_node"], sa["prior"], sa["banned"], sa["conflict"],
+            sa["alloc"], sa["price"], sa["avail"], sa["requests"][None],
+            sa["counts"][None], sa["compat"][None], sa["allow_zone"][None],
+            sa["allow_cap"][None], sa["max_per_node"][None],
+            sa["prior"][None], sa["banned"][None], sa["conflict"][None],
             sa["zovh"], sa["zone_ovh"], sa["track_conflicts"])
-
-    def library_cps():
-        # the torch expression that builds cps and takes its argmin (the
-        # yardstick for kernel B0; the port never calls it)
-        rq, mp = oa["requests"], oa["max_per_node"]
-        slots = torch.where(rq[:, None, :] > 0, torch.floor(
-            oa["alloc"][None] / torch.where(rq > 0, rq, 1.0)[:, None, :]
-            + eps), 1e9).amin(dim=2).clamp_min(0.0)
-        slots = torch.minimum(slots, torch.where(mp == 0, 1e9, mp)[:, None])
-        feas = (oa["avail"][None] & oa["compat"][:, :, None, None]
-                & oa["allow_zone"][:, None, :, None]
-                & oa["allow_cap"][:, None, None, :]
-                & (slots >= 1)[:, :, None, None])
-        cps = torch.where(feas, oa["price"][None]
-                          / slots.clamp_min(1.0)[:, :, None, None],
-                          torch.finfo(torch.float32).max)
-        return torch.argmin(cps.reshape(Gp, -1), 1)
 
     b0_kernel, b_kernel = profiled_ms(
         lambda: [ss.solve_scan_cuda(*sargs, **skw) for _ in range(5)],
@@ -1240,7 +1644,8 @@ def scan_kernel_times(ss, sargs, skw, where: str):
     b0_ops = Gp * (T * (4 * Rk) + T * ZC * 2)
     b0 = {"ms": cuda_ms(offer_table, 100),
           "plain_ms": cuda_ms(lambda: ss.offer_argmin_plain(**oa), 10),
-          **bound(b0_bytes, b0_ops), "library_ms": cuda_ms(library_cps, 10),
+          **bound(b0_bytes, b0_ops),
+          "library_ms": cuda_ms(lambda: library_cps(oa), 10),
           "kernel_ms": b0_kernel}
     b_bytes = (4 * T * Rk + 4 * T * ZC + T * ZC
                + Gp * (4 * Rk + 4 + T + Z + C + 4)
@@ -1438,6 +1843,10 @@ def main() -> None:
     # --- 4d. the optimizer: bench c14's procedure, counts zeroed inside ---
     opt_launches = phase_optimizer()
 
+    # --- 4e. the fleet: SolverService serial and batched, counts zeroed
+    # just before each batched round ---
+    fleet_launches, b_fleet = phase_fleet()
+
     # --- 5. times ---
     solve_ms = wall_ms(lambda: solver.solve_device(cat, enc), 5)
     screen_ms = wall_ms(lambda: consolidate.consolidation_screen(
@@ -1517,9 +1926,10 @@ def main() -> None:
              "tournament": {"operator": c_op, "grid": c_grid}}
     for i, k in enumerate(("offer_argmin", "solve_scan")):
         times[k] = {"main": b_main[i], "facade": b_fac[i],
-                    "operator": b_op[i]}
+                    "operator": b_op[i], "fleet": b_fleet[i]}
     phase_launches = {"main": launches, "facade": facade_launches,
-                      "operator": op_launches, "optimizer": opt_launches}
+                      "operator": op_launches, "optimizer": opt_launches,
+                      "fleet": fleet_launches}
     by_phase = {k: {ph: {"launches": phase_launches[ph].get(k), **row}
                     for ph, row in times[k].items()
                     if ph in phase_launches} for k in times}

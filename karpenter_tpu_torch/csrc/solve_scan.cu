@@ -3,6 +3,17 @@
 // Replaces the XLA program karpenter_tpu/ops/solver.py::_solve_kernel (the
 // `lax.scan` over pod groups, solver.py:347-483).
 //
+// Both kernels take a request axis: a bucket of Bp solve requests that share
+// one catalog (alloc, availbits, zovh) and one shape (Gp, n_max, Rk, W, ...)
+// runs as ONE launch of each, grid (Gp, Bp) for B0 and (CL, Bp) for B with
+// one cluster per request; the requests never wait on one another. This is
+// the port of karpenter_tpu/ops/solver.py::_solve_batched_impl (a jax.vmap
+// of the scan over requests). Per request: the group inputs and records
+// [Bp, Gp, ...], takes [Bp, Gp, n_max], unsched [Bp, Gp], ntype [Bp, n_max],
+// hdr [Bp, 2] and the global-scratch slabs [Bp, CL, slab]; the starting node
+// state is shared (a bucket's rows are fresh solves). Bp = 1 is the serial
+// solve.
+//
 // Kernel B0, offer_argmin_kernel: one block per group, every group at once.
 //   The reference's step 2 (solver.py:425-448) reads only the group's row
 //   and the catalog, never node state, so it runs before the scan: slots
@@ -139,52 +150,67 @@ struct OfferArgs {
   const float* price;     // [T*Z*C]
   const uint8_t* avail;   // [T*Z*C]
   const float* zovh;      // [T, Z, Rk] or null
-  const float* req;       // [Gp, Rk], row stride req_stride
-  const int* counts;      // [Gp]
-  const uint8_t* compat;  // [Gp, T]
-  const uint8_t* gzone;   // [Gp, Z]
-  const uint8_t* gcap;    // [Gp, C]
-  const int* maxpn;       // [Gp], 0 = unlimited
-  const int* prior;       // [Gp, prior_w]
-  const uint8_t* banned;  // [Gp, banned_w]
-  const uint8_t* conflict;  // [Gp, conf_w] or null
-  int* recs;              // out [Gp, RW]
+  const float* req;       // [Bp, Gp, Rk], strides req_bstride, req_stride
+  const int* counts;      // [Bp, Gp]
+  const uint8_t* compat;  // [Bp, Gp, T]
+  const uint8_t* gzone;   // [Bp, Gp, Z]
+  const uint8_t* gcap;    // [Bp, Gp, C]
+  const int* maxpn;       // [Bp, Gp], 0 = unlimited
+  const int* prior;       // [Bp, Gp, prior_w]
+  const uint8_t* banned;  // [Bp, Gp, banned_w]
+  const uint8_t* conflict;  // [Bp, Gp, conf_w] or null
+  int* recs;              // out [Bp, Gp, RW]
   unsigned long long* availbits;  // out [T], bit z*C+c
+  long long req_bstride;
   int req_stride, prior_w, banned_w, conf_w, RW;
-  int T, Z, C, Rk, W;
+  int T, Z, C, Rk, W, Gp;
 };
+
+#ifdef SOLVE_SCAN_COUNT_WRITES
+// debug build: counts the stores to availbits (T a launch when only the
+// first request's blocks write it)
+__device__ unsigned long long availbits_writes = 0;
+#endif
 
 __global__ void __launch_bounds__(NT0) offer_argmin_kernel(OfferArgs a) {
   extern __shared__ int s_slots[];  // [T]
   __shared__ float s_req[MAX_RK];
   __shared__ float s_bv[NWARP0];
   __shared__ int s_bi[NWARP0];
-  const int g = blockIdx.x, tid = threadIdx.x;
+  const int g = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, wid = tid >> 5;
   const int T = a.T, Z = a.Z, C = a.C, Rk = a.Rk, ZC = Z * C;
+  const size_t row = (size_t)b * a.Gp + g;  // [Bp, Gp] row of this block
   // the group's scalars, loaded up front so their latency overlaps the work
-  const int count = a.counts[g], mp = a.maxpn[g];
-  const int prior0 = a.prior[(size_t)g * a.prior_w];
-  const bool banned0 = a.banned[(size_t)g * a.banned_w] != 0;
+  const int count = a.counts[row], mp = a.maxpn[row];
+  const int prior0 = a.prior[row * a.prior_w];
+  const bool banned0 = a.banned[row * a.banned_w] != 0;
   const unsigned gz = __ballot_sync(
-      0xffffffffu, lane < Z && a.gzone[(size_t)g * Z + lane] != 0);
+      0xffffffffu, lane < Z && a.gzone[row * Z + lane] != 0);
   const unsigned gc = __ballot_sync(
-      0xffffffffu, lane < C && a.gcap[(size_t)g * C + lane] != 0);
+      0xffffffffu, lane < C && a.gcap[row * C + lane] != 0);
   const int cap_per = mp == 0 ? BIG_I : mp;
-  if (tid < Rk) s_req[tid] = a.req[(size_t)g * a.req_stride + tid];
+  if (tid < Rk)
+    s_req[tid] = a.req[(size_t)b * a.req_bstride + (size_t)g * a.req_stride +
+                       tid];
 
-  // each type's available offerings as one word (the grid shares the types)
-  for (int t = g * NT0 + tid; t < T; t += gridDim.x * NT0) {
-    unsigned long long ab = 0;
-    for (int f = 0; f < ZC; ++f)
-      if (a.avail[(size_t)t * ZC + f]) ab |= 1ull << f;
-    a.availbits[t] = ab;
-  }
+  // each type's available offerings as one word (catalog-only: the first
+  // request's blocks write it, striding over the types)
+  if (b == 0)
+    for (int t = g * NT0 + tid; t < T; t += gridDim.x * NT0) {
+      unsigned long long ab = 0;
+      for (int f = 0; f < ZC; ++f)
+        if (a.avail[(size_t)t * ZC + f]) ab |= 1ull << f;
+      a.availbits[t] = ab;
+#ifdef SOLVE_SCAN_COUNT_WRITES
+      atomicAdd(&availbits_writes, 1ull);
+#endif
+    }
   __syncthreads();  // s_req
 
   // slots per type, for every type (s reads slots[t_star] even when no
   // offering is feasible, as the reference does)
-  const uint8_t* gcompat = a.compat + (size_t)g * T;
+  const uint8_t* gcompat = a.compat + row * T;
   for (int t = tid; t < T; t += NT0) {
     unsigned zm_open = 0;
     if (a.zovh != nullptr)
@@ -248,7 +274,7 @@ __global__ void __launch_bounds__(NT0) offer_argmin_kernel(OfferArgs a) {
 
   // warp 0 reduces the warps' candidates; every lane then knows t_star,
   // and lane zc reads t_star's offering zc
-  int* rec = a.recs + (size_t)g * a.RW;
+  int* rec = a.recs + row * a.RW;
   if (wid == 0) {
     bv = lane < NWARP0 ? s_bv[lane] : FLT_MAX;
     bi = lane < NWARP0 ? s_bi[lane] : INT_MAX;
@@ -300,7 +326,7 @@ __global__ void __launch_bounds__(NT0) offer_argmin_kernel(OfferArgs a) {
   for (int w = wid; w < a.W; w += NWARP0) {
     const int j = w * 32 + lane;
     const bool bit =
-        j < a.conf_w && a.conflict[(size_t)g * a.conf_w + j] != 0;
+        j < a.conf_w && a.conflict[row * a.conf_w + j] != 0;
     const unsigned word = __ballot_sync(0xffffffffu, bit);
     if (lane == 0) rec[REC_HDR + Rk + CW + w] = (int)word;
   }
@@ -315,19 +341,19 @@ struct ScanArgs {
   const float* alloc;                   // [T, Rk]
   const unsigned long long* availbits;  // [T] (B0)
   const float* zovh;                    // [T, Z, Rk] or null
-  const int* recs;                      // [Gp, RW] (B0)
-  const int* prior;                     // [Gp, prior_w]
-  const uint8_t* banned;                // [Gp, banned_w]
-  const int* node_type;                 // [n_max]
+  const int* recs;                      // [Bp, Gp, RW] (B0)
+  const int* prior;                     // [Bp, Gp, prior_w]
+  const uint8_t* banned;                // [Bp, Gp, banned_w]
+  const int* node_type;                 // [n_max] (every request's start)
   const float* node_cum;                // [n_max, Rk], row stride cum_stride
   const uint8_t* node_zmask;            // [n_max, Z]
   const uint8_t* node_cmask;            // [n_max, C]
   const uint8_t* node_open;             // [n_max]
-  int* ntype_out;                       // [n_max]
-  int* takes;                           // [Gp, n_max]
-  int* unsched;                         // [Gp]
-  int* hdr;                             // [2]: nused, overflow
-  unsigned char* scratch;               // CL global slabs, or null = shared
+  int* ntype_out;                       // [Bp, n_max]
+  int* takes;                           // [Bp, Gp, n_max]
+  int* unsched;                         // [Bp, Gp]
+  int* hdr;                             // [Bp, 2]: nused, overflow
+  unsigned char* scratch;  // [Bp, CL] global slabs, or null = shared
   long long slab_bytes;
   int RW, prior_w, banned_w, cum_stride;
   int T, Z, C, Rk, W, Gp, n_max, n_used0, S, track;
@@ -404,6 +430,15 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
   const int RW = a.RW, n_max = a.n_max, Gp = a.Gp;
   const bool zon = a.zovh != nullptr;
   const int CW = (T + 31) / 32;
+  // this cluster's request: its rows of the per-request arrays
+  const size_t b = blockIdx.y;
+  const int* recs = a.recs + b * Gp * RW;
+  const int* prior = a.prior + b * Gp * a.prior_w;
+  const uint8_t* banned = a.banned + b * Gp * a.banned_w;
+  int* takes = a.takes + b * Gp * n_max;
+  int* unsched = a.unsched + b * Gp;
+  int* ntype_out = a.ntype_out + b * n_max;
+  int* hdr = a.hdr + 2 * b;
 
   // --- carve shared memory: records, catalog, node slice ---
   int* rec_buf = (int*)smem;  // [2][RW]
@@ -434,7 +469,7 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
   if constexpr (NODES_SMEM) {
     slab = p;
   } else {
-    slab = a.scratch + (size_t)rank * a.slab_bytes;
+    slab = a.scratch + (b * CL + rank) * (size_t)a.slab_bytes;
   }
   int* s_type = (int*)slab;                   // [S], -1 = closed
   unsigned* s_bits = (unsigned*)(s_type + S);  // [S], zone | captype << Z
@@ -478,7 +513,7 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
   // fewest nodes
   const int nchunk = RW / 4;  // 16-byte chunks of a record
   for (int i = NT - 1 - tid; i < nchunk; i += NT)
-    cp_async16(rec_buf + 4 * i, a.recs + 4 * i);
+    cp_async16(rec_buf + 4 * i, recs + 4 * i);
   cp_async_commit();
   cluster.sync();  // every block has started, its barriers initialised
 
@@ -495,7 +530,7 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
     const int* rec = rec_buf + (g & 1) * RW;
     if (g + 1 < Gp) {
       int* nxt = rec_buf + ((g + 1) & 1) * RW;
-      const int* src = a.recs + (size_t)(g + 1) * RW;
+      const int* src = recs + (size_t)(g + 1) * RW;
       for (int i = NT - 1 - tid; i < nchunk; i += NT)
         cp_async16(nxt + 4 * i, src + 4 * i);
     }
@@ -527,7 +562,7 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
           elig = off;
         }
         if (elig)
-          elig = !(a.banned_w > 1 ? a.banned[(size_t)g * a.banned_w + n] != 0
+          elig = !(a.banned_w > 1 ? banned[(size_t)g * a.banned_w + n] != 0
                                   : rec[REC_BANNED] != 0);
         if (elig && a.track)
           for (int w = 0; w < W; ++w)
@@ -544,7 +579,7 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
             kc = fminf(kc, fit_ratio(room, req[r]));
           }
           const int k_cap = (int)fmaxf(kc, 0.0f);  // kc <= BIG_F < 2^31
-          const int pn = a.prior_w > 1 ? a.prior[(size_t)g * a.prior_w + n]
+          const int pn = a.prior_w > 1 ? prior[(size_t)g * a.prior_w + n]
                                        : rec[REC_PRIOR];
           const int cap_eff = cap_per - pn > 0 ? cap_per - pn : 0;
           kf = min(min(k_cap, cap_eff), count);
@@ -597,7 +632,7 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
     if (n_new < want) overflow = 1;
     if (rank == 0 && tid == 0) {
       const unsigned long long put = (unsigned long long)n_new * s;
-      a.unsched[g] = (int)(sched ? (put < rem ? rem - put : 0ull) : rem);
+      unsched[g] = (int)(sched ? (put < rem ? rem - put : 0ull) : rem);
     }
     const int t_star = rec[REC_TSTAR];
     const unsigned nbits = gbits & (unsigned)rec[REC_TBITS];
@@ -635,7 +670,7 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
       }
       const long long gt = take + on;
       if (a.track && gt > 0) s_host[(size_t)i * W + (g >> 5)] |= 1u << (g & 31);
-      a.takes[(size_t)g * n_max + n] = (int)gt;
+      takes[(size_t)g * n_max + n] = (int)gt;
     }
     nused += (int)n_new;
   }
@@ -645,11 +680,11 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
   for (int i = i0; i < i1; ++i) {
     const int n = lo + i;
     const int t = s_type[i];
-    a.ntype_out[n] = t >= 0 ? t : a.node_type[n];
+    ntype_out[n] = t >= 0 ? t : a.node_type[n];
   }
   if (rank == 0 && tid == 0) {
-    a.hdr[0] = nused;
-    a.hdr[1] = overflow;
+    hdr[0] = nused;
+    hdr[1] = overflow;
   }
 }
 
@@ -660,20 +695,22 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
 // (kernel B) when the card cannot co-schedule a cluster of CL blocks.
 // ---------------------------------------------------------------------------
 
-static bool shapes_ok(int T, int Z, int C, int Rk, int Gp) {
+static bool shapes_ok(int T, int Z, int C, int Rk, int Gp, int Bp) {
   return T >= 1 && Gp >= 1 && Rk >= 1 && Rk <= MAX_RK && Z >= 1 && C >= 1 &&
-         Z <= 31 && C <= 31 && Z * C <= 64 && Z + C <= 32;
+         Z <= 31 && C <= 31 && Z * C <= 64 && Z + C <= 32 && Bp >= 1 &&
+         Bp <= 65535;
 }
 
 extern "C" int offer_argmin_launch(
     const float* alloc, const float* price, const uint8_t* avail,
-    const float* zovh, const float* req, int req_stride, const int* counts,
+    const float* zovh, const float* req, long long req_bstride,
+    int req_stride, const int* counts,
     const uint8_t* compat, const uint8_t* gzone, const uint8_t* gcap,
     const int* maxpn, const int* prior, int prior_w, const uint8_t* banned,
     int banned_w, const uint8_t* conflict, int conf_w, int* recs, int RW,
     unsigned long long* availbits, int T, int Z, int C, int Rk, int Gp, int W,
-    void* stream) {
-  if (!shapes_ok(T, Z, C, Rk, Gp) || RW % 4 != 0) return -1;
+    int Bp, void* stream) {
+  if (!shapes_ok(T, Z, C, Rk, Gp, Bp) || RW % 4 != 0) return -1;
   OfferArgs a;
   a.alloc = alloc;
   a.price = price;
@@ -690,6 +727,7 @@ extern "C" int offer_argmin_launch(
   a.conflict = conflict;
   a.recs = recs;
   a.availbits = availbits;
+  a.req_bstride = req_bstride;
   a.req_stride = req_stride;
   a.prior_w = prior_w;
   a.banned_w = banned_w;
@@ -700,6 +738,7 @@ extern "C" int offer_argmin_launch(
   a.C = C;
   a.Rk = Rk;
   a.W = W;
+  a.Gp = Gp;
   const size_t smem = sizeof(int) * (size_t)T;
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
@@ -709,15 +748,16 @@ extern "C" int offer_argmin_launch(
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
-  offer_argmin_kernel<<<Gp, NT0, smem, (cudaStream_t)stream>>>(a);
+  offer_argmin_kernel<<<dim3(Gp, Bp), NT0, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Kernel B's launch: one cluster of CL blocks.
-static cudaLaunchConfig_t cluster_cfg(int CL, int smem_bytes, void* stream,
+// Kernel B's launch: one cluster of CL blocks for each of Bp requests.
+static cudaLaunchConfig_t cluster_cfg(int CL, int Bp, int smem_bytes,
+                                      void* stream,
                                       cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL, 1, 1);
+  cfg.gridDim = dim3(CL, Bp, 1);
   cfg.blockDim = dim3(NT, 1, 1);
   cfg.dynamicSmemBytes = (size_t)smem_bytes;
   cfg.stream = (cudaStream_t)stream;
@@ -742,13 +782,15 @@ static cudaError_t scan_attributes(int CL, int smem_bytes) {
 }
 
 template <bool NS, bool CS>
-static int launch_scan(const ScanArgs& a, int CL, int smem_bytes,
+static int launch_scan(const ScanArgs& a, int CL, int Bp, int smem_bytes,
                        void* stream) {
   cudaError_t e = scan_attributes<NS, CS>(CL, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_cfg(CL, smem_bytes, stream, attr);
-  // a cluster that cannot be co-scheduled is refused here, not run partly
+  const cudaLaunchConfig_t cfg = cluster_cfg(CL, Bp, smem_bytes, stream, attr);
+  // a cluster that cannot be co-scheduled is refused here, not run partly;
+  // one co-resident cluster suffices, as the requests' clusters never wait
+  // on one another (more requests than fit run in waves)
   int clusters = 0;
   e = cudaOccupancyMaxActiveClusters(
       &clusters, (const void*)solve_scan_kernel<NS, CS>, &cfg);
@@ -768,8 +810,8 @@ extern "C" int solve_scan_launch(
     int* takes, int* unsched, int* hdr, unsigned char* scratch,
     long long slab_bytes, int T, int Z, int C, int Rk, int W, int Gp,
     int n_max, int n_used0, int S, int cat_smem, int track, int CL,
-    int smem_bytes, int nodes_smem, void* stream) {
-  if (!shapes_ok(T, Z, C, Rk, Gp) || RW % 4 != 0 || CL < 1 || CL > CL_MAX ||
+    int smem_bytes, int nodes_smem, int Bp, void* stream) {
+  if (!shapes_ok(T, Z, C, Rk, Gp, Bp) || RW % 4 != 0 || CL < 1 || CL > CL_MAX ||
       S < 1 || (long long)S * CL < n_max || (nodes_smem != 0) != (scratch == nullptr))
     return -1;
   ScanArgs a;
@@ -806,10 +848,10 @@ extern "C" int solve_scan_launch(
   a.track = track;
 
   if (nodes_smem)
-    return cat_smem ? launch_scan<true, true>(a, CL, smem_bytes, stream)
-                    : launch_scan<true, false>(a, CL, smem_bytes, stream);
-  return cat_smem ? launch_scan<false, true>(a, CL, smem_bytes, stream)
-                  : launch_scan<false, false>(a, CL, smem_bytes, stream);
+    return cat_smem ? launch_scan<true, true>(a, CL, Bp, smem_bytes, stream)
+                    : launch_scan<true, false>(a, CL, Bp, smem_bytes, stream);
+  return cat_smem ? launch_scan<false, true>(a, CL, Bp, smem_bytes, stream)
+                  : launch_scan<false, false>(a, CL, Bp, smem_bytes, stream);
 }
 
 // The largest cluster (a power of two <= 16) of kernel B that the card can
@@ -820,7 +862,8 @@ extern "C" int solve_scan_max_cluster(int smem_bytes) {
   int best = 0;
   for (int cl = 1; cl <= CL_MAX; cl *= 2) {
     cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = cluster_cfg(cl, smem_bytes, nullptr, attr);
+    const cudaLaunchConfig_t cfg =
+        cluster_cfg(cl, 1, smem_bytes, nullptr, attr);
     int n = 0;
     if (cudaOccupancyMaxActiveClusters(
             &n, (const void*)solve_scan_kernel<true, true>, &cfg) ==
@@ -830,3 +873,17 @@ extern "C" int solve_scan_max_cluster(int smem_bytes) {
   }
   return best;
 }
+
+#ifdef SOLVE_SCAN_COUNT_WRITES
+// Debug build: the availbits stores since the last call (which zeroes the
+// count), after the work queued so far; -1 on a CUDA error.
+extern "C" long long offer_argmin_availbits_writes() {
+  unsigned long long n = 0;
+  const unsigned long long zero = 0;
+  if (cudaDeviceSynchronize() != cudaSuccess ||
+      cudaMemcpyFromSymbol(&n, availbits_writes, sizeof n) != cudaSuccess ||
+      cudaMemcpyToSymbol(availbits_writes, &zero, sizeof zero) != cudaSuccess)
+    return -1;
+  return (long long)n;
+}
+#endif

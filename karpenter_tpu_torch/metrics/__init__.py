@@ -1,6 +1,6 @@
 """Framework metrics: the port's own copy of the metric families the
-facade path and the control loop touch (`karpenter_tpu/metrics/__init__.py`
-defines them all).
+facade path, the control loop and the fleet's SolverService touch
+(`karpenter_tpu/metrics/__init__.py` defines them all).
 Names, labels and buckets are the reference's, so a dashboard reads either
 package the same way. The registry is this package's own: samples of the
 two packages never mix."""
@@ -69,6 +69,72 @@ FLEET_CATALOG_SHARED = REGISTRY.counter(
     "device-resident tensors and compiled executables), a 'miss' paid "
     "the full encode_catalog",
     ("event",))
+FLEET_SOLVES = REGISTRY.counter(
+    "karpenter_tpu_fleet_solves_total",
+    "Solve requests dispatched by the shared SolverService, per tenant "
+    "shard (fleet/service.py) — the aggregate rate across tenants is the "
+    "fleet's solves/sec headline (bench c12)",
+    ("tenant",), label_defaults=_TENANT)
+FLEET_SOLVE_WAIT = REGISTRY.histogram(
+    "karpenter_tpu_fleet_solve_wait_ms",
+    "Virtual queueing delay (milliseconds of modeled device time) a "
+    "tenant's solve request spent behind other tenants' work before the "
+    "shared solver served it — the deficit-round-robin scheduler bounds "
+    "this for light tenants regardless of a neighbor's storm (the "
+    "noisy-neighbor isolation invariant, docs/fleet.md)",
+    ("tenant",),
+    buckets=(.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000, 2500),
+    label_defaults=_TENANT)
+FLEET_STARVATION = REGISTRY.gauge(
+    "karpenter_tpu_fleet_starvation_gauge",
+    "Worst virtual queueing delay (seconds) any of this tenant's solve "
+    "requests has seen in the current scheduling window — a persistently "
+    "high value for one tenant while others read ~0 is starvation, which "
+    "the fair scheduler exists to prevent",
+    ("tenant",), label_defaults=_TENANT)
+FLEET_THROTTLED = REGISTRY.counter(
+    "karpenter_tpu_fleet_throttled_total",
+    "Solve submissions the shared SolverService refused because the "
+    "tenant already had its in-flight cap of requests in the current "
+    "window (the noisy-neighbor backpressure: the shard's reconcile "
+    "backs off and retries, exactly like a cloud 429, while other "
+    "tenants' solves proceed)",
+    ("tenant",), label_defaults=_TENANT)
+FLEET_BATCH_SIZE = REGISTRY.histogram(
+    "karpenter_tpu_fleet_batch_size",
+    "Solve requests packed into the device dispatch that served this "
+    "tenant's ticket (fleet/service.py batched pump): 1 = the ticket "
+    "dispatched alone, N = it amortized one kernel call (and one tunnel "
+    "round-trip) across N tenants' solves — the occupancy face of the "
+    "shape-class bucketing",
+    ("tenant",), buckets=(1, 2, 4, 8, 16, 32, 64), label_defaults=_TENANT)
+FLEET_SHAPE_CLASS = REGISTRY.counter(
+    "karpenter_tpu_fleet_shape_class_total",
+    "Tickets through the batched dispatcher by outcome: 'cobatched' = "
+    "shared one device call with peers of its padded shape class, "
+    "'solo' = dispatched as a batch of one (no compatible peer queued), "
+    "'serial' = not batchable (host/native backend, existing-node "
+    "resume, legacy thunk), 'fault_fallback' = its batch's device "
+    "dispatch faulted and the ticket re-ran through its facade's "
+    "degradation path",
+    ("event", "tenant"), label_defaults=_TENANT)
+PIPELINE_INFLIGHT = REGISTRY.gauge(
+    "karpenter_tpu_pipeline_inflight",
+    "Batched device dispatches currently in flight (dispatched, not yet "
+    "drained) in the solver service's async pipeline: 1 while host work "
+    "for the next bucket overlaps device work for the current one, 0 "
+    "when the pipeline is drained. Stuck at 1 across scheduling windows "
+    "is the watchdog's pipeline_stall invariant",
+    ("tenant",), label_defaults=_TENANT)
+FLEET_QUEUE_DEPTH = REGISTRY.gauge(
+    "karpenter_tpu_fleet_queue_depth",
+    "Solve tickets a tenant has queued in the shared SolverService that "
+    "no pump has picked yet — the live per-tenant face of the service "
+    "backlog the watchdog's fleet_starvation monitor reads in aggregate. "
+    "The serial fleet drains synchronously so this is ~0 between pumps; "
+    "under the async/open-loop callers a persistently growing value for "
+    "one tenant is the admission-control engage signal",
+    ("tenant",), label_defaults=_TENANT)
 DCAT_EVICTIONS = REGISTRY.counter(
     "karpenter_tpu_solver_dcat_evictions_total",
     "Device-resident catalog entries evicted, by reason: 'weakref' = "

@@ -3,7 +3,9 @@
 Each `csrc/<name>.cu` compiles on its own into a shared library with a
 plain C interface under `build/karpenter_tpu_torch/` at the repository
 root (listed in .gitignore), named by a digest of its source, so an edited
-source rebuilds and an unchanged one loads the library already built. The
+source rebuilds and an unchanged one loads the library already built. A
+debug build (`load(name, defines)` with -D macros, such as the phase
+stamps of -DTOURNAMENT_PROFILE) gets a library of its own. The
 target is Hopper (`sm_90a`); the build never uses --use_fast_math and
 forbids FMA contraction (`-fmad=false`), because the solve must agree bit
 for bit with the reference's f32 expressions.
@@ -47,27 +49,37 @@ def nvcc_path() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def _tag(name: str, defines: Sequence[str]) -> str:
+    """The name of one build of a source: the source's own name, plus each
+    -D macro of a debug build."""
+    return name + "".join("+" + d[2:] for d in defines)
+
+
+def _target(name: str, defines: Sequence[str] = ()) -> Path:
+    flags = " ".join([*NVCC_FLAGS, *defines])
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+                            + flags.encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{_tag(name, defines)}-{digest}.so"
 
 
-def _start(name: str) -> Optional[subprocess.Popen]:
+def _start(name: str, defines: Sequence[str] = ()
+           ) -> Optional[subprocess.Popen]:
     """Start nvcc for one source unless its library is already built."""
-    out = _target(name)
+    out = _target(name, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    log = open(BUILD_DIR / f"{name}.log", "w")
+    tag = _tag(name, defines)
+    log = open(BUILD_DIR / f"{tag}.log", "w")
     try:
         proc = subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=log, stderr=subprocess.STDOUT)
     finally:
         log.close()
-    proc.tmp, proc.out, proc.name = tmp, out, name  # type: ignore[attr-defined]
+    proc.tmp, proc.out, proc.name = tmp, out, tag  # type: ignore[attr-defined]
     return proc
 
 
@@ -77,7 +89,7 @@ def _finish(proc: Optional[subprocess.Popen]) -> None:
     rc = proc.wait()
     if rc != 0:
         text = (BUILD_DIR / f"{proc.name}.log").read_text()
-        raise RuntimeError(f"nvcc failed for {proc.name}.cu (exit {rc}):\n"
+        raise RuntimeError(f"nvcc failed for {proc.name} (exit {rc}):\n"
                            f"{text}")
     os.replace(proc.tmp, proc.out)
 
@@ -96,13 +108,15 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
-    lib = _libs.get(name)
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed;
+    `defines` (-D macros) selects a debug build of the same source."""
+    tag = _tag(name, defines)
+    lib = _libs.get(tag)
     if lib is None:
-        _finish(_start(name))
-        lib = ctypes.CDLL(str(_target(name)))
-        _libs[name] = lib
+        _finish(_start(name, defines))
+        lib = ctypes.CDLL(str(_target(name, defines)))
+        _libs[tag] = lib
     return lib
 
 

@@ -14,11 +14,12 @@ and the concrete pods nominated to it.
 
 The port's copy of `karpenter_tpu/ops/facade.py`. The device rung is the
 port's `ops/solver.solve_device` (kernels B0 and B on the card, or their
-plain versions when the facade is built with `device="cpu"`). Not ported
-yet, each with its call site marked by the ROADMAP item that brings it:
-the delta plane (serve-and-verify memos), the device-resident state and
-its audit, the explain recorder, the warm path, and batched staging.
-None of these changes an answer.
+plain versions when the facade is built with `device="cpu"`);
+`stage_batchable` stages a fresh device-rung solve for the fleet's batched
+dispatch (`ops/solver.dispatch_batch`). Not ported yet, each with its call
+site marked by the ROADMAP item that brings it: the delta plane
+(serve-and-verify memos), the device-resident state and its audit, the
+explain recorder and the warm path. None of these changes an answer.
 
 The device rung serves from the card or raises: a kernel that fails to
 build, refuses its shapes or fails to launch, and a device answer the
@@ -792,8 +793,24 @@ class Solver:
             self._dcat_cache[dkey] = dcat
         return dcat
 
-    # (the reference's batched staging seam, stage_batchable, sits here:
-    # ROADMAP §1 item 3, batched dispatch)
+    def stage_batchable(self, prep: PreparedSolve):
+        """ops.solver.BatchableSolve for a prepared solve, or None when it
+        must run serially: its output is already set, its backend is not
+        the device, it resumes existing nodes, or it is profiled. Staging
+        uploads the catalog (residency only), so a pipelined caller
+        overlaps it with the batch in flight. Unlike the reference, any
+        other error raises instead of quietly turning the ticket serial."""
+        if (prep.output is not None or prep.backend != "device"
+                or prep.existing or self.profile_dir):
+            return None
+        from .solver import prepare_batchable
+        # meter key: "the previous upload for this catalog view, from THIS
+        # facade", so co-batched tenants sharing a device catalog still
+        # key their own upload history
+        return prepare_batchable(prep.cat, prep.enc,
+                                 dcat=self._device_dcat(prep),
+                                 meter_key=(("facade", id(self))
+                                            + tuple(prep.cat_key)))
 
     def run_prepared(self, prep: PreparedSolve):
         """The backend run of a prepared solve, with the device-fault

@@ -14,8 +14,15 @@ whose node state stays in the blocks' shared memory (`_scan_layout` picks
 the cluster size and slice; past the cluster's capacity the slices live in
 global scratch, the same kernel code through a pointer).
 
-`solve_scan` and `offer_argmin` take the plain version for CPU tensors and
-launch the kernels for CUDA tensors; there is no fallback between the two.
+Both kernels take a request axis (the port of `_solve_batched_impl`, a
+`jax.vmap` of the scan over requests): `solve_scan_batched` runs a bucket
+of Bp requests that share one catalog as ONE launch of B0 and ONE of B,
+one cluster per request, and `pack_solution_batched` packs its rows. The
+serial `solve_scan` is the same launch at Bp = 1.
+
+`solve_scan`, `solve_scan_batched` and `offer_argmin` take the plain
+version for CPU tensors and launch the kernels for CUDA tensors; there is
+no fallback between the two.
 """
 
 from __future__ import annotations
@@ -29,8 +36,10 @@ import torch
 
 from .binpack import BIG, EPS
 
-launches = 0        # kernel B launches since import (chip_smoke resets and reads)
-offer_launches = 0  # kernel B0 launches since import
+# launches since import (chip_smoke resets and reads): one a launch,
+# whatever the number of requests it serves
+launches = 0        # kernel B
+offer_launches = 0  # kernel B0
 
 _EPS = float(np.float32(EPS))
 _F32_MAX = float(np.finfo(np.float32).max)
@@ -277,12 +286,12 @@ def _lib():
     lib = load("solve_scan")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     b0 = lib.offer_argmin_launch
-    b0.argtypes = ([P] * 5 + [I] + [P] * 6 + [I, P, I, P, I, P, I, P]
-                   + [I] * 6 + [P])
+    b0.argtypes = ([P] * 5 + [L, I] + [P] * 6 + [I, P, I, P, I, P, I, P]
+                   + [I] * 7 + [P])
     b0.restype = ctypes.c_int
     b = lib.solve_scan_launch
     b.argtypes = ([P] * 4 + [I, P, I, P, I, P, P, I] + [P] * 8 + [L]
-                  + [I] * 14 + [P])
+                  + [I] * 15 + [P])
     b.restype = ctypes.c_int
     mc = lib.solve_scan_max_cluster
     mc.argtypes, mc.restype = [I], ctypes.c_int
@@ -301,19 +310,21 @@ def _ptr(x: Optional[torch.Tensor]):
 
 
 def _check_shapes(alloc, price, requests):
+    """Sizes of a bucket: requests is [Bp, Gp, Rk]."""
     T, Z, C = price.shape
-    Gp, Rk = requests.shape
+    Bp, Gp, Rk = requests.shape
     if Rk < 1 or Rk > 32:
         raise ValueError(f"solve_scan supports 1..32 resource columns, got {Rk}")
     if Z > 31 or C > 31 or Z * C > 64 or Z + C > 32:
         raise ValueError(f"solve_scan supports Z*C <= 64 offerings per type "
                          f"and Z + C <= 32, got Z={Z}, C={C}")
-    if T < 1 or Gp < 1:
-        raise ValueError(f"solve_scan needs T >= 1 and Gp >= 1, got {T}, {Gp}")
+    if T < 1 or Gp < 1 or Bp < 1 or Bp > 65535:
+        raise ValueError(f"solve_scan needs T >= 1, Gp >= 1 and 1 <= Bp <= "
+                         f"65535, got {T}, {Gp}, {Bp}")
     if tuple(alloc.shape) != (T, Rk):
         raise ValueError(f"solve_scan shapes: alloc {tuple(alloc.shape)}, "
                          f"Rk {Rk}")
-    return T, Z, C, Gp, Rk
+    return T, Z, C, Bp, Gp, Rk
 
 
 def _on(x: torch.Tensor, dev: torch.device, dtype,
@@ -332,12 +343,13 @@ def _on(x: torch.Tensor, dev: torch.device, dtype,
 def _offer_table(alloc, price, avail, requests, counts, compat, allow_zone,
                  allow_cap, max_per_node, prior, banned, conflict, zovh,
                  zone_ovh: bool, track: bool):
-    """Launch kernel B0: ([Gp, rec_words] int32 records, [T] int64
-    availability bits, W). Inputs are taken as they come where their type
-    and layout already fit (no copies, no bit-packing on the host side)."""
+    """Launch kernel B0 once over a bucket (group inputs [Bp, Gp, ...]):
+    ([Bp, Gp, rec_words] int32 records, [T] int64 availability bits, W).
+    Inputs are taken as they come where their type and layout already fit
+    (no copies, no bit-packing on the host side)."""
     global offer_launches
     dev = alloc.device
-    T, Z, C, Gp, Rk = _check_shapes(alloc, price, requests)
+    T, Z, C, Bp, Gp, Rk = _check_shapes(alloc, price, requests)
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
 
     def c(x, dtype):
@@ -350,21 +362,22 @@ def _offer_table(alloc, price, avail, requests, counts, compat, allow_zone,
     req_c = _on(requests, dev, f32, rows=True)
     prior_c, banned_c = c(prior, i32), c(banned, b8)
     conf_c = c(conflict, b8) if track else None
-    if conf_c is not None and tuple(conf_c.shape) != (Gp, Gp):
-        raise ValueError(f"conflict shape {tuple(conf_c.shape)} != {(Gp, Gp)}")
+    if conf_c is not None and tuple(conf_c.shape) != (Bp, Gp, Gp):
+        raise ValueError(f"conflict shape {tuple(conf_c.shape)} != "
+                         f"{(Bp, Gp, Gp)}")
     W = -(-Gp // 32) if track else 0
     RW = _rec_words(Rk, T, W)
     if T * 4 > SMEM_LIMIT:
         raise ValueError(f"offer_argmin supports T <= {SMEM_LIMIT // 4}")
-    recs = torch.empty((Gp, RW), dtype=i32, device=dev)
+    recs = torch.empty((Bp, Gp, RW), dtype=i32, device=dev)
     availbits = torch.empty(T, dtype=torch.int64, device=dev)
     rc = _lib()["offer"](
         _ptr(alloc_c), _ptr(price_c), _ptr(avail_c), _ptr(zovh_c),
-        _ptr(req_c), req_c.stride(0), _ptr(c(counts, i32)),
+        _ptr(req_c), req_c.stride(0), req_c.stride(1), _ptr(c(counts, i32)),
         _ptr(c(compat, b8)), _ptr(c(allow_zone, b8)), _ptr(c(allow_cap, b8)),
-        _ptr(c(max_per_node, i32)), _ptr(prior_c), prior_c.shape[1],
-        _ptr(banned_c), banned_c.shape[1], _ptr(conf_c), Gp if track else 0,
-        _ptr(recs), RW, _ptr(availbits), T, Z, C, Rk, Gp, W,
+        _ptr(c(max_per_node, i32)), _ptr(prior_c), prior_c.shape[2],
+        _ptr(banned_c), banned_c.shape[2], _ptr(conf_c), Gp if track else 0,
+        _ptr(recs), RW, _ptr(availbits), T, Z, C, Rk, Gp, W, Bp,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"offer_argmin launch failed: cudaError {rc}")
@@ -372,28 +385,40 @@ def _offer_table(alloc, price, avail, requests, counts, compat, allow_zone,
     return recs, availbits, W
 
 
+def offer_argmin_batched_cuda(alloc, price, avail, requests, compat,
+                              allow_zone, allow_cap, max_per_node, zovh,
+                              zone_ovh: bool = False) -> OfferOut:
+    """Launch kernel B0 once over a bucket (group inputs [Bp, Gp, ...]) and
+    read its records back as offer_argmin_plain's tuple, each with a
+    leading request axis (what the scan itself reads is the record
+    table)."""
+    dev = alloc.device
+    T, Z, C = price.shape
+    Bp, Gp = requests.shape[:2]
+    zeros_i = torch.zeros((Bp, Gp, 1), dtype=torch.int32, device=dev)
+    zeros_b = torch.zeros((Bp, Gp, 1), dtype=torch.bool, device=dev)
+    recs, _, _ = _offer_table(
+        alloc, price, avail, requests,
+        torch.zeros((Bp, Gp), dtype=torch.int32, device=dev), compat,
+        allow_zone, allow_cap, max_per_node, zeros_i, zeros_b, zeros_b, zovh,
+        zone_ovh, False)
+    recs = recs.to(torch.int64)
+    tbits = recs[..., 6]
+    zs = torch.arange(Z, device=dev)
+    cs = torch.arange(C, device=dev)
+    return (recs[..., 3], recs[..., 4], recs[..., 5] != 0,
+            ((tbits[..., None] >> zs) & 1) != 0,
+            ((tbits[..., None] >> (Z + cs)) & 1) != 0)
+
+
 def offer_argmin_cuda(alloc, price, avail, requests, compat, allow_zone,
                       allow_cap, max_per_node, zovh,
                       zone_ovh: bool = False) -> OfferOut:
-    """Launch kernel B0 and read its records back as offer_argmin_plain's
-    tuple (what the scan itself reads is the record table)."""
-    dev = alloc.device
-    T, Z, C = price.shape
-    Gp = requests.shape[0]
-    zeros_i = torch.zeros((Gp, 1), dtype=torch.int32, device=dev)
-    zeros_b = torch.zeros((Gp, 1), dtype=torch.bool, device=dev)
-    recs, _, _ = _offer_table(
-        alloc, price, avail, requests,
-        torch.zeros(Gp, dtype=torch.int32, device=dev), compat, allow_zone,
-        allow_cap, max_per_node, zeros_i, zeros_b, zeros_b, zovh, zone_ovh,
-        False)
-    recs = recs.to(torch.int64)
-    tbits = recs[:, 6]
-    zs = torch.arange(Z, device=dev)
-    cs = torch.arange(C, device=dev)
-    return (recs[:, 3], recs[:, 4], recs[:, 5] != 0,
-            ((tbits[:, None] >> zs) & 1) != 0,
-            ((tbits[:, None] >> (Z + cs)) & 1) != 0)
+    """Kernel B0 for one request: the batched launch at Bp = 1."""
+    out = offer_argmin_batched_cuda(
+        alloc, price, avail, requests[None], compat[None], allow_zone[None],
+        allow_cap[None], max_per_node[None], zovh, zone_ovh)
+    return tuple(x[0] for x in out)
 
 
 def offer_argmin(*args, **kwargs) -> OfferOut:
@@ -407,23 +432,26 @@ def offer_argmin(*args, **kwargs) -> OfferOut:
     return offer_argmin_cuda(*args, **kwargs)
 
 
-def solve_scan_cuda(alloc, price, avail, requests, counts, compat,
-                    allow_zone, allow_cap, max_per_node, prior, banned,
-                    conflict, zovh, node_type, node_cum, node_zmask,
-                    node_cmask, node_open, n_used: int, n_max: int,
-                    track_conflicts: bool = False, zone_ovh: bool = False,
-                    layout: Optional[ScanLayout] = None) -> ScanOut:
-    """Launch kernels B0 and B on the current stream (no synchronisation).
-    Same arguments and results as solve_scan_plain; `layout` overrides
-    `_scan_layout`'s choice (to time another cluster size)."""
+def solve_scan_batched_cuda(alloc, price, avail, requests, counts, compat,
+                            allow_zone, allow_cap, max_per_node, prior,
+                            banned, conflict, zovh, node_type, node_cum,
+                            node_zmask, node_cmask, node_open, n_used: int,
+                            n_max: int, track_conflicts: bool = False,
+                            zone_ovh: bool = False,
+                            layout: Optional[ScanLayout] = None) -> ScanOut:
+    """ONE launch of kernel B0 and ONE of kernel B over a bucket of Bp
+    requests on the current stream (no synchronisation): B runs one
+    cluster per request. Arguments as solve_scan_batched_plain; `layout`
+    overrides `_scan_layout`'s choice (to time another cluster size)."""
     global launches
     dev = alloc.device
-    T, Z, C, Gp, Rk = _check_shapes(alloc, price, requests)
+    T, Z, C, Bp, Gp, Rk = _check_shapes(alloc, price, requests)
     if tuple(node_cum.shape) != (n_max, Rk):
         raise ValueError(f"node_cum shape {tuple(node_cum.shape)} != "
                          f"{(n_max, Rk)}")
-    if prior.shape[1] not in (1, n_max) or banned.shape[1] not in (1, n_max):
-        raise ValueError("prior/banned must be [Gp, 1] or [Gp, n_max]")
+    if prior.shape[2] not in (1, n_max) or banned.shape[2] not in (1, n_max):
+        raise ValueError("prior/banned must be [Bp, Gp, 1] or "
+                         "[Bp, Gp, n_max]")
     recs, availbits, W = _offer_table(
         alloc, price, avail, requests, counts, compat, allow_zone, allow_cap,
         max_per_node, prior, banned, conflict, zovh, zone_ovh,
@@ -437,31 +465,48 @@ def solve_scan_cuda(alloc, price, avail, requests, counts, compat,
     cum_in = _on(node_cum, dev, f32, rows=True)
     zm_in, cm_in, open_in = (_on(node_zmask, dev, b8),
                              _on(node_cmask, dev, b8), _on(node_open, dev, b8))
-    ntype = torch.empty(n_max, dtype=i32, device=dev)
-    takes = torch.empty((Gp, n_max), dtype=i32, device=dev)
-    unsched = torch.empty(Gp, dtype=i32, device=dev)
-    hdr = torch.empty(2, dtype=i32, device=dev)
+    ntype = torch.empty((Bp, n_max), dtype=i32, device=dev)
+    takes = torch.empty((Bp, Gp, n_max), dtype=i32, device=dev)
+    unsched = torch.empty((Bp, Gp), dtype=i32, device=dev)
+    hdr = torch.empty((Bp, 2), dtype=i32, device=dev)
     scratch = (None if lay.nodes_smem else
-               torch.empty(lay.cl * lay.slab_bytes, dtype=torch.uint8,
+               torch.empty(Bp * lay.cl * lay.slab_bytes, dtype=torch.uint8,
                            device=dev))
     rc = _lib()["scan"](
         _ptr(alloc_c), _ptr(availbits), _ptr(zovh_c), _ptr(recs),
-        lay.rec_words, _ptr(prior_c), prior_c.shape[1], _ptr(banned_c),
-        banned_c.shape[1], _ptr(ntype_in), _ptr(cum_in), cum_in.stride(0),
+        lay.rec_words, _ptr(prior_c), prior_c.shape[2], _ptr(banned_c),
+        banned_c.shape[2], _ptr(ntype_in), _ptr(cum_in), cum_in.stride(0),
         _ptr(zm_in), _ptr(cm_in), _ptr(open_in), _ptr(ntype), _ptr(takes),
         _ptr(unsched), _ptr(hdr), _ptr(scratch), lay.slab_bytes,
         T, Z, C, Rk, W, Gp, n_max, int(n_used), lay.slice,
         int(lay.cat_smem), int(track_conflicts), lay.cl, lay.smem_bytes,
-        int(lay.nodes_smem), torch.cuda.current_stream(dev).cuda_stream)
+        int(lay.nodes_smem), Bp, torch.cuda.current_stream(dev).cuda_stream)
     if rc == -2:
         raise RuntimeError(f"solve_scan: the card cannot co-schedule a "
                            f"cluster of {lay.cl} blocks at {lay.smem_bytes} "
                            f"bytes of shared memory a block")
     if rc != 0:
         raise RuntimeError(f"solve_scan launch failed: cudaError {rc} "
-                           f"(layout {lay})")
+                           f"(layout {lay}, Bp {Bp})")
     launches += 1
-    return ntype, takes, unsched, hdr[0], hdr[1] != 0
+    return ntype, takes, unsched, hdr[:, 0], hdr[:, 1] != 0
+
+
+def solve_scan_cuda(alloc, price, avail, requests, counts, compat,
+                    allow_zone, allow_cap, max_per_node, prior, banned,
+                    conflict, zovh, node_type, node_cum, node_zmask,
+                    node_cmask, node_open, n_used: int, n_max: int,
+                    track_conflicts: bool = False, zone_ovh: bool = False,
+                    layout: Optional[ScanLayout] = None) -> ScanOut:
+    """Kernels B0 and B for one request: the batched launch at Bp = 1.
+    Same arguments and results as solve_scan_plain."""
+    out = solve_scan_batched_cuda(
+        alloc, price, avail, requests[None], counts[None], compat[None],
+        allow_zone[None], allow_cap[None], max_per_node[None], prior[None],
+        banned[None], conflict[None], zovh, node_type, node_cum, node_zmask,
+        node_cmask, node_open, n_used, n_max, track_conflicts, zone_ovh,
+        layout)
+    return tuple(x[0] for x in out)
 
 
 def solve_scan(*args, **kwargs) -> ScanOut:
@@ -473,6 +518,38 @@ def solve_scan(*args, **kwargs) -> ScanOut:
     if dev.type != "cuda":
         raise ValueError(f"solve_scan runs on cpu or cuda, not {dev}")
     return solve_scan_cuda(*args, **kwargs)
+
+
+def solve_scan_batched_plain(alloc, price, avail, requests, counts, compat,
+                             allow_zone, allow_cap, max_per_node, prior,
+                             banned, conflict, zovh, node_type, node_cum,
+                             node_zmask, node_cmask, node_open, n_used: int,
+                             n_max: int, track_conflicts: bool = False,
+                             zone_ovh: bool = False) -> ScanOut:
+    """The scan over a bucket: solve_scan_plain on each request's rows (the
+    reference's `jax.vmap`). Group inputs carry a leading request axis
+    [Bp, Gp, ...]; the catalog and the starting node state are shared.
+    Returns (ntype [Bp, n_max], takes [Bp, Gp, n_max], unsched [Bp, Gp],
+    nused [Bp], overflow [Bp])."""
+    rows = [solve_scan_plain(
+        alloc, price, avail, requests[b], counts[b], compat[b],
+        allow_zone[b], allow_cap[b], max_per_node[b], prior[b], banned[b],
+        conflict[b], zovh, node_type, node_cum, node_zmask, node_cmask,
+        node_open, n_used, n_max, track_conflicts, zone_ovh)
+        for b in range(requests.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*rows))
+
+
+def solve_scan_batched(*args, **kwargs) -> ScanOut:
+    """The scan over a bucket of requests: the plain version for CPU
+    tensors, one launch each of kernels B0 and B for CUDA tensors
+    (arguments as solve_scan_batched_plain)."""
+    dev = args[0].device if args else kwargs["alloc"].device
+    if dev.type == "cpu":
+        return solve_scan_batched_plain(*args, **kwargs)
+    if dev.type != "cuda":
+        raise ValueError(f"solve_scan runs on cpu or cuda, not {dev}")
+    return solve_scan_batched_cuda(*args, **kwargs)
 
 
 def pack_solution(ntype: torch.Tensor, takes: torch.Tensor,
@@ -490,19 +567,33 @@ def pack_solution(ntype: torch.Tensor, takes: torch.Tensor,
     followed by a gather does. nnz counts every nonzero take even past
     k_max (the caller re-packs the same scan output at a larger budget).
     Compaction is a cumsum of flat > 0 and a scatter, all on the device
-    with no host sync."""
+    with no host sync: pack_solution_batched at a bucket of one."""
+    return pack_solution_batched(ntype[None], takes[None], unsched[None],
+                                 nused.reshape(1), overflow.reshape(1),
+                                 k_max)[0]
+
+
+def pack_solution_batched(ntype: torch.Tensor, takes: torch.Tensor,
+                          unsched: torch.Tensor, nused: torch.Tensor,
+                          overflow: torch.Tensor, k_max: int) -> torch.Tensor:
+    """pack_solution for each request of a bucket: [Bp, L] int32, row b the
+    vector pack_solution makes of request b's scan output (the reference's
+    vmapped onebuf tail). A row-wise cumsum and scatter on the device, no
+    host sync."""
     dev = takes.device
-    flat = takes.reshape(-1)
+    Bp = takes.shape[0]
+    flat = takes.reshape(Bp, -1)
     pos = flat > 0
-    nnz = pos.sum()
-    rank = torch.cumsum(pos, 0) - 1
+    nnz = pos.sum(dim=1)
+    rank = torch.cumsum(pos, 1) - 1
     slot = torch.where(pos & (rank < k_max), rank, k_max)  # k_max = discard
-    idx = torch.zeros(k_max + 1, dtype=torch.int64, device=dev)
-    idx.scatter_(0, slot, torch.arange(flat.numel(), device=dev))
-    idx = idx[:k_max]
-    vals = flat[idx]
-    head = torch.stack([nused.to(torch.int64).reshape(()),
-                        overflow.to(torch.int64).reshape(()), nnz])
+    idx = torch.zeros((Bp, k_max + 1), dtype=torch.int64, device=dev)
+    idx.scatter_(1, slot, torch.arange(flat.shape[1], device=dev)
+                 .expand(Bp, -1))
+    idx = idx[:, :k_max]
+    vals = flat.gather(1, idx)
+    head = torch.stack([nused.to(torch.int64), overflow.to(torch.int64), nnz],
+                       dim=1)
     return torch.cat([head.to(torch.int32), unsched.to(torch.int32),
                       ntype.to(torch.int32), idx.to(torch.int32),
-                      vals.to(torch.int32)])
+                      vals.to(torch.int32)], dim=1)

@@ -10,6 +10,11 @@ reference's int32 result layout, and ONE host read. The node-budget
 regrow loop is the reference's; a sparse budget (k_max) too small for the
 takes re-packs the same scan output instead of scanning again.
 
+The batched half (`prepare_batchable`, `dispatch_batch`, `InFlightBatch`)
+serves a bucket of fresh solves that share one device catalog as ONE
+launch of kernels B0 and B along a request axis, asynchronously: the
+fleet's `SolverService` stages the next bucket while one is in flight.
+
 Entry points run on `cuda` unless the caller passes `device="cpu"`, which
 runs the same path with the scan's plain PyTorch version. Multi-device
 (`mesh=`) is not ported.
@@ -18,6 +23,7 @@ runs the same path with the scan's plain PyTorch version. Multi-device
 from __future__ import annotations
 
 import math
+import time
 import weakref
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -29,7 +35,8 @@ from ..obs.tracer import NOOP_SPAN, TRACER
 from .binpack import BIG, EPS, SolveResult, VirtualNode
 from .encode import (CatalogTensors, EncodedPods, align_resources,
                      align_zone_overhead)
-from .solve_scan import ScanOut, pack_solution, solve_scan
+from .solve_scan import (ScanOut, pack_solution, pack_solution_batched,
+                         solve_scan, solve_scan_batched)
 
 
 class InjectedFault(RuntimeError):
@@ -403,6 +410,57 @@ def _decode_solution(cat: CatalogTensors, enc: EncodedPods,
 # ---------------------------------------------------------------------------
 
 
+def _unpack_groups(buf: torch.Tensor, Rk: int, T: int, Z: int, C: int):
+    """(requests, counts, compat, allow_zone, allow_cap, max_per_node) of a
+    packed group matrix (_pack_groups' layout on the last axis: [Gp, W] or
+    a bucket's [Bp, Gp, W]), by static offsets on the device."""
+    requests = buf[..., :Rk]
+    o = Rk
+    counts = buf[..., o].to(torch.int32); o += 1
+    compat = buf[..., o:o + T] > 0; o += T
+    allow_zone = buf[..., o:o + Z] > 0; o += Z
+    allow_cap = buf[..., o:o + C] > 0; o += C
+    max_per_node = buf[..., o].to(torch.int32)
+    return requests, counts, compat, allow_zone, allow_cap, max_per_node
+
+
+def _fresh_nodes(n_max: int, Rk: int, Z: int, C: int, dev: torch.device):
+    """(node_type, node_cum, node_zmask, node_cmask, node_open): n_max
+    closed nodes, the start of a fresh solve."""
+    return (torch.zeros(n_max, dtype=torch.int32, device=dev),
+            torch.zeros((n_max, Rk), dtype=torch.float32, device=dev),
+            torch.zeros((n_max, Z), dtype=torch.bool, device=dev),
+            torch.zeros((n_max, C), dtype=torch.bool, device=dev),
+            torch.zeros(n_max, dtype=torch.bool, device=dev))
+
+
+# the scan's resource-column index on each device, uploaded once per
+# (device, cols) from pinned memory: a pageable upload synchronises the
+# stream, so every batched dispatch would wait for the batch in flight
+_col_index: dict = {}
+
+
+def _cols_on(cols: tuple, dev: torch.device) -> torch.Tensor:
+    cix = _col_index.get((dev, cols))
+    if cix is None:
+        host = torch.tensor(cols, dtype=torch.int64)
+        if dev.type == "cuda":
+            host = host.pin_memory()
+        cix = _col_index[(dev, cols)] = host.to(dev, non_blocking=True)
+    return cix
+
+
+def _catalog_cols(dcat: DeviceCatalog, cols: tuple, zone_ovh: bool):
+    """The device catalog's allocatable and zone overhead at the scan's
+    resource columns (a [1, 1, Rk] zero overhead when there is none)."""
+    dev = dcat.alloc.device
+    cix = _cols_on(tuple(cols), dev)
+    zovh = (dcat.ovh_z[:, :, cix] if zone_ovh
+            else torch.zeros((1, 1, len(cols)), dtype=torch.float32,
+                             device=dev))
+    return dcat.alloc[:, cix], zovh
+
+
 def _scan_onebuf(dcat: DeviceCatalog, gbuf: torch.Tensor,
                  prior: Optional[torch.Tensor],
                  banned: Optional[torch.Tensor],
@@ -417,29 +475,17 @@ def _scan_onebuf(dcat: DeviceCatalog, gbuf: torch.Tensor,
     T, Z, C = dcat.price.shape
     Rk = len(cols)
     Gp = gbuf.shape[0]
-    cix = torch.as_tensor(cols, dtype=torch.int64, device=dev)
-    alloc_k = dcat.alloc[:, cix]
-    requests = gbuf[:, :Rk]
-    o = Rk
-    counts = gbuf[:, o].to(torch.int32); o += 1
-    compat = gbuf[:, o:o + T] > 0; o += T
-    allow_zone = gbuf[:, o:o + Z] > 0; o += Z
-    allow_cap = gbuf[:, o:o + C] > 0; o += C
-    max_per_node = gbuf[:, o].to(torch.int32)
+    alloc_k, zovh_ = _catalog_cols(dcat, cols, zone_ovh)
+    groups = _unpack_groups(gbuf, Rk, T, Z, C)
     prior_ = (prior if prior is not None
               else torch.zeros((Gp, 1), dtype=torch.int32, device=dev))
     banned_ = (banned if banned is not None
                else torch.zeros((Gp, 1), dtype=torch.bool, device=dev))
     conflict_ = (conflict if conflict is not None
                  else torch.zeros((Gp, 1), dtype=torch.bool, device=dev))
-    zovh_ = (dcat.ovh_z[:, :, cix] if zone_ovh
-             else torch.zeros((1, 1, Rk), dtype=torch.float32, device=dev))
     if nbuf is None:
-        node_type = torch.zeros(n_max, dtype=torch.int32, device=dev)
-        node_cum = torch.zeros((n_max, Rk), dtype=torch.float32, device=dev)
-        node_zmask = torch.zeros((n_max, Z), dtype=torch.bool, device=dev)
-        node_cmask = torch.zeros((n_max, C), dtype=torch.bool, device=dev)
-        node_open = torch.zeros(n_max, dtype=torch.bool, device=dev)
+        (node_type, node_cum, node_zmask, node_cmask,
+         node_open) = _fresh_nodes(n_max, Rk, Z, C, dev)
         n_used = 0
     else:
         node_type = nbuf[:, 0].to(torch.int32)
@@ -450,8 +496,7 @@ def _scan_onebuf(dcat: DeviceCatalog, gbuf: torch.Tensor,
         # resumed nodes are exactly the open prefix
         n_used = n_existing
     return solve_scan(
-        alloc_k, dcat.price, dcat.avail, requests, counts, compat,
-        allow_zone, allow_cap, max_per_node, prior_, banned_, conflict_,
+        alloc_k, dcat.price, dcat.avail, *groups, prior_, banned_, conflict_,
         zovh_, node_type, node_cum, node_zmask, node_cmask, node_open,
         n_used, n_max, track_conflicts=track_conflicts, zone_ovh=zone_ovh)
 
@@ -627,3 +672,317 @@ def solve_packed(cat: CatalogTensors, enc: EncodedPods,
     statics = dict(n_max=n_max, k_max=k_max, cols=st.cols,
                    track_conflicts=st.track, zone_ovh=st.zone_ovh, Gp=st.Gp)
     return _dispatch(st, n_max, k_max).cpu().numpy(), statics
+
+
+# ---------------------------------------------------------------------------
+# batched dispatch: one device call, many solve requests
+# ---------------------------------------------------------------------------
+# The fleet funnels every tenant's solve through one queue and packs
+# compatible requests (the same padded shape class and ONE shared device
+# catalog) into one launch of kernels B0 and B along a leading request axis
+# (solve_scan_batched, the port of the reference's vmapped
+# `_solve_batched_impl`). Each request keeps its own padding (padded groups
+# have count 0; padded batch rows have ALL counts zeroed), so rows decode
+# independently and equal serial solves.
+#
+# Not ported, by the reference's routes: the resident stacked upload
+# (`resident_key=`, ROADMAP §1 item 7), the batch mesh (`mesh=`, item 13:
+# raises), the `dm.*` residency and upload-redundancy ledgers (item 7), and
+# the donated stack (torch has no donation; the in-flight batch holds its
+# uploads until its event instead). Nothing compiles per shape, so the
+# reference's dispatch-cache hit/miss event has no counterpart.
+
+
+@dataclass
+class BatchableSolve:
+    """One solve request staged for batched dispatch: the encoded problem
+    plus the padded shape class that decides which requests may share a
+    launch."""
+
+    cat: CatalogTensors
+    enc: EncodedPods
+    dcat: DeviceCatalog
+    Gp: int
+    statics: dict          # n_max / k_max / cols / track_conflicts / zone_ovh
+    signature: tuple       # full co-batch key (shape class + device catalog)
+    shape_class: str       # "g<Gp>/n<n_max>"
+    # identifies "the previous upload for this catalog view": per (facade,
+    # view) when staged through a facade, per device catalog otherwise
+    meter_key: tuple = ()
+
+
+def prepare_batchable(cat: CatalogTensors, enc: EncodedPods,
+                      dcat: Optional[DeviceCatalog] = None,
+                      meter_key: Optional[tuple] = None,
+                      device=None) -> Optional[BatchableSolve]:
+    """Stage a FRESH solve (no existing nodes, no priors or bans) for
+    batched dispatch; None when there is nothing to solve. The shape class
+    mirrors solve_device's prep exactly (same _bucket, _auto_node_budget,
+    _request_cols), so a staged request's row is the packed vector of a
+    serial solve_device's first call. Runs on `device`, else on dcat's,
+    else on the CUDA card."""
+    assert not enc.spread_zone.any(), "run split_spread_groups before solve"
+    if enc.G == 0:
+        return None
+    R = enc.requests.shape[1]
+    dev = (dcat.alloc.device if device is None and dcat is not None
+           else resolve_device(device))
+    if dcat is None or not _dcat_fits(dcat, cat, R, dev):
+        dcat = _auto_dcat(cat, R, dev)
+    Gp = _bucket(enc.G, 8)
+    n_max = _auto_node_budget(cat, enc, 0)
+    k_max = _bucket(2 * n_max)
+    cols = _request_cols(enc, cat)
+    track = enc.conflict is not None
+    zone_ovh = dcat.ovh_z is not None
+    statics = dict(n_max=n_max, k_max=k_max, cols=cols,
+                   track_conflicts=track, zone_ovh=zone_ovh)
+    # the device catalog is part of the co-batch key: requests in one
+    # launch share ONE resident catalog
+    signature = ("batch", Gp, n_max, k_max, cols, track, zone_ovh,
+                 tuple(dcat.alloc.shape), tuple(dcat.price.shape), id(dcat))
+    return BatchableSolve(cat=cat, enc=enc, dcat=dcat, Gp=Gp,
+                          statics=statics, signature=signature,
+                          shape_class=f"g{Gp}/n{n_max}",
+                          meter_key=(meter_key if meter_key is not None
+                                     else ("dcat", id(dcat))))
+
+
+class InFlightBatch:
+    """A dispatched bucket whose device work may still be running: the
+    async half of the stage -> upload -> dispatch -> decode pipeline. A
+    CUDA event recorded after the launch marks its end; the caller
+    overlaps host work with the card by delaying block()/decode(), and
+    the batch holds its pinned upload buffers until then."""
+
+    def __init__(self, reqs: List[BatchableSolve], packed,
+                 dispatched_at: float, event=None, keep: tuple = ()):
+        self.reqs = reqs
+        self._packed = packed       # device int32 [Bp, L]
+        self._event = event         # torch.cuda.Event after the launch
+        self._keep = keep           # host buffers the uploads read from
+        self.dispatched_at = dispatched_at
+        self._buf: Optional[np.ndarray] = None
+        self.wait_s = 0.0           # host time spent blocked on the device
+        self.span_s = 0.0           # dispatch-return -> results ready
+        self.fallbacks = 0          # rows re-run serially (budget regrow)
+
+    @property
+    def size(self) -> int:
+        return len(self.reqs)
+
+    @property
+    def padded_size(self) -> int:
+        return int(self._packed.shape[0]) if self._buf is None \
+            else int(self._buf.shape[0])
+
+    def block(self) -> float:
+        """Wait for the batch's event, then read the packed [Bp, L] result
+        back (the ONE read of the whole batch). Returns the blocked-wait
+        seconds: ~zero when host work fully overlapped the card."""
+        if self._buf is not None:
+            return 0.0
+        t0 = time.perf_counter()
+        if self._event is not None:
+            self._event.synchronize()
+        self.wait_s = time.perf_counter() - t0
+        with _span("solve.readback") as sp:
+            self._buf = self._packed.cpu().numpy()
+            sp.set(batch=self.size, d2h_bytes=int(self._buf.nbytes))
+        self._packed = self._event = None
+        self._keep = ()
+        self.span_s = time.perf_counter() - self.dispatched_at
+        return self.wait_s
+
+    def rows(self) -> np.ndarray:
+        """The packed int32 rows [Bp, L] (waits for the card first); row i
+        is request i's vector in pack_solution's layout."""
+        self.block()
+        return self._buf
+
+    def decode(self, i: int) -> SolveResult:
+        """Decode request i's row independently of its batch peers: the
+        serial path's host-side reconstruction. A row whose sparse or node
+        budget proved too small re-runs serially (solve_device's regrow
+        loop), as a serial dispatch of that request would have."""
+        self.block()
+        req = self.reqs[i]
+        st = req.statics
+        Gp, n_max, k_max = req.Gp, st["n_max"], st["k_max"]
+        (nused, overflowed, nnz, unsched, ntype, idx,
+         vals) = _parse_packed(self._buf[i], Gp, n_max, k_max)
+        total_pods = int(req.enc.counts.sum())
+        if nnz > k_max or (overflowed and n_max < total_pods):
+            self.fallbacks += 1
+            return solve_device(req.cat, req.enc, dcat=req.dcat,
+                                device=req.dcat.alloc.device)
+        with _span("solve.decode") as sp:
+            R = req.enc.requests.shape[1]
+            result = _decode_solution(
+                req.cat, req.enc, [], np.zeros((0, R), np.float32),
+                np.zeros((0, req.cat.Z), bool),
+                np.zeros((0, req.cat.C), bool),
+                nused, ntype, idx, vals, nnz, unsched, n_max)
+            sp.set(batch_index=i, nodes=len(result.nodes), nnz=int(nnz))
+        return result
+
+    def results(self) -> List[SolveResult]:
+        return [self.decode(i) for i in range(self.size)]
+
+    @classmethod
+    def from_rows(cls, reqs: List[BatchableSolve], rows: np.ndarray,
+                  span_s: float = 0.0) -> "InFlightBatch":
+        """Rehydrate a drained batch from already-read packed rows (a
+        federation client's path: the device half ran elsewhere and the
+        [Bp, L] int32 rows arrived as bytes). decode() then runs here
+        against the client's own cat/enc; block() is a no-op."""
+        ifb = cls(reqs, None, 0.0)
+        ifb._buf = np.ascontiguousarray(rows, dtype=np.int32)
+        ifb.span_s = float(span_s)
+        return ifb
+
+
+def _batch_bucket(b: int) -> int:
+    """Batch-axis padding bucket: {1, 2, 3, 4, 6, 8, 12, 16, ...}, the
+    node axis's {2^k, 3·2^(k-1)} ladder, as the reference pads it."""
+    return _bucket(b, 1)
+
+
+def _stage_batch_stack(gstack_np: np.ndarray, conf_np: Optional[np.ndarray],
+                       dev: torch.device):
+    """Upload one packed request stack ([Bp, Gp, W] f32, plus the optional
+    [Bp, Gp, Gp] conflict stack). On the card the copies go from pinned
+    host buffers with non_blocking=True: a pageable copy on the stream
+    would make the host wait for the batch already in flight. Returns
+    (gstack, conf, the host buffers to keep until the batch's event)."""
+    host = [torch.from_numpy(np.ascontiguousarray(x))
+            for x in (gstack_np, conf_np) if x is not None]
+    if dev.type == "cuda":
+        host = [h.pin_memory() for h in host]
+        on = [h.to(dev, non_blocking=True) for h in host]
+    else:
+        on = [h.to(dev) for h in host]
+    return on[0], (on[1] if conf_np is not None else None), tuple(host)
+
+
+def _scan_batched_args(dcat: DeviceCatalog, gstack: torch.Tensor,
+                       conf: Optional[torch.Tensor], st: dict):
+    """(args, kwargs) of solve_scan_batched for a stacked bucket: the
+    groups unpacked from gstack [Bp, Gp, W] by static offsets, no priors or
+    bans, the conflict stack where the statics track conflicts, and fresh
+    nodes."""
+    dev = gstack.device
+    T, Z, C = dcat.price.shape
+    cols, n_max = st["cols"], st["n_max"]
+    Rk = len(cols)
+    Bp, Gp = gstack.shape[:2]
+    track, zone_ovh = st["track_conflicts"], st["zone_ovh"]
+    alloc_k, zovh = _catalog_cols(dcat, cols, zone_ovh)
+    zeros_i = torch.zeros((Bp, Gp, 1), dtype=torch.int32, device=dev)
+    zeros_b = torch.zeros((Bp, Gp, 1), dtype=torch.bool, device=dev)
+    args = (alloc_k, dcat.price, dcat.avail,
+            *_unpack_groups(gstack, Rk, T, Z, C), zeros_i, zeros_b,
+            conf if track else zeros_b, zovh,
+            *_fresh_nodes(n_max, Rk, Z, C, dev), 0, n_max)
+    return args, dict(track_conflicts=track, zone_ovh=zone_ovh)
+
+
+def _dispatch_stack(gstack: torch.Tensor, conf: Optional[torch.Tensor],
+                    dcat: DeviceCatalog, st: dict) -> torch.Tensor:
+    """The device half shared by dispatch_batch and dispatch_packed: the
+    batched scan (one launch each of B0 and B on the card) and the packing
+    of every row. Returns the packed [Bp, L] int32, still on the device
+    (no synchronisation).
+
+    NO fault-hook probe here: one launch serves MANY tenants, so the
+    caller probes through probe_dispatch_fault under each tenant's scope
+    BEFORE dispatching (fleet/service._dispatch_bucket)."""
+    with _span("solve.dispatch") as sp:
+        sp.set(backend="device", batch=int(gstack.shape[0]),
+               n_max=st["n_max"])
+        args, kw = _scan_batched_args(dcat, gstack, conf, st)
+        return pack_solution_batched(*solve_scan_batched(*args, **kw),
+                                     st["k_max"])
+
+
+def _launch_stack(reqs: List[BatchableSolve], gstack_np: np.ndarray,
+                  conf_np: Optional[np.ndarray], dcat: DeviceCatalog,
+                  statics: dict, shape_class: str) -> InFlightBatch:
+    """Pad the batch axis to its bucket (padded rows repeat row 0 with
+    every count zeroed: no-ops in the scan), upload, dispatch, record the
+    batch's event; returns without waiting for the card."""
+    dev = dcat.alloc.device
+    B = int(gstack_np.shape[0])
+    Bp = _batch_bucket(B)
+    track = statics["track_conflicts"]
+    with _span("solve.batch_pack") as sp:
+        if Bp > B:
+            pad = np.repeat(gstack_np[:1], Bp - B, axis=0)
+            pad[:, :, len(statics["cols"])] = 0.0  # zero counts: no-op rows
+            gstack_np = np.concatenate([gstack_np, pad], axis=0)
+            if track:
+                conf_np = np.concatenate(
+                    [conf_np, np.zeros((Bp - B,) + conf_np.shape[1:], bool)],
+                    axis=0)
+        gstack, conf, keep = _stage_batch_stack(
+            gstack_np, conf_np if track else None, dev)
+        sp.set(requests=B, padded=Bp, shape_class=shape_class,
+               h2d_bytes=sum(int(h.nbytes) for h in keep))
+    packed = _dispatch_stack(gstack, conf, dcat, statics)
+    event = None
+    if dev.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+    return InFlightBatch(reqs, packed, time.perf_counter(), event=event,
+                         keep=keep)
+
+
+def dispatch_batch(reqs: List[BatchableSolve], mesh=None) -> InFlightBatch:
+    """Pack one bucket of same-signature requests into a single device call
+    and return without blocking (the card executes while the caller stages
+    the next bucket)."""
+    reject_mesh(mesh)
+    assert reqs, "empty batch"
+    first = reqs[0]
+    assert all(r.signature == first.signature for r in reqs), \
+        "batched requests must share one shape-class signature"
+    st = first.statics
+    Gp, cols = first.Gp, list(st["cols"])
+    gstack_np = np.stack([_pack_groups(*_group_inputs(r.enc, Gp), cols)
+                          for r in reqs])
+    conf_np = None
+    if st["track_conflicts"]:
+        conf_np = np.stack([_pad_to(_pad_to(r.enc.conflict, Gp, 0), Gp, 1)
+                            if r.enc.conflict is not None
+                            else np.zeros((Gp, Gp), bool) for r in reqs])
+    return _launch_stack(reqs, gstack_np, conf_np, first.dcat, st,
+                         first.shape_class)
+
+
+def dispatch_packed(gstack_np: np.ndarray, conf_np: Optional[np.ndarray],
+                    dcat: DeviceCatalog, statics: dict, shape_class: str = "",
+                    mesh=None) -> InFlightBatch:
+    """Dispatch an ALREADY-PACKED request stack ([B, Gp, W] f32, plus the
+    [B, Gp, Gp] conflict stack when the statics track conflicts): the
+    federation server's entry point, whose clients packed the rows on
+    their own hosts. Returns the in-flight batch without blocking; its
+    rows() are the packed [Bp, L] int32 to ship back, decoded by the
+    owning clients (`InFlightBatch.from_rows`)."""
+    reject_mesh(mesh)
+    return _launch_stack([], gstack_np, conf_np, dcat, statics, shape_class)
+
+
+def probe_dispatch_fault(backend: str) -> None:
+    """Fire the injected device-fault seam, if armed. The batched
+    dispatcher calls this once per distinct tenant in a bucket, each under
+    that tenant's metric scope: the serial path's per-tenant probe."""
+    if _dispatch_fault_hook is not None:
+        _dispatch_fault_hook(backend)
+
+
+def solve_device_batched(reqs: List[BatchableSolve]) -> List[SolveResult]:
+    """Synchronous convenience: dispatch one bucket and decode every row.
+    The pipelined overlap and the per-tenant fault probes live in the
+    caller (fleet/service.py)."""
+    probe_dispatch_fault("device")
+    return dispatch_batch(reqs).results()

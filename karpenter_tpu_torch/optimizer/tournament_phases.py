@@ -38,13 +38,7 @@ def main() -> None:
     from . import tournament_k as tk
     from .relax import RELAX_ITERS
 
-    out = _build.BUILD_DIR / "libtournament-profile.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
-                    "-DTOURNAMENT_PROFILE", "-o", str(out),
-                    str(_build.CSRC / "tournament.cu")], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(str(out))
+    lib = _build.load("tournament", ("-DTOURNAMENT_PROFILE",))
     fns = tk._lib()
     launch = lib.tournament_launch
     launch.argtypes, launch.restype = fns["launch"].argtypes, ctypes.c_int

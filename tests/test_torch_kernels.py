@@ -7,6 +7,7 @@ the card and without jax it runs alone:
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
 """
 
+import ctypes
 import dataclasses
 import inspect
 
@@ -132,6 +133,166 @@ def test_solve_scan_cluster_layouts(cuda, n_max, cl, in_shared):
     got, _ = solve_packed(cat, enc, n_max=n_max, device=cuda)
     want, _ = solve_packed(cat, enc, n_max=n_max, device="cpu")
     np.testing.assert_array_equal(got, want)
+
+
+def _bucket_args(dev, Bp: int, n_max: int, case: str):
+    """solve_scan_batched's (args, kwargs) for a seeded bucket of Bp golden
+    requests at n_max: each row's group counts drawn anew (up to 4x the
+    golden's), the last row of a bucket zeroed as a padded row. case:
+    "plain" (no conflicts), "conflicts" (the golden's db/web conflict) or
+    "zone_overhead" (conflicts and a zone reservation)."""
+    cat, enc, _ = _golden_case("zone_overhead" if case == "zone_overhead"
+                               else "fresh")
+    if case == "plain":
+        enc = dataclasses.replace(enc, conflict=None)
+    dcat = solver_mod.device_catalog(cat, enc.requests.shape[1], dev)
+    Gp = solver_mod._bucket(enc.G, 8)
+    cols = solver_mod._request_cols(enc, cat)
+    g = solver_mod._pack_groups(*solver_mod._group_inputs(enc, Gp),
+                                list(cols))
+    rng = np.random.default_rng(Bp * 7 + n_max)
+    stack = np.repeat(g[None], Bp, axis=0)
+    stack[:, :enc.G, len(cols)] = rng.integers(0, 4 * enc.counts + 1,
+                                               (Bp, enc.G))
+    if Bp > 1:
+        stack[-1, :, len(cols)] = 0.0
+    track = enc.conflict is not None
+    conf = None
+    if track:
+        c = solver_mod._pad_to(solver_mod._pad_to(enc.conflict, Gp, 0), Gp, 1)
+        conf = torch.as_tensor(np.repeat(c[None], Bp, axis=0), device=dev)
+    st = dict(n_max=n_max, cols=cols, track_conflicts=track,
+              zone_ovh=dcat.ovh_z is not None)
+    return solver_mod._scan_batched_args(
+        dcat, torch.as_tensor(stack, device=dev), conf, st)
+
+
+def _row(args, b: int):
+    """Request b's arguments of solve_scan_batched as solve_scan's: the
+    group inputs (positions 3-11) indexed, the rest shared."""
+    return args[:3] + tuple(a[b] for a in args[3:12]) + args[12:]
+
+
+_B0_ARGS = (0, 1, 2, 3, 5, 6, 7, 8, 12)  # offer_argmin's, by position
+
+
+@pytest.mark.parametrize("Bp", [1, 3, 16])
+@pytest.mark.parametrize("case", ["plain", "conflicts", "zone_overhead"])
+@pytest.mark.parametrize("n_max,cl,in_shared", [(64, 1, True),
+                                                (16_384, 16, True),
+                                                (262_144, 16, False)])
+def test_batched_scan_matches_plain(cuda, Bp, case, n_max, cl, in_shared):
+    """ONE launch each of B0 and B over a bucket equals the per-row plain
+    version at atol 0, and each row equals a serial launch, in every tier
+    of kernel B's layout (one block; a cluster of 16 with the slices in
+    shared memory; global scratch, taken at Bp = 2)."""
+    if not in_shared:
+        Bp = min(Bp, 2)
+    args, kw = _bucket_args(cuda, Bp, n_max, case)
+    Gp, Rk = args[3].shape[1:]
+    W = -(-Gp // 32) if kw["track_conflicts"] else 0
+    T, Z, C = args[1].shape
+    lay = ss._scan_layout(n_max, Rk, W, Z, C, T, kw["zone_ovh"])
+    assert (lay.cl, lay.nodes_smem) == (cl, in_shared)
+    n0, b0 = ss.launches, ss.offer_launches
+    got = ss.solve_scan_batched(*args, **kw)
+    torch.cuda.synchronize()
+    assert (ss.launches, ss.offer_launches) == (n0 + 1, b0 + 1)
+    want = ss.solve_scan_batched_plain(*args, **kw)
+    for x, y in zip(got, want):
+        assert torch.equal(x.to(y.dtype), y)
+    k_max = solver_mod._bucket(2 * n_max)
+    packed = ss.pack_solution_batched(*got, k_max)
+    for b in range(Bp):
+        serial = ss.solve_scan_cuda(*_row(args, b), **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(got, serial):
+            assert torch.equal(x[b], y)
+        assert torch.equal(packed[b], ss.pack_solution(*serial, k_max))
+    # B0 alone, batched, against offer_argmin_plain row by row
+    oa = [args[i] for i in _B0_ARGS]
+    got0 = ss.offer_argmin_batched_cuda(*oa, zone_ovh=kw["zone_ovh"])
+    torch.cuda.synchronize()
+    for b in range(Bp):
+        want0 = ss.offer_argmin_plain(*[a[b] if 3 <= i <= 8 else a
+                                        for i, a in zip(_B0_ARGS, oa)],
+                                      zone_ovh=kw["zone_ovh"])
+        for x, y in zip(got0, want0):
+            assert torch.equal(x[b].to(y.dtype), y)
+
+
+@pytest.mark.parametrize("Bp", [1, 3, 16])
+def test_batched_offer_table_writes_availbits_once(cuda, Bp, monkeypatch):
+    """B0 over a bucket writes ONE catalog-only availability table [T]:
+    a debug build that counts the stores (-DSOLVE_SCAN_COUNT_WRITES) sees
+    T of them a launch, not Bp * T; the table is right and the
+    per-request records equal each row's serial launch."""
+    from karpenter_tpu_torch.ops import _build
+    dbg = _build.load("solve_scan", ("-DSOLVE_SCAN_COUNT_WRITES",))
+    offer = dbg.offer_argmin_launch
+    offer.argtypes, offer.restype = ss._lib()["offer"].argtypes, ctypes.c_int
+    writes = dbg.offer_argmin_availbits_writes
+    writes.argtypes, writes.restype = [], ctypes.c_longlong
+    monkeypatch.setitem(ss._fns, "offer", offer)
+    args, kw = _bucket_args(cuda, Bp, 64, "zone_overhead")
+    avail = args[2]
+    T = avail.shape[0]
+    assert writes() >= 0
+    recs, bits, _ = ss._offer_table(*args[:13], kw["zone_ovh"],
+                                    kw["track_conflicts"])
+    assert writes() == T
+    ZC = avail[0].numel()
+    want = (avail.reshape(T, ZC).to(torch.int64)
+            << torch.arange(ZC, device=cuda)).sum(dim=1)
+    assert tuple(bits.shape) == (T,)
+    assert torch.equal(bits, want)
+    for b in range(Bp):
+        r_b, bits_b, _ = ss._offer_table(
+            *[x[None] if 3 <= i <= 11 else x
+              for i, x in enumerate(_row(args, b)[:13])],
+            kw["zone_ovh"], kw["track_conflicts"])
+        assert writes() == T
+        assert torch.equal(recs[b], r_b[0]) and torch.equal(bits_b, want)
+
+
+def test_batched_dispatch_does_not_wait_for_the_card(cuda):
+    """dispatch_batch returns while the batch before it still runs: no
+    copy or call in it synchronises (torch's sync debug mode raises on
+    any it knows of, and the busy stream's event is still pending when
+    the dispatch returns), and both batches' rows equal serial
+    solve_packed vectors."""
+    types = catalog.generate_catalog()[:64]
+    cat = encode_catalog(types)
+    rng = np.random.default_rng(7)
+    sigs = [("250m", "512Mi"), ("500m", "1Gi"), ("1", "2Gi"), ("2", "4Gi")]
+    encs = []
+    for k in range(6):
+        pods = [models.Pod(name=f"t{k}-p{i}", requests=models.Resources.parse(
+            dict(zip(("cpu", "memory"), sigs[s]))))
+            for i, s in enumerate(rng.integers(0, 4, 40).tolist())]
+        encs.append(encode_pods(pods, cat))
+    dcat = solver_mod.device_catalog(cat, encs[0].requests.shape[1], cuda)
+    reqs = [solver_mod.prepare_batchable(cat, e, dcat=dcat) for e in encs]
+    sig = reqs[0].signature
+    assert all(r.signature == sig for r in reqs)
+    first = solver_mod.dispatch_batch(reqs[:3])  # warms the column index
+    first.block()
+    inflight = solver_mod.dispatch_batch(reqs[:3])
+    torch.cuda._sleep(1 << 30)  # keeps the stream busy for a while
+    busy = torch.cuda.Event()
+    busy.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = solver_mod.dispatch_batch(reqs[3:])
+        pending = not busy.query()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pending
+    rows = np.concatenate([inflight.rows(), second.rows()])
+    for r, e, row in zip(reqs, encs, rows):
+        want, st = solve_packed(cat, e, device=cuda)
+        assert st["n_max"] == r.statics["n_max"]
+        np.testing.assert_array_equal(row, want)
 
 
 def test_full_catalog_solve_on_the_card(cuda):

@@ -32,9 +32,9 @@ Phases (any failure exits non-zero):
              and equal their plain versions at its inputs; any fallback,
              integrity violation or logged degradation fails the phase.
              Then its median wall, one run split by stage (the facade's
-             tracer spans), and the device/native wall from 1k to 100k pods
-             on that mix and on the grid pods of phase 3 (the crossover
-             that Solver.DEVICE_MIN_PODS is held against).
+             tracer spans), and the device/native wall at 100k pods (the
+             sweep from 1k is cut) on that mix and on the grid pods of phase
+             3 (the crossover that Solver.DEVICE_MIN_PODS is held against).
   4c. operator the control loop as users enter it: the port's
              make_sim(backend="device") on the 810-type catalog with the
              reference's fast cloud (its c8 cell), the global optimizer
@@ -72,6 +72,38 @@ Phases (any failure exits non-zero):
              batch size, occupancy, pipeline_overlap_ratio, the idle share
              of one batched pump, and the batched kernels against 16
              serial launches at the same rows, beside the batch's bound.
+  4f. chaos  the reference's `make chaos` and `make crash-audit` on the
+             card (faults/runner.py): smoke, ice_storm, api_brownout,
+             interruption_wave, device_loss, clock_skew, soak, restart_smoke
+             and crash_drain replaced onto backend="device", each run twice
+             at seed 0 (equal end hash and fault fingerprint: --repeat 2)
+             and once on the native rung (equal; device_loss: its end state,
+             the native rung makes no device dispatch for its fault), the
+             restart group at seeds 0-4 on both rungs; every report ok, no
+             fallback but device_loss's one injected fault, no integrity flag
+             or optimizer degrade; sdc_storm, resident_rot and the three
+             warm-path scenarios raise NotImplementedError naming their
+             item. Then a storm at cluster scale: the soak's rules over the
+             operator phase's grid pods, 5,000 (cut from 10,000) in waves of
+             2,500, 1,250 and 1,250 at 0, 120 and 300 s, on 810 types, device
+             then native
+             rung: equal state hash, fault fingerprint, controller and
+             solver stats; the only integrity flags allowed are the
+             reference's over-capacity state's (ROADMAP §3), equal on both
+             rungs; A, B0, B and C launched inside the device run and equal
+             to their plain versions at inputs recorded there. Times: each
+             run's wall, the storm's reconcile medians, the card's idle
+             share over one disruption pass inside the ICE window.
+  4g. fleet runner  the reference's `make fleet` on the card
+             (fleet/runner.py): fleet_smoke at 50 tenants, serial and
+             batched on the device rung and serial on native, per-tenant
+             end hashes and fault fingerprints equal across the three;
+             fleet_noisy_neighbor serial and batched (ok, victim p99 during
+             the storm < 2x quiet, the noisy tenant throttled and alerted,
+             equal digests); federation_smoke in process, batched. Any
+             fallback, fault_fallback or integrity flag fails it. Prints
+             each run's wall, solves, batches, tickets, solves/s, overlap,
+             SLO alerts and B0/B launches.
   5. time    median wall times of the solve and the screen, stage by stage;
              per-kernel device time from torch.profiler and CUDA events
              beside its bound, its plain version's time and one torch
@@ -87,7 +119,8 @@ The kernels line reports each kernel's launches in the operator phase
 and its times at a full-size input (A: the main path's screen; B0, B: the
 facade's solve; C: the operator loop's first subset search); `by_phase`
 holds each phase's launches (the main path, the facade, the operator, the
-optimizer and, for B0 and B, the fleet's batched rounds) and times (the
+optimizer, the chaos phase, the fleet runner and, for B0 and B, the
+fleet's batched rounds) and times (the
 fleet's at its wide bucket: 16 requests in one launch). The last two lines of
 output are that line and {"ok": true, "device": {...}}. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -421,9 +454,11 @@ def phase_check_small(dev) -> None:
 FACADE_SUBSET = 10_000       # pods checked against the host rung
 FACADE_RESUME = 10_000       # new pods of the resumed solve
 FACADE_REPS = 3             # runs of the median facade wall
-CROSSOVER_SIZES = (1_000, 2_000, 4_000, 6_000, 8_000, 16_000, 32_000,
-                   100_000)
-CROSSOVER_REPS = 2  # keeps the whole script near half its time limit
+# the device/native crossover, cut to its 100k point to keep the script
+# inside its time limit with the chaos phase's storm (the sweep from 1k
+# pods is a finished measurement: PERF.md §5)
+CROSSOVER_SIZES = (100_000,)
+CROSSOVER_REPS = 2
 TOLERATE = ("dedicated", "batch")    # the pool's taint (key, value)
 
 
@@ -742,18 +777,12 @@ class OperatorRun:
 
     def __init__(self, backend: str, profile_pass: bool):
         from karpenter_tpu_torch import catalog, sim as S
-        from karpenter_tpu_torch.cloud import fake
         from karpenter_tpu_torch.cloud.fake import FakeCloudConfig
-        from karpenter_tpu_torch.models import nodeclaim, pod
         from karpenter_tpu_torch.optimizer import OPTIMIZER
         # the reference's default: the global optimizer armed
         os.environ.pop("KARPENTER_TPU_OPTIMIZER", None)
         self.optimizer0 = OPTIMIZER.totals()
-        # both rungs mint claim names, pod uids and instance ids from the
-        # same start: names break ties in the loop's orderings
-        nodeclaim._seq = itertools.count()
-        pod._uid = itertools.count()
-        fake._ids = itertools.count(1)
+        reset_sequences()
         self.backend, self.profile_pass = backend, profile_pass
         self.sim = S.make_sim(types=catalog.generate_catalog(),
                               backend=backend,
@@ -875,6 +904,56 @@ class OperatorRun:
                 for k in ("scored", "verified", "accepted", "fallbacks")}
 
 
+def check_recorded(rec_b, rec_a, rec_c, where: str,
+                   b_what=("first solve", "last solve")) -> tuple:
+    """B0, B, A and C against their plain versions at the inputs a loop
+    recorded (Recorder keep=2: its first and latest call of each).
+    Returns A's and C's largest absolute errors (both must be 0)."""
+    import torch
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    from karpenter_tpu_torch.ops import screen_k as sk, solve_scan as ss
+    for (sargs, skw), what in zip(rec_b.calls, b_what):
+        check_offer(ss, sargs, skw, f"{where} {what}")
+        out_k = ss.solve_scan_cuda(*sargs, **skw)
+        out_p = ss.solve_scan_plain(*sargs, **skw)
+        torch.cuda.synchronize()
+        for a, b, field in zip(out_k, out_p, ("ntype", "takes", "unsched",
+                                              "nused", "overflow")):
+            check(torch.equal(a.to(b.dtype).reshape(b.shape), b),
+                  f"solve_scan != plain at the {where} {what} ({field})")
+        b = inspect.signature(ss.solve_scan_plain).bind(*sargs, **skw)
+        log(f"[check] {where} {what}: offer_argmin == plain and solve_scan "
+            f"== plain (Gp={b.arguments['requests'].shape[0]}, "
+            f"n_max={b.arguments['n_max']})")
+    (aargs, akw) = rec_a.calls[-1]
+    k_got = sk.screen_k_cuda(*aargs, **akw)
+    torch.cuda.synchronize()
+    k_want = sk.screen_k_plain(*aargs, **akw)
+    err_a = float((k_got - k_want).abs().max()) if k_got.numel() else 0.0
+    check(err_a == 0.0, f"screen_k != plain at the {where}'s screen: {err_a}")
+    log(f"[check] {where} screen: screen_k == plain (atol 0) at N="
+        f"{aargs[0].shape[0]} G={aargs[1].shape[0]}; {rec_a.n} screens")
+    err_c = 0.0
+    for (cargs, _), what in zip(rec_c.calls, ("first", "last")):
+        err_c = max(err_c, check_tournament(tk, cargs, f"{where} {what} "
+                                            f"subset search"))
+        S_, N_ = cargs[4].shape
+        log(f"[check] {where} {what} subset search: tournament == plain "
+            f"(atol 0, plan equal) at S={S_} N={N_} G={cargs[2].shape[1]} "
+            f"Rk={cargs[0].shape[1]}; {rec_c.n} searches on the card")
+    return err_a, err_c
+
+
+def reset_sequences() -> None:
+    """Claim names, pod uids and instance ids start from the same value in
+    every run a phase compares: names break ties in the loop's orderings."""
+    from karpenter_tpu_torch.cloud import fake
+    from karpenter_tpu_torch.models import nodeclaim, pod
+    nodeclaim._seq = itertools.count()
+    pod._uid = itertools.count()
+    fake._ids = itertools.count(1)
+
+
 def phase_operator(dev):
     """The port's control loop as users enter it: make_sim(backend="device")
     on the full catalog, OP_PODS grid pods scaled up, 60% of them deleted
@@ -972,37 +1051,10 @@ def phase_operator(dev):
         f"the optimizer) and every controller's stats equal")
 
     # each kernel against its plain version at inputs recorded in the loop
-    where = ("scale-up solve", "last re-solve")
-    for (sargs, skw), what in zip(rec_b.calls, where):
-        check_offer(ss, sargs, skw, f"operator {what}")
-        out_k = ss.solve_scan_cuda(*sargs, **skw)
-        out_p = ss.solve_scan_plain(*sargs, **skw)
-        torch.cuda.synchronize()
-        for a, b, field in zip(out_k, out_p, ("ntype", "takes", "unsched",
-                                              "nused", "overflow")):
-            check(torch.equal(a.to(b.dtype).reshape(b.shape), b),
-                  f"solve_scan != plain at the operator {what} ({field})")
-        b = inspect.signature(ss.solve_scan_plain).bind(*sargs, **skw)
-        log(f"[check] operator {what}: offer_argmin == plain and solve_scan "
-            f"== plain (Gp={b.arguments['requests'].shape[0]}, "
-            f"n_max={b.arguments['n_max']})")
+    err_a, err_c = check_recorded(rec_b, rec_a, rec_c, "operator",
+                                  ("scale-up solve", "last re-solve"))
     (aargs, akw) = rec_a.calls[-1]
-    k_got = sk.screen_k_cuda(*aargs, **akw)
-    torch.cuda.synchronize()
-    k_want = sk.screen_k_plain(*aargs, **akw)
-    err_a = float((k_got - k_want).abs().max()) if k_got.numel() else 0.0
-    check(err_a == 0.0, f"screen_k != plain at the operator's screen: {err_a}")
-    log(f"[check] operator screen: screen_k == plain (atol 0) at N="
-        f"{aargs[0].shape[0]} G={aargs[1].shape[0]}; {rec_a.n} screens, "
-        f"{run_d.solves} Solver.solve calls by stage")
-    err_c = 0.0
-    for (cargs, _), what in zip(rec_c.calls, ("first", "last")):
-        err_c = max(err_c, check_tournament(tk, cargs, f"operator {what} "
-                                            f"subset search"))
-        S_, N_ = cargs[4].shape
-        log(f"[check] operator {what} subset search: tournament == plain "
-            f"(atol 0, plan equal) at S={S_} N={N_} G={cargs[2].shape[1]} "
-            f"Rk={cargs[0].shape[1]}; {rec_c.n} searches on the card")
+    log(f"[check] operator: {run_d.solves} Solver.solve calls by stage")
 
     # --- times ---
     dis = [ms for (st, c), v in run_d.walls.items() if c == "disruption"
@@ -1482,6 +1534,421 @@ def phase_fleet() -> tuple:
     return fleet_launches, times
 
 
+# --- phase 4f: chaos — the reference's `make chaos` and `make crash-audit`
+# (Makefile:46-51) on the card ----------------------------------------------
+
+CHAOS_SCENARIOS = ("smoke", "ice_storm", "api_brownout", "interruption_wave",
+                   "device_loss", "clock_skew", "soak", "restart_smoke",
+                   "crash_drain")
+# the catalog's scenarios whose planes are not ported: running one raises
+UNPORTED_SCENARIOS = {"sdc_storm": "item 7", "resident_rot": "item 7",
+                      "warmpath_smoke": "item 9", "warmpath_storm": "item 9",
+                      "crash_launch_storm": "item 9"}
+CRASH_AUDIT_SEEDS = 5    # `make crash-audit`: the restart group, seeds 0-4
+# the storm: the soak scenario's rules over the operator phase's grid pods
+# (seed 0) in three waves, (run-relative sim second, pods). Cut in half
+# from 10,000 pods, whose rungs took 222.9 and 366.4 s beside one NVIDIA
+# H100 80GB HBM3 (PERF.md §4)
+STORM_WAVES = ((0.0, 2_500), (120.0, 1_250), (300.0, 1_250))
+STORM_PROFILE_AT = 60.0  # profile the first disruption pass inside the ICE window
+
+
+def counter_totals() -> tuple:
+    """(device fallbacks, optimizer fallbacks, integrity detections,
+    batched-pump fault fallbacks) since import: a phase diffs these around
+    its runs, so a fallback in any boot of a restarted stack counts."""
+    from karpenter_tpu_torch.integrity import INTEGRITY
+    from karpenter_tpu_torch.metrics import (FLEET_SHAPE_CLASS,
+                                             OPTIMIZER_SUBSETS,
+                                             SOLVER_FALLBACKS)
+    return (SOLVER_FALLBACKS.sum(), OPTIMIZER_SUBSETS.sum(event="fallback"),
+            INTEGRITY.detections(),
+            FLEET_SHAPE_CLASS.sum(event="fault_fallback"))
+
+
+def run_scenario(sc, seed: int, reset: bool = True) -> tuple:
+    """(report, runner, wall ms, counter deltas) of one chaos run on the
+    card, with the sequences restarted first unless `reset` is False (the
+    reference CLI's --repeat runs back to back without a restart)."""
+    from karpenter_tpu_torch.faults import RestartRunner, ScenarioRunner
+    if reset:
+        reset_sequences()
+    runner = (RestartRunner if sc.restart else ScenarioRunner)(sc, seed=seed)
+    c0 = counter_totals()
+    t0 = time.perf_counter()
+    rep = runner.run()
+    wall = (time.perf_counter() - t0) * 1e3
+    delta = tuple(b - a for a, b in zip(c0, counter_totals()))
+    return rep, runner, wall, delta
+
+
+def check_clean(rep, runner, delta, where: str, fallbacks: int = 0) -> None:
+    """A chaos run's report must be ok (converged, no violation — the
+    zero-false-positive integrity contract included) and nothing may have
+    degraded but the `fallbacks` injected device faults."""
+    check(rep.ok, f"{where}: {rep.summary()}")
+    dis = runner.last_sim.disruption.stats
+    check(delta == (fallbacks, 0, 0, 0) and "screen_errors" not in dis
+          and "optimizer_errors" not in dis,
+          f"{where}: fallbacks / optimizer fallbacks / integrity flags / "
+          f"fault_fallbacks {delta}, disruption stats {dis}")
+
+
+def digest(rep) -> tuple:
+    return rep.end_hash, rep.fault_fingerprint, rep.faults_injected
+
+
+class StormWatch:
+    """Times the storm run's disruption and provisioner reconciles and
+    profiles the first disruption pass inside the ICE window."""
+
+    def __init__(self, profile: bool):
+        self.profile = profile
+        self.walls = {"disruption": [], "provisioner": []}
+        self.profiled = None
+
+    def arm(self, sim) -> None:
+        origin = sim.fault_plan.origin
+        for c in (sim.disruption, sim.provisioner):
+            c.reconcile = self._timed(c.name, c.reconcile, origin)
+
+    def _timed(self, name, reconcile, origin):
+        def run(now):
+            prof = (self.profile and name == "disruption"
+                    and self.profiled is None
+                    and now - origin >= STORM_PROFILE_AT)
+            box = []
+            t0 = time.perf_counter()
+            if prof:
+                ev = device_kernel_us(lambda: box.append(reconcile(now)))
+            else:
+                box.append(reconcile(now))
+            ms = (time.perf_counter() - t0) * 1e3
+            self.walls[name].append(ms)
+            if prof:
+                self.profiled = (sum(us for us, _ in ev.values()) / 1e3, ms,
+                                 now - origin)
+            return box[0]
+        return run
+
+
+def storm_scenario(backend: str, types, watch: StormWatch):
+    """The soak scenario replaced onto the full catalog and the grid pods'
+    waves (a wave's pods are built when it arrives, after the run's
+    sequences restarted)."""
+    import dataclasses
+    from karpenter_tpu_torch import models
+    from karpenter_tpu_torch.faults import SCENARIOS
+
+    def workload(sim):
+        watch.arm(sim)
+        origin = sim.fault_plan.origin
+        pods = grid_pods(models, sum(n for _, n in STORM_WAVES), SEED)
+        waves, i = [], 0
+        for t, n in STORM_WAVES:
+            waves.append((t, pods[i:i + n]))
+            i += n
+        fired = set()
+
+        def arrivals(now: float) -> None:
+            for k, (t, wave) in enumerate(waves):
+                if k not in fired and now - origin >= t:
+                    fired.add(k)
+                    for p in wave:
+                        sim.store.add_pod(p)
+        arrivals(sim.clock.now())
+        sim.engine.add_hook(arrivals)
+    return dataclasses.replace(SCENARIOS["soak"], name="storm",
+                               backend=backend, types=lambda: types,
+                               workload=workload)
+
+
+def storm_split(events_d, events_n):
+    """Where the storm's device and native event logs part: None when they
+    are equal, else (index, device event, native event), which must be the
+    one kind of split the rungs may show (ROADMAP §3): the subset search's
+    f32 scores summed in another order on each rung rank two near-equal
+    subsets the other way, so one consolidation takes the same number of
+    victims, one interchangeable victim apart, with the same reason and the
+    same replacements. Anything else fails."""
+    i = next((k for k, (a, b) in enumerate(zip(events_d, events_n))
+              if a != b), None)
+    if i is None:
+        check(len(events_d) == len(events_n),
+              f"storm: one rung's event log ends early ({len(events_d)} vs "
+              f"{len(events_n)} events)")
+        return None
+    a, b = events_d[i], events_n[i]
+    va, vb = set(a[1].split(",")), set(b[1].split(","))
+    check(a[0] == b[0] == "disruption" and a[2] == b[2] and a[3] == b[3]
+          and len(va) == len(vb) and len(va - vb) == 1,
+          f"storm: device and native part at event {i} other than by a "
+          f"subset-search tie: {a} vs {b}")
+    return i, a, b
+
+
+def controller_stats(sim) -> dict:
+    return {c.name: dict(c.stats) for c in sim.engine.controllers
+            if hasattr(c, "stats")}
+
+
+def phase_chaos() -> dict:
+    """The reference's chaos catalog on the card: every runnable scenario
+    on the device rung twice (repeat-equal digests) and once on native
+    (equal to the device runs), the restart group at seeds 0-4 on both
+    rungs, the five unported scenarios raising, then the soak's storm at
+    cluster scale on both rungs with A, B0, B and C checked at inputs
+    recorded inside it. Returns the kernels' launches in the phase."""
+    import dataclasses
+    import torch
+    from karpenter_tpu_torch import catalog
+    from karpenter_tpu_torch.faults import SCENARIOS
+    from karpenter_tpu_torch.metrics import INTEGRITY_VERDICTS
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    from karpenter_tpu_torch.ops import consolidate, screen_k as sk
+    from karpenter_tpu_torch.ops import solve_scan as ss, solver
+
+    t_phase = time.perf_counter()
+    os.environ.pop("KARPENTER_TPU_OPTIMIZER", None)  # the default: armed
+    ss.launches = ss.offer_launches = sk.launches = tk.launches = 0
+    for name in CHAOS_SCENARIOS:
+        sc = SCENARIOS[name]
+        dev_sc = dataclasses.replace(sc, backend="device")
+        nat_sc = dataclasses.replace(sc, backend="native")
+        seeds = range(CRASH_AUDIT_SEEDS) if sc.restart else (0,)
+        for seed in seeds:
+            where = f"chaos {name} seed {seed}"
+            runs = [run_scenario(dev_sc, seed, reset=(k == 0))
+                    for k in range(2 if seed == 0 else 1)]
+            nat = run_scenario(nat_sc, seed)
+            injected = 1 if name == "device_loss" else 0
+            for rep, runner, _, delta in runs:
+                check_clean(rep, runner, delta, f"{where} (device)",
+                            fallbacks=injected)
+            check_clean(nat[0], nat[1], nat[3], f"{where} (native)")
+            d = [digest(r[0]) for r in runs]
+            check(len(set(d)) == 1, f"{where}: --repeat 2 diverged: {d}")
+            if name == "device_loss":
+                # the native rung makes no device dispatch for the
+                # DeviceFault to hit: the end state must still agree
+                check(nat[0].end_hash == d[0][0] and nat[0].faults_injected
+                      == 0, f"{where}: native {digest(nat[0])} vs device "
+                      f"{d[0]}")
+            else:
+                check(digest(nat[0]) == d[0],
+                      f"{where}: native {digest(nat[0])} != device {d[0]}")
+            log(f"[chaos] {name} seed {seed}: faults_injected "
+                f"{d[0][2]}, end {d[0][0][:16]}, fingerprint "
+                f"{d[0][1][:16]}; wall device "
+                + " / ".join(f"{r[2]:.1f}" for r in runs)
+                + f" ms, native {nat[2]:.1f} ms; sim {runs[0][0].sim_seconds:g}"
+                f" s; stats {runs[0][0].stats}")
+    for name, item in UNPORTED_SCENARIOS.items():
+        try:
+            run_scenario(SCENARIOS[name], 0)
+        except NotImplementedError as e:
+            check(item in str(e), f"chaos {name} raised without naming "
+                  f"{item}: {e}")
+        else:
+            fail(f"chaos {name} ran: it needs a plane the port lacks")
+    log(f"[check] chaos: {len(CHAOS_SCENARIOS)} scenarios on the device "
+        f"rung, repeat-equal and equal to the native rung (device_loss: its "
+        f"end state), the restart group at seeds 0-{CRASH_AUDIT_SEEDS - 1}; "
+        f"{', '.join(UNPORTED_SCENARIOS)} raise NotImplementedError naming "
+        f"their item; catalog wall {time.perf_counter() - t_phase:.1f} s")
+
+    # --- the storm at cluster scale, device then native ---
+    types = catalog.generate_catalog()
+    verdicts0 = dict(INTEGRITY_VERDICTS._values)
+    watch = StormWatch(profile=True)
+    storm_launches0 = (sk.launches, ss.offer_launches, ss.launches,
+                       tk.launches)
+    with Recorder(solver, "solve_scan", keep=2) as rec_b, \
+            Recorder(consolidate, "screen_k", keep=2) as rec_a, \
+            Recorder(tk, "tournament", keep=2) as rec_c:
+        rep_d, run_d, wall_d, delta_d = run_scenario(
+            storm_scenario("device", types, watch), 0)
+        torch.cuda.synchronize()
+    storm_launches = dict(zip(
+        ("screen_k", "offer_argmin", "solve_scan", "tournament"),
+        (b - a for a, b in zip(storm_launches0, (
+            sk.launches, ss.offer_launches, ss.launches, tk.launches)))))
+    flags = {k[0]: v - verdicts0.get(k, 0.0)
+             for k, v in INTEGRITY_VERDICTS._values.items()
+             if k[1] == "violation" and v != verdicts0.get(k, 0.0)}
+    watch_n = StormWatch(profile=False)
+    rep_n, run_n, wall_n, delta_n = run_scenario(
+        storm_scenario("native", types, watch_n), 0)
+    sim_d, sim_n = run_d.last_sim, run_n.last_sim
+    log(f"[chaos] storm: the soak's rules over {sum(n for _, n in STORM_WAVES)} "
+        f"grid pods in waves {STORM_WAVES} on {len(sim_d.cloud.types)} types: "
+        f"{len(sim_d.store.nodes)} nodes, {rep_d.faults_injected} faults "
+        f"injected, sim {rep_d.sim_seconds:g} s, converged "
+        f"{rep_d.converged}; stats {rep_d.stats}; solver {sim_d.solver.stats}"
+        f"; disruption {sim_d.disruption.stats}; integrity flags by check "
+        f"{flags}; kernel launches {storm_launches}")
+    check(rep_d.converged and rep_n.converged,
+          f"storm: device {rep_d.summary()} vs native {rep_n.summary()}")
+    split = storm_split(sim_d.store.events, sim_n.store.events)
+    if split is None:
+        check(digest(rep_d) == digest(rep_n),
+              f"storm: device {digest(rep_d)} != native {digest(rep_n)}")
+        check(controller_stats(sim_d) == controller_stats(sim_n),
+              f"storm: controller stats differ: {controller_stats(sim_d)} "
+              f"vs {controller_stats(sim_n)}")
+        check(sim_d.solver.stats == sim_n.solver.stats
+              and rep_d.violations == rep_n.violations,
+              f"storm: device {rep_d.summary()} vs native {rep_n.summary()}")
+        log(f"[check] storm device == native: state_hash "
+            f"{rep_d.end_hash[:16]}, fault fingerprint "
+            f"{rep_d.fault_fingerprint[:16]}, controller and solver stats")
+    else:
+        i, ev_d, ev_n = split
+        log(f"[chaos] storm: the rungs part at event {i} of "
+            f"{len(sim_d.store.events)}, a subset-search tie (ROADMAP §3): "
+            f"device victims {ev_d[1]} vs native {ev_n[1]} ({ev_d[2]}, the "
+            f"same replacements); every earlier event equal; ends device "
+            f"{digest(rep_d)[0][:16]} / native {digest(rep_n)[0][:16]}")
+    # the storm may reach the reference's over-capacity state (ROADMAP §3:
+    # an existing node over capacity, flagged by the oracle on every rung
+    # and by the runner's zero-false-positive contract, equal in the JAX
+    # package); no other flag, fallback or degrade is allowed
+    overcap = ["integrity violation(s) on a corruption-free run" in v
+               for v in rep_d.violations + rep_n.violations]
+    check(set(flags) <= {"capacity"} and all(overcap)
+          and delta_d[:2] == (0, 0) and delta_d[3] == 0
+          and delta_n[:2] == (0, 0)
+          and not any(k in sim.disruption.stats for sim in (sim_d, sim_n)
+                      for k in ("screen_errors", "optimizer_errors")),
+          f"storm: flags {flags}, violations {rep_d.violations} / "
+          f"{rep_n.violations}, counter deltas {delta_d} / {delta_n}")
+    for name, n in storm_launches.items():
+        check(n > 0, f"kernel {name} was not launched inside the storm")
+    check_recorded(rec_b, rec_a, rec_c, "storm")
+    med = {k: statistics.median(v) for k, v in watch.walls.items() if v}
+    log(f"[time] storm: device run {wall_d:.1f} ms, native run {wall_n:.1f} "
+        f"ms; device run reconciles: disruption {len(watch.walls['disruption'])}"
+        f" (median {med.get('disruption', 0):.1f} ms, max "
+        f"{max(watch.walls['disruption'], default=0):.1f}), provisioner "
+        f"{len(watch.walls['provisioner'])} (median "
+        f"{med.get('provisioner', 0):.1f} ms, max "
+        f"{max(watch.walls['provisioner'], default=0):.1f}); native medians "
+        + ", ".join(f"{k} {statistics.median(v):.1f} ms"
+                    for k, v in watch_n.walls.items() if v))
+    if watch.profiled is not None and watch.profiled[0] > 0:
+        busy, wall, at = watch.profiled
+        log(f"[time] one disruption reconcile under weather (storm, sim "
+            f"{at:.1f} s, torch.profiler): device busy {busy:.3f} ms of "
+            f"{wall:.1f} ms wall (idle share {1 - busy / wall:.5f})")
+    else:
+        log("[time] the storm's profiled disruption reconcile recorded no "
+            "device events: idle share not measured")
+    launches = {"screen_k": sk.launches, "offer_argmin": ss.offer_launches,
+                "solve_scan": ss.launches, "tournament": tk.launches}
+    log(f"[chaos] phase wall {time.perf_counter() - t_phase:.1f} s; kernel "
+        f"launches in the phase {launches}")
+    return launches
+
+
+# --- phase 4g: the fleet runner — the reference's `make fleet`
+# (Makefile:66-70) on the card ---------------------------------------------
+
+FLEET_RUNNER_TENANTS = 50   # `make fleet` runs fleet_smoke at 50 tenants
+
+
+def fleet_run(name: str, **kw) -> tuple:
+    """(report, runner, wall ms) of one FleetRunner run on the card with
+    the sequences restarted; its report must be ok and nothing may have
+    degraded (device fallbacks, fault_fallback buckets, integrity flags)."""
+    from karpenter_tpu_torch.fleet import FleetRunner
+    from karpenter_tpu_torch.ops import solve_scan as ss
+    reset_sequences()
+    c0 = counter_totals()
+    ss.launches = ss.offer_launches = 0
+    t0 = time.perf_counter()
+    runner = FleetRunner(name, **kw)
+    rep = runner.run()
+    wall = (time.perf_counter() - t0) * 1e3
+    delta = tuple(b - a for a, b in zip(c0, counter_totals()))
+    check(rep.ok, f"fleet {name} {kw}: {rep.summary()}")
+    check(delta == (0, 0, 0, 0), f"fleet {name} {kw}: fallbacks / optimizer "
+          f"fallbacks / integrity flags / fault_fallbacks {delta}")
+    st = rep.stats
+    log(f"[fleet-runner] {name} {kw}: tenants {rep.tenants}, wall "
+        f"{wall:.1f} ms, sim {rep.sim_seconds:g} s; solves_dispatched "
+        f"{st['solves_dispatched']:g}, solve_batches "
+        f"{st.get('solve_batches', 0):g}, batched_tickets "
+        f"{st.get('batched_tickets', 0):g}, aggregate_solves_per_wall_sec "
+        f"{st.get('aggregate_solves_per_wall_sec', 0):g}, "
+        f"pipeline_overlap_ratio {st.get('pipeline_overlap_ratio', '-')}, "
+        f"slo_alerts {st['slo_alerts']:g}, faults_injected "
+        f"{st['faults_injected']:g}; B0 / B launches {ss.offer_launches} / "
+        f"{ss.launches}; fleet hash {rep.fleet_hash[:16]}")
+    return rep, runner, wall
+
+
+def phase_fleet_runner() -> dict:
+    """The reference's fleet scenarios on the card: fleet_smoke at 50
+    tenants serial and batched on the device rung (per-tenant hashes and
+    fingerprints equal to each other and to a native-rung run),
+    fleet_noisy_neighbor serial and batched (ok, its isolation verdict
+    held, equal digests), federation_smoke in process, batched. Returns
+    the kernels' launches in the phase."""
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    from karpenter_tpu_torch.ops import screen_k as sk, solve_scan as ss
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(("screen_k", "offer_argmin", "solve_scan",
+                              "tournament"), 0)
+
+    def run(name, **kw):
+        sk.launches = tk.launches = 0
+        out = fleet_run(name, **kw)
+        for k, n in (("screen_k", sk.launches), ("tournament", tk.launches),
+                     ("offer_argmin", ss.offer_launches),
+                     ("solve_scan", ss.launches)):
+            launches[k] += n
+        return out
+
+    smoke = [run("fleet_smoke", tenants=FLEET_RUNNER_TENANTS,
+                 backend=backend, batch=batch)[0]
+             for backend, batch in (("device", False), ("device", True),
+                                    ("native", False))]
+    for rep, what in zip(smoke[1:], ("batched device", "native")):
+        check(rep.tenant_hashes == smoke[0].tenant_hashes
+              and rep.tenant_fingerprints == smoke[0].tenant_fingerprints,
+              f"fleet_smoke: {what} per-tenant digests != serial device")
+    check(smoke[1].stats["solve_batches"] > 0,
+          "fleet_smoke batched: no bucket was dispatched")
+    noisy = [run("fleet_noisy_neighbor", backend="device", batch=batch)[0]
+             for batch in (False, True)]
+    for rep in noisy:
+        check(rep.stats["victim_p99_storm_ms"]
+              < 2 * rep.stats["victim_p99_quiet_ms"]
+              and rep.stats["noisy_throttled"] > 0
+              and rep.stats["noisy_burn_alerts"] > 0,
+              f"fleet_noisy_neighbor: isolation verdict failed {rep.stats}")
+    check(noisy[0].tenant_hashes == noisy[1].tenant_hashes
+          and noisy[0].tenant_fingerprints == noisy[1].tenant_fingerprints,
+          "fleet_noisy_neighbor: batched per-tenant digests != serial")
+    log(f"[fleet-runner] noisy neighbor: victim p99 quiet / storm "
+        f"{noisy[0].stats['victim_p99_quiet_ms']} / "
+        f"{noisy[0].stats['victim_p99_storm_ms']} ms (virtual), noisy "
+        f"throttled {noisy[0].stats['noisy_throttled']:g}, burn alerts "
+        f"{noisy[0].stats['noisy_burn_alerts']:g}")
+    fed = run("federation_smoke", backend="device", batch=True)[0]
+    check(fed.stats["solve_batches"] > 0,
+          "federation_smoke: no bucket was dispatched")
+    check(launches["offer_argmin"] > 0 and launches["solve_scan"] > 0,
+          f"the fleet runner launched no batched solve: {launches}")
+    log(f"[check] fleet runner: fleet_smoke x{FLEET_RUNNER_TENANTS} serial "
+        f"== batched == native per tenant, fleet_noisy_neighbor isolated "
+        f"and serial == batched, federation_smoke in process ok; kernel "
+        f"launches {launches}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def grid_tournament_args(cat, enc, views, counts, slack):
     """Kernel C's arguments for one subset search over phase 3's cluster
     (every node a candidate, each node priced at its type's cheapest
@@ -1847,6 +2314,14 @@ def main() -> None:
     # just before each batched round ---
     fleet_launches, b_fleet = phase_fleet()
 
+    # --- 4f. chaos: the reference's chaos catalog and a storm at cluster
+    # scale, counts zeroed at the phase's start ---
+    chaos_launches = phase_chaos()
+
+    # --- 4g. the fleet runner: FleetRunner's scenarios, counts zeroed
+    # before each run and summed ---
+    fleet_runner_launches = phase_fleet_runner()
+
     # --- 5. times ---
     solve_ms = wall_ms(lambda: solver.solve_device(cat, enc), 5)
     screen_ms = wall_ms(lambda: consolidate.consolidation_screen(
@@ -1933,6 +2408,9 @@ def main() -> None:
     by_phase = {k: {ph: {"launches": phase_launches[ph].get(k), **row}
                     for ph, row in times[k].items()
                     if ph in phase_launches} for k in times}
+    for k in by_phase:
+        by_phase[k]["chaos"] = {"launches": chaos_launches[k]}
+        by_phase[k]["fleet_runner"] = {"launches": fleet_runner_launches[k]}
     by_phase["tournament"]["grid"] = c_grid
     by_phase["tournament"]["optimizer"] = {
         "launches": opt_launches["tournament"]}

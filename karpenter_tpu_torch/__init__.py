@@ -17,10 +17,14 @@ Layout mirrors the reference:
                  consolidate (consolidation_screen), facade (Solver),
                  solve_scan and screen_k (kernel wrappers + plain
                  versions), _build (nvcc)
-    csrc/        screen_k.cu, solve_scan.cu
+    csrc/        screen_k.cu, solve_scan.cu, tournament.cu
     cloud/       the fake cloud and its wire formats
     state/       the store, node views, intent journal, rehydration
     controllers/ the engine and the reconcile controllers
+    optimizer/   the global consolidation optimizer (kernel C)
+    fleet/       SolverService, tenant shards, FleetRunner, fleet scenarios
+    faults/      FaultPlan, injectors, chaos scenarios, Scenario/RestartRunner
+    obs/         the span tracer, the SLO engine
     sim.py       make_sim: the whole control loop against the fake cloud
     convert.py   plain arrays -> CatalogTensors / EncodedPods / VirtualNode
 
@@ -28,4 +32,4 @@ Entry points run on `cuda` unless the caller passes `device="cpu"`.
 """
 
 __all__ = ["models", "catalog", "ops", "cloud", "state", "controllers",
-           "sim", "convert"]
+           "optimizer", "fleet", "faults", "obs", "sim", "convert"]

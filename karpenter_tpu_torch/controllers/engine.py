@@ -40,7 +40,8 @@ class Engine:
     controllers: List[Controller] = field(default_factory=list)
     hooks: List[Callable[[float], None]] = field(default_factory=list)
     # (the reference's optional leader-election `elector` and its
-    # obs.watchdog.Watchdog sit here: neither is ported, ROADMAP §1 item 4)
+    # obs.watchdog.Watchdog sit here: neither is ported, ROADMAP §1 items
+    # 15 and 16)
     _next_run: Dict[str, float] = field(default_factory=dict)
 
     def add(self, *controllers: Controller) -> "Engine":

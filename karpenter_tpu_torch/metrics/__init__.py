@@ -295,4 +295,51 @@ OPTIMIZER_SUBSETS = REGISTRY.counter(
     "optimizer_divergence invariant pages on the streak",
     ("event", "tenant"), label_defaults=_TENANT)
 
+FAULTS_INJECTED = REGISTRY.counter(
+    "karpenter_tpu_faults_injected_total",
+    "Faults injected by an armed faults.FaultPlan, by kind (ice, api, "
+    "clock_jump, device, interruption, corruption, crash — burst flavor, "
+    "incl. kills, is in the timeline detail) — zero in production: the "
+    "hooks are no-ops unless a plan is installed", ("kind",))
+# the SLO engine (obs/slo.py) reads the warm path's two families for its
+# warm_hit_rate and audit_divergence objectives; nothing in the port
+# writes them until the warm path lands (ROADMAP item 9), so those two
+# objectives see no events
+WARMPATH_DECISIONS = REGISTRY.counter(
+    "karpenter_tpu_warmpath_decisions_total",
+    "Provisioner reconciles with pending pods, by outcome: warm (whole "
+    "burst served from standing headroom), mixed (partially), escalated "
+    "(classified warm but nothing fit — the full solver served it all), "
+    "cold (classification failed; the reason dimension names why — the "
+    "delta tracker's first dirty event, a catalog-epoch move, a "
+    "config-hash change, or an audit divergence)",
+    ("path", "reason", "tenant"), label_defaults=_TENANT)
+WARMPATH_AUDITS = REGISTRY.counter(
+    "karpenter_tpu_warmpath_audits_total",
+    "Warm-path auditor replays, by outcome (clean / divergent)",
+    ("outcome", "tenant"), label_defaults=_TENANT)
+SLO_ERROR_BUDGET = REGISTRY.gauge(
+    "karpenter_tpu_slo_error_budget_remaining",
+    "Fraction of a tenant's error budget remaining for one declared "
+    "objective (obs/slo.py) since the SLO engine baselined: 1 = no bad "
+    "events, 0 = budget exhausted, negative = overdrawn. The "
+    "noisy-neighbor invariant reads as: the victim's gauge stays high "
+    "while the noisy tenant's burns down",
+    ("slo", "tenant"), label_defaults=_TENANT)
+SLO_BURN_RATE = REGISTRY.gauge(
+    "karpenter_tpu_slo_burn_rate",
+    "Multi-window burn rate: bad-event rate over the window divided by "
+    "the objective's allowance (1 = spending budget exactly at the "
+    "sustainable rate; 14.4 = a 30d budget gone in 2d). Windows are "
+    "sim-time (fast=5m, slow=1h) so chaos runs evaluate burn on the "
+    "same timeline that produced the events",
+    ("slo", "window", "tenant"), label_defaults=_TENANT)
+SLO_BURN_ALERTS = REGISTRY.counter(
+    "karpenter_tpu_slo_burn_alerts_total",
+    "Burn-rate alerts fired by the SLO engine (fast AND slow window "
+    "over threshold — the classic multi-window page condition). Each "
+    "firing also lands an slo.burn trace in the flight-recorder ring "
+    "so the alert arrives with its evidence",
+    ("slo", "tenant"), label_defaults=_TENANT)
+
 __all__ = ["REGISTRY", "Registry", "Counter", "Gauge", "Histogram"]

@@ -11,8 +11,8 @@ the reference's in these places:
   (device="cpu" runs the kernels' plain versions, as the tests do).
   Without a card and without `device`, make_sim raises, on every rung,
   because the consolidation screen runs on the device on every rung;
-- the fault plan (`fault_plan=`) and the warm path (`warmpath=True`) are
-  not ported and raise NotImplementedError;
+- the warm path (`warmpath=True`) is not ported and raises
+  NotImplementedError (ROADMAP item 9);
 - the reference's read-only invariant monitor (`watchdog=`) is not
   ported and the parameter is left out: it never changes what a run
   does;
@@ -29,8 +29,6 @@ the kwok-style simulation backend for benchmarks.
 
 from __future__ import annotations
 
-import hashlib
-import json
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -44,7 +42,6 @@ from .controllers.interruption import InterruptionController
 from .controllers.lifecycle import BindingController, LifecycleController
 from .controllers.provisioner import Provisioner
 from .controllers.termination import TerminationController
-from .models import labels as L
 from .models.instancetype import InstanceType
 from .models.nodepool import NodeClassSpec, NodePool
 from .ops.facade import Solver
@@ -68,6 +65,12 @@ class SimEnvironment:
     disruption: DisruptionController
     interruption: InterruptionController
     gc: GarbageCollectionController
+    # armed faults.FaultPlan when the stack was built with fault injection
+    # (make_sim(fault_plan=...)); None in a healthy sim
+    fault_plan: Optional[object] = None
+    # the reference's warmpath.WarmPathEngine: always None in the port,
+    # whose make_sim raises on warmpath=True (ROADMAP item 9)
+    warmpath: Optional[object] = None
     # state.journal.IntentJournal: the provisioning write-ahead log.
     # Always present; pass the previous stack's journal to make_sim
     # (with its cloud) to simulate a crash-restart — open intents replay
@@ -118,15 +121,19 @@ def make_sim(types: Optional[List[InstanceType]] = None,
     (adopt-or-reap) during that rehydration — the crash-window recovery
     path (state/journal.py).
 
+    fault_plan: an armed faults.FaultPlan — every controller then speaks
+    to the cloud through a faults.injector.FaultyCloud decorator (injected
+    throttles/server errors), the fake cloud honors the plan's ICE
+    windows, the clock carries its skew jumps, and its interruption bursts
+    are delivered by an engine hook. The raw FakeCloud stays on
+    `sim.cloud` (node materialization and test introspection are not
+    subject to API faults).
+
     device: where the device rung and the consolidation screen run — the
     CUDA card unless given; without a card and without `device` this
     raises. solver_factory(catalog) -> a Solver-compatible object (the
-    fleet seam); `backend` is the factory's concern then. fault_plan and
-    warmpath are not ported and raise."""
-    if fault_plan is not None:
-        raise NotImplementedError(
-            "fault injection (fault_plan=) is not ported to "
-            "karpenter_tpu_torch yet (ROADMAP item 4)")
+    fleet seam); `backend` is the factory's concern then. warmpath is not
+    ported and raises."""
     if warmpath:
         raise NotImplementedError(
             "the warm path (warmpath=True) is not ported to "
@@ -142,27 +149,46 @@ def make_sim(types: Optional[List[InstanceType]] = None,
     store = Store()
     types = types if types is not None else small_catalog()
     cloud = cloud or FakeCloud(types, clock=clock, config=cloud_config)
-    # (the reference hands the controllers its fault-injection decorator
-    # around the cloud here when a fault plan is armed)
+    # api_cloud is what controllers hold; identical to `cloud` unless a
+    # fault plan interposes the injection decorator
+    api_cloud = cloud
     from .state.journal import IntentJournal
     journal = journal if journal is not None else IntentJournal()
-    catalog = CatalogProvider(lambda: cloud.describe_types(),
+    if fault_plan is not None:
+        from .faults.injector import FaultyCloud
+        # first install on this clock stamps the origin and schedules the
+        # skew jumps; a RE-install (the restart harness rebuilding a
+        # stack on the surviving clock) must do neither — rule times stay
+        # relative to the ORIGINAL run start, and jumps already consumed
+        # or scheduled must not double-apply
+        first_install = fault_plan.clock is not clock
+        fault_plan.clock = clock
+        if first_install:
+            fault_plan.origin = clock.now()    # rule times are run-relative
+            for j in fault_plan.clock_jumps:   # skew
+                clock.schedule_jump(fault_plan.origin + j.at, j.delta,
+                                    fault_plan.on_jump)
+        cloud.fault_plan = fault_plan          # ICE windows
+        api_cloud = FaultyCloud(cloud, fault_plan, clock)
+    # the catalog's backend listing goes through the gated view too, so
+    # an ApiFault on "describe_types" really browns out catalog refresh
+    catalog = CatalogProvider(lambda: api_cloud.describe_types(),
                               clock=clock)
     solver = (solver_factory(catalog) if solver_factory is not None
               else Solver(catalog, backend=backend, device=dev))
-    provisioner = Provisioner(store=store, solver=solver, cloud=cloud,
+    provisioner = Provisioner(store=store, solver=solver, cloud=api_cloud,
                               catalog=catalog, journal=journal)
-    lifecycle = LifecycleController(store=store, cloud=cloud)
+    lifecycle = LifecycleController(store=store, cloud=api_cloud)
     binding = BindingController(store=store)
-    termination = TerminationController(store=store, cloud=cloud,
+    termination = TerminationController(store=store, cloud=api_cloud,
                                         catalog=catalog)
     disruption = DisruptionController(store=store, solver=solver,
                                       catalog=catalog, provisioner=provisioner,
                                       termination=termination)
-    interruption = InterruptionController(store=store, cloud=cloud,
+    interruption = InterruptionController(store=store, cloud=api_cloud,
                                           catalog=catalog,
                                           termination=termination)
-    gc = GarbageCollectionController(store=store, cloud=cloud,
+    gc = GarbageCollectionController(store=store, cloud=api_cloud,
                                      journal=journal)
     from .cloud.image import ImageProvider
     from .controllers.auxiliary import (CatalogRefreshController,
@@ -175,17 +201,17 @@ def make_sim(types: Optional[List[InstanceType]] = None,
     from .controllers.repair import NodeRepairController
     metrics_c = CloudProviderMetricsController(catalog=catalog, store=store)
     images = ImageProvider(lister=cloud.describe_images, clock=clock)
-    nodeclass_c = NodeClassController(store=store, cloud=cloud,
+    nodeclass_c = NodeClassController(store=store, cloud=api_cloud,
                                       images=images)
     repair = NodeRepairController(store=store, termination=termination)
-    tagging = TaggingController(store=store, cloud=cloud)
+    tagging = TaggingController(store=store, cloud=api_cloud)
     discovered = DiscoveredCapacityController(store=store, catalog=catalog)
     refresh = CatalogRefreshController(catalog=catalog, store=store,
                                        images=images)
-    res_exp = ReservationExpirationController(store=store, cloud=cloud,
+    res_exp = ReservationExpirationController(store=store, cloud=api_cloud,
                                               catalog=catalog,
                                               termination=termination)
-    spot_pricing = SpotPricingController(catalog=catalog, cloud=cloud)
+    spot_pricing = SpotPricingController(catalog=catalog, cloud=api_cloud)
     engine = Engine(clock=clock).add(nodeclass_c, provisioner, lifecycle,
                                      binding, termination, disruption,
                                      interruption, gc, metrics_c, repair,
@@ -206,6 +232,9 @@ def make_sim(types: Optional[List[InstanceType]] = None,
             if inst is not None and inst.state == "terminated":
                 store.delete_node(node.name)
     engine.add_hook(_tick)
+    if fault_plan is not None:
+        from .faults.injector import install_bursts
+        install_bursts(engine, cloud, fault_plan, store)
 
     store.add_nodeclass(NodeClassSpec(name="default"))
     store.add_nodepool(nodepool or NodePool(name="default"))
@@ -219,37 +248,10 @@ def make_sim(types: Optional[List[InstanceType]] = None,
                           provisioner=provisioner, lifecycle=lifecycle,
                           binding=binding, termination=termination,
                           disruption=disruption, interruption=interruption,
-                          gc=gc, journal=journal)
+                          gc=gc, fault_plan=fault_plan, journal=journal)
 
 
-def state_hash(sim) -> str:
-    """Canonical digest of the end-of-run cluster state — a copy of the
-    reference's `faults/runner.state_hash`. Deliberately id-free; covers
-    node composition (type, zone, capacity type, readiness, the exact pod
-    set on each node), the claim fleet summary, unbound pods, and live
-    ICE marks."""
-    store = sim.store
-    node_entries = []
-    for node in store.nodes.values():
-        pods = tuple(sorted(p.name for p in store.pods_on_node(node.name)))
-        node_entries.append([
-            node.labels.get(L.INSTANCE_TYPE, ""),
-            node.labels.get(L.ZONE, ""),
-            node.labels.get(L.CAPACITY_TYPE, ""),
-            bool(node.ready), pods])
-    node_entries.sort()
-    claim_entries = sorted(
-        [c.nodepool, c.instance_type or "", c.zone or "",
-         c.capacity_type or "", str(c.phase)]
-        for c in store.nodeclaims.values())
-    unbound = sorted(k for k, p in store.pods.items()
-                     if p.node_name is None)
-    live_instances = sorted(
-        [i.instance_type, i.zone, i.capacity_type, i.state]
-        for i in sim.cloud.instances.values() if i.state != "terminated")
-    payload = json.dumps(
-        {"nodes": node_entries, "claims": claim_entries,
-         "unbound": unbound, "instances": live_instances,
-         "ice_marks": sim.catalog.unavailable.active()},
-        sort_keys=True, default=list)
-    return hashlib.sha256(payload.encode()).hexdigest()
+
+# the one copy of the canonical end-state digest is the chaos runner's
+# (faults/runner.py); callers of `sim.state_hash` get that same function
+from .faults.runner import state_hash  # noqa: E402

@@ -565,13 +565,15 @@ def test_kernel_refusal_in_the_screen_raises_out_of_tick(monkeypatch):
 def test_armed_optimizer_and_unported_options_raise(monkeypatch):
     """The global optimizer is ported: armed (the default), make_sim
     constructs (its loop is held equal to the reference's in
-    test_torch_sim_optimizer.py). The fault plan and the warm path are
-    not ported and raise."""
+    test_torch_sim_optimizer.py). The fault plan is ported too (its runs
+    are held equal to the reference's in test_torch_chaos.py); the warm
+    path is not ported and raises."""
+    from karpenter_tpu_torch.faults import FaultPlan
     monkeypatch.delenv("KARPENTER_TPU_OPTIMIZER")
     assert port_sim.make_sim(device="cpu").disruption is not None
     monkeypatch.setenv("KARPENTER_TPU_OPTIMIZER", "0")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_sim.make_sim(device="cpu", fault_plan=object())
+    plan = FaultPlan(seed=0)
+    assert port_sim.make_sim(device="cpu", fault_plan=plan).fault_plan is plan
     with pytest.raises(NotImplementedError, match="not ported"):
         port_sim.make_sim(device="cpu", warmpath=True)
     assert port_sim.make_sim(device="cpu").disruption is not None

@@ -31,10 +31,14 @@ Phases (any failure exits non-zero):
              the first solve's launches too; B0 and B must launch inside it
              and equal their plain versions at its inputs; any fallback,
              integrity violation or logged degradation fails the phase.
-             Then its median wall, one run split by stage (the facade's
-             tracer spans), and the device/native wall at 100k pods (the
-             sweep from 1k is cut) on that mix and on the grid pods of phase
-             3 (the crossover that Solver.DEVICE_MIN_PODS is held against).
+             Then its median wall served by the delta plane (the default:
+             the repeat is answered from the solve memo, still verified);
+             with the plane off (KARPENTER_TPU_DELTA=0, every solve
+             dispatches) its median wall, one run split by stage (the
+             facade's tracer spans), and the device/native wall at 100k
+             pods (the sweep from 1k is cut) on that mix and on the grid
+             pods of phase 3 (the crossover that Solver.DEVICE_MIN_PODS is
+             held against).
   4c. operator the control loop as users enter it: the port's
              make_sim(backend="device") on the 810-type catalog with the
              reference's fast cloud (its c8 cell), the global optimizer
@@ -53,13 +57,17 @@ Phases (any failure exits non-zero):
   4d. optimizer bench c14's procedure (`optimizer.fixtures.
              measure_consolidation`, the squeeze fleet) on the device rung,
              armed and disarmed, and armed on the native rung, at 2 tiles
-             and at OPT_TILES: joint consolidations >= tiles, the armed
-             savings above the disarmed ones, device == native.
+             and at OPT_TILES, the delta plane at its default (its audit
+             passes re-run a memoized fruitless search): joint
+             consolidations >= tiles, the armed savings above the disarmed
+             ones, device == native (subsets scored included).
   4e. fleet  the port's SolverService (fleet/service.py) on the 810-type
              catalog: bench c12's procedure (16 tenants, 10 rounds of a
              48-pod burst) on a serial device service and a batched one
              (batch=True), each after a warm round, SolveOutputs equal to a
-             native-rung service's every round, max batch 16 and exactly
+             native-rung service's every round: at the default the delta
+             plane serves every repeated solve (no B0/B launch; 480 served
+             solves), then with the plane off max batch 16 and exactly
              one B0 and one B launch a batched round; a wide pump of 32
              tenants x 8,192 grid pods (two buckets of 16, bucket 2
              dispatched before bucket 1 drains, every packed row equal to
@@ -81,9 +89,10 @@ Phases (any failure exits non-zero):
              the native rung makes no device dispatch for its fault), the
              restart group at seeds 0-4 on both rungs; every report ok, no
              fallback but device_loss's one injected fault, no integrity flag
-             or optimizer degrade; sdc_storm, resident_rot and the three
-             warm-path scenarios raise NotImplementedError naming their
-             item. Then a storm at cluster scale: the soak's rules over the
+             or optimizer degrade; the three warm-path scenarios raise
+             NotImplementedError naming their item (sdc_storm and
+             resident_rot run in 4h). Then a storm at cluster scale: the
+             soak's rules over the
              operator phase's grid pods, 5,000 (cut from 10,000) in waves of
              2,500, 1,250 and 1,250 at 0, 120 and 300 s, on 810 types, device
              then native
@@ -104,6 +113,28 @@ Phases (any failure exits non-zero):
              fallback, fault_fallback or integrity flag fails it. Prints
              each run's wall, solves, batches, tickets, solves/s, overlap,
              SLO alerts and B0/B launches.
+  4h. planes the delta plane and the device-resident state: the facade mix's
+             encoded groups (100,000 pods, Gp 1,536) solved through
+             solve_device(resident_key=) at first sight, then with 1%, 10%
+             and 60% of the group rows changed (a patch, a patch, the dense
+             full upload), then unchanged (a clean hit: zero bytes and
+             uploads, fewer HtoD copies under torch.profiler); every packed
+             vector equal to the solve with KARPENTER_TPU_RESIDENT=0, each
+             patch's resident_patch bytes the changed rows plus the index
+             vector. c12's 16 tenants batched for four rounds (delta plane
+             off): the stacked matrix seeded, repeated (clean hit), two
+             tenants changed (a patch), every row equal to the disarmed
+             run's. RESIDENT.audit over every entry (0 corrupt),
+             DEVICEMEM.audit against the live CUDA tensors (coverage >=
+             0.99), the PhaseLedger's coverage of one traced facade solve,
+             RECOMPUTE's redundant fraction by stage over the operator
+             phase. sdc_storm and resident_rot twice each at seed 0 on the
+             device rung: ok (100% detected before commit), repeat-equal
+             digests, the reference's detections and flags, one quarantine
+             an injection. c14 at 2 tiles at the default: 3,676 subsets
+             scored, savings and plans unchanged. The row scatter timed at
+             the gbuf (k = 1% and 10% of Gp) and the conflict matrix beside
+             its bound and a full upload of the same matrix.
   5. time    median wall times of the solve and the screen, stage by stage;
              per-kernel device time from torch.profiler and CUDA events
              beside its bound, its plain version's time and one torch
@@ -121,7 +152,11 @@ facade's solve; C: the operator loop's first subset search); `by_phase`
 holds each phase's launches (the main path, the facade, the operator, the
 optimizer, the chaos phase, the fleet runner and, for B0 and B, the
 fleet's batched rounds) and times (the
-fleet's at its wide bucket: 16 requests in one launch). The last two lines of
+fleet's at its wide bucket: 16 requests in one launch). Its resident_patch
+row is the row scatter of ops/resident (the port of the reference's
+_jit_scatter, a library index_copy_): launches from phase 4h, times at the
+facade mix's gbuf with k = 1% of its rows, by_phase every phase's launches
+and the other timed inputs. The last two lines of
 output are that line and {"ok": true, "device": {...}}. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -163,6 +198,25 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+class env_set:
+    """Set environment switches for a block and restore them after."""
+
+    def __init__(self, **kv):
+        self.kv = {k: str(v) for k, v in kv.items()}
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.kv}
+        os.environ.update(self.kv)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def grid_pods(models, n: int, seed: int):
@@ -676,16 +730,31 @@ def phase_facade():
         f"existing nodes, {len(r_dev.launches)} new launches")
 
     # --- times ---
-    walls = []
-    for _ in range(FACADE_REPS):
-        t0 = time.perf_counter()
-        dev_f.solve(pods, pool, **kw)
-        sync()
-        walls.append((time.perf_counter() - t0) * 1e3)
+    # at the default the delta plane serves a repeat of the first solve
+    # (its result, still oracle-verified); every time after that is taken
+    # with the plane off (KARPENTER_TPU_DELTA=0), so each solve dispatches
+    # — the request matrix and catalog stay resident either way
+    def facade_walls():
+        walls = []
+        for _ in range(FACADE_REPS):
+            t0 = time.perf_counter()
+            dev_f.solve(pods, pool, **kw)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return walls
+    served = facade_walls()
+    log(f"[time] Solver.solve {N_PODS} pods, backend='device', served by the "
+        f"delta plane (the default): median wall "
+        f"{statistics.median(served):.3f} ms over {FACADE_REPS} runs "
+        f"({', '.join(f'{w:.1f}' for w in served)})")
+    delta_off = env_set(KARPENTER_TPU_DELTA=0)
+    delta_off.__enter__()
+    walls = facade_walls()
     wall = statistics.median(walls)
-    log(f"[time] Solver.solve {N_PODS} pods, backend='device', catalog view "
-        f"and encode cache warm: median wall {wall:.3f} ms over {FACADE_REPS} "
-        f"runs ({', '.join(f'{w:.1f}' for w in walls)})")
+    log(f"[time] Solver.solve {N_PODS} pods, backend='device', delta plane "
+        f"off, catalog view, encode cache and resident request matrix warm: "
+        f"median wall {wall:.3f} ms over {FACADE_REPS} runs "
+        f"({', '.join(f'{w:.1f}' for w in walls)})")
 
     # one solve split by stage: the facade's own tracer spans (host clock;
     # the card is synced at the trace's edges, and the scan's device time
@@ -703,15 +772,17 @@ def phase_facade():
     top = tr.children(tr.root)
     top_ms = span_ms(top)
     inner_ms = span_ms([c for sp in top if sp.name == "solve.run"
-                            for c in tr.children(sp)])
+                        for d in tr.children(sp) if d.name == "solve.device"
+                        for c in tr.children(d)])
     split_wall = tr.root.duration * 1e3
     log(f"[time] facade stages of one solve (ms, spans; wall "
         f"{split_wall:.3f}): " + ", ".join(
             f"{k} {v:.3f}" for k, v in top_ms.items())
         + f", unattributed {split_wall - sum(top_ms.values()):.3f}")
-    log("[time] inside solve.run (solve_device): " + ", ".join(
+    log("[time] inside solve.run > solve.device (solve_device): " + ", ".join(
         f"{k} {v:.3f}" for k, v in inner_ms.items())
-        + f", the rest {top_ms.get('solve.run', 0.0) - sum(inner_ms.values()):.3f}")
+        + f", the rest of solve.run "
+        f"{top_ms.get('solve.run', 0.0) - sum(inner_ms.values()):.3f}")
     ev = device_kernel_us(lambda: dev_f.solve(pods, pool, **kw))
     busy = sum(us for us, _ in ev.values()) / 1e3
     log(f"[time] one Solver.solve: device busy {busy:.3f} ms of "
@@ -746,6 +817,7 @@ def phase_facade():
                 f"{n}: device {d:.2f} / native {nt:.2f}" for n, d, nt in cross)
             + f"; device faster from {first} pods on "
             f"(Solver.DEVICE_MIN_PODS = {F.Solver.DEVICE_MIN_PODS})")
+    delta_off.__exit__()
     watch.check("crossover")
     return launches, (sargs, skw)
 
@@ -946,12 +1018,18 @@ def check_recorded(rec_b, rec_a, rec_c, where: str,
 
 def reset_sequences() -> None:
     """Claim names, pod uids and instance ids start from the same value in
-    every run a phase compares: names break ties in the loop's orderings."""
+    every run a phase compares (names break ties in the loop's orderings),
+    and the delta and resident planes start empty (their keys hold
+    id(facade), which a later facade may reuse)."""
     from karpenter_tpu_torch.cloud import fake
     from karpenter_tpu_torch.models import nodeclaim, pod
+    from karpenter_tpu_torch.ops.delta import DELTA
+    from karpenter_tpu_torch.ops.resident import RESIDENT
     nodeclaim._seq = itertools.count()
     pod._uid = itertools.count()
     fake._ids = itertools.count(1)
+    DELTA.reset()
+    RESIDENT.reset()
 
 
 def phase_operator(dev):
@@ -1104,23 +1182,25 @@ def phase_operator(dev):
 # the script's wall on one H100; PERF.md)
 OPT_TILES = 12
 OPT_RUN_S = 900.0       # sim seconds a measurement runs (bench c14's)
+# c14 at 2 tiles at the reference's default, delta plane armed: the subsets
+# scored, savings and joint consolidations that
+# tests/test_torch_sim_optimizer.py holds equal to the reference's
+C14_AT_2_TILES = {"subsets_scored": 3676, "savings": 0.2838,
+                  "joint_consolidations": 2}
 
 
-def phase_optimizer() -> dict:
+def phase_optimizer() -> tuple:
     """measure_consolidation("squeeze", tiles) on make_sim(backend=
     "device"), armed and disarmed, and armed on the native rung, at 2 tiles
-    and at OPT_TILES. Returns kernel C's launches in the phase."""
-    from karpenter_tpu_torch.cloud import fake
-    from karpenter_tpu_torch.models import nodeclaim, pod
+    and at OPT_TILES, the delta plane at its default. Returns kernel C's
+    launches in the phase and the armed device run at 2 tiles."""
     from karpenter_tpu_torch.optimizer import fixtures, tournament_k as tk
     tk.launches = 0
     for tiles in (2, OPT_TILES):
         runs = {}
         for backend, armed in (("device", True), ("device", False),
                                ("native", True)):
-            nodeclaim._seq = itertools.count()
-            pod._uid = itertools.count()
-            fake._ids = itertools.count(1)
+            reset_sequences()  # and the planes: each run starts empty
             t0 = time.perf_counter()
             r = fixtures.measure_consolidation("squeeze", tiles, armed=armed,
                                                run_for=OPT_RUN_S,
@@ -1148,8 +1228,10 @@ def phase_optimizer() -> dict:
             f"== native (state hash, savings, decisions, verifies); walls "
             f"(ms) device armed {on['wall_ms']:.1f}, disarmed "
             f"{off['wall_ms']:.1f}, native armed {nat['wall_ms']:.1f}")
+        if tiles == 2:
+            c14 = on
     check(tk.launches > 0, "kernel C was not launched in the optimizer phase")
-    return {"tournament": tk.launches}
+    return {"tournament": tk.launches}, c14
 
 
 FLEET_TENANTS = 16     # bench c12's tenants, rounds and burst (bench.py:736)
@@ -1175,8 +1257,8 @@ class FleetWatch:
         self.real = (s.dispatch_batch, s.InFlightBatch.block)
         real_dispatch, real_block = self.real
 
-        def dispatch(reqs, mesh=None):
-            ifb = real_dispatch(reqs, mesh)
+        def dispatch(reqs, mesh=None, resident_key=None):
+            ifb = real_dispatch(reqs, mesh, resident_key=resident_key)
             watch.batches.append(ifb)
             watch.order.append(("dispatch", len(watch.batches) - 1))
             return ifb
@@ -1354,53 +1436,85 @@ def phase_fleet() -> tuple:
     nat_svc, nat = fleet_service("native", False, FLEET_TENANTS, types)
     ser_svc, ser = fleet_service("device", False, FLEET_TENANTS, types)
     bat_svc, bat = fleet_service("device", True, FLEET_TENANTS, types)
-    serial_round(ser, bursts, pool)                 # warm rounds
+    serial_round(nat, bursts, pool)                 # warm rounds
+    serial_round(ser, bursts, pool)
     with Recorder(solver, "solve_scan_batched") as rec_c12:
         batched_round(bat_svc, bat, bursts, pool)
-    walls = {"native": 0.0, "serial device": 0.0, "batched": 0.0}
-    per_round = []
+    from karpenter_tpu_torch.metrics import DELTA_MEMO
+
+    def solve_serves():
+        return DELTA_MEMO.value(stage="solve", event="served")
+
+    def c12_rounds(regime: str):
+        """FLEET_ROUNDS rounds on the three services; returns the solves/s
+        of each, B0/B launches a batched round, the batched service's
+        stats delta and the delta plane's serves."""
+        walls = {"native": 0.0, "serial device": 0.0, "batched": 0.0}
+        per_round = []
+        serves0 = solve_serves()
+        st0 = dict(bat_svc.stats)
+        with FleetWatch(solver) as fw:
+            for r in range(FLEET_ROUNDS):
+                t0 = time.perf_counter()
+                want = serial_round(nat, bursts, pool)
+                t1 = time.perf_counter()
+                got_s = serial_round(ser, bursts, pool)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                ss.launches = 0
+                ss.offer_launches = 0
+                got_b = batched_round(bat_svc, bat, bursts, pool)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                n = (ss.offer_launches, ss.launches)
+                per_round.append(n)
+                fleet_launches["offer_argmin"] += n[0]
+                fleet_launches["solve_scan"] += n[1]
+                walls["native"] += t1 - t0
+                walls["serial device"] += t2 - t1
+                walls["batched"] += t3 - t2
+                check(got_s == want and got_b == want,
+                      f"c12 {regime} round {r}: SolveOutputs differ across "
+                      f"the serial device, batched and native services")
+        check(sum(b.fallbacks for b in fw.batches) == 0,
+              f"c12 {regime}: a batched row fell back to a serial re-run")
+        st = {k: v - st0.get(k, 0) for k, v in bat_svc.stats.items()
+              if isinstance(v, (int, float))}
+        solves = FLEET_TENANTS * FLEET_ROUNDS
+        log(f"[fleet] c12 {regime} ({FLEET_TENANTS} tenants x {FLEET_ROUNDS} "
+            f"rounds of {FLEET_BURST} pods, 810 types): SolveOutputs equal "
+            f"across the serial device, batched and native services every "
+            f"round; solves/s "
+            + ", ".join(f"{k} {solves / v:.1f}" for k, v in walls.items())
+            + f"; batched: {st.get('batches', 0)} batches, "
+            f"{st.get('batched_tickets', 0)} tickets, max "
+            f"{bat_svc.stats['max_batch_size']}, pipeline_overlap_ratio "
+            f"{bat_svc.pipeline_overlap_ratio():.4f}; B0/B launches a "
+            f"batched round {sorted(set(per_round))}; solves the delta plane "
+            f"served {solve_serves() - serves0:g}")
+        return per_round, solve_serves() - serves0
+
     fleet_launches = {"offer_argmin": 0, "solve_scan": 0}
-    with FleetWatch(solver) as fw:
-        for r in range(FLEET_ROUNDS):
-            t0 = time.perf_counter()
-            want = serial_round(nat, bursts, pool)
-            t1 = time.perf_counter()
-            got_s = serial_round(ser, bursts, pool)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            ss.launches = 0
-            ss.offer_launches = 0
-            got_b = batched_round(bat_svc, bat, bursts, pool)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            n = (ss.offer_launches, ss.launches)
-            per_round.append(n)
-            fleet_launches["offer_argmin"] += n[0]
-            fleet_launches["solve_scan"] += n[1]
-            walls["native"] += t1 - t0
-            walls["serial device"] += t2 - t1
-            walls["batched"] += t3 - t2
-            check(got_s == want and got_b == want,
-                  f"c12 round {r}: SolveOutputs differ across the serial "
-                  f"device, batched and native services")
+    # at the default the delta plane serves every repeated burst: the warm
+    # rounds stored each tenant's solve, and no round reaches its audit
+    # cadence (16 serves), so nothing is dispatched, in the reference too
+    per_round, serves = c12_rounds("delta plane on (the default)")
+    check(per_round == [(0, 0)] * FLEET_ROUNDS
+          and serves == 3 * FLEET_TENANTS * FLEET_ROUNDS,
+          f"c12: the delta plane served {serves} solves, launches "
+          f"{per_round}; want every repeated solve served")
+    # the plane off: every round dispatches, one bucket of 16. The
+    # services' clocks move to their next scheduling window first: each
+    # tenant may submit 16 solves a window, and the rounds above took 11
+    for svc_ in (nat_svc, ser_svc, bat_svc):
+        svc_.clock.step(5.0)
+    with env_set(KARPENTER_TPU_DELTA=0):
+        per_round, _ = c12_rounds("delta plane off")
     check(all(n == (1, 1) for n in per_round),
           f"c12: a batched round must launch B0 and B once each: {per_round}")
-    st = bat_svc.stats
-    check(st["max_batch_size"] == FLEET_TENANTS,
-          f"c12: max batch size {st['max_batch_size']}, not {FLEET_TENANTS}")
-    check(sum(b.fallbacks for b in fw.batches) == 0,
-          "c12: a batched row fell back to a serial re-run")
-    solves = FLEET_TENANTS * FLEET_ROUNDS
-    log(f"[fleet] c12 ({FLEET_TENANTS} tenants x {FLEET_ROUNDS} rounds of "
-        f"{FLEET_BURST} pods, 810 types): SolveOutputs equal across the "
-        f"serial device, batched and native services every round; solves/s "
-        + ", ".join(f"{k} {solves / v:.1f}" for k, v in walls.items())
-        + f"; batched: {st['batches']} batches, mean batch size "
-        f"{st['batched_tickets'] / max(st['batches'], 1):.2f}, occupancy "
-        f"{st['batched_tickets'] / max(st['padded_slots'], 1):.3f}, max "
-        f"{st['max_batch_size']}, pipeline_overlap_ratio "
-        f"{bat_svc.pipeline_overlap_ratio():.4f}; B0/B launches a batched "
-        f"round {per_round[0]}")
+    check(bat_svc.stats["max_batch_size"] == FLEET_TENANTS,
+          f"c12: max batch size {bat_svc.stats['max_batch_size']}, not "
+          f"{FLEET_TENANTS}")
     box = {}
 
     def one_pump():
@@ -1408,10 +1522,11 @@ def phase_fleet() -> tuple:
         batched_round(bat_svc, bat, bursts, pool)
         torch.cuda.synchronize()
         box["wall"] = (time.perf_counter() - t0) * 1e3
-    for _ in range(3):  # the trace drops a short run's events now and then
-        ev = device_kernel_us(one_pump)
-        if ev:
-            break
+    with env_set(KARPENTER_TPU_DELTA=0):
+        for _ in range(3):  # the trace drops a short run's events now and then
+            ev = device_kernel_us(one_pump)
+            if ev:
+                break
     if ev:
         busy = sum(us for us, _ in ev.values()) / 1e3
         log(f"[time] one batched c12 pump under torch.profiler: device busy "
@@ -1541,8 +1656,8 @@ CHAOS_SCENARIOS = ("smoke", "ice_storm", "api_brownout", "interruption_wave",
                    "device_loss", "clock_skew", "soak", "restart_smoke",
                    "crash_drain")
 # the catalog's scenarios whose planes are not ported: running one raises
-UNPORTED_SCENARIOS = {"sdc_storm": "item 7", "resident_rot": "item 7",
-                      "warmpath_smoke": "item 9", "warmpath_storm": "item 9",
+# (sdc_storm and resident_rot run in phase 4h)
+UNPORTED_SCENARIOS = {"warmpath_smoke": "item 9", "warmpath_storm": "item 9",
                       "crash_launch_storm": "item 9"}
 CRASH_AUDIT_SEEDS = 5    # `make crash-audit`: the restart group, seeds 0-4
 # the storm: the soak scenario's rules over the operator phase's grid pods
@@ -1696,7 +1811,7 @@ def phase_chaos() -> dict:
     """The reference's chaos catalog on the card: every runnable scenario
     on the device rung twice (repeat-equal digests) and once on native
     (equal to the device runs), the restart group at seeds 0-4 on both
-    rungs, the five unported scenarios raising, then the soak's storm at
+    rungs, the three unported scenarios raising, then the soak's storm at
     cluster scale on both rungs with A, B0, B and C checked at inputs
     recorded inside it. Returns the kernels' launches in the phase."""
     import dataclasses
@@ -1947,6 +2062,388 @@ def phase_fleet_runner() -> dict:
         f"launches {launches}; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# --- phase 4h: the delta plane and the device-resident state on the card --
+
+PATCH_FRACTIONS = (0.01, 0.10, 0.60)   # of the facade mix's encoded groups
+# the corruption drills at seed 0: the integrity plane's detections and
+# violation flags by check, as tests/test_torch_chaos.py holds them equal
+# to the reference's (each injection also quarantines the facade once)
+DRILLS = {"sdc_storm": {"detections": 4,
+                        "flags": {"accounting": 2.0, "resident_audit": 2.0}},
+          "resident_rot": {"detections": 3,
+                           "flags": {"capacity": 1.0, "resident_audit": 2.0}}}
+
+
+class ReadKeeper:
+    """Keeps what ops/solver._read returns (the last read of a solve is its
+    packed result vector)."""
+
+    def __init__(self, solver):
+        self.solver, self.reads = solver, []
+
+    def __enter__(self):
+        real = self.real = self.solver._read
+
+        def keep(t):
+            out = real(t)
+            self.reads.append(out)
+            return out
+        self.solver._read = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.solver._read = self.real
+
+
+def h2d_events(ev: dict) -> int:
+    return sum(n for name, (_, n) in ev.items() if "HtoD" in name)
+
+
+def kernel_only_ms(fn, calls: int) -> float:
+    """Device ms a call of fn() spends in kernels (memcpy excluded), from
+    torch.profiler over `calls` calls: each kernel's mean time a launch,
+    summed over the kernels a call launches once each (robust to the
+    events the trace drops); None when the trace is empty."""
+    for _ in range(3):
+        ev = device_kernel_us(lambda: [fn() for _ in range(calls)])
+        per = [u / n for name, (u, n) in ev.items()
+               if "Memcpy" not in name and "Memset" not in name]
+        if per:
+            return sum(per) / 1e3
+    return None
+
+
+def scatter_times(resident, solver, buf, k: int, where: str) -> dict:
+    """The resident patch's row scatter at one resident buffer: k seeded
+    rows through _scatter_rows (the int32 index widened on the card, then
+    index_copy_ in place), the kernels alone, the plain advanced-indexing
+    assignment, index_copy_ alone, and a full upload of the same matrix
+    beside the bytes bound. Returns the row of the kernels line."""
+    import numpy as np
+    import torch
+    dev = buf.device
+    rows_n = int(buf.shape[0])
+    rng = np.random.default_rng(k)
+    idx_np = np.sort(rng.choice(rows_n, size=k, replace=False)).astype(
+        np.int32)
+    host = buf.cpu().numpy()
+    if host.dtype == bool:
+        new_rows = ~host[idx_np]
+    else:
+        new_rows = host[idx_np] + np.float32(1.0)
+    idx = torch.from_numpy(idx_np).to(dev)
+    idx64 = idx.to(torch.int64)
+    rows = torch.from_numpy(np.ascontiguousarray(new_rows)).to(dev)
+    work = buf.clone()
+    resident._scatter_rows(work, idx, rows, True)
+    want = host.copy()
+    want[idx_np] = new_rows
+    got = work.cpu().numpy()
+    err = float(np.abs(got.astype(np.float64)
+                       - want.astype(np.float64)).max())
+    check(err == 0.0, f"scatter at {where}: max abs err {err}")
+    ms = cuda_ms(lambda: resident._scatter_rows(work, idx, rows, True), 200)
+    kernel = kernel_only_ms(
+        lambda: resident._scatter_rows(work, idx, rows, True), 20)
+    plain = cuda_ms(lambda: work.index_put_((idx64,), rows), 200)
+    lib = cuda_ms(lambda: work.index_copy_(0, idx64, rows), 200)
+    # a full upload of the same matrix: the host wall of _put (pinning and
+    # the copy, synchronised) and the copy's device time
+    up_wall = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver._put(want, dev)
+        torch.cuda.synchronize()
+        up_wall.append((time.perf_counter() - t0) * 1e3)
+    copy_us = []
+    for _ in range(3):  # the trace drops a short run's events now and then
+        ev = device_kernel_us(lambda: [solver._put(want, dev)
+                                       for _ in range(5)])
+        copy_us = [u / n for name, (u, n) in ev.items() if "HtoD" in name]
+        if copy_us:
+            break
+    row_bytes = int(buf.element_size()) * (buf.numel() // rows_n)
+    nbytes = 2 * k * row_bytes + k * 8
+    out = {"ms": ms, "plain_ms": plain, **bound(nbytes, 0),
+           "library_ms": lib, "kernel_ms": kernel, "max_abs_err": err,
+           "k": k, "rows": rows_n,
+           "row_bytes": row_bytes,
+           "full_upload_ms": statistics.median(up_wall),
+           "full_upload_copy_ms": (max(copy_us) / 1e3 if copy_us else None),
+           "full_upload_bytes": int(want.nbytes)}
+    log(f"[time] resident patch at {where} ({rows_n} rows of {row_bytes} B, "
+        f"k={k}): _scatter_rows {ms:.5f} ms (kernels alone {kernel} ms), "
+        f"bound {out['bound_ms']:.6f} ms ({nbytes} B); plain index_put_ "
+        f"{plain:.5f} ms; index_copy_ alone {lib:.5f} ms; a full upload of "
+        f"the matrix ({want.nbytes} B) {out['full_upload_ms']:.4f} ms wall, "
+        f"copy {out['full_upload_copy_ms']} ms on the card")
+    return out
+
+
+def phase_planes(c14: dict, recompute_snap: dict) -> dict:
+    """The delta plane and the device-resident state on the card (phase 4h):
+    the resident request matrix patched at full width, the batched pump's
+    resident stacks, the audits and ledgers, the corruption drills, c14 at
+    the reference's default, and the row scatter timed. Returns the row
+    scatter's launches in the phase and its rows of the kernels line."""
+    import numpy as np
+    import torch
+    from karpenter_tpu_torch import catalog, models
+    from karpenter_tpu_torch.faults import SCENARIOS
+    from karpenter_tpu_torch.integrity import INTEGRITY
+    from karpenter_tpu_torch.metrics import (INTEGRITY_VERDICTS,
+                                             RESIDENT_FALLBACKS,
+                                             SOLVER_FALLBACKS)
+    from karpenter_tpu_torch.obs import devicemem as dm
+    from karpenter_tpu_torch.obs.profile import LEDGER
+    from karpenter_tpu_torch.obs.tracer import TRACER
+    from karpenter_tpu_torch.ops import facade as F, resident, solver
+
+    t_phase = time.perf_counter()
+    R = resident.RESIDENT
+    reset_sequences()
+    launches0 = resident.launches
+
+    def patch_bytes():
+        return sum(r["bytes"] for r in dm.TRANSFERS.snapshot()["rows"]
+                   if r["reason"] == "resident_patch")
+
+    # --- 1. the resident request matrix at full width (the facade mix) ---
+    types = catalog.generate_catalog()
+    pool, daemonsets, pods = facade_cluster(models, N_PODS, SEED)
+    f = F.Solver(catalog.CatalogProvider(lambda: types), backend="device")
+    prep = f.prepare_solve(pods, pool, daemonsets=daemonsets)
+    check(prep.output is None and prep.backend == "device",
+          "planes: the facade mix did not stage a device solve")
+    cat, enc = prep.cat, copy.copy(prep.enc)
+    enc.counts = prep.enc.counts.copy()
+    dcat = f._device_dcat(prep)
+    G, Gp = enc.G, solver._bucket(enc.G, 8)
+    n_max = solver._auto_node_budget(cat, enc, 0)
+    key = ("planes", "facade-mix")
+    gkey = key + ("gbuf", Gp)
+    track = enc.conflict is not None
+    rng = np.random.default_rng(SEED)
+    order = rng.permutation(G)
+    steps = [("first sight", 0)]
+    for frac in PATCH_FRACTIONS:
+        k = int(np.ceil(frac * G))
+        if frac > resident.PATCH_MAX_FRAC:
+            k = min(G, max(k, int(resident.PATCH_MAX_FRAC * Gp) + 1))
+        steps.append((f"{frac:.0%} of the groups changed", k))
+    steps.append(("nothing changed", 0))
+    used = 0
+    ent_stats0 = None
+    for what, k in steps:
+        if k:
+            sel = order[used:used + k] if used + k <= G else \
+                rng.choice(G, size=k, replace=False)
+            used += k
+            enc.counts = enc.counts.copy()
+            enc.counts[sel] += 1
+        b0, h0 = patch_bytes(), dm.TRANSFERS.totals()[0]
+        u0 = solver.transfer_stats()[0]
+        dense0 = RESIDENT_FALLBACKS.sum(reason="dense")
+        with ReadKeeper(solver) as rk:
+            if what == "nothing changed":
+                ev = device_kernel_us(lambda: solver.solve_device(
+                    cat, enc, n_max=n_max, dcat=dcat, resident_key=key))
+            else:
+                solver.solve_device(cat, enc, n_max=n_max, dcat=dcat,
+                                    resident_key=key)
+        got = rk.reads[-1]
+        shipped, h2d = patch_bytes() - b0, dm.TRANSFERS.totals()[0] - h0
+        uploads = solver.transfer_stats()[0] - u0
+        ent = R._entries[gkey]
+        st = dict(ent.stats)
+        with env_set(KARPENTER_TPU_RESIDENT=0), ReadKeeper(solver) as rk0:
+            if what == "nothing changed":
+                ev0 = device_kernel_us(lambda: solver.solve_device(
+                    cat, enc, n_max=n_max, dcat=dcat, resident_key=key))
+            else:
+                solver.solve_device(cat, enc, n_max=n_max, dcat=dcat,
+                                    resident_key=key)
+        check(np.array_equal(got, rk0.reads[-1]),
+              f"planes: {what}: the resident solve's packed vector != the "
+              f"disarmed one's")
+        W = int(ent.buf.shape[1])
+        if ent_stats0 is None:
+            check(st["full"] == 1, f"planes: first sight {st}")
+        elif what.startswith("60"):
+            check(st["full"] == ent_stats0["full"] + 1
+                  and RESIDENT_FALLBACKS.sum(reason="dense") == dense0 + 1,
+                  f"planes: {what}: not a dense full upload {st}")
+        elif k:
+            check(st["patches"] == ent_stats0["patches"] + 1
+                  and shipped == k * W * 4 + k * 4,
+                  f"planes: {what}: patch {st}, shipped {shipped} B, want "
+                  f"{k * W * 4 + k * 4}")
+        else:
+            n_res = 2 if track else 1
+            check(st["clean"] == ent_stats0["clean"] + 1 and h2d == 0
+                  and uploads == 0,
+                  f"planes: {what}: clean hit {st}, {h2d} B / {uploads} "
+                  f"uploads shipped")
+            if ev and ev0:
+                check(h2d_events(ev) + n_res <= h2d_events(ev0),
+                      f"planes: {what}: HtoD copies {h2d_events(ev)} with "
+                      f"residency vs {h2d_events(ev0)} without")
+            log(f"[planes] {what}: 0 B shipped, 0 uploads; HtoD memcpy "
+                f"events under torch.profiler {h2d_events(ev)} resident vs "
+                f"{h2d_events(ev0)} disarmed (the gbuf"
+                f"{' and the conflict matrix' if track else ''})")
+        ent_stats0 = st
+        log(f"[planes] facade mix G={G} Gp={Gp} W={W} n_max={n_max}: {what} "
+            f"(k={k}): gbuf entry {st}; resident_patch {shipped} B, h2d "
+            f"{h2d} B; packed vector == disarmed")
+
+    # the facade mix's resident buffers, kept for step 6 (the drills reset
+    # the manager)
+    ckey = key + ("conflict", Gp)
+    timed_bufs = {"gbuf": R._entries[gkey].buf,
+                  "conflict": (R._entries[ckey].buf if ckey in R._entries
+                               else None)}
+
+    # --- 2. the batched pump's resident stacks (c12's 16 tenants) ---
+    # delta plane off: it would serve an unchanged tenant before its pump
+    burst = [[models.Pod(name=f"c12-{t}-{i}", requests=models.Resources.parse(
+        {"cpu": FLEET_SHAPES[(t + i) % len(FLEET_SHAPES)][0],
+         "memory": FLEET_SHAPES[(t + i) % len(FLEET_SHAPES)][1]}))
+        for i in range(FLEET_BURST)] for t in range(FLEET_TENANTS)]
+    # two tenants change 3 pods' shapes to another of their shapes: new
+    # group rows, the same groups and shape class (one bucket still)
+    changed = [list(b) for b in burst]
+    for t in (0, 5):
+        cpu, mem = FLEET_SHAPES[t % len(FLEET_SHAPES)]
+        changed[t] = changed[t][:-3] + [
+            models.Pod(name=p.name, requests=models.Resources.parse(
+                {"cpu": cpu, "memory": mem})) for p in changed[t][-3:]]
+    rounds = [burst, burst, burst, changed]
+    c12_pool = models.NodePool(name="default")
+    runs = {}
+    for armed in ("1", "0"):
+        with env_set(KARPENTER_TPU_DELTA=0, KARPENTER_TPU_RESIDENT=armed):
+            svc, clients = fleet_service("device", True, FLEET_TENANTS, types)
+            rows, stats = [], []
+            for r, bursts in enumerate(rounds):
+                s0 = dict(R.stats)
+                with FleetWatch(solver) as fw:
+                    batched_round(svc, clients, bursts, c12_pool)
+                rows.append([ifb.rows().copy() for ifb in fw.batches])
+                stats.append({k: R.stats[k] - s0[k] for k in
+                              ("full_uploads", "patches", "clean_hits")})
+            runs[armed] = (rows, stats, svc)
+    rows, stats, svc = runs["1"]
+    fleet_keys = [k for k in R._entries if k[:2] == ("fleet", id(svc))]
+    for r in range(len(rounds)):
+        check(len(rows[r]) == len(runs["0"][0][r]) and all(
+            np.array_equal(a, b) for a, b in zip(rows[r], runs["0"][0][r])),
+            f"planes: batched round {r}: resident rows != disarmed rows")
+    check(stats[2]["full_uploads"] == 0 and stats[2]["clean_hits"] >= 1
+          and stats[3]["full_uploads"] == 0 and stats[3]["patches"] >= 1,
+          f"planes: batched rounds 3 and 4 were not served from the resident "
+          f"stack: {stats}")
+    log(f"[planes] c12's {FLEET_TENANTS} tenants, batched, delta plane off: "
+        f"rounds' resident events {stats} (round 1 records the bucket's "
+        f"membership, round 2 seeds the stack, round 3 repeats it, round 4 "
+        f"changes 2 tenants); {len(fleet_keys)} resident stack(s); every "
+        f"packed row == the run with residency disarmed")
+
+    # --- 3. audits and ledgers ---
+    rep = R.audit()
+    check(not rep["corrupt"], f"planes: resident audit found {rep}")
+    import gc
+    gc.collect()
+    audit = dm.DEVICEMEM.audit()
+    live = dm.live_device_tensors()
+    tracked = {dm._storage_key(a) for a in list(dm.DEVICEMEM._arrays.values())}
+    big = sorted(((dm._storage_nbytes(t), tuple(t.shape), str(t.dtype))
+                  for t in live if dm._storage_key(t) not in tracked),
+                 reverse=True)[:5]
+    log(f"[planes] RESIDENT.audit over every entry: {rep['entries']} "
+        f"entries, {rep['rows']} rows read back, 0 corrupt; DEVICEMEM.audit "
+        f"against the live CUDA tensors: {audit}; largest unaccounted "
+        f"storages {big}; residency {dm.DEVICEMEM.snapshot()['kinds']}")
+    check(audit.get("coverage", 0.0) >= 0.99,
+          f"planes: devicemem coverage {audit}")
+    LEDGER.reset()
+    with env_set(KARPENTER_TPU_DELTA=0):
+        TRACER.configure(enabled=True)
+        try:
+            with TRACER.trace("reconcile:provisioner"):
+                f.solve(pods, pool, daemonsets=daemonsets)
+                torch.cuda.synchronize()
+        finally:
+            TRACER.configure(enabled=False)
+    snap = LEDGER.snapshot()
+    phases = snap["phases"].get("default", {}).get("reconcile", {})
+    log(f"[planes] PhaseLedger over one traced {N_PODS}-pod facade solve "
+        f"(root reconcile:provisioner, delta plane off): coverage "
+        f"{LEDGER.coverage(kind='reconcile'):.4f}; buckets (ms) "
+        + ", ".join(f"{b} {r['ms']:.1f}" for b, r in sorted(
+            phases.items(), key=lambda kv: -kv[1]["ms"])))
+    log("[planes] RECOMPUTE over the operator phase, redundant fraction by "
+        "stage: " + ", ".join(
+            f"{st} {row['redundant_frac']} ({row['units']})"
+            for st, row in recompute_snap.get("stages", {}).items()))
+
+    # --- 4. the corruption drills on the device rung ---
+    import dataclasses
+    for name, want in DRILLS.items():
+        sc = dataclasses.replace(SCENARIOS[name], backend="device")
+        digests = []
+        for k in range(2):
+            v0 = dict(INTEGRITY_VERDICTS._values)
+            f0, d0 = SOLVER_FALLBACKS.sum(), INTEGRITY.detections()
+            rep_d, runner, wall, _ = run_scenario(sc, 0)
+            flags = {kk[0]: v - v0.get(kk, 0.0)
+                     for kk, v in INTEGRITY_VERDICTS._values.items()
+                     if kk[1] == "violation" and v != v0.get(kk, 0.0)}
+            det = INTEGRITY.detections() - d0
+            fb = SOLVER_FALLBACKS.sum() - f0
+            st = rep_d.stats
+            check(rep_d.ok and st["corruptions_injected"] == 2
+                  and st["corruptions_detected"] >= 2
+                  and det == want["detections"] and flags == want["flags"]
+                  and fb == 2
+                  and runner.last_sim.solver.stats["device_fallbacks"] == 2,
+                  f"planes: {name} run {k}: {rep_d.summary()}, stats {st}, "
+                  f"detections {det}, flags {flags}, fallbacks {fb}")
+            digests.append(digest(rep_d))
+            log(f"[planes] {name} seed 0 run {k + 1}: ok, "
+                f"{st['corruptions_injected']:g} injected, detections {det} "
+                f"(flags {flags}), quarantines {fb:g} (this facade only); end "
+                f"{rep_d.end_hash[:16]}, fingerprint "
+                f"{rep_d.fault_fingerprint[:16]}; wall {wall:.1f} ms")
+        check(digests[0] == digests[1], f"planes: {name}: the two runs "
+              f"differ: {digests}")
+
+    # --- 5. c14 at the reference's default (phase 4d's run) ---
+    check({k: c14[k] for k in C14_AT_2_TILES} == C14_AT_2_TILES,
+          f"planes: c14 at 2 tiles {c14}, want {C14_AT_2_TILES}")
+    log(f"[planes] c14 at 2 tiles, delta plane armed (phase 4d's device "
+        f"run): {C14_AT_2_TILES} as in the reference")
+    phase_launches = resident.launches - launches0
+    check(phase_launches > 0, "planes: the row scatter was not launched")
+
+    # --- 6. the row scatter timed ---
+    gbuf = timed_bufs["gbuf"]
+    rows_t = {"gbuf_1pct": scatter_times(
+        resident, solver, gbuf, max(1, int(np.ceil(0.01 * Gp))),
+        "the facade mix's gbuf"),
+        "gbuf_10pct": scatter_times(
+        resident, solver, gbuf, int(np.ceil(0.10 * Gp)),
+        "the facade mix's gbuf")}
+    if timed_bufs["conflict"] is not None:
+        rows_t["conflict_1pct"] = scatter_times(
+            resident, solver, timed_bufs["conflict"],
+            max(1, int(np.ceil(0.01 * Gp))), "the conflict matrix")
+    log(f"[planes] phase wall {time.perf_counter() - t_phase:.1f} s; row "
+        f"scatter launches in the phase {phase_launches}")
+    return phase_launches, rows_t
 
 
 def grid_tournament_args(cat, enc, views, counts, slack):
@@ -2258,6 +2755,7 @@ def main() -> None:
                       ss.pack_solution(*out_p, k_max=k_max)),
           "solve_scan packed vector != plain at the main path")
     plain_nodes, plain_unsched = int(out_p[3]), int(out_p[2].sum())
+    del out_k, out_p  # the scan's outputs: no later phase reads them
     check(plain_nodes == n_nodes, "node count differs from the plain version")
     check(plain_unsched == n_unsched,
           "unschedulable count differs from the plain version")
@@ -2295,32 +2793,49 @@ def main() -> None:
     torch.cuda.synchronize()
     k_want = sk.screen_k_plain(*aargs, **akw)
     err_a = float((k_got - k_want).abs().max()) if k_got.numel() else 0.0
+    del k_got, k_want
     check(err_a == 0.0, f"screen_k differs from plain at the main path: {err_a}")
     head, req, elig = aargs
     log(f"[check] screen == plain (slack atol 0); screen_k == plain at the "
         f"main-path shape N={head.shape[0]} G={req.shape[0]} R={req.shape[1]}")
 
-    # --- 4b. the facade: Solver.solve, counts zeroed just before it ---
-    facade_launches, facade_scan = phase_facade()
+    # the resident patch's row scatter (ops/resident._scatter_rows): its
+    # launches in each phase, read around the phase
+    from karpenter_tpu_torch.obs.recompute import RECOMPUTE
+    from karpenter_tpu_torch.ops import resident
+    scatter = {"main": 0}
 
-    # --- 4c. the operator: make_sim's loop, counts zeroed just before it ---
+    def counted(phase, fn, *a):
+        n0 = resident.launches
+        out = fn(*a)
+        scatter[phase] = resident.launches - n0
+        return out
+
+    # --- 4b. the facade: Solver.solve, counts zeroed just before it ---
+    facade_launches, facade_scan = counted("facade", phase_facade)
+
+    # --- 4c. the operator: make_sim's loop, counts zeroed just before it;
+    # the recompute ledger reads the phase's redundant work ---
+    RECOMPUTE.reset()
     (op_launches, op_scan, op_screen, op_err_a, op_tournament,
-     op_err_c) = phase_operator(dev)
+     op_err_c) = counted("operator", phase_operator, dev)
+    recompute_snap = RECOMPUTE.snapshot()
 
     # --- 4d. the optimizer: bench c14's procedure, counts zeroed inside ---
-    opt_launches = phase_optimizer()
+    opt_launches, c14 = counted("optimizer", phase_optimizer)
 
     # --- 4e. the fleet: SolverService serial and batched, counts zeroed
     # just before each batched round ---
-    fleet_launches, b_fleet = phase_fleet()
+    fleet_launches, b_fleet = counted("fleet", phase_fleet)
 
     # --- 4f. chaos: the reference's chaos catalog and a storm at cluster
     # scale, counts zeroed at the phase's start ---
-    chaos_launches = phase_chaos()
+    chaos_launches = counted("chaos", phase_chaos)
 
     # --- 4g. the fleet runner: FleetRunner's scenarios, counts zeroed
     # before each run and summed ---
-    fleet_runner_launches = phase_fleet_runner()
+    fleet_runner_launches = counted("fleet_runner", phase_fleet_runner)
+
 
     # --- 5. times ---
     solve_ms = wall_ms(lambda: solver.solve_device(cat, enc), 5)
@@ -2341,7 +2856,8 @@ def main() -> None:
         stages[name] = (time.perf_counter() - t0) * 1e3
         return out
     nb = timed("node_budget", lambda: solver._auto_node_budget(cat, enc, 0))
-    st = timed("stage_upload", lambda: solver._stage(cat, enc, [], dev))
+    st = timed("stage_upload", lambda: solver._stage(cat, enc, [], dev,
+                                                     n_max=nb))
     scan_out = timed("scan", lambda: solver._scan(st, nb))
     kb = solver._bucket(2 * nb)
     buf = timed("pack_read", lambda: ss.pack_solution(
@@ -2416,6 +2932,17 @@ def main() -> None:
         "launches": opt_launches["tournament"]}
     headline = {"screen_k": a_main, "offer_argmin": b_fac[0],
                 "solve_scan": b_fac[1], "tournament": c_op}
+
+    # --- 4h. the delta plane and the resident state, after the times: the
+    # kernel inputs kept for them above are dropped first, so the
+    # residency audit sees the port's own live CUDA tensors only; the row
+    # scatter's launches are counted inside the phase ---
+    del (sargs, skw, rec_b, rec_a, aargs, akw, head, req, elig, facade_scan,
+         op_scan, op_screen, op_tournament, grid_args, st, scan_out, ahead,
+         areq, aelig)
+    planes_launches, scatter_rows = phase_planes(c14, recompute_snap)
+    scatter["planes"] = planes_launches
+    log(f"[planes] row scatter launches by phase {scatter}")
     kernels = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": op_launches[name],
@@ -2430,6 +2957,17 @@ def main() -> None:
              "karpenter_tpu/ops/solver.py:348", 0.0),
             ("tournament", "karpenter_tpu_torch/csrc/tournament.cu",
              "karpenter_tpu/optimizer/tournament.py:140", err_c))]
+    # the resident patch: ops/resident._scatter_rows, the port of the
+    # reference's _jit_scatter (a library index_copy_, ROADMAP §2 item 1);
+    # its launches are phase 4h's, where the path drives it
+    kernels.append({
+        "name": "resident_patch", "route": "cuda",
+        "source": "karpenter_tpu_torch/ops/resident.py",
+        "replaces": "karpenter_tpu/ops/resident.py:107",
+        "launches": planes_launches,
+        "max_abs_err": 0.0, **scatter_rows["gbuf_1pct"],
+        "by_phase": {**{ph: {"launches": n} for ph, n in scatter.items()},
+                     **scatter_rows}})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

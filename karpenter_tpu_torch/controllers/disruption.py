@@ -13,11 +13,9 @@ sits:
   the reference) scores on the solver's device through kernels A and C
   on the device rung and in NumPy on the host and native rungs; it
   degrades to the greedy path only for an `InjectedFault`, where the
-  reference absorbs every exception. The reference's delta plane is not
-  ported: a fruitless search is memoized in `_optimizer_noop`, the
-  reference's branch with the plane disarmed;
-- the recompute observatory's `RECOMPUTE.classify` sites (observability
-  only) are comments.
+  reference absorbs every exception. A fruitless search is memoized in
+  the delta plane (`ops/delta`, audited every `audit_every`-th serve), or
+  in `_optimizer_noop` with the plane disarmed, as in the reference.
 
 Reference behavior (website/docs concepts/disruption.md:9-130 +
 designs/consolidation.md): each pass builds disruptable candidates
@@ -228,8 +226,19 @@ class DisruptionController:
                  if v.claim.nodepool == pool.name]
         if not views:
             return
-        # (the reference's RECOMPUTE.classify("disrupt", ...) sits here:
-        # observability only, ROADMAP §1 item 6, delta plane)
+        # work provenance of the drift/expiry/candidate classification
+        # pass: one unit per node view, fingerprinted by everything the
+        # pass's verdicts depend on — an unchanged candidate set
+        # re-classified every reconcile is the redundant disrupt work a
+        # delta layer would skip
+        from ..obs.recompute import RECOMPUTE, fingerprint
+        RECOMPUTE.classify("disrupt", fingerprint(
+            pool.name,
+            self._memo_hash(node_class) if node_class is not None else "",
+            self._memo_hash(pool), self.catalog.epoch,
+            tuple(sorted((v.name, len(v.pods),
+                          v.claim.is_deleting()) for v in views))),
+            units=len(views))
         budget_for = lambda reason: self._budget(pool, views, reason, now)
         # PDB gate for voluntary disruption (reference: candidates with
         # blocking PDBs are excluded from the disruption passes).
@@ -520,12 +529,13 @@ class DisruptionController:
         template = pool.template_labels()
         cat = apply_daemonset_overhead(
             cat, list(self.store.daemonsets.values()), pool, template)
+        from ..obs.recompute import RECOMPUTE, fingerprint_bytes
         fp = self._screen_fingerprint(pool, cat, views)
         hit = self._screen_cache.get(pool.name)
         if hit is not None and hit[0] == fp:
             self.stats["screen_cache_hits"] = (
                 self.stats.get("screen_cache_hits", 0) + 1)
-            # (the reference's RECOMPUTE.classify(served) sits here)
+            RECOMPUTE.classify("optimizer", served=True)
             return hit[1]
         enc = encode_pods(all_pods, cat,
                           extra_requirements=pool.requirements,
@@ -569,7 +579,7 @@ class DisruptionController:
         ok = frozenset(v.name for i, v in enumerate(views) if screen[i])
         state = (cat, enc, counts, ok, slack)
         self._screen_cache[pool.name] = (fp, state)
-        # (the reference's RECOMPUTE.classify("optimizer", fp) sits here)
+        RECOMPUTE.classify("optimizer", fingerprint_bytes(fp.encode()))
         return state
 
     def _screen_order(self, pool: NodePool, candidates: List[NodeView],
@@ -639,11 +649,26 @@ class DisruptionController:
                     frozenset(v.name for v, x in zip(views, exclude)
                               if x),
                     min(budget, 64))
-        # (the reference serves this verdict from its delta plane when the
-        # plane is armed — ROADMAP item 6 — auditing every
-        # audit_every-th serve; the port keeps the reference's memo for
-        # the plane disarmed, and RECOMPUTE.classify(served) sits here)
-        if self._optimizer_noop.get(pool.name) == noop_key:
+        from ..obs.recompute import RECOMPUTE, fingerprint
+        from ..ops.delta import DELTA
+        # armed, the verdict lives in the delta plane: same serve as the
+        # legacy dict, but policed — every audit_every-th serve is
+        # refused and the search runs fresh for a confirm/diverge
+        # verdict, and a diverged key (stored "fruitless", fresh pass
+        # consolidated) opens the never-wrong-twice cooldown
+        nfp = fingerprint(noop_key[0], tuple(sorted(noop_key[1])),
+                          noop_key[2])
+        dkey = ("disrupt", id(self), pool.name)
+        opt_audit = False
+        if DELTA.armed:
+            hit = DELTA.serve("optimizer", dkey, nfp)
+            if hit is not None:
+                if not hit[1]:
+                    RECOMPUTE.classify("optimizer", served=True)
+                    return False
+                opt_audit = True
+        elif self._optimizer_noop.get(pool.name) == noop_key:
+            RECOMPUTE.classify("optimizer", served=True)
             return False
         use_device = self.solver.backend in ("device", "mesh")
         # the reference passes mesh=solver.screen_mesh(len(views)) on the
@@ -662,7 +687,8 @@ class DisruptionController:
                                    device=self.solver.device)
             sp.set(scored=plan.scored, feasible=plan.feasible,
                    backend=plan.backend)
-            # (the reference's RECOMPUTE.classify("optimizer", fp) here)
+            RECOMPUTE.classify("optimizer", fingerprint(
+                noop_key[0], tuple(sorted(noop_key[1])), noop_key[2]))
         except InjectedFault:
             # an injected device fault costs one greedy pass, not a
             # crashed reconcile (the dispatch hook is probed at
@@ -679,8 +705,7 @@ class DisruptionController:
             return False
         if not plan.subsets:
             self._optimizer_noop[pool.name] = noop_key
-            # (the reference's _delta_note_fruitless, a no-op with its
-            # delta plane disarmed, sits here and below: item 6)
+            self._delta_note_fruitless(dkey, nfp, opt_audit)
             return False
         vsp = (TRACER.span("optimizer.verify",
                            ranked=len(plan.subsets))
@@ -725,8 +750,15 @@ class DisruptionController:
                     self.stats["optimizer_consolidated"] = (
                         self.stats.get("optimizer_consolidated", 0) + 1)
                     self._optimizer_noop.pop(pool.name, None)
-                    # (the reference's delta-plane diverge / invalidate
-                    # of the stored verdict sits here: item 6)
+                    if opt_audit:
+                        # the stored "fruitless" verdict was WRONG — the
+                        # audit pass consolidated. Never-wrong-twice.
+                        DELTA.diverge("optimizer", dkey)
+                    else:
+                        # executing moves the views: the memoized verdict
+                        # (keyed on the pre-execute occupancy) is moot
+                        DELTA.invalidate(("optimizer",) + dkey,
+                                         reason="epoch")
                     vsp.set(verified=verified, accepted=len(subset))
                     return True
                 vsp.set(verified=verified, accepted=0)
@@ -752,7 +784,23 @@ class DisruptionController:
                 self.stats.get("optimizer_errors", 0) + 1)
             return False
         self._optimizer_noop[pool.name] = noop_key
+        self._delta_note_fruitless(dkey, nfp, opt_audit)
         return False
+
+    def _delta_note_fruitless(self, dkey: tuple, nfp: int,
+                              audit: bool) -> None:
+        """Record a completed-but-fruitless optimizer pass in the delta
+        plane: a fresh audit pass that STILL found nothing confirms the
+        stored verdict (serve counter resets); a first-time verdict
+        stores it. Fault-aborted passes never reach here — nothing
+        proved the search fruitless, so nothing is memoized."""
+        from ..ops.delta import DELTA
+        if not DELTA.armed:
+            return
+        if audit:
+            DELTA.confirm("optimizer", dkey, nfp, check_fp=nfp)
+        else:
+            DELTA.store("optimizer", dkey, nfp, True, check_fp=nfp)
 
     def _multi_node_greedy(self, pool: NodePool,
                            candidates: List[NodeView], now: float,

@@ -18,8 +18,9 @@ The port's own copy of `karpenter_tpu/faults/injector.py`:
 
 ICE windows and clock jumps need no adapter here: FakeCloud._launch_one
 and FakeClock.now() consult the plan/jump list directly (nil-guarded).
-The corruption and wire seams raise NotImplementedError when a plan would
-arm them (ROADMAP items 7 and 12).
+`corruption_fault_hook` arms `ops/solver.set_corruption_hook` with the
+plan's `on_corruption`. The wire seams raise NotImplementedError when a
+plan would arm them (ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -137,14 +138,19 @@ def device_fault_hook(plan: Optional[FaultPlan]):
 
 @contextlib.contextmanager
 def corruption_fault_hook(plan: Optional[FaultPlan]):
-    """The reference arms its silent-data-corruption seam here for the
-    plan's CorruptionFault rules. A port plan cannot hold one (FaultPlan
-    raises), so this only guards that contract."""
-    if plan is not None and plan.has_corruption_faults:
-        raise NotImplementedError(
-            "CorruptionFault rules are not ported to karpenter_tpu_torch "
-            "yet (ROADMAP item 7)")
-    yield
+    """Arm the silent-data-corruption seam (ops.solver.set_corruption_hook,
+    consulted by both the staged-gbuf uploads and ops/resident.py's
+    post-patch seam) for the plan's CorruptionFault rules; always
+    disarms on exit — same leak-proofing contract as the other seams."""
+    from ..ops import solver as solver_mod
+    if plan is None or not plan.has_corruption_faults:
+        yield
+        return
+    solver_mod.set_corruption_hook(plan.on_corruption)
+    try:
+        yield
+    finally:
+        solver_mod.set_corruption_hook(None)
 
 
 @contextlib.contextmanager

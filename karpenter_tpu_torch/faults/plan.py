@@ -13,9 +13,10 @@ Where the port differs from the reference:
 - `InjectedFault` is `ops/solver.InjectedFault`, re-exported: the one
   exception the facade, the optimizer and the fleet's batched pump
   degrade on (ROADMAP §3);
-- a plan holding a `CorruptionFault` raises NotImplementedError: the
-  reference damages device buffers through its resident-state seam,
-  which is not ported (ROADMAP §1 item 7);
+- `_corrupt_buffer` damages a torch tensor: it reads the tensor back,
+  damages one row on the host and commits a NEW tensor on the same
+  device, never the caller's in place (an aliased DeviceCatalog must not
+  rot with it);
 - `WireFault` rules are kept and their seams (`on_wire`,
   `on_wire_reply`) copied, but arming them on a transport raises
   (`injector.wire_fault_plan_hook`): the federation plane is not ported
@@ -251,20 +252,15 @@ class FaultPlan:
                               if isinstance(r, DeviceFault)]
         self.corruption_faults = [r for r in self.rules
                                   if isinstance(r, CorruptionFault)]
-        if self.corruption_faults:
-            # the reference rots device buffers through the resident-
-            # state seam (its _corrupt_buffer); never let such a rule
-            # silently not fire
-            raise NotImplementedError(
-                "CorruptionFault rules are not ported to "
-                "karpenter_tpu_torch yet: they need the resident-state "
-                "seam (ROADMAP item 7)")
+        self._corruption_counts: dict = {}  # rule idx -> eligible probes
         self.wire_faults = [r for r in self.rules
                             if isinstance(r, WireFault)]
         self._wire_counts: dict = {}  # (seam, rule idx) -> eligible probes
         # per-FIRED-injection snapshot of the integrity plane's
-        # detection counter (the reference's on_corruption appends here;
-        # empty in the port until item 7, read by the runners' judgment)
+        # detection counter at injection time, in firing order — the
+        # runners' judgment matches detections to injections through
+        # these (an aggregate injected<=detected comparison would let an
+        # over-attributed early injection mask a later undetected one)
         self._corruption_pre: List[int] = []
         self.crash_points = [r for r in self.rules
                              if isinstance(r, CrashPoint)]
@@ -352,6 +348,91 @@ class FaultPlan:
                 raise InjectedFault(
                     f"injected {backend} fault on dispatch "
                     f"#{self._dispatches}")
+
+    def on_corruption(self, target: str, buf, key: tuple = ()):
+        """The ops.solver/ops.resident corruption seam: returns `buf`
+        unchanged, or a silently corrupted replacement when a
+        CorruptionFault rule covers this (per-rule, 1-based) eligible
+        probe. Never raises — SDC is quiet by definition; detection is
+        the integrity plane's job."""
+        out = buf
+        now = self.clock.now() if self.clock is not None else 0.0
+        rel = now - self.origin
+        for i, r in enumerate(self.corruption_faults):
+            if r.target != target:
+                continue
+            if r.key_contains is not None and not any(
+                    r.key_contains in str(part) for part in key):
+                continue
+            if rel < r.at:
+                continue  # not armed yet: pre-`at` probes don't count
+            n = self._corruption_counts.get(i, 0) + 1
+            self._corruption_counts[i] = n
+            if not (r.nth <= n < r.nth + r.count):
+                continue
+            out = self._corrupt_buffer(out, r.kind, target)
+            detail = f"{target}:{r.kind}#{n}"
+            if r.key_contains:
+                detail += f":{r.key_contains}"
+            self.record(now, "corruption", detail)
+            from ..integrity import INTEGRITY
+            self._corruption_pre.append(INTEGRITY.detections())
+        return out
+
+    def _corrupt_buffer(self, buf, kind: str, target: str):
+        """Apply one corruption to a device buffer: read it back,
+        damage one row, re-commit. The victim row is row 0 for "gbuf"
+        (always a live group — padding rows would be inert, and an
+        inert injection breaks the 100%-detection contract) and a
+        plan-RNG LIVE row for "resident" (behaviorally reachable; the
+        digest audit sees every row either way)."""
+        import numpy as np
+        import torch
+        # a host copy, damaged there and committed as a NEW tensor: the
+        # caller's tensor keeps its bytes (an aliased holder must not rot)
+        arr = buf.detach().cpu().numpy().copy()
+        rows = arr.reshape(-1, arr.shape[-1]) if arr.ndim > 1 \
+            else arr.reshape(1, -1)
+        if target == "gbuf":
+            r = 0
+        else:
+            lead = arr.shape[0] if arr.ndim > 1 else 1
+            if arr.ndim > 2:  # [T, Z, C]-style: flatten trailing axes
+                rows = arr.reshape(arr.shape[0], -1)
+            else:
+                rows = arr if arr.ndim > 1 else arr.reshape(1, -1)
+            live = np.nonzero(rows.any(axis=1))[0]
+            r = (int(live[self.rng.randrange(live.size)]) if live.size
+                 else self.rng.randrange(max(lead, 1)))
+        if kind == "zero_row":
+            if rows[r].any():
+                rows[r] = 0
+            else:  # already zero: a no-op is not an injection
+                self._flip_row(rows, r)
+        elif kind == "stale_patch":
+            src = (r + 1) % rows.shape[0]
+            if src != r and rows[src].tobytes() != rows[r].tobytes():
+                rows[r] = rows[src]
+            else:  # successor identical: degenerate no-op — keep the
+                # injection REAL by falling back to a bit flip
+                self._flip_row(rows, r)
+        else:
+            self._flip_row(rows, r)
+        return torch.from_numpy(arr).to(buf.device)
+
+    @staticmethod
+    def _flip_row(rows, r: int) -> None:
+        import numpy as np
+        if rows.dtype == bool:
+            rows[r] = ~rows[r]
+            return
+        row = rows[r]
+        if row.dtype.itemsize == 4:
+            words = row.view(np.uint32)
+            words ^= np.uint32(1 << 30)
+        else:
+            as_bytes = row.view(np.uint8)
+            as_bytes ^= np.uint8(0x40)
 
     @property
     def has_corruption_faults(self) -> bool:

@@ -3,11 +3,10 @@
 workload and deadline unchanged, so `SCENARIOS` and `get_scenario` are the
 reference's.
 
-Five scenarios need a plane the port lacks, and running them raises
+Three scenarios need a plane the port lacks, and running them raises
 NotImplementedError naming its ROADMAP item (never a silent skip):
-`sdc_storm` and `resident_rot` (their CorruptionFault rules, item 7:
-FaultPlan raises), `warmpath_smoke`, `warmpath_storm` and
-`crash_launch_storm` (the warm path, item 9: make_sim raises).
+`warmpath_smoke`, `warmpath_storm` and `crash_launch_storm` (the warm
+path, item 9: make_sim raises).
 
 Each scenario pairs a workload with a FaultPlan rule set and a sim
 deadline. All rule times are run-relative sim-seconds. Every scenario in

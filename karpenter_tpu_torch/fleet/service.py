@@ -39,8 +39,9 @@ bucket degrades to serial re-runs only on `ops/solver.InjectedFault` (the
 fault-injection seam); a kernel's or a readback's error raises out of
 `pump()` (ROADMAP §3). Not ported yet: the open-loop
 `AdmissionController` (ROADMAP §1 item 17), the `/debug/fleet` route and
-the fleet watchdog (item 16), the explain recorder's throttle notes (item
-8) and the resident stacked upload (item 7).
+the fleet watchdog (item 16), and the explain recorder's throttle notes
+(item 8). A bucket whose membership repeats the previous pump's keeps its
+stacked request matrix resident on the card (`_bucket_resident_key`).
 """
 
 from __future__ import annotations
@@ -495,15 +496,23 @@ class SolverService:
                     cs["cobatched_pumps"] += 1
 
     def _bucket_resident_key(self, entries: List[dict]) -> Optional[tuple]:
-        """Stable batch-composition contract: records each signature's
-        (tenant, facade-view) membership. A membership IDENTICAL to the
-        previous pump's keys the reference's device-resident stacked
-        upload; that route comes with ROADMAP §1 item 7, so every bucket
-        takes the full-stack upload and this returns None."""
+        """Stable batch-composition contract: a bucket whose (tenant,
+        facade-view) membership is IDENTICAL to the previous pump's
+        bucket for the same batch signature gets a device-resident
+        stacked gbuf — the solver's digest-diffed scatter then ships
+        only the rows that changed, instead of a full [B, Gp, W] upload
+        per pump. First-seen and changed memberships return None (the
+        full-stack upload)."""
+        from ..obs.recompute import fingerprint
         sig = entries[0]["batchable"].signature
-        self._bucket_members[sig] = tuple(
-            (e["ticket"].tenant, e["batchable"].meter_key) for e in entries)
-        return None
+        members = tuple((e["ticket"].tenant, e["batchable"].meter_key)
+                        for e in entries)
+        stable = self._bucket_members.get(sig) == members
+        self._bucket_members[sig] = members
+        if not stable:
+            return None
+        return ("fleet", id(self), entries[0]["batchable"].shape_class,
+                fingerprint(members))
 
     def _dispatch_bucket(self, entries: List[dict]):
         """One bucket -> one async launch. An INJECTED device fault here
@@ -521,9 +530,9 @@ class SolverService:
                                         for e in entries):
                 with tenant_scope(tenant):
                     ops_solver.probe_dispatch_fault("device")
-            self._bucket_resident_key(entries)
             ifb = ops_solver.dispatch_batch(
-                [e["batchable"] for e in entries])
+                [e["batchable"] for e in entries],
+                resident_key=self._bucket_resident_key(entries))
         except ops_solver.InjectedFault:
             for e in entries:
                 self._run_serial(e, fault_fallback=True)

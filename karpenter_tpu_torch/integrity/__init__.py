@@ -15,12 +15,15 @@
   oracle structurally cannot see (a corrupted price tensor produces
   FEASIBLE but more expensive placements).
 
-The reference's third check, the resident-state digest audit, belongs to
-the device-resident state this package does not port yet. Every verdict
-meters
-`integrity_verdicts_total{check,outcome,tenant}` and every violation
-lands an `integrity.violation` marker in the flight-recorder ring. The
-`/debug/integrity` route is not ported.
+- **resident-state audits** — periodic readback of device-resident rows
+  checked against the uint64 per-row digests `ops/resident.py` keeps
+  (`ResidentStateManager.audit`, every `audit_every()` verified solves);
+  a mismatch invalidates the entry, meters the event, and escalates the
+  facade to its fallback rung under the never-wrong-twice suspension.
+
+Every verdict meters `integrity_verdicts_total{check,outcome,tenant}`,
+every violation lands an `integrity.violation` marker in the
+flight-recorder ring, and `/debug/integrity` serves the live meter.
 
 Opt-out: `KARPENTER_TPU_INTEGRITY=0` disarms the whole plane —
 `finish_solve` then ships the backend's result unchecked.
@@ -42,9 +45,15 @@ INTEGRITY_ENV = "KARPENTER_TPU_INTEGRITY"
 # per facade (0 disables the canary; the oracle still runs)
 CANARY_ENV = "KARPENTER_TPU_INTEGRITY_CANARY"
 CANARY_EVERY = 64
+# resident-audit cadence: one digest audit of the facade's resident
+# views per this many verified solves (0 disables the audit)
+AUDIT_ENV = "KARPENTER_TPU_INTEGRITY_AUDIT"
+AUDIT_EVERY = 16
+# rows read back per audit pass (round-robin across entries): bounds the
+# steady-state device -> host cost of the audit
+AUDIT_ROWS = 4096
 
-# the check taxonomy (the reference's; "resident_audit" stays listed so
-# the two packages meter the same names)
+# the check taxonomy (the reference's)
 CHECKS: Tuple[str, ...] = (
     "capacity",       # node cum exceeds the committed type's allocatable
     "compat",         # group placed on an incompatible (or banned) type
@@ -65,6 +74,13 @@ def integrity_enabled() -> bool:
     """The opt-out gate: KARPENTER_TPU_INTEGRITY=0 restores today's
     unverified path byte-for-byte (default: armed everywhere)."""
     return os.environ.get(INTEGRITY_ENV, "1") not in ("0", "false", "no")
+
+
+def audit_every() -> int:
+    try:
+        return int(os.environ.get(AUDIT_ENV, AUDIT_EVERY))
+    except ValueError:
+        return AUDIT_EVERY
 
 
 class IntegrityError(RuntimeError):
@@ -144,6 +160,17 @@ class IntegrityMeter:
         if not ok:
             INTEGRITY_VERDICTS.inc(check="oracle", outcome="unrecovered")
 
+    def record_audit(self, rows: int, corrupt: int,
+                     tenant: str = "") -> None:
+        from ..metrics import INTEGRITY_VERDICTS
+        with self._lock:
+            row = self._row(tenant or self._tenant())
+            row["audits"] += 1
+            row["audit_rows"] += int(rows)
+            row["audit_corrupt"] += int(corrupt)
+        if not corrupt:
+            INTEGRITY_VERDICTS.inc(check="resident_audit", outcome="ok")
+
     def record_canary(self, agree: bool, tenant: str = "") -> None:
         from ..metrics import INTEGRITY_VERDICTS
         with self._lock:
@@ -211,6 +238,7 @@ class IntegrityMeter:
         return {"armed": integrity_enabled(),
                 "checks": list(CHECKS),
                 "canary_every": canary_every(),
+                "audit_every": audit_every(),
                 "canary_agreement_rate": round(
                     self.canary_agreement_rate(), 6),
                 "totals": totals,
@@ -223,9 +251,15 @@ class IntegrityMeter:
 
 INTEGRITY = IntegrityMeter()
 
+from ..obs.exposition import register_debug_route  # noqa: E402
+
+register_debug_route("/debug/integrity",
+                     lambda query: INTEGRITY.snapshot())
+
 from .canary import CanarySampler  # noqa: E402
 from .oracle import Violation, verify_result  # noqa: E402
 
 __all__ = ["CHECKS", "INTEGRITY", "INTEGRITY_ENV", "CANARY_ENV",
-           "CanarySampler", "IntegrityError", "IntegrityMeter", "Violation",
-           "canary_every", "integrity_enabled", "verify_result"]
+           "AUDIT_ENV", "AUDIT_ROWS", "CanarySampler", "IntegrityError",
+           "IntegrityMeter", "Violation", "audit_every", "canary_every",
+           "integrity_enabled", "verify_result"]

@@ -342,4 +342,160 @@ SLO_BURN_ALERTS = REGISTRY.counter(
     "so the alert arrives with its evidence",
     ("slo", "tenant"), label_defaults=_TENANT)
 
+# --- the delta plane, the recompute and phase ledgers, and the device
+# telemetry plane (obs/profile, obs/recompute, obs/devicemem,
+# ops/delta, ops/resident) ---
+TRANSFER_BYTES_H2D = REGISTRY.gauge(
+    "karpenter_tpu_solver_transfer_host_to_device_bytes",
+    "Bytes uploaded host-to-device by the last solve — the tunnel-budget "
+    "observable ops/solver.transfer_stats() counts calls for, in bytes, "
+    "visible without reading bench JSON")
+TRANSFER_BYTES_D2H = REGISTRY.gauge(
+    "karpenter_tpu_solver_transfer_device_to_host_bytes",
+    "Bytes read device-to-host by the last solve (the packed result "
+    "vector; growth here means the single-read output packing regressed)")
+PROFILE_PHASE_MS = REGISTRY.counter(
+    "karpenter_tpu_profile_phase_ms_total",
+    "Milliseconds of wall time the phase-attribution ledger "
+    "(obs/profile.py) attributed to each named phase bucket of a traced "
+    "solve/reconcile, by enclosing kind — the scrapeable form of the "
+    "'where does the 100ms go' table `make profile-report` prints. Only "
+    "grows while tracing is enabled (the ledger ingests finished traces)",
+    ("phase", "kind", "tenant"), label_defaults=_TENANT)
+PROFILE_UNATTRIBUTED_MS = REGISTRY.counter(
+    "karpenter_tpu_profile_unattributed_ms_total",
+    "Milliseconds of a traced solve/reconcile's wall time NO ledger "
+    "bucket claimed (the enclosing span's self-time outside every "
+    "instrumented seam). The coverage invariant: buckets must sum to "
+    ">=99% of the enclosing wall or the gap is flight-recorded as a "
+    "profile.unattributed trace — growth here means an un-spanned seam "
+    "appeared on the hot path",
+    ("kind", "tenant"), label_defaults=_TENANT)
+PROFILE_COVERAGE = REGISTRY.gauge(
+    "karpenter_tpu_profile_attribution_coverage",
+    "Running attribution coverage of the phase ledger (attributed wall "
+    "/ enclosing wall, 0..1) per traced-root kind — the bench "
+    "acceptance bar is >=0.99",
+    ("kind", "tenant"), label_defaults=_TENANT)
+DEVICEMEM_LIVE = REGISTRY.gauge(
+    "karpenter_tpu_devicemem_live_bytes",
+    "Bytes currently resident on the device per residency-ledger owner "
+    "kind (obs/devicemem.py OWNER_KINDS: catalog tensors, per-solve "
+    "uploads, batched request matrices, packed results, mesh shards) — "
+    "the live face of the HBM accounting ROADMAP item 3's device-"
+    "resident state will be judged against", ("kind",))
+DEVICEMEM_WATERMARK = REGISTRY.gauge(
+    "karpenter_tpu_devicemem_watermark_bytes",
+    "High-water mark of total ledger-tracked device bytes since process "
+    "start (or the last bench regime reset) — the HBM footprint budget "
+    "observable; bench stamps it as c12_hbm_watermark_bytes")
+DEVICEMEM_UNATTRIBUTED = REGISTRY.gauge(
+    "karpenter_tpu_devicemem_unattributed_bytes",
+    "Live device bytes the residency ledger could NOT account for at "
+    "the last audit() cross-check against the live device tensors — the "
+    "memory analog of the phase ledger's coverage invariant: growth "
+    "means an untracked allocation path appeared; coverage below 99% "
+    "also flight-records a devicemem.unattributed marker trace")
+DEVICEMEM_TRANSFER = REGISTRY.counter(
+    "karpenter_tpu_devicemem_transfer_bytes_total",
+    "Device-boundary bytes by attribution reason (catalog_put / "
+    "request_upload / batch_upload / screen_upload / readback) and "
+    "tenant — the decomposed successor of the two aggregate transfer "
+    "gauges: which tenant's which path moved the bytes, scrapeable "
+    "without a bench run (per-shape-class rows live on /debug/device)",
+    ("reason", "tenant"), label_defaults=_TENANT)
+UPLOAD_BYTES = REGISTRY.counter(
+    "karpenter_tpu_devicemem_upload_bytes_total",
+    "Uploaded request-matrix bytes by redundancy outcome: 'identical' "
+    "rows content-hash equal to the previous upload of the same "
+    "facade/catalog-view key (bytes a delta upload would NOT ship), "
+    "'changed' rows differ (the irreducible upload). The identical "
+    "share is the measured ROADMAP-item-3 target",
+    ("outcome", "tenant"), label_defaults=_TENANT)
+UPLOAD_REDUNDANT_FRAC = REGISTRY.gauge(
+    "karpenter_tpu_devicemem_upload_redundant_frac",
+    "Fraction of the LAST observed request-matrix upload whose rows "
+    "were content-identical to the previous upload for that catalog "
+    "view (0..1): ~1.0 on a steady warm path means almost every "
+    "uploaded byte is a byte the device already holds — informational "
+    "(never perf-gated), it sizes the delta-upload win",
+    ("tenant",), label_defaults=_TENANT)
+DEVICEMEM_PATCH = REGISTRY.counter(
+    "karpenter_tpu_devicemem_patch_bytes_total",
+    "Device-resident state traffic by outcome (ops/resident.py): "
+    "'patched' = changed-row bytes shipped as sparse scatter patches "
+    "onto a resident buffer, 'avoided' = bytes content-identical to "
+    "the resident copy and therefore NEVER shipped (the realized "
+    "delta-upload win the upload-redundancy meter only predicted), "
+    "'full' = fallback full re-uploads (epoch bumps, shape-class "
+    "growth, dense patches, invalidations)",
+    ("outcome", "tenant"), label_defaults=_TENANT)
+RESIDENT_FALLBACKS = REGISTRY.counter(
+    "karpenter_tpu_resident_fallback_total",
+    "Resident-state full re-uploads by trigger: 'first_sight' (cold "
+    "seeding), 'token_change' (catalog epoch bump / ICE-price view "
+    "re-fingerprint), 'shape_change' (padded shape-class or resource-"
+    "axis growth), 'dtype_change', 'dense' (patch would ship most of "
+    "the matrix), 'invalidated' (SharedCatalogCache view split/"
+    "eviction or warm-path audit divergence). Steady state is patches, "
+    "not fallbacks — growth here is re-upload cost returning",
+    ("reason", "tenant"), label_defaults=_TENANT)
+RECOMPUTE_WORK = REGISTRY.counter(
+    "karpenter_tpu_recompute_work_total",
+    "Work-provenance units classified by the recompute observatory "
+    "(obs/recompute.py), by taxonomy stage (encode, conflict, affinity, "
+    "spread, solve, optimizer, disrupt) and outcome: 'fresh' = an input "
+    "fingerprint the stage had not seen, 'redundant' = the same "
+    "fingerprint recomputed from scratch (the measured headroom a memo/"
+    "cache/residency layer can spend — ROADMAP item 3's target), "
+    "'delta_served' = the work was answered by an existing cache, memo, "
+    "or warm admission instead of recomputed",
+    ("stage", "outcome", "tenant"), label_defaults=_TENANT)
+REDUNDANT_WORK_FRAC = REGISTRY.gauge(
+    "karpenter_tpu_redundant_work_frac",
+    "Redundant share of each recompute-taxonomy stage's classified work "
+    "units (redundant / total, cumulative). Above 0.9 and rising past a "
+    "sim-time grace trips the watchdog's recompute_runaway invariant — "
+    "a stage grinding the same inputs every reconcile with no layer "
+    "serving the delta", ("stage",))
+REDUNDANT_WORK_MS = REGISTRY.counter(
+    "karpenter_tpu_redundant_work_ms_total",
+    "Traced wall attributed to REDUNDANT stage work, per taxonomy "
+    "stage: each ledger-material trace's per-stage self-time is split "
+    "across the outcomes that trace classified, proportionally by "
+    "units. This is the headroom table's ms column — the reconcile "
+    "wall a delta-aware layer would delete", ("stage",))
+RECOMPUTE_UNATTRIBUTED_MS = REGISTRY.counter(
+    "karpenter_tpu_recompute_unattributed_ms_total",
+    "Traced taxonomy-stage wall the recompute plane could NOT attribute "
+    "to any classified work (the stage's spans ran but no classify() "
+    "call landed in that trace), per stage. The ≥99% coverage "
+    "invariant's gap meter: growth means a code path does stage work "
+    "without registering its input fingerprint — each gap also lands a "
+    "recompute.unattributed marker in the flight recorder", ("stage",))
+DELTA_MEMO = REGISTRY.counter(
+    "karpenter_tpu_delta_memo_total",
+    "Delta-plane memo protocol events (ops/delta.py), by memo stage "
+    "(solve, affinity, spread, optimizer) and event: 'served' = an "
+    "unchanged-input pass answered from the memo (the matching work "
+    "unit meters recompute_work_total{outcome='delta_served'}), "
+    "'stored' = a freshly computed output memoized, 'audit' = a serve "
+    "refused because the audit cadence expired (the caller recomputes "
+    "fresh), 'confirmed' = that fresh recompute matched the stored "
+    "output, byte-for-byte by content fingerprint. A confirmed/audit "
+    "ratio below 1.0 means divergences — see "
+    "delta_invalidations_total", ("stage", "event"))
+DELTA_INVALIDATIONS = REGISTRY.counter(
+    "karpenter_tpu_delta_invalidations_total",
+    "Delta-memo entries dropped, by stage and ladder reason: "
+    "'divergence' = an audit recompute disagreed with the stored "
+    "output (opens the never-wrong-twice cooldown for that key), "
+    "'epoch' = the key re-stored under a new input fingerprint (the "
+    "world moved), 'quarantine' = an integrity violation quarantined "
+    "the owning facade's device path and its memos with it, "
+    "'capacity' = LRU bound, 'disarm' = explicit force-cold. "
+    "Divergences on a healthy run mean a memo key is too weak — the "
+    "audit cadence caught it, which is the design, but the rate "
+    "should be zero", ("stage", "reason"))
+
 __all__ = ["REGISTRY", "Registry", "Counter", "Gauge", "Histogram"]

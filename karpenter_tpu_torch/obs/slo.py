@@ -1,10 +1,6 @@
 """Per-tenant SLO / error-budget engine (the port's copy of
 `karpenter_tpu/obs/slo.py`).
 
-One difference: the reference serves `payload()` on its debug server's
-`/debug/slo` route; the port has no exposition server yet (ROADMAP item
-16), so the route is a comment at its registration site below.
-
 The fleet funnels 50+ tenants through one queue (docs/fleet.md) with
 isolation asserted by scenario-specific p99 bounds — but no DECLARED
 objectives: nothing says what a tenant is owed, how much of it has been
@@ -37,6 +33,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
+from .exposition import register_debug_route
 from .tracer import TRACER, Span, Trace
 
 Indicator = Callable[[str], Tuple[float, float]]  # tenant -> (good, total)
@@ -180,8 +177,9 @@ class SloEngine:
         self.alerts: List[dict] = []
         for t in tenants:
             self.add_tenant(t)
-        # (the reference registers payload() as the /debug/slo route
-        # here: obs/exposition, ROADMAP item 16)
+        register_debug_route("/debug/slo",
+                             lambda eng, query: eng.payload(query),
+                             owner=self)
 
     def add_tenant(self, tenant: str) -> None:
         if tenant in self.tenants:

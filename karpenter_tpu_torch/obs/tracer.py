@@ -323,3 +323,55 @@ class Tracer:
 # THE process-wide tracer every instrumentation point imports. Disabled
 # unless KARPENTER_TPU_TRACE_DIR is set or a caller flips it on.
 TRACER = Tracer()
+
+
+# --- exporters ---------------------------------------------------------
+
+
+def to_chrome_events(traces: List[Trace]) -> List[dict]:
+    """Chrome trace-event JSON (the `chrome://tracing` / Perfetto array
+    format): complete events ("ph": "X") with microsecond ts/dur. Each
+    trace gets its own tid so concurrent traces don't interleave; ts is
+    relative to the earliest root so the file opens at t=0."""
+    events: List[dict] = []
+    if not traces:
+        return events
+    epoch = min(t.root.t0 for t in traces)
+    for tid, trace in enumerate(traces, start=1):
+        for s in trace.spans:
+            events.append({
+                "name": s.name,
+                "ph": "X",
+                "pid": 1,
+                "tid": tid,
+                "ts": round((s.t0 - epoch) * 1e6, 1),
+                "dur": round((s.t1 - s.t0) * 1e6, 1),
+                "args": {**s.attrs, "trace_id": s.trace_id,
+                         "clock_ts": round(s.ts, 6)},
+            })
+    return events
+
+
+def write_chrome_trace(traces: List[Trace], path: str,
+                       metadata: Optional[dict] = None) -> str:
+    """Write {"traceEvents": [...]} — the schema both chrome://tracing
+    and Perfetto ingest directly. `metadata` lands under the standard
+    top-level "metadata" key (both viewers ignore it): the run stamp —
+    schema_version/run_id/seed/provenance — that lets the perf archive
+    key this artifact to the bench run that produced it."""
+    payload = {"traceEvents": to_chrome_events(traces),
+               "displayTimeUnit": "ms"}
+    if metadata:
+        payload["metadata"] = dict(metadata)
+    with open(path, "w") as f:
+        json.dump(payload, f)
+    return path
+
+
+def summarize(trace: Trace) -> Dict[str, float]:
+    """Per-span-name total seconds — the trace-report aggregation."""
+    out: Dict[str, float] = {}
+    for s in trace.spans:
+        out[s.name] = out.get(s.name, 0.0) + s.duration
+    return out
+

@@ -106,11 +106,18 @@ class _OccupancyIndex:
 
 
 def apply_zone_affinity(enc: EncodedPods, cat: CatalogTensors,
-                        occupancy: Optional[Occupancy] = None) -> EncodedPods:
+                        occupancy: Optional[Occupancy] = None,
+                        capture: Optional[dict] = None) -> EncodedPods:
     """Rewrite allow_zone for zone-topology (anti-)affinity; split
     self-conflicting groups. Returns enc unchanged when no group carries
-    zone terms (the common fast path). (The reference's `capture=`
-    out-param feeds its delta plane, which is not ported.)"""
+    zone terms (the common fast path).
+
+    capture: delta-plane out-param (ops/delta.py) — filled with the
+    transformation DESCRIPTOR this pass decided (the _rebuild arguments,
+    or a noop sentinel), so an unchanged-input pass can replay it
+    against a future enc via `replay_zone_affinity` without redoing the
+    occupancy matching. Captured arrays are copies: downstream passes
+    (preference relaxation) mutate the returned enc's rows in place."""
     G = enc.G
     pos = [_zone_terms(g.representative, anti=False) for g in enc.groups]
     neg = [_zone_terms(g.representative, anti=True) for g in enc.groups]
@@ -130,6 +137,8 @@ def apply_zone_affinity(enc: EncodedPods, cat: CatalogTensors,
             if ts:
                 resident_anti.append((zone, p, ts))
     if not any(pos) and not any(neg) and not resident_anti:
+        if capture is not None:
+            capture["noop"] = True
         return enc
 
     allow = enc.allow_zone.copy()
@@ -330,6 +339,12 @@ def apply_zone_affinity(enc: EncodedPods, cat: CatalogTensors,
 
     zc = conflict if conflict.any() else None
     if not split_zones:
+        if capture is not None:
+            capture.update(
+                allow=allow.copy(),
+                allow_hard=None if allow_hard is None else allow_hard.copy(),
+                zone_conflict=None if zc is None else zc.copy(),
+                rows=None, self_anti=None)
         return _rebuild(enc, allow, allow_hard=allow_hard, zone_conflict=zc)
 
     # --- expand self-anti groups into one-pod-per-zone subgroups -------------
@@ -346,8 +361,68 @@ def apply_zone_affinity(enc: EncodedPods, cat: CatalogTensors,
         excess = int(enc.counts[i]) - len(used)
         if excess > 0:
             rows.append((i, excess, np.zeros(cat.Z, bool)))
+    if capture is not None:
+        capture.update(
+            allow=allow.copy(),
+            allow_hard=None if allow_hard is None else allow_hard.copy(),
+            zone_conflict=None if zc is None else zc.copy(),
+            rows=[(i, c, r.copy()) for i, c, r in rows],
+            self_anti=self_anti.copy())
     return _rebuild(enc, allow, rows, allow_hard=allow_hard, zone_conflict=zc,
                     self_anti=self_anti)
+
+
+def replay_zone_affinity(enc: EncodedPods, cat: CatalogTensors,
+                         desc: dict) -> Optional[EncodedPods]:
+    """Apply a captured zone-affinity descriptor to the CURRENT enc —
+    the delta plane's serve half. The memo key fingerprints the enc
+    content, so the descriptor fits by construction; the shape checks
+    are defensive (a mismatch returns None and the caller recomputes,
+    treating it as a divergence). Arrays are copied on the way in:
+    downstream mutation must never reach the stored descriptor."""
+    if desc.get("noop"):
+        return enc
+    allow = desc.get("allow")
+    if allow is None or allow.shape != enc.allow_zone.shape:
+        return None
+    allow_hard = desc.get("allow_hard")
+    if (allow_hard is None) != (enc.zone_hard is None):
+        return None
+    zc = desc.get("zone_conflict")
+    rows = desc.get("rows")
+    if rows is None:
+        return _rebuild(enc, allow.copy(),
+                        allow_hard=None if allow_hard is None
+                        else allow_hard.copy(),
+                        zone_conflict=None if zc is None else zc.copy())
+    if any(i >= enc.G for i, _, _ in rows):
+        return None
+    return _rebuild(enc, allow.copy(),
+                    [(i, c, r.copy()) for i, c, r in rows],
+                    allow_hard=None if allow_hard is None
+                    else allow_hard.copy(),
+                    zone_conflict=None if zc is None else zc.copy(),
+                    self_anti=desc["self_anti"].copy())
+
+
+def descriptor_fingerprint(desc: dict) -> int:
+    """Content digest of a zone-affinity descriptor — the affinity
+    memo's audit comparator (ops/delta.py)."""
+    from ..obs.recompute import fingerprint, fingerprint_bytes
+
+    def afp(a) -> int:
+        if a is None:
+            return 0x9E3779B97F4A7C15
+        a = np.ascontiguousarray(a)
+        return fingerprint_bytes(a.tobytes()) ^ fingerprint(a.dtype.str,
+                                                            a.shape)
+
+    rows = desc.get("rows")
+    return fingerprint(
+        bool(desc.get("noop")), afp(desc.get("allow")),
+        afp(desc.get("allow_hard")), afp(desc.get("zone_conflict")),
+        afp(desc.get("self_anti")),
+        None if rows is None else [(i, c, afp(r)) for i, c, r in rows])
 
 
 def _rebuild(enc: EncodedPods, allow: np.ndarray,

@@ -22,9 +22,10 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..obs import devicemem as dm
 from .encode import CatalogTensors, EncodedPods, align_zone_overhead
 from .screen_k import screen_k
-from .solver import (_auto_dcat, _put, _request_cols, reject_mesh,
+from .solver import (_auto_dcat, _put, _read, _request_cols, reject_mesh,
                      resolve_device)
 
 
@@ -152,10 +153,12 @@ def screen_packed(cat: CatalogTensors, enc: EncodedPods, views: "List",
     dev = resolve_device(device)
     R = enc.requests.shape[1]
     cols = _request_cols(enc, cat)
-    nbuf = _put(_pack_screen_nodes(*_screen_args(cat, enc, views),
-                                   group_counts, list(cols)), dev)
-    gbuf = _put(_pack_screen_groups(enc.requests, enc.compat, enc.allow_zone,
-                                    enc.allow_cap, list(cols)), dev)
+    with dm.attributed(reason="screen_upload"):
+        nbuf = _put(_pack_screen_nodes(*_screen_args(cat, enc, views),
+                                       group_counts, list(cols)), dev)
+        gbuf = _put(_pack_screen_groups(enc.requests, enc.compat,
+                                        enc.allow_zone, enc.allow_cap,
+                                        list(cols)), dev)
     dcat = _auto_dcat(cat, R, dev)
     return _screen_onebuf(dcat.alloc, dcat.avail, nbuf, gbuf, cols)
 
@@ -178,7 +181,7 @@ def consolidation_screen(cat: CatalogTensors, enc: EncodedPods,
     # an InjectedFault and degrades to cost order; anything else raises)
     if _solver_mod._dispatch_fault_hook is not None:
         _solver_mod._dispatch_fault_hook("screen")
-    buf = screen_packed(cat, enc, views, group_counts, dev).cpu().numpy()
+    buf = _read(screen_packed(cat, enc, views, group_counts, dev))
     screen = buf[:N] > 0.5
     slack = buf[N: N + N * enc.G].reshape(N, enc.G)
     return screen, slack

@@ -1,9 +1,9 @@
 """Tensorization: flatten catalog + pods into dense arrays for the solver.
 
 The port's own copy of `karpenter_tpu/ops/encode.py`, cold and cached
-paths (the encode cache and staging arena are `ops/encode_cache.py`); the
-recompute-ledger meters are left out. Every array it produces equals the
-reference's byte for byte.
+paths (the encode cache and staging arena are `ops/encode_cache.py`), with
+the recompute ledger's `encode` and `conflict` classifications. Every
+array it produces equals the reference's byte for byte.
 
 This is the host→device boundary of the build plan (SURVEY.md §7):
 
@@ -673,11 +673,13 @@ def _encode_groups(groups: List[PodGroup], cat: CatalogTensors,
         kept: List[PodGroup] = []
         row_ids: List[Optional[int]] = []
         pend: List[Tuple[int, PodGroup, tuple]] = []  # (kept-slot, g, sig)
+        miss_sigs: List[tuple] = []
         for g in groups:
             sig = g.representative.constraint_signature()
             rid = cache.lookup(sig)
             if rid is None:
                 misses += 1
+                miss_sigs.append(sig)
                 if taints and not tolerates_all(
                         g.representative.tolerations, taints):
                     cache.insert_dropped(sig)
@@ -734,6 +736,7 @@ def _encode_groups(groups: List[PodGroup], cat: CatalogTensors,
                               dropped_keys=dropped_keys or None, **got)
         enc.cache_hits, enc.cache_misses = hits, misses
         _meter_cache(hits, misses)
+        _meter_recompute_cached(hits, miss_sigs)
         return enc
 
     # --- cold path: every row computed fresh (identical bytes to the
@@ -787,6 +790,7 @@ def _encode_groups(groups: List[PodGroup], cat: CatalogTensors,
     from ..obs.tracer import TRACER
     with TRACER.span("encode.conflicts", groups=G):
         conflict = build_conflicts(groups)
+    _meter_recompute_cold(requests, compat, allow_zone, allow_cap)
     return EncodedPods(groups=groups, requests=requests, counts=counts,
                        compat=compat, allow_zone=allow_zone, allow_cap=allow_cap,
                        max_per_node=max_per_node, spread_zone=spread_zone,
@@ -803,6 +807,32 @@ def _meter_cache(hits: int, misses: int) -> None:
         ENCODE_CACHE.inc(hits, event="hit")
     if misses:
         ENCODE_CACHE.inc(misses, event="miss")
+
+
+def _meter_recompute_cached(hits: int, miss_sigs) -> None:
+    """Work provenance of the cached encode path: hits are encodes an
+    existing cache row served (delta_served); each miss is classified by
+    its constraint signature — a signature re-lowered after eviction or
+    a `begin()` rotation shows up as redundant encode work."""
+    from ..obs.recompute import RECOMPUTE, fingerprint
+    if hits:
+        RECOMPUTE.classify("encode", served=True, units=hits)
+    for sig in miss_sigs:
+        RECOMPUTE.classify("encode", fingerprint(sig))
+
+
+def _meter_recompute_cold(requests, compat, allow_zone, allow_cap) -> None:
+    """Work provenance of the cold encode path: one vectorized combined
+    row digest per group (NOT per-group constraint_signature calls — the
+    cold path's cost profile must not change), plus one conflict-build
+    classification over the folded row set."""
+    from ..obs.recompute import (RECOMPUTE, fingerprint_fold,
+                                 fingerprint_rows)
+    if len(requests) == 0:
+        return
+    fps = fingerprint_rows(requests, compat, allow_zone, allow_cap)
+    RECOMPUTE.classify_rows("encode", fps)
+    RECOMPUTE.classify("conflict", fingerprint_fold(fps))
 
 
 def _apply_preferred(rep: Pod, compat_row: np.ndarray, zone_row: np.ndarray,

@@ -1,8 +1,7 @@
 """Signature-keyed encode cache + staging arena: the columnar encode
 pipeline's persistence layer.
 
-The port's copy of `karpenter_tpu/ops/encode_cache.py` (the
-recompute-ledger meters are left out).
+The port's copy of `karpenter_tpu/ops/encode_cache.py`.
 
 On a steady cluster almost every
 reconcile re-encodes the SAME constraint signatures against the SAME
@@ -243,12 +242,15 @@ class EncodeContext:
         consumer reads it (splits/rebuilds derive NEW matrices), and the
         write lock turns a future in-place mutation into a loud error
         instead of silent cross-solve corruption."""
+        from ..obs.recompute import RECOMPUTE, fingerprint
         hit = self._conflict_memo
         if hit is not None and hit[0] == key:
+            RECOMPUTE.classify("conflict", served=True)
             return hit[1]
         from ..obs.tracer import TRACER
         with TRACER.span("encode.conflicts", groups=len(key)):
             m = build()
+        RECOMPUTE.classify("conflict", fingerprint(key))
         if m is not None:
             m.setflags(write=False)
         self._conflict_memo = (key, m)

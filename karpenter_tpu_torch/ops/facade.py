@@ -16,10 +16,12 @@ The port's copy of `karpenter_tpu/ops/facade.py`. The device rung is the
 port's `ops/solver.solve_device` (kernels B0 and B on the card, or their
 plain versions when the facade is built with `device="cpu"`);
 `stage_batchable` stages a fresh device-rung solve for the fleet's batched
-dispatch (`ops/solver.dispatch_batch`). Not ported yet, each with its call
-site marked by the ROADMAP item that brings it: the delta plane
-(serve-and-verify memos), the device-resident state and its audit, the
-explain recorder and the warm path. None of these changes an answer.
+dispatch (`ops/solver.dispatch_batch`). The delta plane's serve-and-verify
+memos (solve, affinity, spread: `ops/delta`) and the device-resident
+request and catalog tensors with their digest audit (`ops/resident`) are
+armed by default, as in the reference. Not ported yet, each with its call
+site marked by the ROADMAP item that brings it: the explain recorder and
+the warm path. None of these changes an answer.
 
 The device rung serves from the card or raises: a kernel that fails to
 build, refuses its shapes or fails to launch, and a device answer the
@@ -325,6 +327,15 @@ class PreparedSolve:
     daemonsets: Optional[list] = None
     backend: str = ""
     t0: float = 0.0
+    # delta-plane bookkeeping (ops/delta.py): the solve-memo key/fp
+    # this prepared solve settles in finish_solve — store on a miss,
+    # confirm/diverge on an audit-due recompute. delta_served marks a
+    # result already answered FROM the memo (finish must not re-store).
+    delta_key: Optional[tuple] = None
+    delta_fp: int = 0
+    delta_audit: bool = False
+    delta_check: int = 0
+    delta_served: bool = False
 
 
 def _span(name: str):
@@ -393,10 +404,11 @@ class Solver:
         # per rerouted solve, so the device path is re-probed after
         # FALLBACK_COOLDOWN solves (count-based, hence sim-deterministic)
         self._device_suspended = 0
-        # solution-integrity plane (integrity/): the canary sampler is per
-        # facade, so quarantine only ever degrades the affected tenant's
-        # path
+        # solution-integrity plane (integrity/): the canary sampler and
+        # the resident-audit cadence counter are per facade, so
+        # quarantine only ever degrades the affected tenant's path
         self._canary = None
+        self._integrity_solves = 0
         self.stats: Dict[str, int] = {"catalog_rebuilds": 0,
                                       "device_fallbacks": 0,
                                       "integrity_violations": 0,
@@ -518,9 +530,26 @@ class Solver:
         else:
             self._cat_cache.move_to_end(key)
         self._last_cat_key = key
-        # (the reference records the view's token for the device-resident
-        # staleness feed here: ROADMAP §1 item 7, resident state)
+        # device-resident staleness feed (ops/resident.py): record the
+        # newest catalog token this facade resolved for the view, so an
+        # idle resident buffer whose epoch the world moved past is
+        # visible to the watchdog's resident_staleness invariant. Both
+        # the cold path (prepare_solve) and the warm path (prepare_warm
+        # via warm_catalog) land here.
+        # Facade-prefixed entries ONLY: one facade has exactly one
+        # current token per nodeclass, so base and entry granularity
+        # agree. The process-shared ("dcat", "shared", ...) entries are
+        # deliberately NOT observed — during a persistent view split
+        # two live fingerprints of one nodeclass legitimately alternate
+        # through one resident key, and a single last-observer base
+        # would flag that healthy state stale forever (their lifecycle
+        # is governed by release_shared_views/invalidate_token instead).
+        tok = hit.cache_token
+        if tok:
+            from .resident import RESIDENT
+            RESIDENT.observe_view(("facade", id(self), key[0]), tuple(tok))
         return hit
+
 
     def solve(self, pods: Sequence[Pod], nodepool: NodePool,
               node_class: Optional[NodeClassSpec] = None,
@@ -714,18 +743,20 @@ class Solver:
                 occupancy += [
                     (self._zone_of(name, existing, cat), placed)
                     for name, placed in plan.existing_placements.items()]
+        from ..obs.recompute import RECOMPUTE, encoded_fingerprint, fingerprint
+        occ_sig = tuple(sorted((zone, len(placed))
+                               for zone, placed in occupancy))
         sp = (TRACER.span("solve.spread") if TRACER.enabled else NOOP_SPAN)
         with sp:
-            # the reference serves these two passes from the delta plane's
-            # memos (ROADMAP §1 item 6, delta plane); its miss path, run
-            # here, computes the same encoding
             asp = (TRACER.span("encode.affinity") if TRACER.enabled
                    else NOOP_SPAN)
             with asp:
-                enc = apply_zone_affinity(enc, cat, occupancy)
-            enc = split_spread_groups(
-                enc, cat, self._spread_constraints(enc, cat, occupancy))
+                enc = self._delta_affinity(enc, cat, occupancy, occ_sig,
+                                           nodepool.name)
+            enc = self._delta_spread(enc, cat, occupancy, occ_sig,
+                                     nodepool.name)
             sp.set(groups=int(enc.G))
+        post_fp = encoded_fingerprint(enc)
         if enc.G == 0:
             out = self._merge_plan(SolveOutput([], {}, dropped), plan,
                                    cat, nodepool)
@@ -750,8 +781,24 @@ class Solver:
             nodepool=nodepool, node_class=node_class,
             spread_occupancy=spread_occupancy, daemonsets=daemonsets,
             backend=backend, t0=t0)
-        # (the reference serves an unchanged-input solve from the delta
-        # plane's memo here: ROADMAP §1 item 6, delta plane)
+        # delta plane: an unchanged-input solve serves the memoized
+        # result (still oracle-verified in finish_solve) instead of
+        # dispatching; miss/audit marks the prep so finish_solve
+        # settles the memo protocol
+        from .delta import existing_context_fingerprint
+        ex_fp = existing_context_fingerprint(existing)
+        served = self._delta_serve_solve(prep, post_fp, ex_fp)
+        if served is not None:
+            return served
+        # the FULL solve input identity a dispatch is about to grind —
+        # encoded content AND the standing-fleet context (two what-ifs
+        # over the same pods against different hypothetical clusters
+        # are different solves, not redundancy): an unchanged
+        # fingerprint re-solved from scratch is the redundant work the
+        # delta memo should have served
+        RECOMPUTE.classify("solve", fingerprint(
+            post_fp, self._last_cat_key, backend, int(enc.counts.sum()),
+            ex_fp))
         return prep
 
     def _device_dcat(self, prep: PreparedSolve):
@@ -787,11 +834,211 @@ class Solver:
                       if k[:n] not in self._cat_cache]:
                 del self._dcat_cache[k]
                 DCAT_EVICTIONS.inc(reason="facade_lru")
-            # (the reference seeds a device-resident view here: ROADMAP
-            # §1 item 7, resident state)
-            dcat = device_catalog(cat, R, self.device)
+            rk = self._resident_key(prep)
+            dcat = device_catalog(
+                cat, R, self.device,
+                resident_key=rk + ("dcat",) if rk is not None else None)
             self._dcat_cache[dkey] = dcat
         return dcat
+
+    def _resident_key(self, prep: PreparedSolve) -> Optional[tuple]:
+        """Key prefix for this facade's device-resident state (one per
+        (nodeclass, block-gating, daemonset-view) — the catalog EPOCH is
+        deliberately absent: an epoch bump is exactly the moment a delta
+        patch beats a full re-upload, and the entry's stored cache_token
+        forces the conservative full path when content lineage breaks."""
+        if not prep.cat_key:
+            return None
+        return ("facade", id(self), prep.cat_key[0], prep.blocks_gated,
+                prep.ds_fp)
+
+    def invalidate_resident(self, reason: str = "invalidated") -> int:
+        """Drop every device-resident view this facade seeded — called
+        by the warm-path engine when its auditor diverges (the
+        incremental pipeline disagreed with a cold solve, so no
+        incremental device state may be trusted either) and available to
+        chaos/restart machinery. Returns the entries dropped."""
+        from .resident import RESIDENT
+        return RESIDENT.invalidate(("facade", id(self)), reason=reason)
+
+    # --- delta plane (ops/delta.py): serve-and-verify memos ----------------
+    # The four prepare-time stages the c16 regime measured as >84%
+    # redundant serve their prior outputs when the input fingerprints
+    # are unchanged. Every shortcut is policed: served solves still run
+    # the integrity oracle (finish_solve), and the plane's audit
+    # cadence forces a fresh recompute with a confirm/diverge verdict
+    # (divergence invalidates + opens the never-wrong-twice cooldown).
+
+    def _delta_solve_key(self, prep: PreparedSolve, ex_fp: int) -> tuple:
+        # the existing-context fingerprint is part of the KEY, not the
+        # validation fingerprint: one reconcile runs many concurrent
+        # solves against DIFFERENT hypothetical cluster contexts (the
+        # disruption controller's what-ifs), and a single key would make
+        # them evict each other every pass. Distinct contexts memoize
+        # side by side; pod-content drift within one context re-stores
+        # under a new fp (the metered epoch)
+        return ("facade", id(self),
+                prep.cat_key[0] if prep.cat_key else None,
+                prep.nodepool.name if prep.nodepool is not None else None,
+                prep.blocks_gated, prep.ds_fp, ex_fp)
+
+    def _delta_serve_solve(self, prep: PreparedSolve, post_fp: int,
+                           ex_fp: int) -> Optional[PreparedSolve]:
+        """Solve-memo serve half. None = not served (miss, audit due,
+        ineligible) — the caller dispatches normally and finish_solve
+        settles the memo via the prep's delta_* fields. A clean hit
+        decodes the memoized SolveResult against the CURRENT prep
+        (fresh pod identities) through the full finish_solve pipeline —
+        the integrity oracle validates every served result."""
+        from .delta import (DELTA, copy_solve_result,
+                            solve_memo_fingerprint,
+                            solve_result_fingerprint)
+        # colocation plans thread planner state through finish_solve
+        # the memo cannot key — they always recompute. Existing-node
+        # solves (full reconciles, disruption what-ifs — the bulk of
+        # the c16 headroom) ARE served: attach_existing_context ran
+        # before this point, so the prepared VirtualNodes carry the
+        # full solver-visible standing-fleet state and the context
+        # fingerprint below folds it into the memo key
+        if (not DELTA.armed or prep.plan is not None
+                or self.profile_dir):
+            return None
+        key = self._delta_solve_key(prep, ex_fp)
+        fp = solve_memo_fingerprint(prep.enc, prep.cat_key, prep.backend,
+                                    prep.blocks_gated, prep.ds_fp)
+        hit = DELTA.serve("solve", key, fp)
+        if hit is None:
+            prep.delta_key, prep.delta_fp = key, fp
+            return None
+        (result, backend), audit_due = hit
+        if audit_due:
+            prep.delta_key, prep.delta_fp = key, fp
+            prep.delta_audit = True
+            prep.delta_check = solve_result_fingerprint(result)
+            return None
+        from ..obs.recompute import RECOMPUTE
+        RECOMPUTE.classify("solve", served=True)
+        prep.delta_served = True
+        out = self.finish_solve(prep, copy_solve_result(result), backend)
+        return PreparedSolve(output=out)
+
+    def _delta_record_solve(self, prep: PreparedSolve,
+                            result: SolveResult, backend: str) -> None:
+        """Settle the solve memo for a freshly computed (and already
+        integrity-verified) result: store on a miss, confirm/diverge on
+        an audit-due recompute."""
+        if prep.delta_key is None or prep.delta_served:
+            return
+        from .delta import (DELTA, copy_solve_result,
+                            solve_result_fingerprint)
+        check = solve_result_fingerprint(result)
+        if prep.delta_audit:
+            if check == prep.delta_check:
+                DELTA.confirm("solve", prep.delta_key, prep.delta_fp,
+                              value=(copy_solve_result(result), backend),
+                              check_fp=check)
+            else:
+                DELTA.diverge("solve", prep.delta_key)
+            return
+        DELTA.store("solve", prep.delta_key, prep.delta_fp,
+                    (copy_solve_result(result), backend), check_fp=check)
+
+    def _delta_affinity(self, enc: EncodedPods, cat: CatalogTensors,
+                        occupancy, occ_sig: tuple,
+                        pool: str) -> EncodedPods:
+        """Zone-affinity pre-pass through the delta memo: an unchanged
+        (enc content, occupancy signature, zones) pass REPLAYS the
+        memoized transformation descriptor against the CURRENT enc —
+        pod identities stay fresh while the O(occupancy) selector
+        matching and cluster/union-find work is served."""
+        from ..obs.recompute import (RECOMPUTE, encoded_fingerprint,
+                                     fingerprint)
+        from .affinity import descriptor_fingerprint, replay_zone_affinity
+        from .delta import DELTA, group_terms_fingerprint
+        led_fp = fingerprint(encoded_fingerprint(enc), occ_sig)
+        if not DELTA.armed:
+            RECOMPUTE.classify("affinity", led_fp)
+            return apply_zone_affinity(enc, cat, occupancy)
+        # the occupancy signature is zone+count only — the group-terms
+        # digest carries the selector semantics, and the audit cadence
+        # polices what neither catches. The content fingerprint is part
+        # of the KEY: one reconcile's what-if solves run this pass over
+        # many (enc, occupancy) variants, and a per-(facade, pool)
+        # entry would thrash instead of serving the repeats
+        mfp = fingerprint(led_fp, tuple(cat.zones))
+        key = ("facade", id(self), pool, group_terms_fingerprint(enc),
+               mfp)
+        hit = DELTA.serve("affinity", key, mfp)
+        if hit is not None and not hit[1]:
+            out = replay_zone_affinity(enc, cat, hit[0])
+            if out is not None:
+                RECOMPUTE.classify("affinity", served=True)
+                return out
+            # the descriptor no longer fits the enc it was keyed to —
+            # a memo-key defect: treat exactly like an audit divergence
+            DELTA.diverge("affinity", key)
+            hit = None
+        capture: dict = {}
+        out = apply_zone_affinity(enc, cat, occupancy, capture=capture)
+        RECOMPUTE.classify("affinity", led_fp)
+        cfp = descriptor_fingerprint(capture)
+        if hit is not None:  # audit-due: judge the stored descriptor
+            if cfp == descriptor_fingerprint(hit[0]):
+                DELTA.confirm("affinity", key, mfp, value=capture,
+                              check_fp=cfp)
+            else:
+                DELTA.diverge("affinity", key)
+        else:
+            DELTA.store("affinity", key, mfp, capture, check_fp=cfp)
+        return out
+
+    def _delta_spread(self, enc: EncodedPods, cat: CatalogTensors,
+                      occupancy, occ_sig: tuple, pool: str) -> EncodedPods:
+        """Topology-spread pass through the delta memo: the memo serves
+        the O(cluster pods) selector-counting half (_spread_constraints);
+        the cheap structural split always runs against the current enc."""
+        from ..obs.recompute import (RECOMPUTE, encoded_fingerprint,
+                                     fingerprint)
+        from .delta import (DELTA, copy_spread_constraints,
+                            group_terms_fingerprint,
+                            spread_constraints_fingerprint)
+
+        def _classify_fresh(out_enc):
+            RECOMPUTE.classify("spread", fingerprint(
+                encoded_fingerprint(out_enc), occ_sig, "spread"))
+
+        if not (DELTA.armed and enc.G and bool(enc.spread_zone.any())):
+            out = split_spread_groups(
+                enc, cat, self._spread_constraints(enc, cat, occupancy))
+            _classify_fresh(out)
+            return out
+        mfp = fingerprint(encoded_fingerprint(enc), occ_sig,
+                          tuple(cat.zones), "spread")
+        # content fp in the KEY, same rationale as _delta_affinity:
+        # concurrent what-if variants must memoize side by side
+        key = ("facade", id(self), pool, group_terms_fingerprint(enc),
+               mfp)
+        hit = DELTA.serve("spread", key, mfp)
+        if hit is not None and not hit[1]:
+            out = split_spread_groups(
+                enc, cat, copy_spread_constraints(hit[0]))
+            RECOMPUTE.classify("spread", served=True)
+            return out
+        cons = self._spread_constraints(enc, cat, occupancy)
+        cfp = spread_constraints_fingerprint(cons)
+        if hit is not None:  # audit-due
+            if cfp == spread_constraints_fingerprint(hit[0]):
+                DELTA.confirm("spread", key, mfp,
+                              value=copy_spread_constraints(cons),
+                              check_fp=cfp)
+            else:
+                DELTA.diverge("spread", key)
+        else:
+            DELTA.store("spread", key, mfp,
+                        copy_spread_constraints(cons), check_fp=cfp)
+        out = split_spread_groups(enc, cat, cons)
+        _classify_fresh(out)
+        return out
 
     def stage_batchable(self, prep: PreparedSolve):
         """ops.solver.BatchableSolve for a prepared solve, or None when it
@@ -832,8 +1079,9 @@ class Solver:
                 from .solver import InjectedFault, solve_device
                 try:
                     dcat = self._device_dcat(prep)
-                    result = solve_device(cat, enc, existing, dcat=dcat,
-                                          device=self.device)
+                    result = solve_device(
+                        cat, enc, existing, dcat=dcat, device=self.device,
+                        resident_key=self._resident_key(prep))
                 except InjectedFault as e:
                     # an injected mid-solve device fault costs ONE rerouted
                     # solve, metered as the reference meters it. Anything
@@ -877,8 +1125,9 @@ class Solver:
         # through the fallback backend; KARPENTER_TPU_INTEGRITY=0 makes
         # this a single env check (today's path byte-for-byte)
         result, backend = self._verify_integrity(prep, result, backend)
-        # (the reference memoizes the verified result in the delta plane
-        # here: ROADMAP §1 item 6, delta plane)
+        # delta plane: memoize (or audit-settle) the verified result —
+        # an unchanged-input reconcile serves it without a dispatch
+        self._delta_record_solve(prep, result, backend)
 
         with _span("solve.output"):  # decode to launches, merge the plan
             out = self._decode(cat, enc, result, prep.nodepool, prep.dropped)
@@ -925,9 +1174,7 @@ class Solver:
     # --- solution-integrity plane (integrity/) ----------------------------
     def _verify_integrity(self, prep: PreparedSolve, result: SolveResult,
                           backend: str):
-        """Feasibility oracle + canary for one solve (the reference's
-        resident-state audit joins with the resident state, ROADMAP §1
-        item 7).
+        """Feasibility oracle + canary + resident audit for one solve.
         Returns the (possibly recovered) (result, backend). Read-only on
         the happy path. A device violation re-runs the solve on the
         fallback backend. Then:
@@ -944,7 +1191,8 @@ class Solver:
         from ..integrity import integrity_enabled
         if not integrity_enabled() or prep.enc is None:
             return result, backend
-        from ..integrity import CanarySampler, INTEGRITY, verify_result
+        from ..integrity import (CanarySampler, INTEGRITY, audit_every,
+                                 verify_result)
         sp = (TRACER.span("integrity.verify", backend=backend)
               if TRACER.enabled else NOOP_SPAN)
         with sp:
@@ -956,12 +1204,29 @@ class Solver:
                 if self._canary.due():
                     violations = self._canary.check(prep.cat, prep.enc,
                                                     result)
-            if not violations:
+            # resident-state digest audit, on a deterministic per-facade
+            # cadence: corruption found there taints THIS solve too (its
+            # inputs came off those buffers), so it recovers like an
+            # oracle violation
+            self._integrity_solves += 1
+            every = audit_every()
+            audit_violations = []
+            if (device_backed and every > 0
+                    and self._integrity_solves % every == 0):
+                audit_violations = self._audit_resident_state()
+            if not violations and not audit_violations:
                 INTEGRITY.record_ok()
                 sp.set(outcome="ok")
                 return result, backend
-            # breach accounting: the violating SOLVE is one context
-            INTEGRITY.record_breach_event()
+            # breach accounting: the violating SOLVE is one context,
+            # and each corrupt resident ENTRY is its own — a single
+            # audit pass catching two rotted buffers must count as two
+            # detections against two injected corruptions
+            if violations:
+                INTEGRITY.record_breach_event()
+            for _ in audit_violations:
+                INTEGRITY.record_breach_event()
+            violations += audit_violations
             self.stats["integrity_violations"] += len(violations)
             for vio in violations:
                 INTEGRITY.record_violation(vio.check, vio.detail)
@@ -980,6 +1245,17 @@ class Solver:
                 # breach) and ship what we have
                 INTEGRITY.record_recovery(False)
                 return result, backend
+            # forensic audit BEFORE the quarantine wipes the evidence:
+            # a violating device solve may have consumed MORE rotted
+            # buffers than the one that tripped the oracle (or than the
+            # bounded cadence slice covered), and each corrupt entry is
+            # its own breach context. The manager drops corrupt entries
+            # on detection, so the sweep only ever reports NEW rot
+            for vio in self._audit_resident_state(full=True):
+                INTEGRITY.record_breach_event()
+                INTEGRITY.record_violation(vio.check, vio.detail)
+                self.stats["integrity_violations"] += 1
+                violations.append(vio)
             fallback = self._fallback_backend(prep.cat)
             if fallback == "native":
                 from .native import solve_native
@@ -1013,11 +1289,33 @@ class Solver:
             sp.set(recovered_backend=fallback)
             return recovered, fallback
 
+    def _audit_resident_state(self, full: bool = False):
+        """Digest-audit this facade's device-resident views (and the
+        shared catalog entries it may be consuming). Corrupt entries are
+        dropped by the manager; the caller treats any finding as a
+        violation of the in-flight solve. `full` lifts the per-pass row
+        bound — the forensic sweep a violating solve triggers must cover
+        every entry, not a round-robin slice."""
+        from ..integrity import AUDIT_ROWS, INTEGRITY, Violation
+        from .resident import RESIDENT
+        if not RESIDENT.armed:
+            return []
+        rows = None if full else AUDIT_ROWS
+        rep = RESIDENT.audit(("facade", id(self)), max_rows=rows)
+        shared = RESIDENT.audit(("dcat",), max_rows=rows)
+        corrupt = list(rep["corrupt"]) + list(shared["corrupt"])
+        INTEGRITY.record_audit(rep["rows"] + shared["rows"], len(corrupt))
+        return [Violation("resident_audit",
+                          f"resident row digests diverged on "
+                          f"{'/'.join(str(t) for t in key)}")
+                for key in corrupt]
+
     def _integrity_quarantine(self, prep: PreparedSolve,
                               backend: str) -> None:
         """Contain a device-path integrity violation: drop every device
-        buffer this facade could have consumed (its cached DeviceCatalogs
-        and the shared content-token variants of the offending view) and
+        buffer this facade could have consumed (its resident views, its
+        cached DeviceCatalogs, and the shared content-token variants of
+        the offending view) and
         suspend the device path for the standard
         cooldown — only THIS facade degrades; co-tenants' paths are
         untouched until their own checks say otherwise."""
@@ -1030,13 +1328,20 @@ class Solver:
 
     def _quarantine_device_state(self, tok=None) -> None:
         """The backend-independent half of the quarantine: drop this
-        facade's cached DeviceCatalogs (they may reference corrupted
-        buffers), release the shared content-token variants of the
-        offending view, and suspend the device path for the standard
-        never-wrong-twice cooldown. (The reference also drops the
-        facade's resident views and solve memos: ROADMAP §1 items 7
-        and 6.)"""
+        facade's resident views and cached DeviceCatalogs (both may
+        reference corrupted buffers), release the shared content-token
+        variants of the offending view, and suspend the device path for
+        the standard never-wrong-twice cooldown."""
         from ..metrics import DEGRADED_MODE
+        from .delta import DELTA
+        from .resident import RESIDENT
+        RESIDENT.invalidate(("facade", id(self)), reason="corruption")
+        # memoized solve results may have been decoded from the same
+        # corrupted device state — they die with it (host-side
+        # affinity/spread memos are untouched: nothing device-backed
+        # feeds them)
+        DELTA.invalidate(("solve", "facade", id(self)),
+                         reason="quarantine")
         if self._dcat_cache:
             from ..metrics import DCAT_EVICTIONS
             for _ in range(len(self._dcat_cache)):

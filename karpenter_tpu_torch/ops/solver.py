@@ -15,6 +15,13 @@ serves a bucket of fresh solves that share one device catalog as ONE
 launch of kernels B0 and B along a request axis, asynchronously: the
 fleet's `SolverService` stages the next bucket while one is in flight.
 
+Every host -> device upload goes through `_put` and every host read
+through `_read`, counted and attributed on the device telemetry plane
+(`obs/devicemem`: the transfer and residency ledgers) as the reference's
+are. With a `resident_key` (the facade's and the fleet's default), the
+request matrices and the catalog tensors stay on the card across solves
+and only their changed rows cross (`ops/resident`).
+
 Entry points run on `cuda` unless the caller passes `device="cpu"`, which
 runs the same path with the scan's plain PyTorch version. Multi-device
 (`mesh=`) is not ported.
@@ -23,6 +30,7 @@ runs the same path with the scan's plain PyTorch version. Multi-device
 from __future__ import annotations
 
 import math
+import threading
 import time
 import weakref
 from dataclasses import dataclass
@@ -31,6 +39,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs import devicemem as dm
 from ..obs.tracer import NOOP_SPAN, TRACER
 from .binpack import BIG, EPS, SolveResult, VirtualNode
 from .encode import (CatalogTensors, EncodedPods, align_resources,
@@ -50,10 +59,15 @@ class InjectedFault(RuntimeError):
 # fault-injection seams, nil-guarded (None costs one identity check a
 # solve). The dispatch hook is called with the backend name just before
 # the scan and raises InjectedFault to model the card failing mid-solve.
-# The corruption hook is called as hook("result", SolveResult) after the
-# decode and returns a (silently wrong) replacement or None; while it is
-# armed, an integrity violation on the device rung is treated as the
-# injected corruption it is (quarantine and recovery) instead of raising.
+# The corruption hook is the reference's silent-data-corruption seam
+# (faults/plan.CorruptionFault): called as hook("gbuf", tensor) right
+# after a non-resident request-matrix upload (the serial path with
+# residency disarmed, and the batched stack), as hook("resident", tensor,
+# key) by ops/resident after every resident upload, and — the port's own
+# seam — as hook("result", SolveResult) after the decode. It returns a
+# (silently wrong) replacement or None; while it is armed, an integrity
+# violation on the device rung is treated as the injected corruption it
+# is (quarantine and recovery) instead of raising.
 _dispatch_fault_hook = None
 _corruption_hook = None
 
@@ -108,21 +122,112 @@ class DeviceCatalog:
     ovh_z: Optional[torch.Tensor] = None  # f32 [T, Z, R] or None
 
 
-def _put(x: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Host -> device upload of one numpy array."""
-    return torch.as_tensor(np.ascontiguousarray(x), device=dev)
+# device-boundary crossings issued since import (uploads, reads): diff
+# around a solve to count them, as the reference's transfer_stats()
+_TRANSFERS = 0
+_READS = 0
 
 
-def device_catalog(cat: CatalogTensors, R: int,
-                   device: torch.device) -> DeviceCatalog:
+def transfer_stats() -> Tuple[int, int]:
+    """(uploads, reads) issued by the solver since import."""
+    return _TRANSFERS, _READS
+
+
+def transfer_bytes() -> Tuple[int, int]:
+    """(host->device, device->host) bytes since import, served from the
+    transfer-attribution ledger (obs/devicemem.TRANSFERS), so the same
+    bytes are decomposable per (reason, tenant, shape class)."""
+    return dm.TRANSFERS.totals()
+
+
+class _Staging(threading.local):
+    """The pinned host buffers of this thread's uploads while a batched
+    dispatch stages (None otherwise): the in-flight batch keeps them
+    until its event."""
+    keep: Optional[list] = None
+
+
+_staging = _Staging()
+
+
+def _put(x, dev: torch.device) -> torch.Tensor:
+    """Host -> device upload of one numpy array, counted and attributed on
+    the device telemetry plane (under the ambient `dm.attributed(...)`
+    context). On the card the copy goes from a pinned host buffer with
+    non_blocking=True, so an upload never makes the host wait for work
+    already queued on the stream (the caching host allocator holds the
+    pinned block until the copy has run; inside a batched staging the
+    in-flight batch keeps it too). On the CPU the tensor is an independent
+    copy, never a view of the caller's array."""
+    global _TRANSFERS
+    _TRANSFERS += 1
+    dev = torch.device(dev)
+    arr = np.ascontiguousarray(x)
+    if dev.type == "cuda":
+        host = torch.from_numpy(arr.copy() if not arr.flags.writeable
+                                else arr).pin_memory()
+        out = host.to(dev, non_blocking=True)
+        if _staging.keep is not None:
+            _staging.keep.append(host)
+    else:
+        out = torch.tensor(arr, device=dev)
+    dm.on_upload(out)
+    return out
+
+
+def _read(t: torch.Tensor) -> np.ndarray:
+    """Device -> host read of one tensor (waits for the card), counted
+    and attributed as a readback."""
+    global _READS
+    _READS += 1
+    out = t.cpu().numpy()
+    dm.on_readback(out.nbytes)
+    return out
+
+
+def device_catalog(cat: CatalogTensors, R: int, device: torch.device,
+                   resident_key: Optional[tuple] = None) -> DeviceCatalog:
+    """The catalog tensors on `device`.
+
+    resident_key: route the four catalog tensors through the
+    device-resident state manager (ops/resident.py) — an epoch bump then
+    ships only the instance-type rows whose content changed (an ICE mark
+    flips a few avail rows, not the catalog), as a NON-donated patch: a
+    split shared view's predecessor DeviceCatalog may still serve a
+    co-tenant, so its tensors keep their bytes and the patch lands in a
+    copy."""
+    from .resident import RESIDENT
+    if resident_key is not None and RESIDENT.armed:
+        tok = cat.cache_token
+
+        def put(name, x):
+            return RESIDENT.upload(resident_key + (name,), x, token=tok,
+                                   donate=False, patch_across_tokens=True,
+                                   device=device)
+    else:
+        def put(name, x):
+            return _put(x, device)
     zovh = align_zone_overhead(cat, R)
-    return DeviceCatalog(
-        alloc=_put(align_resources(cat.allocatable, R).astype(np.float32),
-                   device),
-        price=_put(cat.price.astype(np.float32), device),
-        avail=_put(cat.available.astype(bool), device),
-        ovh_z=(_put(zovh.astype(np.float32), device) if zovh is not None
-               else None))
+    sp = (TRACER.span("solve.catalog_put", T=int(cat.T), R=int(R),
+                      mesh=False)
+          if TRACER.enabled else NOOP_SPAN)
+    with sp:
+        b0 = transfer_bytes()[0]
+        with dm.attributed(reason="catalog_put", kind="catalog",
+                           token=cat.cache_token) as grp:
+            dcat = DeviceCatalog(
+                alloc=put("alloc", align_resources(cat.allocatable, R)
+                          .astype(np.float32)),
+                price=put("price", cat.price.astype(np.float32)),
+                avail=put("avail", cat.available.astype(bool)),
+                ovh_z=(put("ovh_z", zovh.astype(np.float32))
+                       if zovh is not None else None))
+        # the DeviceCatalog OWNS these tensors: the residency ledger's
+        # leak invariant watches for the owner dying while the tensors
+        # stay live
+        dm.DEVICEMEM.adopt(grp, dcat)
+        sp.set(h2d_bytes=transfer_bytes()[0] - b0)
+    return dcat
 
 
 # per-catalog device cache for callers without their own (bare solve_device
@@ -168,6 +273,11 @@ def release_shared_views(prefix: tuple) -> int:
     for k in victims:
         _dcat_cache.pop(k, None)
         _count_dcat_eviction("view_evicted")
+    # the view's device-resident delta state goes with it: resident
+    # tensors encoded against the dead view's ("shared", ...) token must
+    # never outlive the view
+    from .resident import RESIDENT
+    RESIDENT.invalidate_token(prefix)
     return len(victims)
 
 
@@ -200,7 +310,14 @@ def _auto_dcat(cat: CatalogTensors, R: int,
         _count_dcat_eviction("stale")
     if ent is None and not by_token:
         weakref.finalize(cat, _finalize_dcat, key)
-    dcat = device_catalog(cat, R, device)
+    # shared (content-token) views patch through the resident manager:
+    # the key carries the nodeclass root + the FULL derived-view suffix
+    # but NOT the availability fingerprint (tok[2]), so an epoch bump
+    # ships only the changed type rows, and two distinct daemonset-
+    # derived views never collide on one resident entry
+    rkey = (("dcat", "shared", tok[1]) + tuple(tok[3:]) if by_token
+            else None)
+    dcat = device_catalog(cat, R, device, resident_key=rkey)
     _dcat_cache[key] = dcat
     if by_token:
         # token-keyed entries deliberately OUTLIVE any one CatalogTensors
@@ -447,6 +564,9 @@ def _cols_on(cols: tuple, dev: torch.device) -> torch.Tensor:
         if dev.type == "cuda":
             host = host.pin_memory()
         cix = _col_index[(dev, cols)] = host.to(dev, non_blocking=True)
+        # accounted on the residency ledger (the reference's column set is
+        # a jit static and owns no device bytes)
+        dm.DEVICEMEM.track("catalog", [cix])
     return cix
 
 
@@ -520,11 +640,14 @@ class _Staged:
     node_cmask: np.ndarray
     has_prior: bool
     has_banned: bool
+    shape_class: str = ""
 
 
 def _stage(cat: CatalogTensors, enc: EncodedPods,
            existing: List[VirtualNode], dev: torch.device,
-           dcat: Optional[DeviceCatalog] = None) -> _Staged:
+           dcat: Optional[DeviceCatalog] = None,
+           resident_key: Optional[tuple] = None,
+           n_max: Optional[int] = None) -> _Staged:
     R = enc.requests.shape[1]
     n_existing = len(existing)
     Gp = _bucket(enc.G, 8)
@@ -545,10 +668,34 @@ def _stage(cat: CatalogTensors, enc: EncodedPods,
         node_cmask[i] = n.cap_mask
     track = enc.conflict is not None
     cols = _request_cols(enc, cat)
+    shape_class = f"g{Gp}/n{n_max}"
     # pad group inputs; padded groups have count 0 -> no-ops in the scan
-    gbuf = _put(_pack_groups(*_group_inputs(enc, Gp), list(cols)), dev)
-    conflict = (_put(_pad_to(_pad_to(enc.conflict, Gp, 0), Gp, 1), dev)
-                if track else None)
+    gbuf_np = _pack_groups(*_group_inputs(enc, Gp), list(cols))
+    conflict_np = (_pad_to(_pad_to(enc.conflict, Gp, 0), Gp, 1) if track
+                   else None)
+    from .resident import RESIDENT
+    if resident_key is not None and RESIDENT.armed:
+        # device-resident delta path (ops/resident.py): the request
+        # matrix stays on the card across reconciles and only CHANGED
+        # group rows cross, patched in place (the reference donates these
+        # two buffers); an unchanged warm solve ships zero upload bytes.
+        # Fallbacks (epoch bump, shape-class growth, dense churn) re-upload
+        # full — byte-parity with the cold path either way
+        gbuf = RESIDENT.upload(resident_key + ("gbuf", Gp), gbuf_np,
+                               token=cat.cache_token,
+                               shape_class=shape_class, device=dev)
+        conflict = (RESIDENT.upload(resident_key + ("conflict", Gp),
+                                    conflict_np, token=cat.cache_token,
+                                    shape_class=shape_class, device=dev)
+                    if track else None)
+    else:
+        # redundancy meter: how much of this view's request matrix is
+        # byte-identical to the previous solve's upload — the measured
+        # headroom the resident path above spends
+        dm.UPLOADS.observe(("serial", id(dcat), Gp), gbuf_np)
+        with dm.attributed(shape_class=shape_class):
+            gbuf = _maybe_corrupt("gbuf", _put(gbuf_np, dev))
+            conflict = _put(conflict_np, dev) if track else None
     return _Staged(dcat=dcat, Gp=Gp, cols=cols, track=track,
                    zone_ovh=dcat.ovh_z is not None, gbuf=gbuf,
                    conflict=conflict, existing=existing,
@@ -556,7 +703,8 @@ def _stage(cat: CatalogTensors, enc: EncodedPods,
                    node_zmask=node_zmask, node_cmask=node_cmask,
                    has_prior=any(n.prior_by_group for n in existing),
                    has_banned=any(n.banned_groups is not None
-                                  for n in existing))
+                                  for n in existing),
+                   shape_class=shape_class)
 
 
 def _scan(st: _Staged, n_max: int) -> ScanOut:
@@ -575,16 +723,18 @@ def _scan(st: _Staged, n_max: int) -> ScanOut:
                     prior[g, i] = cnt
         if st.has_banned and n.banned_groups is not None:
             banned[: len(n.banned_groups), i] = n.banned_groups
-    nbuf = (None if n_existing == 0 else
-            _put(_pack_nodes(_pad_to(st.node_type, n_max),
-                             _pad_to(st.node_cum, n_max),
-                             _pad_to(st.node_zmask, n_max),
-                             _pad_to(st.node_cmask, n_max),
-                             _pad_to(np.ones(n_existing, bool), n_max),
-                             list(st.cols)), dev))
+    with dm.attributed(shape_class=st.shape_class):
+        nbuf = (None if n_existing == 0 else
+                _put(_pack_nodes(_pad_to(st.node_type, n_max),
+                                 _pad_to(st.node_cum, n_max),
+                                 _pad_to(st.node_zmask, n_max),
+                                 _pad_to(st.node_cmask, n_max),
+                                 _pad_to(np.ones(n_existing, bool), n_max),
+                                 list(st.cols)), dev))
+        prior_dev = _put(prior, dev) if st.has_prior else None
+        banned_dev = _put(banned, dev) if st.has_banned else None
     return _scan_onebuf(
-        st.dcat, st.gbuf, _put(prior, dev) if st.has_prior else None,
-        _put(banned, dev) if st.has_banned else None, st.conflict, nbuf,
+        st.dcat, st.gbuf, prior_dev, banned_dev, st.conflict, nbuf,
         n_existing, n_max, st.cols, st.track, st.zone_ovh)
 
 
@@ -598,7 +748,8 @@ def solve_device(cat: CatalogTensors, enc: EncodedPods,
                  existing: Optional[List[VirtualNode]] = None,
                  n_max: Optional[int] = None,
                  dcat: Optional[DeviceCatalog] = None, device=None,
-                 mesh=None) -> SolveResult:
+                 mesh=None,
+                 resident_key: Optional[tuple] = None) -> SolveResult:
     """Run the solve on `device` (default: the CUDA card) and decode the
     result to the SolveResult solve_host produces. `enc` must be
     spread-free (split_spread_groups).
@@ -607,41 +758,78 @@ def solve_device(cat: CatalogTensors, enc: EncodedPods,
     one that cannot serve this solve (too few resource columns, another
     device, zone overhead flipped) is replaced by the process cache's.
 
-    With tracing on, each stage is a span (the reference's names):
-    solve.prep (node budget), solve.device_put (staging and uploads),
-    solve.dispatch (the scan, enqueued), solve.readback (packing and the
-    one host read, which waits for the card), solve.decode."""
+    resident_key: keep the request matrix and the conflict matrix
+    resident on the device under this key prefix (ops/resident.py): only
+    their changed rows are uploaded, patched in place.
+
+    With tracing on, the solve runs under a `solve.device` span whose
+    children are the reference's stages: solve.prep (node budget),
+    solve.device_put (staging and uploads), solve.dispatch (the scan,
+    enqueued), solve.readback (packing and the one host read, which waits
+    for the card), solve.decode. The per-solve transfer-byte deltas land
+    on the two transfer gauges either way."""
+    from ..metrics import TRANSFER_BYTES_D2H, TRANSFER_BYTES_H2D
     reject_mesh(mesh)
     dev = resolve_device(device)
+    u0, d0 = transfer_bytes()
+    span = (TRACER.span("solve.device", backend="device",
+                        pods=int(enc.counts.sum()), groups=int(enc.G))
+            if TRACER.enabled else NOOP_SPAN)
+    with span:
+        result = _solve_device_impl(cat, enc, existing, n_max, dcat, dev,
+                                    resident_key)
+        u1, d1 = transfer_bytes()
+        TRANSFER_BYTES_H2D.set(u1 - u0)
+        TRANSFER_BYTES_D2H.set(d1 - d0)
+        span.set(h2d_bytes=u1 - u0, d2h_bytes=d1 - d0)
+    return result
+
+
+def _solve_device_impl(cat: CatalogTensors, enc: EncodedPods,
+                       existing: Optional[List[VirtualNode]],
+                       n_max: Optional[int], dcat: Optional[DeviceCatalog],
+                       dev: torch.device,
+                       resident_key: Optional[tuple]) -> SolveResult:
     assert not enc.spread_zone.any(), "run split_spread_groups before solve"
     existing = existing or []
     n_existing = len(existing)
     total_pods = int(enc.counts.sum())
     auto_n = n_max is None
-    if auto_n:
-        with _span("solve.prep"):
+    with _span("solve.prep") as sp:
+        if auto_n:
             n_max = _auto_node_budget(cat, enc, n_existing)
-    with _span("solve.device_put"):
-        st = _stage(cat, enc, existing, dev, dcat)
+        sp.set(n_max=int(n_max), groups_padded=int(_bucket(enc.G, 8)))
+    with _span("solve.device_put") as sp:
+        b0 = transfer_bytes()[0]
+        st = _stage(cat, enc, existing, dev, dcat, resident_key, n_max)
+        sp.set(gbuf_shape=str(tuple(st.gbuf.shape)),
+               h2d_bytes=transfer_bytes()[0] - b0)
     if _dispatch_fault_hook is not None:
         _dispatch_fault_hook("device")
     while True:
         with _span("solve.dispatch"):
             out = _scan(st, n_max)  # ONE scan per node budget
-        with _span("solve.readback"):
+        packed = None
+        with _span("solve.readback") as sp, \
+                dm.attributed(shape_class=st.shape_class):
             # sparse-take budget: nnz ~ n_used + cross-node sharing, far
             # below the [Gp * n_max] flat size
             k_max = _bucket(2 * n_max)
-            buf = pack_solution(*out, k_max).cpu().numpy()  # ONE host read
+            packed = pack_solution(*out, k_max)
+            dm.DEVICEMEM.track("packed_result", [packed],
+                               shape_class=st.shape_class)
+            buf = _read(packed)  # ONE host read
             (nused, overflowed, nnz, unsched, ntype, idx,
              vals) = _parse_packed(buf, st.Gp, n_max, k_max)
             if nnz > k_max:
                 # takes were truncated: re-pack the same scan at a larger
                 # budget
                 k_max = _bucket(nnz)
-                buf = pack_solution(*out, k_max).cpu().numpy()
+                packed = pack_solution(*out, k_max)
+                buf = _read(packed)
                 (nused, overflowed, nnz, unsched, ntype, idx,
                  vals) = _parse_packed(buf, st.Gp, n_max, k_max)
+            sp.set(d2h_bytes=int(buf.nbytes), shape=str(tuple(buf.shape)))
         if not overflowed or not auto_n or n_max >= n_existing + total_pods:
             break
         # node budget too small: regrow it and scan again (the reference's
@@ -667,11 +855,11 @@ def solve_packed(cat: CatalogTensors, enc: EncodedPods,
     existing = existing or []
     if n_max is None:
         n_max = _auto_node_budget(cat, enc, len(existing))
-    st = _stage(cat, enc, existing, dev)
+    st = _stage(cat, enc, existing, dev, n_max=n_max)
     k_max = _bucket(2 * n_max)
     statics = dict(n_max=n_max, k_max=k_max, cols=st.cols,
                    track_conflicts=st.track, zone_ovh=st.zone_ovh, Gp=st.Gp)
-    return _dispatch(st, n_max, k_max).cpu().numpy(), statics
+    return _read(_dispatch(st, n_max, k_max)), statics
 
 
 # ---------------------------------------------------------------------------
@@ -685,12 +873,10 @@ def solve_packed(cat: CatalogTensors, enc: EncodedPods,
 # have count 0; padded batch rows have ALL counts zeroed), so rows decode
 # independently and equal serial solves.
 #
-# Not ported, by the reference's routes: the resident stacked upload
-# (`resident_key=`, ROADMAP §1 item 7), the batch mesh (`mesh=`, item 13:
-# raises), the `dm.*` residency and upload-redundancy ledgers (item 7), and
-# the donated stack (torch has no donation; the in-flight batch holds its
-# uploads until its event instead). Nothing compiles per shape, so the
-# reference's dispatch-cache hit/miss event has no counterpart.
+# Not ported: the batch mesh (`mesh=`, ROADMAP §1 item 13: raises), and
+# the donated stack (the in-flight batch holds its uploads until its
+# event instead). Nothing compiles per shape, so the reference's
+# dispatch-cache hit/miss event has no counterpart.
 
 
 @dataclass
@@ -787,7 +973,7 @@ class InFlightBatch:
             self._event.synchronize()
         self.wait_s = time.perf_counter() - t0
         with _span("solve.readback") as sp:
-            self._buf = self._packed.cpu().numpy()
+            self._buf = _read(self._packed)
             sp.set(batch=self.size, d2h_bytes=int(self._buf.nbytes))
         self._packed = self._event = None
         self._keep = ()
@@ -849,20 +1035,35 @@ def _batch_bucket(b: int) -> int:
 
 
 def _stage_batch_stack(gstack_np: np.ndarray, conf_np: Optional[np.ndarray],
-                       dev: torch.device):
+                       dev: torch.device,
+                       resident_key: Optional[tuple] = None, token=None,
+                       shape_class: str = ""):
     """Upload one packed request stack ([Bp, Gp, W] f32, plus the optional
-    [Bp, Gp, Gp] conflict stack). On the card the copies go from pinned
-    host buffers with non_blocking=True: a pageable copy on the stream
-    would make the host wait for the batch already in flight. Returns
-    (gstack, conf, the host buffers to keep until the batch's event)."""
-    host = [torch.from_numpy(np.ascontiguousarray(x))
-            for x in (gstack_np, conf_np) if x is not None]
-    if dev.type == "cuda":
-        host = [h.pin_memory() for h in host]
-        on = [h.to(dev, non_blocking=True) for h in host]
-    else:
-        on = [h.to(dev) for h in host]
-    return on[0], (on[1] if conf_np is not None else None), tuple(host)
+    [Bp, Gp, Gp] conflict stack) through the counted `_put` — or, with a
+    resident_key, the stack through the resident manager (an unchanged
+    tenant's rows patch instead of re-uploading). On the card every copy
+    goes from a pinned host buffer with non_blocking=True: a pageable copy
+    on the stream would make the host wait for the batch already in
+    flight. Returns (gstack, conf, ledger group, the host buffers to keep
+    until the batch's event). A resident stack is patched out of place:
+    the next pump reads it while this batch may still run."""
+    keep: list = []
+    _staging.keep = keep
+    try:
+        with dm.attributed(reason="batch_upload", kind="batch_gbuf",
+                           shape_class=shape_class) as grp:
+            from .resident import RESIDENT
+            if resident_key is not None and RESIDENT.armed:
+                gstack = RESIDENT.upload(
+                    resident_key + ("batch_gbuf",) + tuple(gstack_np.shape),
+                    gstack_np, token=token, shape_class=shape_class,
+                    donate=False, device=dev)
+            else:
+                gstack = _maybe_corrupt("gbuf", _put(gstack_np, dev))
+            conf = _put(conf_np, dev) if conf_np is not None else None
+    finally:
+        _staging.keep = None
+    return gstack, conf, grp, tuple(keep)
 
 
 def _scan_batched_args(dcat: DeviceCatalog, gstack: torch.Tensor,
@@ -907,7 +1108,9 @@ def _dispatch_stack(gstack: torch.Tensor, conf: Optional[torch.Tensor],
 
 def _launch_stack(reqs: List[BatchableSolve], gstack_np: np.ndarray,
                   conf_np: Optional[np.ndarray], dcat: DeviceCatalog,
-                  statics: dict, shape_class: str) -> InFlightBatch:
+                  statics: dict, shape_class: str,
+                  resident_key: Optional[tuple] = None,
+                  token=None) -> InFlightBatch:
     """Pad the batch axis to its bucket (padded rows repeat row 0 with
     every count zeroed: no-ops in the scan), upload, dispatch, record the
     batch's event; returns without waiting for the card."""
@@ -916,6 +1119,7 @@ def _launch_stack(reqs: List[BatchableSolve], gstack_np: np.ndarray,
     Bp = _batch_bucket(B)
     track = statics["track_conflicts"]
     with _span("solve.batch_pack") as sp:
+        b0 = transfer_bytes()[0]
         if Bp > B:
             pad = np.repeat(gstack_np[:1], Bp - B, axis=0)
             pad[:, :, len(statics["cols"])] = 0.0  # zero counts: no-op rows
@@ -924,23 +1128,37 @@ def _launch_stack(reqs: List[BatchableSolve], gstack_np: np.ndarray,
                 conf_np = np.concatenate(
                     [conf_np, np.zeros((Bp - B,) + conf_np.shape[1:], bool)],
                     axis=0)
-        gstack, conf, keep = _stage_batch_stack(
-            gstack_np, conf_np if track else None, dev)
+        gstack, conf, grp, keep = _stage_batch_stack(
+            gstack_np, conf_np if track else None, dev,
+            resident_key=resident_key, token=token,
+            shape_class=shape_class)
         sp.set(requests=B, padded=Bp, shape_class=shape_class,
-               h2d_bytes=sum(int(h.nbytes) for h in keep))
+               h2d_bytes=transfer_bytes()[0] - b0)
     packed = _dispatch_stack(gstack, conf, dcat, statics)
     event = None
     if dev.type == "cuda":
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(dev))
-    return InFlightBatch(reqs, packed, time.perf_counter(), event=event,
-                         keep=keep)
+    ifb = InFlightBatch(reqs, packed, time.perf_counter(), event=event,
+                        keep=keep)
+    # the in-flight batch OWNS the staged uploads and the pending packed
+    # output: residency drops when it drains (block() frees _packed) or
+    # when the batch object itself dies
+    dm.DEVICEMEM.adopt(grp, ifb)
+    dm.DEVICEMEM.track("packed_result", [packed], owner=ifb,
+                       shape_class=shape_class)
+    return ifb
 
 
-def dispatch_batch(reqs: List[BatchableSolve], mesh=None) -> InFlightBatch:
+def dispatch_batch(reqs: List[BatchableSolve], mesh=None,
+                   resident_key: Optional[tuple] = None) -> InFlightBatch:
     """Pack one bucket of same-signature requests into a single device call
     and return without blocking (the card executes while the caller stages
-    the next bucket)."""
+    the next bucket).
+
+    resident_key: route the stacked request matrix through the
+    device-resident manager (the fleet's stable buckets): tenant rows that
+    did not change between pumps are not shipped again."""
     reject_mesh(mesh)
     assert reqs, "empty batch"
     first = reqs[0]
@@ -948,15 +1166,22 @@ def dispatch_batch(reqs: List[BatchableSolve], mesh=None) -> InFlightBatch:
         "batched requests must share one shape-class signature"
     st = first.statics
     Gp, cols = first.Gp, list(st["cols"])
-    gstack_np = np.stack([_pack_groups(*_group_inputs(r.enc, Gp), cols)
-                          for r in reqs])
+    gbufs = [_pack_groups(*_group_inputs(r.enc, Gp), cols) for r in reqs]
+    # redundancy metering BEFORE the stack: each request's matrix hashes
+    # against the previous upload under ITS OWN meter key (per
+    # facade/view), so the identical-byte fraction measures exactly what a
+    # per-view delta upload would save
+    for r, g in zip(reqs, gbufs):
+        dm.UPLOADS.observe(r.meter_key, g)
+    gstack_np = np.stack(gbufs)
     conf_np = None
     if st["track_conflicts"]:
         conf_np = np.stack([_pad_to(_pad_to(r.enc.conflict, Gp, 0), Gp, 1)
                             if r.enc.conflict is not None
                             else np.zeros((Gp, Gp), bool) for r in reqs])
     return _launch_stack(reqs, gstack_np, conf_np, first.dcat, st,
-                         first.shape_class)
+                         first.shape_class, resident_key=resident_key,
+                         token=first.cat.cache_token)
 
 
 def dispatch_packed(gstack_np: np.ndarray, conf_np: Optional[np.ndarray],

@@ -35,12 +35,13 @@ import numpy as np
 import torch
 
 from ..ops import solver as _solver_mod
+from ..obs import devicemem as dm
 from ..ops.binpack import BIG, EPS
 from ..ops.consolidate import (_pack_screen_groups, _pack_screen_nodes,
                                _screen_args, _unpack_screen, eligibility)
 from ..ops.encode import align_resources
 from ..ops.screen_k import screen_k
-from ..ops.solver import (_auto_dcat, _put, _request_cols, reject_mesh,
+from ..ops.solver import (_auto_dcat, _put, _read, _request_cols, reject_mesh,
                           resolve_device)
 from . import tournament_k
 from .relax import RELAX_ITERS, relax_residuals, replacement_lower_bound
@@ -193,13 +194,14 @@ def score_subsets_device(cat, enc, views, group_counts: np.ndarray,
              np.concatenate([masks.astype(np.float32),
                              prices.astype(np.float32)[None, :]]),
              group_slot_prices(cat, enc)[None, :]]
-    flat = _put(np.concatenate([p.reshape(-1) for p in parts]), dev)
+    with dm.attributed(reason="screen_upload"):
+        flat = _put(np.concatenate([p.reshape(-1) for p in parts]), dev)
     nbuf, gbuf, mbuf, pslot = [
         t.view(p.shape) for t, p in zip(flat.split([p.size for p in parts]),
                                         parts)]
     dcat = _auto_dcat(cat, R, dev)
-    buf = tournament_onebuf(dcat.alloc, dcat.avail, nbuf, gbuf, mbuf,
-                            pslot[0], cols, iters).cpu().numpy()
+    buf = _read(tournament_onebuf(dcat.alloc, dcat.avail, nbuf, gbuf, mbuf,
+                                  pslot[0], cols, iters))
     out = buf.reshape(S, 4)
     return (out[:, 0] > 0.5, out[:, 1].astype(np.float32),
             out[:, 2].astype(np.float32), out[:, 3].astype(np.float32))

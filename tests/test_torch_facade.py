@@ -74,6 +74,10 @@ def _leave_the_reference_as_found():
     ref_pod._sig_intern.clear()
     RESIDENT.reset()
     DELTA.reset()
+    from karpenter_tpu_torch.ops.delta import DELTA as PORT_DELTA
+    from karpenter_tpu_torch.ops.resident import RESIDENT as PORT_RESIDENT
+    PORT_RESIDENT.reset()
+    PORT_DELTA.reset()
     INTEGRITY.reset()
 
 
@@ -643,8 +647,12 @@ def test_device_faults_are_metered_like_the_reference(fault, monkeypatch,
     if fault == "corrupt":
         monkeypatch.setattr(ref_solver, "solve_device",
                             _corrupting(ref_solver.solve_device))
-        monkeypatch.setattr(port_solver, "_corruption_hook",
-                            lambda target, res: _corrupt(res))
+        # the port's "result" seam; the hook also sees the request-matrix
+        # and resident uploads ("gbuf", "resident"), which it leaves alone
+        monkeypatch.setattr(
+            port_solver, "_corruption_hook",
+            lambda target, obj, *key: (_corrupt(obj) if target == "result"
+                                       else None))
     else:
         monkeypatch.setattr(ref_solver, "solve_device", _failing)
         monkeypatch.setattr(port_solver, "_dispatch_fault_hook",
@@ -769,10 +777,12 @@ def test_traced_solve_spans_every_stage(_quiet_planes):
     pprov, pc = _port_side(scenario("colocation"))
     f = PortSolver(pprov, backend="device", device="cpu")
     want = out_tuple(_solve(f, pc))
+    # a second facade: f's delta memo would serve the repeat without a run
+    g = PortSolver(pprov, backend="device", device="cpu")
     TRACER.configure(enabled=True)
     try:
         with TRACER.trace("facade.solve"):
-            got = out_tuple(_solve(f, pc))
+            got = out_tuple(_solve(g, pc))
     finally:
         TRACER.configure(enabled=False)
     assert got == want
@@ -782,7 +792,12 @@ def test_traced_solve_spans_every_stage(_quiet_planes):
                         "solve.spread", "solve.run", "integrity.verify",
                         "solve.output"}
     run, = [s for s in tr.children(tr.root) if s.name == "solve.run"]
-    assert [s.name for s in tr.children(run)] == [
+    # the view's catalog upload (the facade's device cache was cold), then
+    # solve_device's own stages under its solve.device span
+    assert [s.name for s in tr.children(run)] == ["solve.catalog_put",
+                                                  "solve.device"]
+    dev, = [s for s in tr.children(run) if s.name == "solve.device"]
+    assert [s.name for s in tr.children(dev)] == [
         "solve.prep", "solve.device_put", "solve.dispatch", "solve.readback",
         "solve.decode"]
 
@@ -822,9 +837,9 @@ def test_shared_catalog_uploads_once_and_lru_evicts(monkeypatch):
     uploads = []
     real = port_solver.device_catalog
 
-    def counted(cat, R, device):
+    def counted(cat, R, device, **kw):
         uploads.append(cat.cache_token)
-        return real(cat, R, device)
+        return real(cat, R, device, **kw)
     monkeypatch.setattr(port_solver, "device_catalog", counted)
     types = port_object(_catalog())
     pods = port_object(grid_pods(np.random.default_rng(5), 40, "p"))

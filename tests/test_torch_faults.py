@@ -5,9 +5,10 @@ reference's.
 For every rule family the same seed and the same probes must give the
 same canonical timeline and fingerprint in both packages, exactly. The
 port's plan raises the port's own `ops/solver.InjectedFault` (the one
-exception its facade, optimizer and batched pump degrade on), and the
-rules whose planes are not ported (CorruptionFault: item 7; WireFault's
-transport seams: item 12) raise instead of never firing.
+exception its facade, optimizer and batched pump degrade on), its
+CorruptionFault rules damage torch tensors exactly as the reference's
+damage device arrays, and the rules whose planes are not ported
+(WireFault's transport seams: item 12) raise instead of never firing.
 """
 
 from __future__ import annotations
@@ -70,13 +71,28 @@ def _leave_the_reference_as_found():
     ref_pod._sig_intern.clear()
     RESIDENT.reset()
     DELTA.reset()
+    from karpenter_tpu_torch.ops.delta import DELTA as PORT_DELTA
+    from karpenter_tpu_torch.ops.resident import RESIDENT as PORT_RESIDENT
+    PORT_RESIDENT.reset()
+    PORT_DELTA.reset()
     INTEGRITY.reset()
 
 
 def _reset_sequences(P) -> None:
+    _reset_planes(P)
     P.nodeclaim._seq = itertools.count()
     P.pod._uid = itertools.count()
     P.fake._ids = itertools.count(1)
+
+
+def _reset_planes(P) -> None:
+    """This package's delta and resident planes start each run empty:
+    memo keys hold id(facade), and a reused id must not meet a dead
+    facade's entry in one package and not in the other."""
+    import importlib
+    pkg = P.nodeclaim.__name__.split(".")[0]
+    for mod, name in (("ops.delta", "DELTA"), ("ops.resident", "RESIDENT")):
+        getattr(importlib.import_module(f"{pkg}.{mod}"), name).reset()
 
 
 # --- one probe script per rule family, run against each package ---------
@@ -239,8 +255,43 @@ def test_injected_fault_is_the_solvers():
 
 
 def test_corruption_fault_raises_naming_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_plan.FaultPlan(seed=0, rules=[port_plan.CorruptionFault()])
+    """Once a difference (the port's plan refused CorruptionFault rules
+    until the resident-state seam existed), now an equality case: the same
+    rules and probes give the same damaged bytes, timeline and fingerprint
+    in both packages, and the port's damage lands in a NEW tensor — the
+    probed one keeps its bytes."""
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(3)
+    probes = [("gbuf", rng.random((6, 5), np.float32), ()),
+              ("resident", rng.random((7, 4), np.float32), ("f", "gbuf")),
+              ("resident", rng.random((5, 3, 2), np.float32), ("f", "price")),
+              ("resident", rng.random((8, 8)) > 0.5, ("f", "conflict")),
+              ("resident", np.zeros((4, 3), np.float32), ("f", "gbuf")),
+              ("gbuf", np.ones((3, 4, 2), np.float32), ())]
+
+    def rules(P):
+        C = P.plan.CorruptionFault
+        return [C(target="gbuf", kind="bitflip", nth=1, count=2),
+                C(target="resident", kind="zero_row", nth=1,
+                  key_contains="gbuf", count=2),
+                C(target="resident", kind="stale_patch", nth=1,
+                  key_contains="price"),
+                C(target="resident", kind="bitflip", nth=1,
+                  key_contains="conflict")]
+
+    ref = REF.plan.FaultPlan(seed=4, rules=rules(REF))
+    port = PORT.plan.FaultPlan(seed=4, rules=rules(PORT))
+    for target, arr, key in probes:
+        want = np.asarray(ref.on_corruption(target, jnp.asarray(arr), key))
+        held = torch.from_numpy(arr.copy())
+        got = port.on_corruption(target, held, key)
+        assert np.array_equal(got.numpy(), want), (target, key)
+        assert np.array_equal(held.numpy(), arr)  # never damaged in place
+    assert port.timeline == ref.timeline
+    assert port.fingerprint() == ref.fingerprint()
+    assert len(port.timeline) == 6
 
 
 def test_wire_fault_hooks_raise_naming_item_12():

@@ -10,10 +10,10 @@ element for element).
 
 - `dispatch_batch` on seeded buckets: the port's packed [Bp, L] rows equal
   the reference's and the port's serial `solve_packed` vectors.
-- `tests/test_batch_parity.py` through the port (not the two cases that
-  need the watchdog, the delta plane and the phase ledger: ROADMAP §1
-  items 16 and 6); the seeded fuzz also holds the port's batched outputs
-  equal to the reference's `SolverService`'s.
+- `tests/test_batch_parity.py` through the port (its phase-ledger case
+  runs in test_torch_profile.py; the watchdog's pipeline_stall case waits
+  for ROADMAP §1 item 16); the seeded fuzz also holds the port's batched
+  outputs equal to the reference's `SolverService`'s.
 - `tests/test_fleet.py`'s SolverService cases (those that build no
   FleetRunner) through the port.
 - The port's fault contract (ROADMAP §3): only `InjectedFault` degrades a
@@ -79,6 +79,10 @@ def _leave_the_reference_as_found():
     ref_pod._sig_intern.clear()
     RESIDENT.reset()
     DELTA.reset()
+    from karpenter_tpu_torch.ops.delta import DELTA as PORT_DELTA
+    from karpenter_tpu_torch.ops.resident import RESIDENT as PORT_RESIDENT
+    PORT_RESIDENT.reset()
+    PORT_DELTA.reset()
     INTEGRITY.reset()
 
 
@@ -519,9 +523,9 @@ def test_readback_error_raises_out_of_pump(monkeypatch):
     dispatched = []
     dispatch = port_solver.dispatch_batch
 
-    def counted(reqs, mesh=None):
+    def counted(reqs, mesh=None, resident_key=None):
         dispatched.append(len(reqs))
-        return dispatch(reqs, mesh)
+        return dispatch(reqs, mesh, resident_key=resident_key)
 
     monkeypatch.setattr(port_solver, "dispatch_batch", counted)
     types = port_object(small_catalog())
@@ -556,7 +560,7 @@ def test_readback_error_raises_out_of_pump(monkeypatch):
 
 def test_dispatch_error_raises_out_of_pump(monkeypatch):
     """A kernel's launch error at dispatch raises out of pump() too."""
-    def refuse(reqs, mesh=None):
+    def refuse(reqs, mesh=None, resident_key=None):
         raise RuntimeError("solve_scan launch failed: cudaError 1")
 
     monkeypatch.setattr(port_solver, "dispatch_batch", refuse)

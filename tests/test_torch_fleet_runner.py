@@ -7,12 +7,9 @@ CPU) and the port's (`device="cpu"`: the kernels' plain versions), with
 the claim-name, pod-uid and instance-id sequences restarted at the same
 value in both before each run. Per-tenant end-state hashes, fault
 fingerprints, the service's dispatch counts and the SLO engine's alerts
-must be equal, exactly.
-
-One recorded difference (ROADMAP §3): the reference's delta plane serves
-some repeated solves from its memo, so they never reach the batched pump,
-and its `solve_batches` / `batched_tickets` are smaller; with
-KARPENTER_TPU_DELTA=0 the counts are equal, which is pinned below.
+must be equal, exactly — and so must the batched pump's batch and ticket
+counts, with both packages' delta planes armed (their memos serve some
+repeated solves before they reach the pump) and with KARPENTER_TPU_DELTA=0.
 """
 
 from __future__ import annotations
@@ -65,15 +62,32 @@ def _leave_the_reference_as_found():
     ref_pod._sig_intern.clear()
     RESIDENT.reset()
     DELTA.reset()
+    from karpenter_tpu_torch.ops.delta import DELTA as PORT_DELTA
+    from karpenter_tpu_torch.ops.resident import RESIDENT as PORT_RESIDENT
+    PORT_RESIDENT.reset()
+    PORT_DELTA.reset()
     INTEGRITY.reset()
 
 
 def _reset_sequences() -> None:
+    _reset_planes()
     for nodeclaim, pod, fake in ((ref_nodeclaim, ref_pod, ref_fake),
                                  (port_nodeclaim, port_pod, port_fake)):
         nodeclaim._seq = itertools.count()
         pod._uid = itertools.count()
         fake._ids = itertools.count(1)
+
+
+def _reset_planes() -> None:
+    """Both packages' delta and resident planes start each run empty:
+    memo keys hold id(facade), and a reused id must not meet a dead
+    facade's entry in one package and not in the other."""
+    from karpenter_tpu.ops.delta import DELTA as REF_DELTA
+    from karpenter_tpu.ops.resident import RESIDENT as REF_RESIDENT
+    from karpenter_tpu_torch.ops.delta import DELTA as PORT_DELTA
+    from karpenter_tpu_torch.ops.resident import RESIDENT as PORT_RESIDENT
+    for plane in (REF_DELTA, REF_RESIDENT, PORT_DELTA, PORT_RESIDENT):
+        plane.reset()
 
 
 def _both(name, **kw):
@@ -103,12 +117,18 @@ def test_fleet_smoke_equals_the_reference(backend, batch):
     assert port.tenant_fingerprints["t000"]
     assert port.tenant_fingerprints["t001"] == ""
     assert port.stats["faults_injected"] > 0
+    if batch:
+        # the delta plane armed in both: the same solves reach the pump
+        for k in ("solve_batches", "batched_tickets"):
+            assert port.stats[k] == ref.stats[k], k
+        assert (port.stats["solve_batches"],
+                port.stats["batched_tickets"]) == (22, 22)
 
 
 def test_fleet_smoke_batch_counts_without_the_delta_plane(monkeypatch):
-    """With the reference's delta plane off, its batched pump sees every
-    solve the port's does: the batch and ticket counts are equal, and the
-    buckets hold about one ticket each, as in the reference."""
+    """With both delta planes off, every solve reaches the batched pump:
+    the batch and ticket counts are equal, and the buckets hold about one
+    ticket each, as in the reference."""
     monkeypatch.setenv("KARPENTER_TPU_DELTA", "0")
     ref, port = _both("fleet_smoke", tenants=8, seed=0, backend="device",
                       batch=True)

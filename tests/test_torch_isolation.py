@@ -197,3 +197,31 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
                          text=True, cwd=str(tmp_path), env=env, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+PLANES = ("obs/exposition.py", "obs/profile.py", "obs/devicemem.py",
+          "obs/recompute.py", "ops/delta.py", "ops/resident.py")
+
+
+def test_delta_and_resident_planes_are_the_ports_own():
+    """The delta plane, the resident state and their telemetry ledgers
+    are files of the port (the import scan above covers each one), their
+    process singletons are the port's own, and the resident entry points
+    without a card and without device= raise."""
+    import importlib
+    for rel in PLANES:
+        assert (PKG / rel).is_file(), rel
+        mod = importlib.import_module(
+            "karpenter_tpu_torch." + rel[:-3].replace("/", "."))
+        assert mod.__name__.startswith("karpenter_tpu_torch.")
+    if torch.cuda.is_available():
+        return
+    from karpenter_tpu_torch.ops.resident import RESIDENT
+    from karpenter_tpu_torch.ops.solver import device_catalog
+    cat, _ = _tiny_problem()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RESIDENT.upload(("isolation",), np.ones((2, 2), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_catalog(cat, cat.allocatable.shape[1], None,
+                       resident_key=("isolation",))
+    RESIDENT.reset()

@@ -295,6 +295,97 @@ def test_batched_dispatch_does_not_wait_for_the_card(cuda):
         np.testing.assert_array_equal(row, want)
 
 
+def test_resident_batched_dispatch_does_not_wait_for_the_card(cuda):
+    """The same contract with the stacked request matrix resident (the
+    fleet's stable buckets): a patch of one changed request row and a
+    clean hit enqueue without synchronising behind a busy stream, the
+    patch lands out of place (the previous stack keeps its bytes), and
+    every row equals its serial solve_packed vector."""
+    from karpenter_tpu_torch.ops.resident import RESIDENT
+    types = catalog.generate_catalog()[:64]
+    cat = encode_catalog(types)
+    rng = np.random.default_rng(9)
+    sigs = [("250m", "512Mi"), ("500m", "1Gi"), ("1", "2Gi"), ("2", "4Gi")]
+    encs = []
+    for k in range(4):
+        pods = [models.Pod(name=f"r{k}-p{i}", requests=models.Resources.parse(
+            dict(zip(("cpu", "memory"), sigs[s]))))
+            for i, s in enumerate(rng.integers(0, 4, 40).tolist())]
+        encs.append(encode_pods(pods, cat))
+    dcat = solver_mod.device_catalog(cat, encs[0].requests.shape[1], cuda)
+    reqs = [solver_mod.prepare_batchable(cat, e, dcat=dcat) for e in encs]
+    assert all(r.signature == reqs[0].signature for r in reqs)
+    key = ("kernels-test", id(dcat))
+    RESIDENT.reset()
+    seed = solver_mod.dispatch_batch(reqs[:3], resident_key=key)
+    seed.block()
+    full0 = RESIDENT.stats["full_uploads"]
+    torch.cuda._sleep(1 << 30)
+    busy = torch.cuda.Event()
+    busy.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        patched = solver_mod.dispatch_batch([reqs[0], reqs[1], reqs[3]],
+                                            resident_key=key)
+        clean = solver_mod.dispatch_batch([reqs[0], reqs[1], reqs[3]],
+                                          resident_key=key)
+        pending = not busy.query()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pending
+    assert RESIDENT.stats["full_uploads"] == full0
+    assert RESIDENT.stats["patches"] == 1 and RESIDENT.stats["clean_hits"] == 1
+    for batch, members in ((patched, (0, 1, 3)), (clean, (0, 1, 3)),
+                           (seed, (0, 1, 2))):
+        for row, i in zip(batch.rows(), members):
+            want, _ = solve_packed(cat, encs[i], device=cuda)
+            np.testing.assert_array_equal(row, want)
+    RESIDENT.reset()
+
+
+def test_resident_serial_solve_equals_the_disarmed_one(cuda, monkeypatch):
+    """solve_device with a resident key (first sight, a patch, a clean
+    hit) gives the packed vectors and the SolveResult of the same solve
+    with residency disarmed."""
+    from karpenter_tpu_torch.ops.resident import RESIDENT
+    cat = encode_catalog(catalog.generate_catalog()[:128])
+    rng = np.random.default_rng(4)
+    pods = [models.Pod(name=f"s-p{i}", requests=models.Resources.parse(
+        {"cpu": f"{int(c)}m", "memory": f"{int(m)}Mi"}))
+        for i, (c, m) in enumerate(zip(rng.integers(1, 16, 300) * 125,
+                                       rng.integers(1, 16, 300) * 256))]
+    RESIDENT.reset()
+    key = ("kernels-serial",)
+    for cut in (300, 300, 290):
+        enc = encode_pods(pods[:cut], cat)
+        got = solve_device(cat, enc, device=cuda, resident_key=key)
+        monkeypatch.setenv("KARPENTER_TPU_RESIDENT", "0")
+        want = solve_device(cat, enc, device=cuda, resident_key=key)
+        monkeypatch.delenv("KARPENTER_TPU_RESIDENT")
+        assert [(n.type_idx, sorted(n.pods_by_group.items()))
+                for n in got.nodes] == [
+            (n.type_idx, sorted(n.pods_by_group.items())) for n in want.nodes]
+    st = RESIDENT.stats
+    assert st["full_uploads"] >= 1 and st["clean_hits"] >= 1
+    RESIDENT.reset()
+
+
+def test_default_devicemem_audit_walks_live_cuda_tensors(cuda):
+    """Without live_arrays the residency audit walks the live CUDA
+    tensors, each storage once: a tracked tensor (and a view of it) is
+    accounted, an untracked one is not."""
+    from karpenter_tpu_torch.obs.devicemem import ResidencyLedger
+    led = ResidencyLedger()
+    tracked = torch.zeros(4096, device=cuda)
+    view = tracked[:1024]
+    foreign = torch.ones(1024, device=cuda)
+    led.track("catalog", [tracked])
+    a = led.audit()
+    assert a["accounted_bytes"] >= 16384
+    assert a["unaccounted_bytes"] >= 4096
+    del view, foreign
+
+
 def test_full_catalog_solve_on_the_card(cuda):
     cat = encode_catalog(catalog.generate_catalog())
     rng = np.random.default_rng(0)

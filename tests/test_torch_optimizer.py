@@ -369,7 +369,9 @@ def _run(P, build, drive, backend="host", tiles=1):
     metered)."""
     if P is REF:
         from karpenter_tpu.ops.delta import DELTA
-        DELTA.reset()  # each run starts with an empty delta plane
+    else:
+        from karpenter_tpu_torch.ops.delta import DELTA
+    DELTA.reset()  # each run starts with an empty delta plane
     _reset_sequences(P)
     sim = P.make_sim(backend=backend, **P.extra)
     info = getattr(FIXTURES[id(P)], build)(sim, tiles=tiles)

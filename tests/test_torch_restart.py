@@ -56,15 +56,32 @@ def _leave_the_reference_as_found():
     ref_pod._sig_intern.clear()
     RESIDENT.reset()
     DELTA.reset()
+    from karpenter_tpu_torch.ops.delta import DELTA as PORT_DELTA
+    from karpenter_tpu_torch.ops.resident import RESIDENT as PORT_RESIDENT
+    PORT_RESIDENT.reset()
+    PORT_DELTA.reset()
     INTEGRITY.reset()
 
 
 def _reset_sequences() -> None:
+    _reset_planes()
     for nodeclaim, pod, fake in ((ref_nodeclaim, ref_pod, ref_fake),
                                  (port_nodeclaim, port_pod, port_fake)):
         nodeclaim._seq = itertools.count()
         pod._uid = itertools.count()
         fake._ids = itertools.count(1)
+
+
+def _reset_planes() -> None:
+    """Both packages' delta and resident planes start each run empty:
+    memo keys hold id(facade), and a reused id must not meet a dead
+    facade's entry in one package and not in the other."""
+    from karpenter_tpu.ops.delta import DELTA as REF_DELTA
+    from karpenter_tpu.ops.resident import RESIDENT as REF_RESIDENT
+    from karpenter_tpu_torch.ops.delta import DELTA as PORT_DELTA
+    from karpenter_tpu_torch.ops.resident import RESIDENT as PORT_RESIDENT
+    for plane in (REF_DELTA, REF_RESIDENT, PORT_DELTA, PORT_RESIDENT):
+        plane.reset()
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -107,6 +107,10 @@ def _leave_the_reference_as_found():
     ref_pod._sig_intern.clear()
     RESIDENT.reset()
     DELTA.reset()
+    from karpenter_tpu_torch.ops.delta import DELTA as PORT_DELTA
+    from karpenter_tpu_torch.ops.resident import RESIDENT as PORT_RESIDENT
+    PORT_RESIDENT.reset()
+    PORT_DELTA.reset()
     INTEGRITY.reset()
 
 
@@ -130,9 +134,20 @@ def _greedy(monkeypatch):
 def _reset_sequences(P) -> None:
     """Claim names break ties in orderings: both packages mint them (and
     pod uids and instance ids) from the same starting value."""
+    _reset_planes(P)
     P.nodeclaim._seq = itertools.count()
     P.pod._uid = itertools.count()
     P.fake._ids = itertools.count(1)
+
+
+def _reset_planes(P) -> None:
+    """This package's delta and resident planes start each run empty:
+    memo keys hold id(facade), and a reused id must not meet a dead
+    facade's entry in one package and not in the other."""
+    import importlib
+    pkg = P.nodeclaim.__name__.split(".")[0]
+    for mod, name in (("ops.delta", "DELTA"), ("ops.resident", "RESIDENT")):
+        getattr(importlib.import_module(f"{pkg}.{mod}"), name).reset()
 
 
 # --- scenarios: each drives one package's sim with its own objects --------

@@ -8,9 +8,8 @@ packages' `make_sim` with KARPENTER_TPU_OPTIMIZER unset, the reference's
 default: the subset search runs first, greedy after. On the device rung
 the port scores subsets with kernel A's and kernel C's plain versions
 (device="cpu"); on the host and native rungs both packages score in NumPy.
-The reference runs at its default, delta plane armed (a fresh plane each
-run), and with KARPENTER_TPU_DELTA=0; the port has no delta plane and
-always takes the reference's disarmed branch.
+Both packages run at their default, delta plane armed (a fresh plane
+each run), and with KARPENTER_TPU_DELTA=0.
 
 What must be equal, exactly, as in test_torch_sim.py: both state hashes,
 the store's events (the disruption decisions among them, optimizer ones
@@ -90,7 +89,9 @@ def run(P, name, backend):
     drive, kwargs = LOOPS[name]
     if P is REF:
         from karpenter_tpu.ops.delta import DELTA
-        DELTA.reset()  # each run starts with an empty delta plane
+    else:
+        from karpenter_tpu_torch.ops.delta import DELTA
+    DELTA.reset()  # each run starts with an empty delta plane
     _reset_sequences(P)
     sim = P.make_sim(backend=backend, **(kwargs(P) if kwargs else {}),
                      **P.extra)
@@ -121,12 +122,10 @@ def test_armed_loop_matches_reference(name, backend, delta, monkeypatch):
 
 def test_c14_squeeze_measurement_matches_reference():
     """Bench c14's procedure at 2 tiles, optimizer armed, on the host rung
-    as the bench runs it: the savings and the joint consolidations equal
-    the reference's (the reference's delta plane audits re-run the search,
-    so its subsets_scored is larger at its default; the decisions are
-    not)."""
-    from karpenter_tpu.ops.delta import DELTA
-    DELTA.reset()
+    as the bench runs it: the savings, the joint consolidations and the
+    subsets scored equal the reference's, both at their default (the delta
+    plane's audit passes re-run the memoized fruitless search: 3,676
+    subsets, not the 1,996 of the plane disarmed)."""
     _reset_sequences(REF)
     want = ref_fixtures.measure_consolidation("squeeze", 2, armed=True)
     _reset_sequences(PORT)
@@ -134,9 +133,11 @@ def test_c14_squeeze_measurement_matches_reference():
                                               device="cpu")
     keys = ("nodes_before", "nodes_after", "savings", "multi_consolidated",
             "single_consolidated", "joint_consolidations", "exact_verifies",
-            "verify_accepts", "screen_cache_hits", "all_bound")
+            "verify_accepts", "screen_cache_hits", "all_bound",
+            "subsets_scored")
     assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
     assert got["joint_consolidations"] >= 2 and got["savings"] > 0
+    assert got["subsets_scored"] == 3676
 
 
 def test_armed_scale_down_keeps_the_references_nodes(monkeypatch):
@@ -158,11 +159,10 @@ def test_armed_scale_down_keeps_the_references_nodes(monkeypatch):
     port, port_flags = scale_down(PORT, "native", port_integrity,
                                   port_catalog, monkeypatch)
     assert_same_run(ref, port)
-    # the same nodes flagged, in the same order; the reference's delta
-    # plane adds its audit re-solves' oracle calls (ROADMAP §3), so the
-    # lists are held equal call for call without it (below)
-    assert [c for c in port_flags if c] == [c for c in ref_flags if c]
-    assert len(port_flags) <= len(ref_flags)
+    # the same oracle calls on the same solves, the same nodes flagged,
+    # call for call — the delta plane's audit re-solves included
+    assert port_flags == ref_flags
+    assert port.solver.stats == ref.solver.stats
     assert port.disruption.stats["optimizer_consolidated"] > 0
     monkeypatch.setenv("KARPENTER_TPU_OPTIMIZER", "0")
     greedy, _ = scale_down(PORT, "native", port_integrity, port_catalog,
@@ -171,9 +171,9 @@ def test_armed_scale_down_keeps_the_references_nodes(monkeypatch):
 
 
 def test_armed_scale_down_flags_without_the_delta_plane(monkeypatch):
-    """The armed scale-down on the native rung with the reference's delta
-    plane off (the port has none): both packages make the same oracle
-    calls on the same solves and flag the same nodes, call for call."""
+    """The armed scale-down on the native rung with both packages' delta
+    planes off: both make the same oracle calls on the same solves and
+    flag the same nodes, call for call."""
     from karpenter_tpu import integrity as ref_integrity
     from karpenter_tpu.catalog import generate_catalog as ref_catalog
     from karpenter_tpu_torch import integrity as port_integrity
@@ -183,6 +183,8 @@ def test_armed_scale_down_flags_without_the_delta_plane(monkeypatch):
     monkeypatch.setenv("KARPENTER_TPU_DELTA", "0")
     ref, ref_flags = scale_down(REF, "native", ref_integrity, ref_catalog,
                                 monkeypatch)
+    # scale_down undoes the monkeypatch: disarm the port's plane again
+    monkeypatch.setenv("KARPENTER_TPU_DELTA", "0")
     monkeypatch.delenv("KARPENTER_TPU_OPTIMIZER", raising=False)
     port, port_flags = scale_down(PORT, "native", port_integrity,
                                   port_catalog, monkeypatch)

@@ -51,9 +51,16 @@ Phases (any failure exits non-zero):
              state_hash, disruption decisions and controller stats, with
              no device fallback, oracle flag or optimizer error; A, B0, B
              and C must launch inside the device run and equal their plain
-             versions at inputs recorded there. Times: each stage's wall,
-             the reconcile walls by controller, the tracer's spans, the
-             card's idle share over one disruption reconcile.
+             versions at inputs recorded there. The online watchdog and the
+             explain recorder are armed (the reference's defaults): no
+             finding on either rung, equal watchdog stats, and the explain
+             record of one burst pod (funnel counts, chosen offering,
+             runner-up, binding constraint) equal on both rungs. Times:
+             each stage's wall, the reconcile walls by controller, the
+             tracer's spans, the watchdog's share of the engine's tick wall,
+             the pass and burst medians beside those measured before the
+             watchdog and the recorder were armed, the card's idle
+             share over one disruption reconcile.
   4d. optimizer bench c14's procedure (`optimizer.fixtures.
              measure_consolidation`, the squeeze fleet) on the device rung,
              armed and disarmed, and armed on the native rung, at 2 tiles
@@ -82,16 +89,18 @@ Phases (any failure exits non-zero):
              serial launches at the same rows, beside the batch's bound.
   4f. chaos  the reference's `make chaos` and `make crash-audit` on the
              card (faults/runner.py): smoke, ice_storm, api_brownout,
-             interruption_wave, device_loss, clock_skew, soak, restart_smoke
-             and crash_drain replaced onto backend="device", each run twice
+             interruption_wave, device_loss, clock_skew, soak, warmpath_smoke,
+             warmpath_storm, restart_smoke, crash_drain and
+             crash_launch_storm replaced onto backend="device", each run twice
              at seed 0 (equal end hash and fault fingerprint: --repeat 2)
              and once on the native rung (equal; device_loss: its end state,
              the native rung makes no device dispatch for its fault), the
              restart group at seeds 0-4 on both rungs; every report ok, no
              fallback but device_loss's one injected fault, no integrity flag
-             or optimizer degrade; the three warm-path scenarios raise
-             NotImplementedError naming their item (sdc_storm and
-             resident_rot run in 4h). Then a storm at cluster scale: the
+             or optimizer degrade, no warm-path divergence, and every run's
+             watchdog findings those of the reference's CPU run (none; the
+             drills sdc_storm and resident_rot run in 4h, where they must
+             fire integrity_breach). Then a storm at cluster scale: the
              soak's rules over the
              operator phase's grid pods, 5,000 (cut from 10,000) in waves of
              2,500, 1,250 and 1,250 at 0, 120 and 300 s, on 810 types, device
@@ -99,7 +108,8 @@ Phases (any failure exits non-zero):
              rung: equal state hash, fault fingerprint, controller and
              solver stats; the only integrity flags allowed are the
              reference's over-capacity state's (ROADMAP §3), equal on both
-             rungs; A, B0, B and C launched inside the device run and equal
+             rungs, as are the watchdog findings they fire (integrity_breach
+             alone); A, B0, B and C launched inside the device run and equal
              to their plain versions at inputs recorded there. Times: each
              run's wall, the storm's reconcile medians, the card's idle
              share over one disruption pass inside the ICE window.
@@ -109,8 +119,10 @@ Phases (any failure exits non-zero):
              end hashes and fault fingerprints equal across the three;
              fleet_noisy_neighbor serial and batched (ok, victim p99 during
              the storm < 2x quiet, the noisy tenant throttled and alerted,
-             equal digests); federation_smoke in process, batched. Any
-             fallback, fault_fallback or integrity flag fails it. Prints
+             one of its throttled pods explained, equal digests);
+             federation_smoke in process, batched. Any fallback,
+             fault_fallback, integrity flag or watchdog finding fails it.
+             Prints
              each run's wall, solves, batches, tickets, solves/s, overlap,
              SLO alerts and B0/B launches.
   4h. planes the delta plane and the device-resident state: the facade mix's
@@ -135,6 +147,22 @@ Phases (any failure exits non-zero):
              scored, savings and plans unchanged. The row scatter timed at
              the gbuf (k = 1% and 10% of Gp) and the conflict matrix beside
              its bound and a full upload of the same matrix.
+  4i. warm   the reference's c8 cell (the warm path, bench.py:488-570):
+             make_sim(backend="device", warmpath=True, warm_audit_every=64)
+             with c8's fast cloud, 2,000 standing pods pinned one to a node
+             by hostname self-anti-affinity, one prime burst, 24 warm bursts
+             (c8 runs 5; 24 carry warm_integrity_tick past the integrity
+             audit cadence of 16) and 3 forced-cold bursts of 32 pods, the
+             auditor drained; then the same on the native rung. Zero
+             divergence, >= 24 warm reconciles, at least one resident audit
+             fired from warm_integrity_tick, B0 and B launched in the cold
+             passes and the auditor's replay and equal to their plain
+             versions at inputs recorded there, device == native (state
+             hash, warm-path, auditor and watchdog stats, the explain record
+             of a cold-burst pod), no watchdog finding, fallback or
+             integrity flag. Times: warm admit p50, cold reconcile p50 and
+             their ratio, the watchdog's share of the engine's tick wall and
+             one forced full evaluation over the standing fleet.
   5. time    median wall times of the solve and the screen, stage by stage;
              per-kernel device time from torch.profiler and CUDA events
              beside its bound, its plain version's time and one torch
@@ -150,8 +178,8 @@ The kernels line reports each kernel's launches in the operator phase
 and its times at a full-size input (A: the main path's screen; B0, B: the
 facade's solve; C: the operator loop's first subset search); `by_phase`
 holds each phase's launches (the main path, the facade, the operator, the
-optimizer, the chaos phase, the fleet runner and, for B0 and B, the
-fleet's batched rounds) and times (the
+optimizer, the chaos phase, the fleet runner, the warm path and, for B0
+and B, the fleet's batched rounds) and times (the
 fleet's at its wide bucket: 16 requests in one launch). Its resident_patch
 row is the row scatter of ops/resident (the port of the reference's
 _jit_scatter, a library index_copy_): launches from phase 4h, times at the
@@ -839,6 +867,37 @@ OP_CLOUD = dict(node_ready_delay=1.0, register_delay=0.5,
                 create_fleet_rate=1e6, create_fleet_burst=10**6)
 DECISION_STATS = ("empty", "drift", "expired", "consolidated",
                   "multi_consolidated", "optimizer_consolidated")
+EXPLAINED_POD = f"default/burst-{OP_BURSTS - 1}-0"
+# the watchdog findings of warning and above, (invariant, severity) ->
+# count, that the reference's own CPU run of this phase's procedure fires
+# (karpenter_tpu.sim.make_sim at OP_PODS on the native rung): the armed
+# optimizer's exact verifies reject 16 ranked subsets in a row during the
+# scale-down, past the divergence streak of 12
+OP_REF_FINDINGS = {("optimizer_divergence", "warning"): 1}
+# the info-severity meters of the tracer the device run turns on (the
+# phase ledger's unattributed gap, the flight recorder's drops): timing,
+# not the loop's state
+TRACER_METERS = {"profile_unattributed", "trace_ring_overflow"}
+# the operator medians measured before the watchdog and the explain
+# recorder were armed (NVIDIA H100 80GB HBM3, 700 W; PERF.md §5)
+UNARMED_MEDIANS_MS = {"disruption pass": 466.0, "burst reconcile": 281.0}
+
+
+def time_calls(obj, name: str) -> list:
+    """Wrap obj.name (an instance attribute shadowing the method) to sum
+    its host wall: returns [total ms, calls], updated in place."""
+    real = getattr(obj, name)
+    box = [0.0, 0]
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            box[0] += (time.perf_counter() - t0) * 1e3
+            box[1] += 1
+    setattr(obj, name, timed)
+    return box
 
 
 class OperatorRun:
@@ -867,6 +926,9 @@ class OperatorRun:
         self.profiled = None      # (busy ms, wall ms) of one disruption pass
         for c in self.sim.engine.controllers:
             c.reconcile = self._timed(c, c.reconcile)
+        self.tick_ms = time_calls(self.sim.engine, "tick")
+        self.watchdog_ms = (time_calls(self.sim.watchdog, "tick")
+                            if self.sim.watchdog is not None else [0.0, 0])
         real_solve = self.sim.solver.solve
 
         def solve(*a, **kw):
@@ -961,6 +1023,10 @@ class OperatorRun:
                                      step=1.0),
                   f"{self.backend}: burst {b} not bound")
         times["phase_ms"] = (time.perf_counter() - t_phase) * 1e3
+        # decision provenance of one burst pod (the explain recorder is
+        # process-wide: read it before the next run)
+        from karpenter_tpu_torch.obs.explain import RECORDER
+        self.explained = copy.deepcopy(RECORDER.explain(EXPLAINED_POD))
         return times
 
     def stats(self) -> dict:
@@ -976,14 +1042,12 @@ class OperatorRun:
                 for k in ("scored", "verified", "accepted", "fallbacks")}
 
 
-def check_recorded(rec_b, rec_a, rec_c, where: str,
-                   b_what=("first solve", "last solve")) -> tuple:
-    """B0, B, A and C against their plain versions at the inputs a loop
-    recorded (Recorder keep=2: its first and latest call of each).
-    Returns A's and C's largest absolute errors (both must be 0)."""
+def check_scan_calls(rec_b, where: str,
+                     b_what=("first solve", "last solve")) -> None:
+    """B0 and B against their plain versions at the scan inputs a loop
+    recorded (Recorder keep=2: its first and latest call)."""
     import torch
-    from karpenter_tpu_torch.optimizer import tournament_k as tk
-    from karpenter_tpu_torch.ops import screen_k as sk, solve_scan as ss
+    from karpenter_tpu_torch.ops import solve_scan as ss
     for (sargs, skw), what in zip(rec_b.calls, b_what):
         check_offer(ss, sargs, skw, f"{where} {what}")
         out_k = ss.solve_scan_cuda(*sargs, **skw)
@@ -997,6 +1061,17 @@ def check_recorded(rec_b, rec_a, rec_c, where: str,
         log(f"[check] {where} {what}: offer_argmin == plain and solve_scan "
             f"== plain (Gp={b.arguments['requests'].shape[0]}, "
             f"n_max={b.arguments['n_max']})")
+
+
+def check_recorded(rec_b, rec_a, rec_c, where: str,
+                   b_what=("first solve", "last solve")) -> tuple:
+    """B0, B, A and C against their plain versions at the inputs a loop
+    recorded (Recorder keep=2: its first and latest call of each).
+    Returns A's and C's largest absolute errors (both must be 0)."""
+    import torch
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    from karpenter_tpu_torch.ops import screen_k as sk
+    check_scan_calls(rec_b, where, b_what)
     (aargs, akw) = rec_a.calls[-1]
     k_got = sk.screen_k_cuda(*aargs, **akw)
     torch.cuda.synchronize()
@@ -1019,10 +1094,11 @@ def check_recorded(rec_b, rec_a, rec_c, where: str,
 def reset_sequences() -> None:
     """Claim names, pod uids and instance ids start from the same value in
     every run a phase compares (names break ties in the loop's orderings),
-    and the delta and resident planes start empty (their keys hold
-    id(facade), which a later facade may reuse)."""
+    and the delta and resident planes and the explain recorder start empty
+    (their keys hold id(facade), which a later facade may reuse)."""
     from karpenter_tpu_torch.cloud import fake
     from karpenter_tpu_torch.models import nodeclaim, pod
+    from karpenter_tpu_torch.obs.explain import RECORDER
     from karpenter_tpu_torch.ops.delta import DELTA
     from karpenter_tpu_torch.ops.resident import RESIDENT
     nodeclaim._seq = itertools.count()
@@ -1030,6 +1106,7 @@ def reset_sequences() -> None:
     fake._ids = itertools.count(1)
     DELTA.reset()
     RESIDENT.reset()
+    RECORDER.reset()
 
 
 def phase_operator(dev):
@@ -1123,6 +1200,35 @@ def phase_operator(dev):
           "and native runs")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched inside the loop")
+    # the watchdog, armed by default: the same evaluations on both rungs
+    # and, at warning and above, the reference's findings (OP_REF_FINDINGS);
+    # the traced device run may add the tracer's own info meters
+    fd, fn = findings_of(run_d.sim), findings_of(run_n.sim)
+    log(f"[watchdog] operator: findings device {fd or 'none'}, native "
+        f"{fn or 'none'} (the reference's CPU run: {OP_REF_FINDINGS})")
+    for run, found in ((run_d, fd), (run_n, fn)):
+        paged = {k: n for k, n in found.items() if k[1] != "info"}
+        info = {k[0] for k in found if k[1] == "info"}
+        check(paged == OP_REF_FINDINGS
+              and info <= (TRACER_METERS if run is run_d else set()),
+              f"operator {run.backend} run: watchdog findings {found}, the "
+              f"reference's {OP_REF_FINDINGS}")
+    check(run_d.sim.watchdog.stats["evals"]
+          == run_n.sim.watchdog.stats["evals"],
+          f"operator watchdog stats differ: {run_d.sim.watchdog.stats} vs "
+          f"{run_n.sim.watchdog.stats}")
+    # decision provenance of one burst pod: funnel counts, chosen offering,
+    # runner-up and binding constraint equal on both rungs
+    rd, rn = run_d.explained, run_n.explained
+    check(rd is not None and rd == rn,
+          f"operator: explain of {EXPLAINED_POD} device {rd} != native {rn}")
+    log(f"[check] operator watchdog: {run_d.sim.watchdog.stats['evals']} "
+        f"evaluations on both rungs, the reference's findings on both; "
+        f"explain "
+        f"{EXPLAINED_POD} equal on both rungs: {rd['outcome']}, chosen "
+        f"{rd.get('chosen')}, runner-up {rd.get('runner_up')}, binding "
+        f"{rd['binding_constraint']}, funnel offerings "
+        f"{[f['offerings'] for f in rd['funnel'] or []]}")
     log(f"[check] operator device == native: state_hash {hd[:16]}, "
         f"{len(run_d.decisions())} disruption decisions "
         f"({sum('optimizer' in str(e) for e in run_d.decisions())} naming "
@@ -1154,6 +1260,17 @@ def phase_operator(dev):
         f"searches {span_n.get('optimizer.search', 0)}, screens (cache "
         f"misses) {rec_a.n}; burst provisioner reconcile median "
         f"{statistics.median(bursts):.2f} ms ({', '.join(f'{b:.1f}' for b in bursts)})")
+    log(f"[time] operator device run: the watchdog's tick "
+        f"{run_d.watchdog_ms[0]:.1f} ms over {run_d.watchdog_ms[1]} engine "
+        f"ticks ({run_d.sim.watchdog.stats['evals']} evaluations) of "
+        f"{run_d.tick_ms[0]:.1f} ms of engine tick wall: share "
+        f"{run_d.watchdog_ms[0] / max(run_d.tick_ms[0], 1e-9):.6f}")
+    log(f"[time] operator medians with the watchdog and the explain "
+        f"recorder armed (the defaults): disruption pass "
+        f"{statistics.median(dis):.1f} ms, burst reconcile "
+        f"{statistics.median(bursts):.1f} ms; before they were armed "
+        f"(NVIDIA H100 80GB HBM3, 700 W): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in UNARMED_MEDIANS_MS.items()))
     per_ctrl = {}
     for (st, c), v in run_d.walls.items():
         per_ctrl[c] = per_ctrl.get(c, 0.0) + sum(v)
@@ -1652,20 +1769,34 @@ def phase_fleet() -> tuple:
 # --- phase 4f: chaos — the reference's `make chaos` and `make crash-audit`
 # (Makefile:46-51) on the card ----------------------------------------------
 
+# every scenario of the catalog but the two corruption drills (sdc_storm
+# and resident_rot run in phase 4h); the restart scenarios run at seeds 0-4
 CHAOS_SCENARIOS = ("smoke", "ice_storm", "api_brownout", "interruption_wave",
-                   "device_loss", "clock_skew", "soak", "restart_smoke",
-                   "crash_drain")
-# the catalog's scenarios whose planes are not ported: running one raises
-# (sdc_storm and resident_rot run in phase 4h)
-UNPORTED_SCENARIOS = {"warmpath_smoke": "item 9", "warmpath_storm": "item 9",
-                      "crash_launch_storm": "item 9"}
+                   "device_loss", "clock_skew", "soak", "warmpath_smoke",
+                   "warmpath_storm", "restart_smoke", "crash_drain",
+                   "crash_launch_storm")
 CRASH_AUDIT_SEEDS = 5    # `make crash-audit`: the restart group, seeds 0-4
+# the watchdog findings (invariant, severity) -> count that the reference's
+# own CPU run of each scenario fires at the seeds above, on the device rung
+# (tests/test_torch_chaos.py and test_torch_watchdog.py hold the port's
+# equal to them); every other scenario fires none. The drills fire
+# integrity_breach, the invariant the runner's found-it-first cross-check
+# requires for a detected corruption
+REF_FINDINGS = {"sdc_storm": {("integrity_breach", "critical"): 2},
+                "resident_rot": {("integrity_breach", "critical"): 2}}
 # the storm: the soak scenario's rules over the operator phase's grid pods
 # (seed 0) in three waves, (run-relative sim second, pods). Cut in half
 # from 10,000 pods, whose rungs took 222.9 and 366.4 s beside one NVIDIA
 # H100 80GB HBM3 (PERF.md §4)
 STORM_WAVES = ((0.0, 2_500), (120.0, 1_250), (300.0, 1_250))
 STORM_PROFILE_AT = 60.0  # profile the first disruption pass inside the ICE window
+# the storm's watchdog findings in the reference's CPU run on its native
+# rung (the port's native run ends in the same state; its device run, in
+# node order, fires the same findings on the CPU; the reference's device
+# rung sums in XLA's order, ends in another state after the subset-search
+# near-tie and fires one optimizer_divergence fewer, ROADMAP §3)
+STORM_REF_FINDINGS = {("optimizer_divergence", "warning"): 2,
+                      ("integrity_breach", "critical"): 1}
 
 
 def counter_totals() -> tuple:
@@ -1711,6 +1842,31 @@ def check_clean(rep, runner, delta, where: str, fallbacks: int = 0) -> None:
 
 def digest(rep) -> tuple:
     return rep.end_hash, rep.fault_fingerprint, rep.faults_injected
+
+
+def findings_of(sim) -> dict:
+    """The watchdog's findings of one stack, (invariant, severity) ->
+    count (a restarted stack's: its final boot's)."""
+    wd = sim.watchdog
+    check(wd is not None and wd.armed, "the stack runs without its watchdog")
+    out: dict = {}
+    for f in wd.findings:
+        out[(f.invariant, f.severity)] = out.get((f.invariant, f.severity),
+                                                 0) + 1
+    return out
+
+
+def check_findings(name: str, sim, where: str) -> dict:
+    """Print a run's watchdog findings and fail on any the reference's CPU
+    run of the same scenario does not fire (REF_FINDINGS)."""
+    got = findings_of(sim)
+    want = REF_FINDINGS.get(name, {})
+    log(f"[watchdog] {where}: findings {got or 'none'} (evaluations "
+        f"{sim.watchdog.stats['evals']}; the reference's CPU run: "
+        f"{want or 'none'})")
+    check(got == want, f"{where}: watchdog findings {got}, the reference's "
+          f"{want}")
+    return got
 
 
 class StormWatch:
@@ -1837,10 +1993,13 @@ def phase_chaos() -> dict:
                     for k in range(2 if seed == 0 else 1)]
             nat = run_scenario(nat_sc, seed)
             injected = 1 if name == "device_loss" else 0
-            for rep, runner, _, delta in runs:
+            for k, (rep, runner, _, delta) in enumerate(runs):
                 check_clean(rep, runner, delta, f"{where} (device)",
                             fallbacks=injected)
+                check_findings(name, runner.last_sim,
+                               f"{where} device run {k + 1}")
             check_clean(nat[0], nat[1], nat[3], f"{where} (native)")
+            check_findings(name, nat[1].last_sim, f"{where} native run")
             d = [digest(r[0]) for r in runs]
             check(len(set(d)) == 1, f"{where}: --repeat 2 diverged: {d}")
             if name == "device_loss":
@@ -1858,19 +2017,16 @@ def phase_chaos() -> dict:
                 + " / ".join(f"{r[2]:.1f}" for r in runs)
                 + f" ms, native {nat[2]:.1f} ms; sim {runs[0][0].sim_seconds:g}"
                 f" s; stats {runs[0][0].stats}")
-    for name, item in UNPORTED_SCENARIOS.items():
-        try:
-            run_scenario(SCENARIOS[name], 0)
-        except NotImplementedError as e:
-            check(item in str(e), f"chaos {name} raised without naming "
-                  f"{item}: {e}")
-        else:
-            fail(f"chaos {name} ran: it needs a plane the port lacks")
+            if SCENARIOS[name].warmpath:
+                st = runs[0][0].stats
+                check(st["warm_divergences"] == 0,
+                      f"{where}: the warm path diverged {st}")
     log(f"[check] chaos: {len(CHAOS_SCENARIOS)} scenarios on the device "
         f"rung, repeat-equal and equal to the native rung (device_loss: its "
-        f"end state), the restart group at seeds 0-{CRASH_AUDIT_SEEDS - 1}; "
-        f"{', '.join(UNPORTED_SCENARIOS)} raise NotImplementedError naming "
-        f"their item; catalog wall {time.perf_counter() - t_phase:.1f} s")
+        f"end state), the restart group at seeds 0-{CRASH_AUDIT_SEEDS - 1}, "
+        f"the warm-path scenarios included, each with the reference's "
+        f"watchdog findings (none); catalog wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
     # --- the storm at cluster scale, device then native ---
     types = catalog.generate_catalog()
@@ -1937,6 +2093,16 @@ def phase_chaos() -> dict:
                       for k in ("screen_errors", "optimizer_errors")),
           f"storm: flags {flags}, violations {rep_d.violations} / "
           f"{rep_n.violations}, counter deltas {delta_d} / {delta_n}")
+    # the watchdog's findings, equal on both rungs and to the reference's
+    # CPU run of the storm (STORM_REF_FINDINGS): the over-capacity flags
+    # page integrity_breach, the armed optimizer's reject streaks
+    # optimizer_divergence
+    fd, fn = findings_of(sim_d), findings_of(sim_n)
+    log(f"[watchdog] storm: findings device {fd or 'none'}, native "
+        f"{fn or 'none'} (the reference's CPU run: {STORM_REF_FINDINGS})")
+    check(fd == fn == STORM_REF_FINDINGS,
+          f"storm: watchdog findings device {fd} vs native {fn}, the "
+          f"reference's {STORM_REF_FINDINGS}")
     for name, n in storm_launches.items():
         check(n > 0, f"kernel {name} was not launched inside the storm")
     check_recorded(rec_b, rec_a, rec_c, "storm")
@@ -1988,6 +2154,13 @@ def fleet_run(name: str, **kw) -> tuple:
     check(rep.ok, f"fleet {name} {kw}: {rep.summary()}")
     check(delta == (0, 0, 0, 0), f"fleet {name} {kw}: fallbacks / optimizer "
           f"fallbacks / integrity flags / fault_fallbacks {delta}")
+    # the fleet watchdog over the shared service and every shard's own:
+    # the reference's CPU runs of the fleet catalog fire none
+    check(rep.stats["watchdog_findings"] == 0
+          and runner.watchdog.verdict() == "ok",
+          f"fleet {name} {kw}: watchdog findings "
+          f"{rep.stats['watchdog_findings']:g}, fleet verdict "
+          f"{runner.watchdog.verdict()}")
     st = rep.stats
     log(f"[fleet-runner] {name} {kw}: tenants {rep.tenants}, wall "
         f"{wall:.1f} ms, sim {rep.sim_seconds:g} s; solves_dispatched "
@@ -1996,7 +2169,8 @@ def fleet_run(name: str, **kw) -> tuple:
         f"{st.get('batched_tickets', 0):g}, aggregate_solves_per_wall_sec "
         f"{st.get('aggregate_solves_per_wall_sec', 0):g}, "
         f"pipeline_overlap_ratio {st.get('pipeline_overlap_ratio', '-')}, "
-        f"slo_alerts {st['slo_alerts']:g}, faults_injected "
+        f"slo_alerts {st['slo_alerts']:g}, watchdog_findings "
+        f"{st['watchdog_findings']:g}, faults_injected "
         f"{st['faults_injected']:g}; B0 / B launches {ss.offer_launches} / "
         f"{ss.launches}; fleet hash {rep.fleet_hash[:16]}")
     return rep, runner, wall
@@ -2043,6 +2217,21 @@ def phase_fleet_runner() -> dict:
               and rep.stats["noisy_throttled"] > 0
               and rep.stats["noisy_burn_alerts"] > 0,
               f"fleet_noisy_neighbor: isolation verdict failed {rep.stats}")
+        # the provenance verdict: a throttled pod of the noisy tenant is
+        # explained (its throttle trail, then the solve that placed it)
+        check(rep.stats["noisy_throttled_pod_explained"] == 1.0
+              and all(r["throttles"] > 0 for r in rep.explain.values()),
+              f"fleet_noisy_neighbor: provenance verdict failed "
+              f"{rep.stats}, explain {rep.explain}")
+    check(noisy[0].explain == noisy[1].explain,
+          "fleet_noisy_neighbor: batched explain records != serial")
+    (tenant, rec), = list(noisy[0].explain.items())[:1]
+    log(f"[fleet-runner] noisy neighbor provenance: "
+        f"noisy_throttled_pod_explained "
+        f"{noisy[0].stats['noisy_throttled_pod_explained']:g}; {tenant}'s "
+        f"{rec['pod']}: throttled {rec['throttles']}x, then "
+        f"{rec['outcome']} (binding constraint "
+        f"{rec.get('binding_constraint')})")
     check(noisy[0].tenant_hashes == noisy[1].tenant_hashes
           and noisy[0].tenant_fingerprints == noisy[1].tenant_fingerprints,
           "fleet_noisy_neighbor: batched per-tenant digests != serial")
@@ -2061,6 +2250,245 @@ def phase_fleet_runner() -> dict:
         f"and serial == batched, federation_smoke in process ok; kernel "
         f"launches {launches}; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# --- phase 4i: the warm path, the watchdog and provenance — the reference's
+# c8 cell (bench.py:488-570) on the card -------------------------------------
+
+WARM_STANDING = 2_000   # c8's standing pods, one to a node (self-anti-affinity)
+WARM_BURSTS = 24        # c8 runs 5 warm bursts; 24 carry warm_integrity_tick
+#                         past the integrity audit cadence (16) in the window
+WARM_COLD = 3           # forced-cold bursts
+WARM_BURST = 32
+WARM_AUDIT_EVERY = 64   # c8's auditor cadence
+WARM_EVALS = 5          # forced watchdog evaluations timed on the standing fleet
+
+
+class WarmRun:
+    """One run of c8's sequence on one rung of the port's make_sim with the
+    warm path armed: the standing fleet brought up by the engine, one
+    prime burst (cold: it commits the ledger), WARM_BURSTS warm bursts and
+    WARM_COLD forced-cold bursts, each through one provisioner reconcile,
+    then the auditor drained."""
+
+    def __init__(self, backend: str):
+        from karpenter_tpu_torch import sim as S
+        from karpenter_tpu_torch.cloud.fake import FakeCloudConfig
+        reset_sequences()
+        self.backend = backend
+        self.sim = S.make_sim(backend=backend, warmpath=True,
+                              warm_audit_every=WARM_AUDIT_EVERY,
+                              cloud_config=FakeCloudConfig(**OP_CLOUD))
+        self.tick_ms = time_calls(self.sim.engine, "tick")
+        self.watchdog_ms = time_calls(self.sim.watchdog, "tick")
+        # resident audits fired from warm_integrity_tick: the solver's
+        # audit, counted while a warm tick runs
+        solver = self.sim.solver
+        real_tick, real_audit = (solver.warm_integrity_tick,
+                                 solver._audit_resident_state)
+        self.warm_ticks, self.warm_audits, inside = 0, [], [False]
+
+        def warm_tick():
+            self.warm_ticks += 1
+            inside[0] = True
+            try:
+                return real_tick()
+            finally:
+                inside[0] = False
+
+        def audit(full: bool = False):
+            out = real_audit(full)
+            if inside[0]:
+                self.warm_audits.append(len(out))
+            return out
+        solver.warm_integrity_tick = warm_tick
+        solver._audit_resident_state = audit
+
+    def _burst(self, tag: str) -> None:
+        from karpenter_tpu_torch import models
+        for i in range(WARM_BURST):
+            self.sim.store.add_pod(models.Pod(
+                name=f"burst-{tag}-{i}", requests=models.Resources.parse(
+                    {"cpu": "100m", "memory": "128Mi"})))
+
+    def _reconcile(self) -> float:
+        t0 = time.perf_counter()
+        self.sim.provisioner.reconcile(self.sim.clock.now())
+        return (time.perf_counter() - t0) * 1e3
+
+    def drive(self, launches_at=None) -> dict:
+        """launches_at(): the kernels' launch counts, read just before the
+        prime burst and just after the final audit (the cold passes and
+        the auditor's replays)."""
+        from karpenter_tpu_torch import models
+        from karpenter_tpu_torch.integrity import INTEGRITY
+        s, out = self.sim, {}
+        t0 = time.perf_counter()
+        for i in range(WARM_STANDING):
+            s.store.add_pod(models.Pod(
+                name=f"standing-{i}", labels={"app": "standing"},
+                requests=models.Resources.parse({"cpu": "500m",
+                                                 "memory": "512Mi"}),
+                affinity_terms=[models.PodAffinityTerm(
+                    topology_key="kubernetes.io/hostname",
+                    label_selector={"app": "standing"}, anti=True)]))
+        ok = s.engine.run_until(
+            lambda: all(p.node_name for p in s.store.pods.values()),
+            timeout=900.0, step=1.0)
+        check(ok, f"warm {self.backend}: the standing fleet did not settle")
+        out["bringup_s"] = time.perf_counter() - t0
+        out["nodes"] = len(s.store.nodeclaims)
+        n0 = launches_at() if launches_at else None
+        self._burst("prime")
+        out["prime_ms"] = self._reconcile()
+        totals0 = INTEGRITY.snapshot()["totals"]
+        out["warm_ms"] = []
+        for rep in range(WARM_BURSTS):
+            self._burst(f"warm{rep}")
+            out["warm_ms"].append(self._reconcile())
+        totals1 = INTEGRITY.snapshot()["totals"]
+        out["window_audits"] = {k: totals1.get(k, 0) - totals0.get(k, 0)
+                                for k in ("audits", "audit_rows",
+                                          "audit_corrupt", "warm_checks",
+                                          "warm_violations")}
+        out["cold_ms"] = []
+        for rep in range(WARM_COLD):
+            self._burst(f"cold{rep}")
+            s.warmpath.force_cold("bench-forced")
+            out["cold_ms"].append(self._reconcile())
+        out["divergences"] = s.warmpath.auditor.audit()
+        if launches_at:
+            n1 = launches_at()
+            out["cold_launches"] = {k: n1[k] - n0[k] for k in n1}
+        # the watchdog's share of the engine's ticks (the bring-up's),
+        # then its full evaluation on the standing fleet, forced
+        out["watchdog_tick"] = (self.watchdog_ms[0], self.watchdog_ms[1],
+                                self.tick_ms[0])
+        wd = s.watchdog
+        t0 = time.perf_counter()
+        for _ in range(WARM_EVALS):
+            wd.tick(force=True)
+        out["eval_ms"] = (time.perf_counter() - t0) * 1e3 / WARM_EVALS
+        out["wall_s"] = (out["bringup_s"] + (sum(out["warm_ms"])
+                         + sum(out["cold_ms"]) + out["prime_ms"]) / 1e3)
+        return out
+
+
+def phase_warm() -> dict:
+    """Bench c8's steady-state admission on the card: the port's
+    make_sim(backend="device", warmpath=True, warm_audit_every=64) over a
+    standing fleet of WARM_STANDING nodes, one prime burst, WARM_BURSTS
+    warm bursts and WARM_COLD forced-cold bursts of 32 pods, the auditor
+    drained; then the same on the native rung. Device == native (state
+    hash, warm-path and watchdog stats, the explain record of a cold-burst
+    pod), zero divergence, at least one resident audit fired from
+    warm_integrity_tick, B0 and B launched in the cold passes and equal to
+    their plain versions at inputs recorded there, no watchdog finding,
+    fallback or integrity flag. Returns the kernels' launches in the
+    phase."""
+    import torch
+    from karpenter_tpu_torch import sim as S
+    from karpenter_tpu_torch.obs.explain import RECORDER
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    from karpenter_tpu_torch.ops import screen_k as sk
+    from karpenter_tpu_torch.ops import solve_scan as ss, solver
+
+    t_phase = time.perf_counter()
+    os.environ.pop("KARPENTER_TPU_OPTIMIZER", None)  # the default: armed
+    explained_pod = f"default/burst-cold{WARM_COLD - 1}-0"
+
+    def counts():
+        return {"screen_k": sk.launches, "offer_argmin": ss.offer_launches,
+                "solve_scan": ss.launches, "tournament": tk.launches}
+    ss.launches = ss.offer_launches = sk.launches = tk.launches = 0
+    runs = {}
+    for backend in ("device", "native"):
+        c0 = counter_totals()
+        run = WarmRun(backend)
+        if backend == "device":
+            with Recorder(solver, "solve_scan", keep=2) as rec_b:
+                out = run.drive(counts)
+                torch.cuda.synchronize()
+            launches = counts()
+        else:
+            out = run.drive()
+        out["delta"] = tuple(b - a for a, b in zip(c0, counter_totals()))
+        out["explained"] = copy.deepcopy(RECORDER.explain(explained_pod))
+        runs[backend] = (run, out)
+        sim = run.sim
+        wp = sim.warmpath
+        log(f"[warm] c8 on the {backend} rung: {out['nodes']} standing "
+            f"nodes up in {out['bringup_s']:.1f} s; warm path {wp.stats}, "
+            f"hit rate {wp.hit_rate:.4f}, auditor {wp.auditor.stats}; "
+            f"warm_integrity_tick {run.warm_ticks} ticks, resident audits "
+            f"from them {len(run.warm_audits)} (corrupt entries "
+            f"{sum(run.warm_audits)}); integrity meter over the warm window "
+            f"{out['window_audits']}; watchdog {sim.watchdog.stats}; solver "
+            f"{sim.solver.stats}; counter deltas {out['delta']}")
+        check(out["nodes"] >= WARM_STANDING,
+              f"warm {backend}: {out['nodes']} standing nodes")
+        check(out["divergences"] == [] and wp.stats["divergences"] == 0,
+              f"warm {backend}: the auditor diverged {out['divergences']} "
+              f"{wp.stats}")
+        check(wp.stats["warm_reconciles"] >= WARM_BURSTS,
+              f"warm {backend}: warm_reconciles {wp.stats}")
+        check(wp.auditor.stats["audits"] >= 1,
+              f"warm {backend}: the auditor never replayed the window")
+        check(out["delta"] == (0, 0, 0, 0)
+              and sim.solver.stats["device_fallbacks"] == 0
+              and sim.solver.stats["integrity_violations"] == 0
+              and out["window_audits"]["warm_violations"] == 0,
+              f"warm {backend}: fallbacks / optimizer fallbacks / integrity "
+              f"flags / fault_fallbacks {out['delta']}, solver "
+              f"{sim.solver.stats}, window {out['window_audits']}")
+        check(findings_of(sim) == {},
+              f"warm {backend}: watchdog findings {findings_of(sim)}")
+    (run_d, out_d), (run_n, out_n) = runs["device"], runs["native"]
+    sim_d, sim_n = run_d.sim, run_n.sim
+    check(len(run_d.warm_audits) >= 1 and sum(run_d.warm_audits) == 0
+          and out_d["window_audits"]["audits"] >= 1
+          and out_d["window_audits"]["audit_rows"] > 0,
+          f"warm device: no resident audit fired from warm_integrity_tick "
+          f"({run_d.warm_audits}, window {out_d['window_audits']})")
+    cold = out_d["cold_launches"]
+    check(cold["offer_argmin"] > 0 and cold["solve_scan"] > 0,
+          f"warm device: B0 / B not launched in the cold passes: {cold}")
+    check_scan_calls(rec_b, "warm", ("prime burst's cold pass",
+                                     "last cold pass or audit replay"))
+    del rec_b
+    hd, hn = S.state_hash(sim_d), S.state_hash(sim_n)
+    check(hd == hn, f"warm: state_hash device {hd} != native {hn}")
+    check(sim_d.warmpath.stats == sim_n.warmpath.stats
+          and sim_d.warmpath.auditor.stats == sim_n.warmpath.auditor.stats,
+          f"warm: warm-path stats device {sim_d.warmpath.stats} != native "
+          f"{sim_n.warmpath.stats}")
+    check(sim_d.watchdog.stats == sim_n.watchdog.stats,
+          f"warm: watchdog stats device {sim_d.watchdog.stats} != native "
+          f"{sim_n.watchdog.stats}")
+    rd, rn = out_d["explained"], out_n["explained"]
+    check(rd is not None and rd == rn,
+          f"warm: explain of {explained_pod} device {rd} != native {rn}")
+    log(f"[check] warm device == native: state_hash {hd[:16]}, warm-path, "
+        f"auditor and watchdog stats; 0 divergences; explain "
+        f"{explained_pod}: {rd['outcome']}, chosen {rd.get('chosen')}, "
+        f"runner-up {rd.get('runner_up')}, binding "
+        f"{rd['binding_constraint']}; B0 / B launches in the cold passes "
+        f"and audit replays {cold['offer_argmin']} / {cold['solve_scan']}; "
+        f"kernel launches in the phase's device run {launches}")
+    for backend, (run, out) in runs.items():
+        wp50, cp50 = (statistics.median(out["warm_ms"]),
+                      statistics.median(out["cold_ms"]))
+        wdm, wdn, tkm = out["watchdog_tick"]
+        log(f"[time] warm {backend}: warm admit p50 {wp50:.3f} ms (max "
+            f"{max(out['warm_ms']):.3f}), cold reconcile p50 {cp50:.1f} ms "
+            f"({', '.join(f'{c:.1f}' for c in out['cold_ms'])}), ratio "
+            f"{cp50 / wp50:.1f}x; prime {out['prime_ms']:.1f} ms; bring-up "
+            f"{out['bringup_s']:.1f} s; the watchdog's tick {wdm:.3f} ms of "
+            f"{tkm:.1f} ms of the bring-up's engine tick wall (share "
+            f"{wdm / max(tkm, 1e-9):.6f}, {wdn} ticks); one forced full "
+            f"evaluation over {out['nodes']} claims {out['eval_ms']:.3f} ms")
+    log(f"[warm] phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2396,6 +2824,12 @@ def phase_planes(c14: dict, recompute_snap: dict) -> dict:
         sc = dataclasses.replace(SCENARIOS[name], backend="device")
         digests = []
         for k in range(2):
+            # each drill starts from an empty integrity meter, as the
+            # reference's CPU run does: an earlier phase's unrecovered
+            # flags (the storm's over-capacity state) would hold the
+            # watchdog's integrity_breach excursion open, so a second
+            # detection would not page again
+            INTEGRITY.reset()
             v0 = dict(INTEGRITY_VERDICTS._values)
             f0, d0 = SOLVER_FALLBACKS.sum(), INTEGRITY.detections()
             rep_d, runner, wall, _ = run_scenario(sc, 0)
@@ -2413,6 +2847,8 @@ def phase_planes(c14: dict, recompute_snap: dict) -> dict:
                   f"planes: {name} run {k}: {rep_d.summary()}, stats {st}, "
                   f"detections {det}, flags {flags}, fallbacks {fb}")
             digests.append(digest(rep_d))
+            check_findings(name, runner.last_sim,
+                           f"planes: {name} run {k + 1}")
             log(f"[planes] {name} seed 0 run {k + 1}: ok, "
                 f"{st['corruptions_injected']:g} injected, detections {det} "
                 f"(flags {flags}), quarantines {fb:g} (this facade only); end "
@@ -2836,6 +3272,10 @@ def main() -> None:
     # before each run and summed ---
     fleet_runner_launches = counted("fleet_runner", phase_fleet_runner)
 
+    # --- 4i. the warm path, the watchdog and provenance: bench c8's
+    # sequence, counts zeroed at the phase's start ---
+    warm_launches = counted("warm", phase_warm)
+
 
     # --- 5. times ---
     solve_ms = wall_ms(lambda: solver.solve_device(cat, enc), 5)
@@ -2927,6 +3367,7 @@ def main() -> None:
     for k in by_phase:
         by_phase[k]["chaos"] = {"launches": chaos_launches[k]}
         by_phase[k]["fleet_runner"] = {"launches": fleet_runner_launches[k]}
+        by_phase[k]["warm"] = {"launches": warm_launches[k]}
     by_phase["tournament"]["grid"] = c_grid
     by_phase["tournament"]["optimizer"] = {
         "launches": opt_launches["tournament"]}

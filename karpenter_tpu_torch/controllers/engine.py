@@ -1,11 +1,12 @@
 """Deterministic reconcile engine.
 
 The port's own copy of `karpenter_tpu/controllers/engine.py`. The
-reference's optional leader-election `elector` (for its async runtime)
-and `watchdog` (obs/watchdog, read-only over the stack) are not ported,
-so their fields and calls are left out; every other line keeps the
-reference's semantics, including that only a retryable `CloudError` is
-absorbed — a kernel's error raises out of `tick`.
+reference's optional leader-election `elector` (for its async runtime,
+ROADMAP item 15) is not ported, so its field and calls are left out;
+every other line keeps the reference's semantics, including the
+watchdog's tick outside the traced window and that only a retryable
+`CloudError` is absorbed — a kernel's error raises out of `tick`, after
+the watchdog has evaluated.
 
 Controllers implement `reconcile(now) -> requeue_after_seconds`, mirroring
 controller-runtime's Reconcile contract (the reference's 14+ controllers,
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import time as _time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Protocol
+from typing import Callable, Dict, List, Optional, Protocol
 
 from ..cloud.provider import CloudError
 from ..metrics import RECONCILE_DURATION, RECONCILE_ERRORS
@@ -39,9 +40,12 @@ class Engine:
     clock: object
     controllers: List[Controller] = field(default_factory=list)
     hooks: List[Callable[[float], None]] = field(default_factory=list)
-    # (the reference's optional leader-election `elector` and its
-    # obs.watchdog.Watchdog sit here: neither is ported, ROADMAP §1 items
-    # 15 and 16)
+    # (the reference's optional leader-election `elector` sits here: not
+    # ported, ROADMAP §1 item 15)
+    # optional obs.watchdog.Watchdog: ticked OUTSIDE the traced window
+    # (it observes the control plane, it is not part of the reconcile
+    # cost the phase ledger decomposes) and on every tick
+    watchdog: Optional[object] = None
     _next_run: Dict[str, float] = field(default_factory=dict)
 
     def add(self, *controllers: Controller) -> "Engine":
@@ -67,6 +71,15 @@ class Engine:
                             for c in self.controllers))
         tick_sp = (TRACER.trace("engine.tick", sim_now=now)
                    if trace_on else NOOP_SPAN)
+        try:
+            self._tick_body(now, trace_on, tick_sp)
+        finally:
+            # the watchdog evaluates even when a controller pass raised —
+            # a crashing reconcile is exactly when invariants need eyes
+            if self.watchdog is not None:
+                self.watchdog.tick(now)
+
+    def _tick_body(self, now: float, trace_on: bool, tick_sp) -> None:
         with tick_sp:
             hooks_sp = (TRACER.span("engine.hooks", hooks=len(self.hooks))
                         if trace_on and self.hooks else NOOP_SPAN)

@@ -1,11 +1,10 @@
 """Provisioning controller: pending pods → Solve → NodeClaims → launches.
 
-The port's own copy of `karpenter_tpu/controllers/provisioner.py`. Every
-solve goes through the port's `ops/facade.Solver` (kernels B0 and B on
-the card's rung). The reference's optional warm path (`warmpath`, an
-admitter in front of the solve) is not ported: its field and its two
-call sites are left out, so every reconcile takes the reference's cold
-path; every other line keeps the reference's semantics.
+The port's own copy of `karpenter_tpu/controllers/provisioner.py`, every
+line with the reference's semantics. Every solve goes through the port's
+`ops/facade.Solver` (kernels B0 and B on the card's rung); the optional
+warm path (`warmpath`, the port's `warmpath.WarmPathEngine`) admits
+arrival-only reconciles in front of it, as in the reference.
 
 The core loop (reference: the core provisioner controller batches
 unschedulable pods, runs the scheduling simulation over the instance-type
@@ -54,8 +53,11 @@ class Provisioner:
     name: str = "provisioner"
     batch_idle: float = 1.0
     requeue: float = 1.0
-    # (the reference's optional warmpath.WarmPathEngine field sits here:
-    # not ported, ROADMAP §1 item 9 — every reconcile is cold)
+    # optional warmpath.WarmPathEngine: classifies each reconcile warm
+    # (only pod arrivals since the last committed solve — admit against
+    # the standing headroom ledger, no full solve) or cold (anything else
+    # changed — full solve, then recommit the ledger). None = always cold.
+    warmpath: Optional[object] = None
     # optional state.journal.IntentJournal: the provisioning write-ahead
     # log. When set, every launch batch records its intents BEFORE the
     # CreateFleet wire call and resolves them after the commit, so a
@@ -87,8 +89,19 @@ class Provisioner:
                          pods=sum(len(g) for g in groups))
         if not groups:
             return self.requeue
-        # (the reference's warm-path admission sits here)
-        self._last_path = "cold"
+        if self.warmpath is not None:
+            admitted_some, groups = self.warmpath.try_admit(groups, now)
+            if not groups:
+                # the whole arrival burst fit the standing headroom —
+                # no solve, no launches, nothing to recommit. Every
+                # pending pod was admitted, so the gauge reads zero.
+                self._last_path = "warm"
+                self.stats["unschedulable"] = 0
+                PODS_UNSCHEDULABLE.set(0)
+                return self.requeue
+            self._last_path = "mixed" if admitted_some else "cold"
+        else:
+            self._last_path = "cold"
         pending = [p for g in groups for p in g]
         remaining: List[Pod] = pending
         pregrouped: Optional[List[List[Pod]]] = groups
@@ -113,7 +126,11 @@ class Provisioner:
         for p in remaining:
             self.store.record_event("pod", f"{p.namespace}/{p.name}",
                                     "FailedScheduling", "no nodepool could schedule")
-        # (the reference's warm-path ledger commit sits here)
+        if self.warmpath is not None:
+            # a cold solve ran: rebuild the standing headroom ledger from
+            # the post-solve cluster state so the next arrival-only tick
+            # can be admitted warm against it
+            self.warmpath.commit(now)
         # a throttled CreateFleet left pods pending on purpose: retry at
         # the retryable backoff, not the normal cadence
         return max(self.requeue, 2.0) if self._throttled else self.requeue

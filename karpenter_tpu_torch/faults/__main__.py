@@ -18,10 +18,8 @@ produced the identical end-state hash and fault-timeline fingerprint.
 --seeds N widens the matrix to seeds 0..N-1 (each still honoring
 --repeat). Scenarios carrying CrashPoint rules are driven by
 RestartRunner (the engine is torn down and rebuilt at each injected
-crash); everything else runs under ScenarioRunner. `all` runs the whole
-catalog, so it fails on the three scenarios whose plane is not ported
-(the warm path: they raise NotImplementedError). Exit status is non-zero
-when any run fails its invariants.
+crash); everything else runs under ScenarioRunner. Exit status is
+non-zero when any run fails its invariants.
 """
 
 from __future__ import annotations

@@ -3,9 +3,9 @@
 The port's own copy of `karpenter_tpu/faults/runner.py`. Both runners take
 `device=` and pass it to `make_sim`: the CUDA card unless the caller asks
 for another (device="cpu" runs the kernels' plain versions, as the tests
-do); without a card and without `device` they raise. The reference's
-online watchdog (`sim.watchdog`) is not ported (ROADMAP item 16): the
-found-it-first cross-check below stays and finds no watchdog to ask.
+do); without a card and without `device` they raise. Every run's stack
+arms the online watchdog (`sim.watchdog`), which the found-it-first
+cross-check below asks, as in the reference.
 
 Builds a full SimEnvironment with the scenario's FaultPlan armed, injects
 the workload, drives the engine until the cluster converges (or the sim
@@ -275,9 +275,7 @@ def _watchdog_cross_check(sim, violations: List[str]) -> None:
     evaluation closes the race between the last engine tick and the
     judgment; any mapped violation the watchdog never fired on is
     appended as a blind-spot violation of its own. Mutates `violations`
-    in place and stamps the watchdog's finding counts for the report.
-    The port's SimEnvironment has no watchdog until ROADMAP item 16, so
-    this finds none and returns."""
+    in place and stamps the watchdog's finding counts for the report."""
     wd = getattr(sim, "watchdog", None)
     if wd is None or not wd.armed:
         return

@@ -1,12 +1,8 @@
 """Named chaos scenarios — the port's copy of the reference's catalog
 (`karpenter_tpu/faults/scenarios.py`), every scenario with its rules,
 workload and deadline unchanged, so `SCENARIOS` and `get_scenario` are the
-reference's.
-
-Three scenarios need a plane the port lacks, and running them raises
-NotImplementedError naming its ROADMAP item (never a silent skip):
-`warmpath_smoke`, `warmpath_storm` and `crash_launch_storm` (the warm
-path, item 9: make_sim raises).
+reference's. Every scenario runs, the three warm-path ones
+(`warmpath_smoke`, `warmpath_storm`, `crash_launch_storm`) included.
 
 Each scenario pairs a workload with a FaultPlan rule set and a sim
 deadline. All rule times are run-relative sim-seconds. Every scenario in

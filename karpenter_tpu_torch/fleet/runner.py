@@ -2,10 +2,10 @@
 
 The port's own copy of `karpenter_tpu/fleet/runner.py`. The service is the
 port's `SolverService` on `device=` (the CUDA card unless given) and the
-SLO engine rides every run, as in the reference. Not ported yet, so left
-as comments where the reference calls them: the explain recorder
-(`report.explain` stays empty; ROADMAP item 8), the fleet and per-shard
-watchdogs (item 16) and federation (`federate` raises; item 12).
+SLO engine, the explain recorder (`report.explain`), the fleet watchdog
+over the shared service and each shard's own watchdog ride every run, as
+in the reference. Not ported yet: federation (`federate` raises; ROADMAP
+item 12).
 
 Modeled on `faults/runner.ScenarioRunner` (and the RestartRunner's
 build/drive/judge shape): build every shard on ONE FakeClock and ONE
@@ -134,6 +134,10 @@ class FleetRunner:
         self.service: Optional[SolverService] = None
         self.shards: List[TenantShard] = []
         self.slo = None  # obs.slo.SloEngine, built in run()
+        # fleet-level obs.watchdog.Watchdog over the SHARED service
+        # (starvation/backlog); each shard's make_sim stack arms its own
+        # per-tenant watchdog for the cluster-state invariants
+        self.watchdog = None
         self.origin = 0.0
 
     def build(self) -> None:
@@ -185,9 +189,19 @@ class FleetRunner:
         from ..obs.slo import SloEngine
         self.slo = SloEngine(clock,
                              tenants=tuple(s.name for s in self.shards))
-        # (the reference resets its explain recorder here and arms one
-        # fleet-level watchdog over the shared service: ROADMAP items 8
-        # and 16; both are read-only over the run)
+        # per-run provenance baseline: tenant/pod names are deterministic
+        # across seeded repeats in ONE process (run_matrix), so stale
+        # records from a previous run could satisfy this run's explain
+        # verdict — reset like the SLO engine baselines
+        from ..obs.explain import RECORDER
+        RECORDER.reset()
+        # the fleet face of the verification plane: one watchdog over
+        # the SHARED service (starvation/backlog are fleet properties,
+        # not any shard's) alongside the per-shard watchdogs each
+        # make_sim stack already armed
+        from ..obs.watchdog import Watchdog
+        self.watchdog = Watchdog(clock, service=self.service).arm(
+            clock.now())
         deadline = clock.now() + sc.timeout
         plans = {s.name: s.plan for s in self.shards if s.plan is not None}
         converged = False
@@ -199,23 +213,43 @@ class FleetRunner:
                 for shard in self.shards:
                     shard.tick()
                 self.slo.tick()
+                self.watchdog.tick()
                 if all(s.quiet() for s in self.shards):
                     converged = True
                     break
                 clock.step(sc.step)
         self.slo.tick(force=True)  # final evaluation at the end state
+        self.watchdog.tick(force=True)
 
         violations: List[str] = []
         hashes: Dict[str, str] = {}
         fingerprints: Dict[str, str] = {}
+        warm_div = 0.0
+        fleet_findings = float(self.watchdog.stats["findings"])
         for shard in self.shards:
-            # (the reference cross-checks each shard's watchdog here,
-            # under the shard's tenant scope: ROADMAP item 16)
-            for v in check_invariants(shard.sim):
+            shard_v = check_invariants(shard.sim)
+            # per-shard found-it-first cross-check under the shard's
+            # tenant scope (findings metered at the final evaluation
+            # land on the tenant's series, like every other sample)
+            wd = getattr(shard.sim, "watchdog", None)
+            if wd is not None and wd.armed:
+                from ..metrics.tenant import tenant_scope
+                with tenant_scope(shard.name):
+                    wd.tick(shard.sim.clock.now(), force=True)
+                shard_v.extend(wd.cross_check(shard_v))
+                fleet_findings += float(wd.stats["findings"])
+            for v in shard_v:
                 violations.append(f"[{shard.name}] {v}")
             hashes[shard.name] = state_hash(shard.sim)
             fingerprints[shard.name] = (shard.plan.fingerprint()
                                         if shard.plan is not None else "")
+
+            wp = shard.sim.warmpath
+            if wp is not None and wp.stats["divergences"]:
+                warm_div += wp.stats["divergences"]
+                violations.append(
+                    f"[{shard.name}] warm-path auditor diverged "
+                    f"{wp.stats['divergences']} time(s)")
 
         svc = self.service
         stats: Dict[str, float] = {
@@ -240,6 +274,9 @@ class FleetRunner:
         if self.wire_plan is not None:
             stats["wire_faults_injected"] = float(
                 len(self.wire_plan.timeline))
+        if warm_div:
+            stats["warm_divergences"] = warm_div
+        stats["watchdog_findings"] = fleet_findings
         stats["slo_alerts"] = float(len(self.slo.alerts))
         report = FleetReport(
             scenario=sc.name, seed=self.seed, tenants=self.tenants,
@@ -249,8 +286,17 @@ class FleetRunner:
             wire_fingerprint=(self.wire_plan.fingerprint()
                               if self.wire_plan is not None else ""))
         report.slo = self.slo.payload()
-        # (the reference attaches one explained pod per throttled tenant
-        # to report.explain here: ROADMAP item 8)
+        # causal trail: any tenant the service throttled gets one
+        # explained pod attached (throttle count + the funnel of the
+        # solve that finally placed it), so a starvation finding in the
+        # report comes with its provenance instead of a bare counter
+        from ..obs.explain import RECORDER
+        for tenant, state in svc.tenants.items():
+            if not state.throttled:
+                continue
+            pods = RECORDER.tenant_pods(tenant, outcome="throttled")
+            if pods:
+                report.explain[tenant] = RECORDER.explain(pods[-1], tenant)
         if sc.analyze is not None:
             sc.analyze(self, report)
         return report

@@ -2,8 +2,7 @@
 (`karpenter_tpu/fleet/scenarios.py`), every scenario unchanged. The
 fed_* scenarios federate by default and raise when run (the federation
 plane is ROADMAP item 12); `federation_smoke` runs in process, as it does
-in the reference without `--federate`. `fleet_noisy_neighbor`'s verdict
-leaves out the reference's explain-record check (item 8).
+in the reference without `--federate`.
 
 A FleetScenario describes a whole fleet: how many tenant shards, each
 tenant's workload (seeded from the tenant's OWN rng stream, so tenant
@@ -252,10 +251,16 @@ def _noisy_analyze(runner, report) -> None:
                 f"a victim tenant's availability error budget did not "
                 f"survive the storm (min remaining "
                 f"{min(victim_avail):.3f})")
-    # (the reference's provenance verdict follows here: a throttled pod
-    # of the noisy tenant must be explainable through report.explain,
-    # which the port leaves empty until its explain recorder lands,
-    # ROADMAP item 8)
+    # --- provenance verdict (obs/explain.py): a throttled pod must be
+    # explainable — /debug/explain answers with its throttle trail and,
+    # once a later solve placed it, the constraint funnel.
+    explained = report.explain.get(noisy)
+    report.stats["noisy_throttled_pod_explained"] = float(
+        bool(explained and explained.get("throttles", 0) > 0))
+    if not explained:
+        report.violations.append(
+            "no /debug/explain record for any of the noisy tenant's "
+            "throttled pods")
 
 
 FLEET_SCENARIOS: Dict[str, FleetScenario] = {}

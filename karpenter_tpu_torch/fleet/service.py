@@ -38,10 +38,11 @@ The port's fault contract differs from the reference's on purpose: a
 bucket degrades to serial re-runs only on `ops/solver.InjectedFault` (the
 fault-injection seam); a kernel's or a readback's error raises out of
 `pump()` (ROADMAP §3). Not ported yet: the open-loop
-`AdmissionController` (ROADMAP §1 item 17), the `/debug/fleet` route and
-the fleet watchdog (item 16), and the explain recorder's throttle notes
-(item 8). A bucket whose membership repeats the previous pump's keeps its
-stacked request matrix resident on the card (`_bucket_resident_key`).
+`AdmissionController` (ROADMAP §1 item 17). A refused submission's pods
+are noted with the explain recorder, and the fleet watchdog reads
+`backlog()`, each tenant's `max_wait` and `pipeline_state()`. A bucket
+whose membership repeats the previous pump's keeps its stacked request
+matrix resident on the card (`_bucket_resident_key`).
 """
 
 from __future__ import annotations
@@ -112,10 +113,17 @@ class TenantSolverClient:
         self.tenant = tenant
         self.facade = facade
 
-    # (the reference notes a refused submission's pods with the explain
-    # recorder in solve() and solve_async(): ROADMAP §1 item 8)
     def solve(self, pods, *args, **kwargs):
-        ticket = self._submit(pods, args, kwargs)
+        try:
+            ticket = self._submit(pods, args, kwargs)
+        except SolverServiceBusy:
+            # decision provenance for the refusal: the solve never ran,
+            # so the solver can't explain these pods — the throttle
+            # itself is the causal trail (/debug/explain shows
+            # binding_constraint=fleet_inflight_cap until a later solve
+            # places them and preserves the throttle count)
+            self._note_throttle(pods)
+            raise
         self._service.pump()
         return ticket.result()
 
@@ -123,7 +131,17 @@ class TenantSolverClient:
         """Submit without pumping: the ticket resolves at the service's
         next pump(), co-batching with whatever else is queued by then.
         Throttles exactly like solve()."""
-        return self._submit(pods, args, kwargs)
+        try:
+            return self._submit(pods, args, kwargs)
+        except SolverServiceBusy:
+            self._note_throttle(pods)
+            raise
+
+    def _note_throttle(self, pods) -> None:
+        from ..obs.explain import RECORDER
+        if RECORDER.enabled:
+            RECORDER.note_throttle(
+                self.tenant, [f"{p.namespace}/{p.name}" for p in pods])
 
     def _submit(self, pods, args, kwargs) -> SolveTicket:
         cost = self._service.cost_model(len(pods))
@@ -216,8 +234,14 @@ class SolverService:
         # last pump's bucket membership per batch signature (the stable
         # batch-composition contract the resident stack keys on)
         self._bucket_members: Dict[tuple, tuple] = {}
-        # (the reference registers its /debug/fleet route here: ROADMAP §1
-        # item 16)
+        # /debug/fleet: the live per-tenant queue/throttle/starvation view
+        # (last-built service wins). The route table holds the service by
+        # WEAKREF, so a finished fleet is not pinned for the process
+        # lifetime; a dead owner answers {"inactive": true}
+        from ..obs.exposition import register_debug_route
+        register_debug_route("/debug/fleet",
+                             lambda svc, query: svc.debug_payload(),
+                             owner=self)
 
     # --- registration -----------------------------------------------------
     def register(self, tenant: str, catalog) -> TenantSolverClient:
@@ -716,8 +740,8 @@ class SolverService:
         return len(self._queue)
 
     def debug_payload(self) -> dict:
-        """The reference's /debug/fleet payload (its route comes with
-        ROADMAP §1 item 16; the admission block with item 17)."""
+        """The /debug/fleet payload (the reference's admission block comes
+        with ROADMAP §1 item 17)."""
         return {"tenants": self.snapshot(),
                 "inflight_cap": self.inflight_cap,
                 "window_seconds": self.window,

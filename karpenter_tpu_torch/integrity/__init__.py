@@ -171,6 +171,15 @@ class IntegrityMeter:
         if not corrupt:
             INTEGRITY_VERDICTS.inc(check="resident_audit", outcome="ok")
 
+    def record_warm(self, violations: int, tenant: str = "") -> None:
+        from ..metrics import INTEGRITY_VERDICTS
+        with self._lock:
+            row = self._row(tenant or self._tenant())
+            row["warm_checks"] += 1
+            row["warm_violations"] += int(violations)
+        if not violations:
+            INTEGRITY_VERDICTS.inc(check="oracle", outcome="ok")
+
     def record_canary(self, agree: bool, tenant: str = "") -> None:
         from ..metrics import INTEGRITY_VERDICTS
         with self._lock:
@@ -257,9 +266,9 @@ register_debug_route("/debug/integrity",
                      lambda query: INTEGRITY.snapshot())
 
 from .canary import CanarySampler  # noqa: E402
-from .oracle import Violation, verify_result  # noqa: E402
+from .oracle import Violation, verify_result, verify_warm_result  # noqa: E402
 
 __all__ = ["CHECKS", "INTEGRITY", "INTEGRITY_ENV", "CANARY_ENV",
            "AUDIT_ENV", "AUDIT_ROWS", "CanarySampler", "IntegrityError",
            "IntegrityMeter", "Violation", "audit_every", "canary_every",
-           "integrity_enabled", "verify_result"]
+           "integrity_enabled", "verify_result", "verify_warm_result"]

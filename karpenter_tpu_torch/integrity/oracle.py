@@ -259,3 +259,18 @@ def verify_result(cat, enc, result) -> List[Violation]:
             f"{len(launches)} launch rows for {len(fresh)} fresh nodes"))
 
     return v
+
+
+def verify_warm_result(cat, enc, result) -> List[Violation]:
+    """The warm-admit face of the oracle: identical checks, minus the
+    launch-row pass (warm admissions never open nodes — a fresh node in
+    a warm result is itself a violation)."""
+    v = verify_result(cat, enc, result)
+    fresh = [i for i, nd in enumerate(result.nodes)
+             if nd.existing_name is None]
+    if fresh:
+        v.append(Violation(
+            "accounting",
+            f"warm admission opened {len(fresh)} fresh node(s) — the "
+            f"warm path may only fill standing capacity"))
+    return v

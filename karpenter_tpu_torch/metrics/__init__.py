@@ -301,10 +301,9 @@ FAULTS_INJECTED = REGISTRY.counter(
     "clock_jump, device, interruption, corruption, crash — burst flavor, "
     "incl. kills, is in the timeline detail) — zero in production: the "
     "hooks are no-ops unless a plan is installed", ("kind",))
-# the SLO engine (obs/slo.py) reads the warm path's two families for its
-# warm_hit_rate and audit_divergence objectives; nothing in the port
-# writes them until the warm path lands (ROADMAP item 9), so those two
-# objectives see no events
+# the warm path (warmpath/engine.py) writes these; the SLO engine
+# (obs/slo.py) reads WARMPATH_DECISIONS and WARMPATH_AUDITS for its
+# warm_hit_rate and audit_divergence objectives
 WARMPATH_DECISIONS = REGISTRY.counter(
     "karpenter_tpu_warmpath_decisions_total",
     "Provisioner reconciles with pending pods, by outcome: warm (whole "
@@ -314,10 +313,48 @@ WARMPATH_DECISIONS = REGISTRY.counter(
     "delta tracker's first dirty event, a catalog-epoch move, a "
     "config-hash change, or an audit divergence)",
     ("path", "reason", "tenant"), label_defaults=_TENANT)
+WARMPATH_ADMIT_DURATION = REGISTRY.histogram(
+    "karpenter_tpu_warmpath_admit_duration_seconds",
+    "Warm-path admission latency per reconcile (classify + encode + "
+    "first-fit + nomination — the arrival-path cost a full solve would "
+    "otherwise be)", ("tenant",),
+    buckets=(.0001, .00025, .0005, .001, .0025, .005, .01, .025, .05,
+             .1, .5, 1), label_defaults=_TENANT)
+WARMPATH_HIT_RATE = REGISTRY.gauge(
+    "karpenter_tpu_warmpath_warm_hit_rate",
+    "Fraction of arrival pods admitted on the warm path (vs escalated "
+    "or classified cold) since process start — the steady-state "
+    "effectiveness of the incremental admitter",
+    ("tenant",), label_defaults=_TENANT)
+WARMPATH_DIVERGENCE = REGISTRY.counter(
+    "karpenter_tpu_warmpath_divergence_total",
+    "Warm-path audit divergences: accumulated warm admissions replayed "
+    "through a fresh full Solver.solve() disagreed with the warm "
+    "placements. Each increment forces the path cold and flight-records "
+    "a warmpath.divergence trace — nonzero means the incremental "
+    "admitter drifted from solve semantics and repaired itself",
+    ("tenant",), label_defaults=_TENANT)
 WARMPATH_AUDITS = REGISTRY.counter(
     "karpenter_tpu_warmpath_audits_total",
     "Warm-path auditor replays, by outcome (clean / divergent)",
     ("outcome", "tenant"), label_defaults=_TENANT)
+# the online invariant watchdog (obs/watchdog.py)
+WATCHDOG_FINDINGS = REGISTRY.counter(
+    "karpenter_tpu_watchdog_findings_total",
+    "Findings fired by the online invariant watchdog (obs/watchdog.py), "
+    "by invariant and severity. Edge-triggered per (invariant, "
+    "offending object): one firing per excursion. Nonzero critical "
+    "findings mean a chaos-runner end-of-run invariant is being "
+    "violated RIGHT NOW — each firing also lands a watchdog.finding "
+    "marker trace in the flight-recorder ring and flips the readiness "
+    "probe when critical",
+    ("invariant", "severity", "tenant"), label_defaults=_TENANT)
+WATCHDOG_VERDICT = REGISTRY.gauge(
+    "karpenter_tpu_watchdog_verdict",
+    "Worst severity among the watchdog's ACTIVE excursions: 0 = ok, "
+    "1 = warning, 2 = critical. /readyz answers 503 while this reads 2 "
+    "— the readiness face of the verification plane",
+    ("tenant",), label_defaults=_TENANT)
 SLO_ERROR_BUDGET = REGISTRY.gauge(
     "karpenter_tpu_slo_error_budget_remaining",
     "Fraction of a tenant's error budget remaining for one declared "

@@ -78,7 +78,12 @@ def register_readiness(name: str, probe, owner=None) -> None:
     """Gate /readyz on `probe` — called as `probe(owner)` (live owner)
     or `probe()` when ownerless; must return (ready, detail). Weakref
     semantics match the debug routes: a dead owner's probe is dropped,
-    never failed — readiness reflects subsystems that EXIST."""
+    never failed — readiness reflects subsystems that EXIST. Dead
+    owners' probes are dropped here too, so a process that builds many
+    stacks (each watchdog registers one) never accumulates them."""
+    for stale in [k for k, (_, r) in READINESS_PROBES.items()
+                  if r is not None and r() is None]:
+        READINESS_PROBES.pop(stale, None)
     ref = weakref.ref(owner) if owner is not None else None
     READINESS_PROBES[name] = (probe, ref)
 

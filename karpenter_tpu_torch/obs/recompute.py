@@ -247,6 +247,10 @@ class RecomputeLedger:
         self._lock = threading.Lock()
         # (tenant, stage, outcome) -> units of work
         self._units: Dict[Tuple[str, str, str], int] = {}
+        # (stage, outcome) -> units over every tenant: the watchdog reads
+        # these on each evaluation, and a fleet holds one row of _units
+        # per tenant
+        self._stage_units: Dict[Tuple[str, str], int] = {}
         # (tenant, stage) -> LRU of seen fingerprints
         self._seen: Dict[Tuple[str, str], "OrderedDict[int, None]"] = {}
         # trace_id -> stage -> outcome -> units classified while that
@@ -322,6 +326,8 @@ class RecomputeLedger:
         with self._lock:
             key = (tenant, stage, outcome)
             self._units[key] = self._units.get(key, 0) + units
+            agg = (stage, outcome)
+            self._stage_units[agg] = self._stage_units.get(agg, 0) + units
             tid = TRACER.current_trace_id()
             if tid is not None:
                 pend = self._pending.get(tid)
@@ -454,9 +460,8 @@ class RecomputeLedger:
         watchdog's recompute_runaway monitor baselines at arm."""
         out: Dict[str, Dict[str, int]] = {}
         with self._lock:
-            for (_t, st, outcome), n in self._units.items():
-                out.setdefault(st, {})[outcome] = \
-                    out.get(st, {}).get(outcome, 0) + n
+            for (st, outcome), n in self._stage_units.items():
+                out.setdefault(st, {})[outcome] = n
         return out
 
     def redundant_frac(self, stage: str) -> float:
@@ -550,6 +555,7 @@ class RecomputeLedger:
     def reset(self) -> None:
         with self._lock:
             self._units.clear()
+            self._stage_units.clear()
             self._seen.clear()
             self._pending.clear()
             self._ms.clear()

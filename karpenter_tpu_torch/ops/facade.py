@@ -19,9 +19,10 @@ plain versions when the facade is built with `device="cpu"`);
 dispatch (`ops/solver.dispatch_batch`). The delta plane's serve-and-verify
 memos (solve, affinity, spread: `ops/delta`) and the device-resident
 request and catalog tensors with their digest audit (`ops/resident`) are
-armed by default, as in the reference. Not ported yet, each with its call
-site marked by the ROADMAP item that brings it: the explain recorder and
-the warm path. None of these changes an answer.
+armed by default, as in the reference, and so is the explain recorder
+(`obs/explain.RECORDER`, fed from `finish_solve`). The warm path's seam
+(`warm_catalog`, `prepare_warm`, `warm_integrity_tick`) is the
+reference's. None of these changes an answer.
 
 The device rung serves from the card or raises: a kernel that fails to
 build, refuses its shapes or fails to launch, and a device answer the
@@ -1132,8 +1133,14 @@ class Solver:
         with _span("solve.output"):  # decode to launches, merge the plan
             out = self._decode(cat, enc, result, prep.nodepool, prep.dropped)
             out = self._merge_plan(out, prep.plan, cat, prep.nodepool)
-        # (the reference records decision provenance here: ROADMAP §1
-        # item 8, explain recorder)
+        # decision provenance: per-pod placement records + the constraint
+        # elimination funnel, bounded and read-only (obs/explain.py) —
+        # solves above the recorder's pod cap are skipped, and the
+        # colocation-only early return in prepare_solve is not recorded
+        # (bundle placement is the planner's, not the funnel's)
+        from ..obs.explain import RECORDER
+        if RECORDER.enabled:
+            RECORDER.record_solve(cat, enc, out)
         return self._retry_reserved_unschedulable(
             out, prep.blocks_gated, prep.all_pods, prep.nodepool,
             prep.node_class, prep.spread_occupancy, prep.daemonsets)
@@ -1353,6 +1360,41 @@ class Solver:
         self._device_suspended = self.FALLBACK_COOLDOWN
         DEGRADED_MODE.set(1, component="solver")
 
+    def warm_integrity_tick(self) -> int:
+        """Advance the per-facade audit cadence by one verified commit.
+        Cold solves tick inside _verify_integrity; warm admissions tick
+        here — without this, a fleet whose arrivals the warm path fully
+        absorbs would audit its device-resident state exactly once per
+        catalog epoch, and resident rot could sit undetected until the
+        next cold solve consumed it. Findings quarantine this facade's
+        device path (the rotted entries are already invalidated by the
+        audit itself) and return the corrupt-entry count; the warm
+        result being judged is host-computed and stays shipped."""
+        from ..integrity import INTEGRITY, audit_every, integrity_enabled
+        if not integrity_enabled():
+            return 0
+        self._integrity_solves += 1
+        every = audit_every()
+        if every <= 0 or self._integrity_solves % every:
+            return 0
+        violations = self._audit_resident_state()
+        if not violations:
+            return 0
+        self.stats["integrity_violations"] += len(violations)
+        for vio in violations:
+            INTEGRITY.record_breach_event()
+            INTEGRITY.record_violation(vio.check, vio.detail)
+        import logging
+        logging.getLogger("karpenter_tpu_torch.integrity").warning(
+            "resident-state audit found %d corrupt device entr%s during "
+            "a warm window — quarantining this facade's device path",
+            len(violations), "y" if len(violations) == 1 else "ies")
+        self._quarantine_device_state()
+        # the corruption never reached a shipped answer (the audit got
+        # there first) — that IS the recovery
+        INTEGRITY.record_recovery(True)
+        return len(violations)
+
     def _meter_encode_rows(self, enc_ctx) -> None:
         """Refresh the resident-rows gauge after ANY cached encode —
         warm-path admissions dominate steady state, so solve()-only
@@ -1361,8 +1403,85 @@ class Solver:
             from ..metrics import ENCODE_CACHE_ROWS
             ENCODE_CACHE_ROWS.set(float(self._encode_cache.resident_rows))
 
-    # (the reference's warm-path seam — warm_catalog, prepare_warm — sits
-    # here: ROADMAP §1 item 9, warm path)
+    # --- warm-path seam ---------------------------------------------------
+    # The warm-path subsystem (warmpath/) admits arrival-only reconciles
+    # against a standing headroom ledger instead of paying a full solve.
+    # These two methods are the facade's contract with it: the ledger
+    # snapshots warm_catalog() at commit time, and each warm batch is
+    # encoded by prepare_warm() — the exact encode pipeline solve() runs
+    # for the plain (no colocation, no capacity-cap) case, in the same
+    # order. The Auditor replays accumulated warm admissions through
+    # solve() itself (on the device rung: kernels B0 and B), so any drift
+    # between this pipeline and solve()'s surfaces as metered divergence,
+    # not silent misplacement.
+
+    def warm_catalog(self, nodepool: NodePool,
+                     node_class: Optional[NodeClassSpec],
+                     daemonsets: Optional[list] = None) -> CatalogTensors:
+        """The availability/headroom view solve() would compute for this
+        (pool, class): capacity-block gate applied unless the pool targets
+        reserved capacity, then daemonset overhead baked into allocatable
+        (zone-varying part on zone_overhead)."""
+        cat = self.tensors(node_class)
+        if (cat.is_block is not None and cat.is_block.any()
+                and not targets_reserved(nodepool.requirements)):
+            from dataclasses import replace as _dc_replace
+            # same token suffix as solve()'s gate — warm and cold paths
+            # share one encode context per (pool, class) view
+            cat = _dc_replace(cat, available=cat.available & ~cat.is_block,
+                              cache_token=(cat.cache_token + ("noblocks",)
+                                           if cat.cache_token is not None
+                                           else None))
+        if daemonsets:
+            cat = apply_daemonset_overhead(cat, daemonsets, nodepool,
+                                           nodepool.template_labels())
+        return cat
+
+    def prepare_warm(self, pregrouped: List[List[Pod]], nodepool: NodePool,
+                     cat: CatalogTensors,
+                     occupancy: List[Tuple[Optional[str], List[Pod]]],
+                     existing: Optional[List[VirtualNode]] = None,
+                     existing_pods: Optional[Dict[str, List[Pod]]] = None,
+                     ) -> EncodedPods:
+        """Encode an arrival batch exactly the way solve() would: group →
+        minValues caps → zone-affinity pre-pass → topology-spread split →
+        infeasible-preference relaxation → resident priors/bans. `cat`
+        must be this pool's warm_catalog(). Taint-dropped pods surface on
+        EncodedPods.dropped_keys (they fall through to the next pool, as
+        in the cold path)."""
+        template = nodepool.template_labels()
+        taints = nodepool.taints + nodepool.startup_taints
+        enc_ctx = (self._encode_cache.context_for(
+                       cat, nodepool.requirements, taints, template)
+                   if self._encode_cache is not None else None)
+        lsp = (TRACER.span("encode.lower", warm=True) if TRACER.enabled
+               else NOOP_SPAN)
+        with lsp:
+            enc = encode_pods([p for g in pregrouped for p in g], cat,
+                              extra_requirements=nodepool.requirements,
+                              taints=taints,
+                              pregrouped=pregrouped,
+                              template_labels=template,
+                              cache=enc_ctx, arena=self._arena)
+            lsp.set(groups=int(enc.G), cache_hits=enc.cache_hits,
+                    cache_misses=enc.cache_misses)
+        self._meter_encode_rows(enc_ctx)
+        self._apply_min_values_caps(enc, cat, nodepool.requirements)
+        dropped = enc.dropped_keys  # split_spread_groups rebuilds the enc
+        occ_sig = tuple(sorted((zone, len(placed))
+                               for zone, placed in occupancy))
+        asp = (TRACER.span("encode.affinity", warm=True) if TRACER.enabled
+               else NOOP_SPAN)
+        with asp:
+            enc = self._delta_affinity(enc, cat, occupancy, occ_sig,
+                                       nodepool.name)
+        enc = self._delta_spread(enc, cat, occupancy, occ_sig,
+                                 nodepool.name)
+        enc.dropped_keys = dropped
+        if enc.G:
+            self._relax_infeasible_preferences(enc, cat)
+            self.attach_existing_context(enc, existing, existing_pods)
+        return enc
 
     @staticmethod
     def attach_existing_context(enc: EncodedPods,

@@ -524,15 +524,20 @@ class ResidentStateManager:
         watchdog ages it past a sim grace."""
         out: List[dict] = []
         with self._lock:
+            lengths = {len(prefix) for prefix in self._latest}
             for key, ent in self._entries.items():
-                for prefix, base in self._latest.items():
-                    if key[: len(prefix)] != prefix:
-                        continue
-                    tok = ent.token
-                    if tok is None or tok[: len(base)] != base:
-                        out.append({"key": key, "token": tok,
-                                    "base": base})
-                    break
+                if len(lengths) == 1:
+                    # one prefix length (the facade's views): a lookup
+                    # finds the one prefix that can match
+                    base = self._latest.get(key[: next(iter(lengths))])
+                else:
+                    base = next((b for prefix, b in self._latest.items()
+                                 if key[: len(prefix)] == prefix), None)
+                if base is None:
+                    continue
+                tok = ent.token
+                if tok is None or tok[: len(base)] != base:
+                    out.append({"key": key, "token": tok, "base": base})
         return out
 
     # --- read side --------------------------------------------------------

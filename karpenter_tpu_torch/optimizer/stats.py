@@ -1,8 +1,7 @@
 """Process-global optimizer meter — the observability face of the search.
 
-The port's own copy of `karpenter_tpu/optimizer/stats.py` (the watchdog
-that reads it is not ported yet). One meter per process (like `obs.profile.LEDGER` / `obs.devicemem`
-ledgers): the disruption controllers of every tenant shard record their
+The port's own copy of `karpenter_tpu/optimizer/stats.py`. One meter per
+process (like the `obs.profile.LEDGER` / `obs.devicemem` ledgers): the disruption controllers of every tenant shard record their
 subset-search and exact-verify outcomes here under the live tenant scope
 (metrics/tenant.py), and the watchdog's `optimizer_divergence` invariant
 reads the per-tenant reject streaks — a relaxation ranking that keeps

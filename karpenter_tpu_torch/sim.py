@@ -11,13 +11,12 @@ the reference's in these places:
   (device="cpu" runs the kernels' plain versions, as the tests do).
   Without a card and without `device`, make_sim raises, on every rung,
   because the consolidation screen runs on the device on every rung;
-- the warm path (`warmpath=True`) is not ported and raises
-  NotImplementedError (ROADMAP item 9);
-- the reference's read-only invariant monitor (`watchdog=`) is not
-  ported and the parameter is left out: it never changes what a run
-  does;
 - the cloud is the in-process `FakeCloud` (the reference's tick hook
   also polls a cloud in another process).
+As in the reference, `warmpath=True` puts the warm path
+(`warmpath.WarmPathEngine`) in front of the provisioner's solve, and the
+online invariant watchdog (`obs.watchdog.Watchdog`, read-only over the
+stack) is armed unless `watchdog=False`.
 The global consolidation optimizer is armed by default, as in the
 reference (KARPENTER_TPU_OPTIMIZER=0 runs the greedy path).
 
@@ -68,14 +67,20 @@ class SimEnvironment:
     # armed faults.FaultPlan when the stack was built with fault injection
     # (make_sim(fault_plan=...)); None in a healthy sim
     fault_plan: Optional[object] = None
-    # the reference's warmpath.WarmPathEngine: always None in the port,
-    # whose make_sim raises on warmpath=True (ROADMAP item 9)
+    # warmpath.WarmPathEngine when built with make_sim(warmpath=True):
+    # arrival-only reconciles admit against the standing headroom ledger
+    # instead of paying a full solve; None = every reconcile is cold
     warmpath: Optional[object] = None
     # state.journal.IntentJournal: the provisioning write-ahead log.
     # Always present; pass the previous stack's journal to make_sim
     # (with its cloud) to simulate a crash-restart — open intents replay
     # during rehydration
     journal: Optional[object] = None
+    # obs.watchdog.Watchdog: the online invariant monitor, armed on this
+    # stack's store/cloud/journal/warmpath and ticked by the engine.
+    # Read-only over everything it watches, so end-state hashes and
+    # fault fingerprints are identical with it armed
+    watchdog: Optional[object] = None
 
     def start_chaos(self, interval: float = 60.0, seed: int = 0) -> None:
         """kwok kill-node-thread analog (kwok/ec2/ec2.go:253-282): kill a
@@ -111,8 +116,10 @@ def make_sim(types: Optional[List[InstanceType]] = None,
              clock: Optional[FakeClock] = None,
              fault_plan: Optional[object] = None,
              warmpath: bool = False,
+             warm_audit_every: int = 1,
              journal: Optional[object] = None,
              solver_factory: Optional[object] = None,
+             watchdog: bool = True,
              device=None) -> SimEnvironment:
     """Passing an existing `cloud` (+ its clock) simulates an operator
     restart: the new stack rehydrates its fresh Store from the cloud's
@@ -132,12 +139,9 @@ def make_sim(types: Optional[List[InstanceType]] = None,
     device: where the device rung and the consolidation screen run — the
     CUDA card unless given; without a card and without `device` this
     raises. solver_factory(catalog) -> a Solver-compatible object (the
-    fleet seam); `backend` is the factory's concern then. warmpath is not
-    ported and raises."""
-    if warmpath:
-        raise NotImplementedError(
-            "the warm path (warmpath=True) is not ported to "
-            "karpenter_tpu_torch yet (ROADMAP item 9)")
+    fleet seam); `backend` is the factory's concern then. warmpath=True
+    arms the warm path, whose auditor replays every warm_audit_every-th
+    admission window through a full solve."""
     if cloud is not None and (types is not None or cloud_config is not None):
         raise ValueError("types/cloud_config are ignored when an existing "
                          "cloud is passed — configure the cloud directly")
@@ -176,8 +180,17 @@ def make_sim(types: Optional[List[InstanceType]] = None,
                               clock=clock)
     solver = (solver_factory(catalog) if solver_factory is not None
               else Solver(catalog, backend=backend, device=dev))
+    # warm-path incremental admission (warmpath/): audit_every=1 means the
+    # auditor replays EVERY warm admission through a full solve — the
+    # always-on mode tier-1 tests and chaos scenarios run with
+    warm_engine = None
+    if warmpath:
+        from .warmpath import WarmPathEngine
+        warm_engine = WarmPathEngine(store, solver, catalog,
+                                     audit_every=warm_audit_every)
     provisioner = Provisioner(store=store, solver=solver, cloud=api_cloud,
-                              catalog=catalog, journal=journal)
+                              catalog=catalog, warmpath=warm_engine,
+                              journal=journal)
     lifecycle = LifecycleController(store=store, cloud=api_cloud)
     binding = BindingController(store=store)
     termination = TerminationController(store=store, cloud=api_cloud,
@@ -217,6 +230,17 @@ def make_sim(types: Optional[List[InstanceType]] = None,
                                      interruption, gc, metrics_c, repair,
                                      tagging, discovered, refresh, res_exp,
                                      spot_pricing)
+    # the verification plane's online monitor: armed BEFORE the workload
+    # so the store watch feed sees every claim from birth; the engine
+    # ticks it outside the traced window. Arming is read-only over the
+    # whole stack — chaos end-state hashes and fault fingerprints are
+    # byte-identical with it on
+    wd = None
+    if watchdog:
+        from .obs.watchdog import Watchdog
+        wd = Watchdog(clock, store=store, cloud=cloud, journal=journal,
+                      warmpath=warm_engine).arm(clock.now())
+        engine.watchdog = wd
 
     # cloud → store node materialization (kubelet joining the cluster):
     # the in-process fake pushes node events through a callback. (The
@@ -240,16 +264,23 @@ def make_sim(types: Optional[List[InstanceType]] = None,
     store.add_nodepool(nodepool or NodePool(name="default"))
     nodeclass_c.reconcile(clock.now())  # sync hydrate (operator.go:151 analog)
     from .state.rehydrate import rehydrate
-    # adopt any pre-existing fleet (the reference reopens its warm window
-    # cold on adoption here; the port has no warm path)
-    rehydrate(store, cloud, catalog, clock.now(), journal=journal)
+    rh = rehydrate(store, cloud, catalog, clock.now(),
+                   journal=journal)  # adopt any pre-existing fleet
+    if warm_engine is not None and (rh["claims_adopted"]
+                                    or rh["intents_adopted"]
+                                    or rh["intents_aborted"]
+                                    or rh["intents_reaped"]):
+        # this stack took over a live fleet: the warm window must open
+        # cold (no predecessor ledger is trustworthy across a restart)
+        warm_engine.on_restart()
     return SimEnvironment(clock=clock, store=store, cloud=cloud,
                           catalog=catalog, solver=solver, engine=engine,
                           provisioner=provisioner, lifecycle=lifecycle,
                           binding=binding, termination=termination,
                           disruption=disruption, interruption=interruption,
-                          gc=gc, fault_plan=fault_plan, journal=journal)
-
+                          gc=gc, fault_plan=fault_plan,
+                          warmpath=warm_engine, journal=journal,
+                          watchdog=wd)
 
 
 # the one copy of the canonical end-state digest is the chaos runner's

@@ -5,10 +5,10 @@ Every runnable non-restart scenario of the catalog runs through the
 reference's `ScenarioRunner` at its own backend and through the port's on
 the device rung (`device="cpu"`: the kernels' plain versions). The end
 state, the fault timeline and the stats both report must be equal,
-exactly; the sequences (claim names, pod uids, instance ids) restart at
+exactly — the online watchdog's findings and the warm path's stats
+included; the sequences (claim names, pod uids, instance ids) restart at
 the same value in both packages before each run. Then the reference's
-`tests/test_chaos.py` cases rerun through the port, and the five
-scenarios whose planes are not ported must raise naming their item.
+`tests/test_chaos.py` cases rerun through the port.
 """
 
 from __future__ import annotations
@@ -33,13 +33,15 @@ from karpenter_tpu_torch.models import nodeclaim as port_nodeclaim
 from karpenter_tpu_torch.models import pod as port_pod
 from karpenter_tpu_torch.models import resources as port_res
 
-UNPORTED = {"warmpath_smoke": "item 9", "warmpath_storm": "item 9",
-            "crash_launch_storm": "item 9"}
+UNPORTED: dict = {}
 RUNNABLE = sorted(n for n, sc in SCENARIOS.items()
                   if not sc.restart and n not in UNPORTED)
 STATS = ("solver_device_fallbacks", "ice_marks", "provisioner_ice_errors",
          "solver_catalog_rebuilds", "corruptions_injected",
-         "corruptions_detected")
+         "corruptions_detected", "watchdog_findings",
+         "watchdog_findings_warning", "watchdog_evals")
+WARM_STATS = ("warm_pods", "warm_reconciles", "cold_reconciles",
+              "warm_audits", "warm_divergences")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -66,6 +68,7 @@ def _leave_the_reference_as_found():
     PORT_RESIDENT.reset()
     PORT_DELTA.reset()
     INTEGRITY.reset()
+    _reset_planes()
 
 
 def _reset_sequences() -> None:
@@ -78,14 +81,17 @@ def _reset_sequences() -> None:
 
 
 def _reset_planes() -> None:
-    """Both packages' delta and resident planes start each run empty:
-    memo keys hold id(facade), and a reused id must not meet a dead
-    facade's entry in one package and not in the other."""
+    """Both packages' delta and resident planes and explain recorders
+    start each run empty: memo keys hold id(facade), and a reused id must
+    not meet a dead facade's entry in one package and not in the other."""
+    from karpenter_tpu.obs.explain import RECORDER as REF_RECORDER
     from karpenter_tpu.ops.delta import DELTA as REF_DELTA
     from karpenter_tpu.ops.resident import RESIDENT as REF_RESIDENT
+    from karpenter_tpu_torch.obs.explain import RECORDER as PORT_RECORDER
     from karpenter_tpu_torch.ops.delta import DELTA as PORT_DELTA
     from karpenter_tpu_torch.ops.resident import RESIDENT as PORT_RESIDENT
-    for plane in (REF_DELTA, REF_RESIDENT, PORT_DELTA, PORT_RESIDENT):
+    for plane in (REF_DELTA, REF_RESIDENT, REF_RECORDER, PORT_DELTA,
+                  PORT_RESIDENT, PORT_RECORDER):
         plane.reset()
 
 
@@ -110,16 +116,13 @@ def test_scenario_equals_the_reference(name):
     assert port.sim_seconds == ref.sim_seconds
     for k in STATS:
         assert port.stats[k] == ref.stats[k], k
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_scenario_raises_naming_its_item(name):
-    runner_cls = ScenarioRunner
-    if SCENARIOS[name].restart:
-        from karpenter_tpu_torch.faults import RestartRunner
-        runner_cls = RestartRunner
-    with pytest.raises(NotImplementedError, match=UNPORTED[name]):
-        runner_cls(name, seed=0, device="cpu").run()
+    if not port.stats["corruptions_injected"]:
+        assert port.stats["watchdog_findings_warning"] == 0
+    if SCENARIOS[name].warmpath:
+        for k in WARM_STATS:
+            assert port.stats[k] == ref.stats[k], k
+        assert port.stats["warm_divergences"] == 0
+    assert port.stats == ref.stats
 
 
 def test_same_seed_reproduces_timeline_and_end_state():

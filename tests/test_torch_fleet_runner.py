@@ -6,9 +6,9 @@ Each fleet scenario runs through the reference's `FleetRunner` (JAX on the
 CPU) and the port's (`device="cpu"`: the kernels' plain versions), with
 the claim-name, pod-uid and instance-id sequences restarted at the same
 value in both before each run. Per-tenant end-state hashes, fault
-fingerprints, the service's dispatch counts and the SLO engine's alerts
-must be equal, exactly — and so must the batched pump's batch and ticket
-counts, with both packages' delta planes armed (their memos serve some
+fingerprints, the service's dispatch counts, the watchdogs' findings, the
+explained pods of `report.explain` and the SLO engine's alerts must be
+equal, exactly — and so must the batched pump's batch and ticket counts, with both packages' delta planes armed (their memos serve some
 repeated solves before they reach the pump) and with KARPENTER_TPU_DELTA=0.
 """
 
@@ -40,7 +40,8 @@ from karpenter_tpu_torch.models.nodepool import NodePool
 from karpenter_tpu_torch.utils.clock import FakeClock
 
 SERVICE = ("solves_dispatched", "solves_throttled", "catalog_shared_hits",
-           "catalog_shared_misses", "faults_injected", "slo_alerts")
+           "catalog_shared_misses", "faults_injected", "slo_alerts",
+           "watchdog_findings")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -67,6 +68,7 @@ def _leave_the_reference_as_found():
     PORT_RESIDENT.reset()
     PORT_DELTA.reset()
     INTEGRITY.reset()
+    _reset_planes()
 
 
 def _reset_sequences() -> None:
@@ -79,14 +81,17 @@ def _reset_sequences() -> None:
 
 
 def _reset_planes() -> None:
-    """Both packages' delta and resident planes start each run empty:
-    memo keys hold id(facade), and a reused id must not meet a dead
-    facade's entry in one package and not in the other."""
+    """Both packages' delta and resident planes and explain recorders
+    start each run empty: memo keys hold id(facade), and a reused id must
+    not meet a dead facade's entry in one package and not in the other."""
+    from karpenter_tpu.obs.explain import RECORDER as REF_RECORDER
     from karpenter_tpu.ops.delta import DELTA as REF_DELTA
     from karpenter_tpu.ops.resident import RESIDENT as REF_RESIDENT
+    from karpenter_tpu_torch.obs.explain import RECORDER as PORT_RECORDER
     from karpenter_tpu_torch.ops.delta import DELTA as PORT_DELTA
     from karpenter_tpu_torch.ops.resident import RESIDENT as PORT_RESIDENT
-    for plane in (REF_DELTA, REF_RESIDENT, PORT_DELTA, PORT_RESIDENT):
+    for plane in (REF_DELTA, REF_RESIDENT, REF_RECORDER, PORT_DELTA,
+                  PORT_RESIDENT, PORT_RECORDER):
         plane.reset()
 
 
@@ -105,6 +110,7 @@ def _both(name, **kw):
         assert port.stats[k] == ref.stats[k], k
     assert port.slo["alerts"] == ref.slo["alerts"]
     assert port.slo["budgets"] == ref.slo["budgets"]
+    assert port.explain == ref.explain
     return ref, port
 
 
@@ -143,19 +149,24 @@ def test_federation_smoke_in_process_equals_the_reference():
 
 
 def test_noisy_neighbor_equals_the_reference_and_isolates():
-    """The SLO engine's alerts and budgets, and the isolation verdict
-    (victim p99 during the storm < 2x quiet, the noisy tenant throttled
-    and burning), equal the reference's."""
+    """The SLO engine's alerts and budgets, the isolation verdict (victim
+    p99 during the storm < 2x quiet, the noisy tenant throttled and
+    burning) and the provenance verdict (a throttled pod of the noisy
+    tenant explained, its record equal), equal the reference's."""
     ref, port = _both("fleet_noisy_neighbor", seed=0, backend="host")
     for k in ("victim_p99_quiet_ms", "victim_p99_storm_ms",
               "victim_samples_storm", "noisy_throttled", "noisy_solves",
               "noisy_burn_alerts", "noisy_availability_budget",
-              "victim_min_availability_budget"):
+              "victim_min_availability_budget",
+              "noisy_throttled_pod_explained"):
         assert port.stats[k] == ref.stats[k], k
     assert port.stats["noisy_throttled"] > 0
     assert port.stats["victim_p99_storm_ms"] < \
         2 * port.stats["victim_p99_quiet_ms"]
-    assert port.slo["alerts"] and port.explain == {}
+    assert port.slo["alerts"]
+    assert port.stats["noisy_throttled_pod_explained"] == 1.0
+    noisy = next(iter(port.explain))
+    assert port.explain[noisy]["throttles"] > 0
 
 
 def test_smoke_hashes_repeat_and_batching_changes_nothing():
@@ -258,8 +269,9 @@ def test_faults_cli_lists_and_runs(capsys):
     out = capsys.readouterr().out
     assert "[PASS] scenario=smoke" in out and "reproducible" in out
     assert main(["restart_smoke", "--device", "cpu"]) == 0
-    with pytest.raises(NotImplementedError, match="item 9"):
-        main(["warmpath_smoke", "--device", "cpu"])
+    assert main(["warmpath_smoke", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[PASS] scenario=warmpath_smoke" in out
 
 
 def test_fleet_cli_lists_and_runs(capsys):

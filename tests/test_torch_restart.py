@@ -1,12 +1,14 @@
 """The port's crash-restart runner (`faults/runner.RestartRunner`) held
 against the JAX reference's.
 
-`restart_smoke` and `crash_drain` (the reference's `make crash-audit`
+`restart_smoke`, `crash_drain` and `crash_launch_storm` (the warm-path
+crash drill; with the first two, the reference's `make crash-audit`
 group) run at seeds 0 and 1 through both packages — the reference at its
 own backend, the port on the device rung with `device="cpu"` — with the
 claim-name, pod-uid and instance-id sequences restarted at the same value
 in both before each run. End hash, fault fingerprint, fault count and the
-restart stats must be equal, exactly. Then the reference's
+restart stats, the final boot's watchdog findings included, must be
+equal, exactly. Then the reference's
 `tests/test_chaos.py` restart cases rerun through the port.
 """
 
@@ -31,10 +33,11 @@ from karpenter_tpu_torch.models import nodeclaim as port_nodeclaim
 from karpenter_tpu_torch.models import pod as port_pod
 from karpenter_tpu_torch.models import resources as port_res
 
-RESTART = ("crash_drain", "restart_smoke")
+RESTART = ("crash_drain", "crash_launch_storm", "restart_smoke")
 STATS = ("restarts", "launch_dedups", "intents_opened", "intents_committed",
          "intents_aborted", "intents_reaped", "gc_inflight_skipped",
-         "ice_marks")
+         "ice_marks", "watchdog_findings", "watchdog_findings_warning",
+         "watchdog_evals")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -61,6 +64,7 @@ def _leave_the_reference_as_found():
     PORT_RESIDENT.reset()
     PORT_DELTA.reset()
     INTEGRITY.reset()
+    _reset_planes()
 
 
 def _reset_sequences() -> None:
@@ -73,14 +77,17 @@ def _reset_sequences() -> None:
 
 
 def _reset_planes() -> None:
-    """Both packages' delta and resident planes start each run empty:
-    memo keys hold id(facade), and a reused id must not meet a dead
-    facade's entry in one package and not in the other."""
+    """Both packages' delta and resident planes and explain recorders
+    start each run empty: memo keys hold id(facade), and a reused id must
+    not meet a dead facade's entry in one package and not in the other."""
+    from karpenter_tpu.obs.explain import RECORDER as REF_RECORDER
     from karpenter_tpu.ops.delta import DELTA as REF_DELTA
     from karpenter_tpu.ops.resident import RESIDENT as REF_RESIDENT
+    from karpenter_tpu_torch.obs.explain import RECORDER as PORT_RECORDER
     from karpenter_tpu_torch.ops.delta import DELTA as PORT_DELTA
     from karpenter_tpu_torch.ops.resident import RESIDENT as PORT_RESIDENT
-    for plane in (REF_DELTA, REF_RESIDENT, PORT_DELTA, PORT_RESIDENT):
+    for plane in (REF_DELTA, REF_RESIDENT, REF_RECORDER, PORT_DELTA,
+                  PORT_RESIDENT, PORT_RECORDER):
         plane.reset()
 
 
@@ -101,6 +108,8 @@ def test_restart_scenario_equals_the_reference(name, seed):
     assert port.sim_seconds == ref.sim_seconds
     for k in STATS:
         assert port.stats[k] == ref.stats[k], k
+    assert port.stats["watchdog_findings_warning"] == 0
+    assert port.stats == ref.stats
 
 
 @pytest.mark.parametrize("name", RESTART)

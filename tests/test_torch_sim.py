@@ -141,12 +141,13 @@ def _reset_sequences(P) -> None:
 
 
 def _reset_planes(P) -> None:
-    """This package's delta and resident planes start each run empty:
-    memo keys hold id(facade), and a reused id must not meet a dead
-    facade's entry in one package and not in the other."""
+    """This package's delta and resident planes and explain recorder
+    start each run empty: memo keys hold id(facade), and a reused id must
+    not meet a dead facade's entry in one package and not in the other."""
     import importlib
     pkg = P.nodeclaim.__name__.split(".")[0]
-    for mod, name in (("ops.delta", "DELTA"), ("ops.resident", "RESIDENT")):
+    for mod, name in (("ops.delta", "DELTA"), ("ops.resident", "RESIDENT"),
+                      ("obs.explain", "RECORDER")):
         getattr(importlib.import_module(f"{pkg}.{mod}"), name).reset()
 
 
@@ -581,16 +582,20 @@ def test_armed_optimizer_and_unported_options_raise(monkeypatch):
     """The global optimizer is ported: armed (the default), make_sim
     constructs (its loop is held equal to the reference's in
     test_torch_sim_optimizer.py). The fault plan is ported too (its runs
-    are held equal to the reference's in test_torch_chaos.py); the warm
-    path is not ported and raises."""
+    are held equal to the reference's in test_torch_chaos.py), and so is
+    the warm path: warmpath=True builds it in front of the provisioner
+    (its runs are held equal in test_torch_warmpath.py). No option is
+    left raising."""
     from karpenter_tpu_torch.faults import FaultPlan
     monkeypatch.delenv("KARPENTER_TPU_OPTIMIZER")
     assert port_sim.make_sim(device="cpu").disruption is not None
     monkeypatch.setenv("KARPENTER_TPU_OPTIMIZER", "0")
     plan = FaultPlan(seed=0)
     assert port_sim.make_sim(device="cpu", fault_plan=plan).fault_plan is plan
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_sim.make_sim(device="cpu", warmpath=True)
+    warm = port_sim.make_sim(device="cpu", warmpath=True)
+    assert warm.warmpath is not None
+    assert warm.provisioner.warmpath is warm.warmpath
+    assert warm.watchdog.warmpath is warm.warmpath
     assert port_sim.make_sim(device="cpu").disruption is not None
 
 

@@ -163,6 +163,34 @@ Phases (any failure exits non-zero):
              integrity flag. Times: warm admit p50, cold reconcile p50 and
              their ratio, the watchdog's share of the engine's tick wall and
              one forced full evaluation over the standing fleet.
+  4j. soak   bench c13's procedure (bench.py:931-967): soak_smoke and
+             soak_overload at seed 0 through loadgen.SoakRunner, twice on
+             the device rung (every tenant's solves through one batched
+             SolverService: a bucket is one launch of batched B0 and B;
+             each shard's screen runs A) and once on native. The three
+             digests (soak hash, fault fingerprint, load fingerprint)
+             repeat-equal and device == native, every report ok, the
+             watchdog findings the reference's CPU run's (none),
+             soak_overload shedding within its budget (depth <= 60 + 8),
+             with 0 overload_unbounded findings and at least one
+             admission_availability burn alert; batched B0/B and A (and C
+             when a subset search ran) against their plain versions at
+             the largest bucket and screen captured in the runs. Prints
+             c13's keys for each rung.
+  4k. shell  the operator shell: build_operator(Options(solver_backend=
+             "device", leader_elect=True, a file lease, a file intent
+             journal, a metrics port)) over FakeCloud(generate_catalog())
+             on a fast real clock (x600), its asyncio Runtime started
+             under the reference runtime soak's churn (chaos kills, tight
+             throttle buckets, pod deletions) scaled to 32 waves of 128
+             pods: converged within SHELL_DEADLINE_S, no crash, coalesced
+             terminations and describes, /metrics and /readyz served by
+             the runtime, the lease released on stop(), every oracle flag
+             a capacity flag on a consolidation replacement (the
+             over-capacity state, ROADMAP §3), B0 and B launched and equal
+             to their plain versions at the largest solve's inputs. Then `python -m karpenter_tpu_torch.main --soak
+             --soak-scenario soak_smoke --solver-backend device` exits 0
+             printing 4j's device digests.
   5. time    median wall times of the solve and the screen, stage by stage;
              per-kernel device time from torch.profiler and CUDA events
              beside its bound, its plain version's time and one torch
@@ -178,8 +206,9 @@ The kernels line reports each kernel's launches in the operator phase
 and its times at a full-size input (A: the main path's screen; B0, B: the
 facade's solve; C: the operator loop's first subset search); `by_phase`
 holds each phase's launches (the main path, the facade, the operator, the
-optimizer, the chaos phase, the fleet runner, the warm path and, for B0
-and B, the fleet's batched rounds) and times (the
+optimizer, the chaos phase, the fleet runner, the warm path, the soak,
+the operator shell and, for B0 and B, the fleet's batched rounds and
+the soak's launches in batched buckets) and times (the
 fleet's at its wide bucket: 16 requests in one launch). Its resident_patch
 row is the row scatter of ops/resident (the port of the reference's
 _jit_scatter, a library index_copy_): launches from phase 4h, times at the
@@ -192,11 +221,13 @@ prints no result.
 
 from __future__ import annotations
 
+import ast
 import copy
 import inspect
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1976,7 +2007,8 @@ def phase_chaos() -> dict:
     from karpenter_tpu_torch.faults import SCENARIOS
     from karpenter_tpu_torch.metrics import INTEGRITY_VERDICTS
     from karpenter_tpu_torch.optimizer import tournament_k as tk
-    from karpenter_tpu_torch.ops import consolidate, screen_k as sk
+    from karpenter_tpu_torch.ops import consolidate, resident
+    from karpenter_tpu_torch.ops import screen_k as sk
     from karpenter_tpu_torch.ops import solve_scan as ss, solver
 
     t_phase = time.perf_counter()
@@ -2489,6 +2521,519 @@ def phase_warm() -> dict:
             f"{wdm / max(tkm, 1e-9):.6f}, {wdn} ticks); one forced full "
             f"evaluation over {out['nodes']} claims {out['eval_ms']:.3f} ms")
     log(f"[warm] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# --- phase 4j: the soak — bench c13's open-loop traffic plane
+# (bench.py:931-967) on the card --------------------------------------------
+
+SOAK_SCENARIOS = ("soak_smoke", "soak_overload")
+C13_SCENARIO = "soak_overload"   # bench c13: SoakRunner("soak_overload", seed=0)
+# the watchdog findings (invariant, severity) -> count of the reference's
+# own CPU run of each scenario at seed 0, the fleet watchdog's and every
+# shard's together (tools/ref_findings.py soak karpenter_tpu device, and
+# native): none. tests/test_torch_loadgen.py holds the port's equal to them
+SOAK_REF_FINDINGS = {"soak_smoke": {}, "soak_overload": {}}
+
+
+def detached(x):
+    """x with every tensor in it cloned (tuples, lists and dicts walked):
+    a kept copy of a call's inputs pins none of the caller's buffers."""
+    import torch
+    if torch.is_tensor(x):
+        return x.detach().clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(detached(v) for v in x)
+    if isinstance(x, dict):
+        return {k: detached(v) for k, v in x.items()}
+    return x
+
+
+class Capture(Recorder):
+    """A Recorder keeping one detached copy of the inputs of the call
+    `size(args, kwargs)` ranks largest (the first of equals): a run that
+    keeps a buffer it dropped alive would look to the watchdog like device
+    memory outliving its owner (devicemem_leak)."""
+
+    def __init__(self, module, name: str, size):
+        super().__init__(module, name)
+        self.size = size
+        self.best = None
+
+    def __enter__(self):
+        def shim(*args, **kwargs):
+            self.n += 1
+            s = self.size(args, kwargs)
+            if self.best is None or s > self.best:
+                self.best = s
+                self.calls = [(detached(args), detached(kwargs))]
+            return self.real(*args, **kwargs)
+        setattr(self.module, self.name, shim)
+        return self
+
+
+def findings_of_soak(runner) -> dict:
+    """(invariant, severity) -> count over the fleet watchdog and every
+    shard's watchdog of one soak run."""
+    out: dict = {}
+    for wd in [runner.watchdog] + [s.sim.watchdog for s in runner.shards]:
+        check(wd is not None and wd.armed, "a soak runs without a watchdog")
+        for f in wd.findings:
+            k = (f.invariant, f.severity)
+            out[k] = out.get(k, 0) + 1
+    return out
+
+
+def soak_digest(rep) -> tuple:
+    return rep.soak_hash, rep.fault_fingerprint, rep.load_fingerprint
+
+
+def soak_run(name: str, backend: str) -> tuple:
+    """(report, runner, wall ms) of one SoakRunner run on the card with
+    the sequences restarted: ok, nothing degraded, the reference's
+    watchdog findings."""
+    from karpenter_tpu_torch.loadgen import SoakRunner
+    reset_sequences()
+    c0 = counter_totals()
+    t0 = time.perf_counter()
+    runner = SoakRunner(name, seed=SEED, backend=backend)
+    rep = runner.run()
+    wall = (time.perf_counter() - t0) * 1e3
+    delta = tuple(b - a for a, b in zip(c0, counter_totals()))
+    where = f"soak {name} ({backend})"
+    check(rep.ok, f"{where}: {rep.summary()}")
+    check(delta == (0, 0, 0, 0), f"{where}: fallbacks / optimizer "
+          f"fallbacks / integrity flags / fault_fallbacks {delta}")
+    got = findings_of_soak(runner)
+    want = SOAK_REF_FINDINGS[name]
+    check(got == want, f"{where}: watchdog findings {got}, the reference's "
+          f"{want}")
+    return rep, runner, wall
+
+
+def c13_keys(rep, wall_ms: float) -> dict:
+    """bench c13's keys (bench.py:948-967) of one soak report."""
+    st = rep.stats
+    wall_s = wall_ms / 1e3
+    return {"c13_tenants": rep.tenants,
+            "c13_offered_pods": int(st["offered_pods"]),
+            "c13_admitted_pods": int(st["admitted_pods"]),
+            "c13_shed_pods": int(st["shed_pods"]),
+            "c13_shed_frac": st["shed_frac"],
+            "c13_max_waiting_depth": int(st["max_waiting_depth"]),
+            "c13_overload_findings": int(st["overload_findings"]),
+            "c13_slo_alerts": int(st["slo_alerts"]),
+            "c13_soak_sim_seconds": round(rep.sim_seconds, 1),
+            "c13_soak_wall_ms": round(wall_ms, 1),
+            "c13_arrivals_per_sec": round(
+                st["offered_pods"] / max(wall_s, 1e-9), 1),
+            "c13_admitted_arrivals_per_sec": round(
+                st["admitted_pods"] / max(wall_s, 1e-9), 1)}
+
+
+def phase_soak() -> tuple:
+    """soak_smoke and soak_overload at seed 0 through SoakRunner: twice on
+    the device rung (one SolverService for every tenant, batched: a
+    bucket is one launch of batched B0 and B; each shard's screen runs A)
+    and once on native. Repeat-equal digests, device == native, every
+    report ok with the reference's watchdog findings, soak_overload's own
+    verdicts; batched B0/B, A (and C when a subset search ran) against
+    their plain versions at inputs captured in the first device runs.
+    Returns (launches in the phase, the device run's soak_smoke digests)."""
+    import torch
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    from karpenter_tpu_torch.ops import consolidate, resident
+    from karpenter_tpu_torch.ops import screen_k as sk
+    from karpenter_tpu_torch.ops import solve_scan as ss, solver
+
+    t_phase = time.perf_counter()
+    os.environ.pop("KARPENTER_TPU_OPTIMIZER", None)  # the default: armed
+    ss.launches = ss.offer_launches = sk.launches = tk.launches = 0
+    patches0 = resident.launches
+    digests = {}
+    with Capture(solver, "solve_scan_batched",
+                 lambda a, kw: (a[3].shape[0], a[3].shape[1])) as cap_b, \
+            Capture(consolidate, "screen_k",
+                    lambda a, kw: (a[0].shape[0], a[1].shape[0])) as cap_a, \
+            Capture(tk, "tournament",
+                    lambda a, kw: tuple(a[4].shape)) as cap_c:
+        for name in SOAK_SCENARIOS:
+            dev_runs = [soak_run(name, "device") for _ in range(2)]
+            nat = soak_run(name, "native")
+            d = [soak_digest(r[0]) for r in dev_runs]
+            check(d[0] == d[1], f"soak {name}: device --repeat 2 diverged: "
+                  f"{d}")
+            check(soak_digest(nat[0]) == d[0],
+                  f"soak {name}: native {soak_digest(nat[0])} != device "
+                  f"{d[0]}")
+            rep = dev_runs[0][0]
+            check(nat[0].stats == rep.stats
+                  and nat[0].tenant_hashes == rep.tenant_hashes,
+                  f"soak {name}: native stats {nat[0].stats} != device "
+                  f"{rep.stats}")
+            if name == "soak_overload":
+                st = rep.stats
+                budget = dev_runs[0][1].admission.shed_depth
+                check(st["shed_pods"] > 0
+                      and st["max_waiting_depth"] <= budget + 8
+                      and st["overload_findings"] == 0
+                      and st["admission_burn_alerts"] >= 1,
+                      f"soak {name}: shed {st['shed_pods']:g}, depth "
+                      f"{st['max_waiting_depth']:g} (budget {budget} + 8), "
+                      f"overload findings {st['overload_findings']:g}, "
+                      f"admission burn alerts "
+                      f"{st.get('admission_burn_alerts')}")
+            digests[name] = d[0]
+            svc = dev_runs[0][1].service
+            log(f"[soak] {name} seed {SEED}: ok; soak_hash {d[0][0][:16]}, "
+                f"fault {d[0][1][:16]}, load {d[0][2][:16]} (device x2 == "
+                f"native); solves dispatched {svc.stats['dispatched']:g}, "
+                f"batches {svc.stats['batches']:g}, batched tickets "
+                f"{svc.stats['batched_tickets']:g}, max batch "
+                f"{svc.stats['max_batch_size']:g}; watchdog findings none "
+                f"(the reference's CPU run: none)")
+            for rung, (r, _, wall) in (("device", dev_runs[0]),
+                                       ("device repeat", dev_runs[1]),
+                                       ("native", nat)):
+                log(f"[soak] {name} {rung}: "
+                    + json.dumps(c13_keys(r, wall)))
+    # B0/B launches split into the batched buckets' (one each) and the
+    # serial solves'; the row scatter's read here too, before the profiled
+    # run below
+    launches = {"screen_k": sk.launches, "offer_argmin": ss.offer_launches,
+                "solve_scan": ss.launches, "tournament": tk.launches,
+                "batched_buckets": cap_b.n,
+                "resident_patch": resident.launches - patches0}
+    # the card's share of one more c13 device run, under torch.profiler
+    box = []
+    ev = device_kernel_us(lambda: box.append(soak_run(C13_SCENARIO,
+                                                      "device")))
+    busy = sum(us for us, _ in ev.values()) / 1e3
+    wall = box[0][2]
+    check(soak_digest(box[0][0]) == digests[C13_SCENARIO],
+          f"soak {C13_SCENARIO}: the profiled run's digests differ")
+    if ev:
+        log(f"[time] soak {C13_SCENARIO} device run under torch.profiler: "
+            f"device busy {busy:.3f} ms of {wall:.1f} ms wall (idle share "
+            f"{1 - busy / wall:.5f}), {sum(n for _, n in ev.values())} "
+            f"device kernels")
+    else:
+        log("[time] the profiled soak recorded no device events: idle "
+            "share not measured")
+    log(f"[soak] kernel launches in the phase {launches}: B0/B in batched "
+        f"buckets {cap_b.n}, in serial solves "
+        f"{launches['solve_scan'] - cap_b.n}; screens {cap_a.n}, subset "
+        f"searches {cap_c.n}")
+    for k in ("screen_k", "offer_argmin", "solve_scan"):
+        check(launches[k] > 0, f"kernel {k} was not launched in the soak")
+    (bargs, bkw), = cap_b.calls
+    check_batched(ss, bargs, bkw, "soak bucket")
+    (aargs, akw), = cap_a.calls
+    k_got = sk.screen_k_cuda(*aargs, **akw)
+    torch.cuda.synchronize()
+    k_want = sk.screen_k_plain(*aargs, **akw)
+    err_a = float((k_got - k_want).abs().max()) if k_got.numel() else 0.0
+    check(err_a == 0.0, f"screen_k != plain at the soak's screen: {err_a}")
+    err_c = 0.0
+    if cap_c.calls:
+        (cargs, _), = cap_c.calls
+        err_c = check_tournament(tk, cargs, "soak subset search")
+    log(f"[check] soak: batched offer_argmin and solve_scan == plain (atol "
+        f"0) at its largest bucket (Bp={bargs[3].shape[0]}, "
+        f"Gp={bargs[3].shape[1]}); screen_k == plain (atol 0) at its "
+        f"largest screen (N={aargs[0].shape[0]} G={aargs[1].shape[0]}); "
+        + ("tournament == plain at its largest subset search"
+           if cap_c.calls else "no subset search ran (no consolidation "
+           "candidates: the soak's pods are never deleted), so no C")
+        + f"; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, digests, max(err_a, err_c)
+
+
+# --- phase 4k: the operator shell — `python -m karpenter_tpu_torch.main`'s
+# build_operator on the asyncio Runtime, under tests/test_runtime_soak.py's
+# churn, on the card --------------------------------------------------------
+
+# the reference's runtime soak adds 18 waves of 8 pods; scaled to 32 waves of
+# 128 (4,096 pods) on the 810-type catalog
+SHELL_WAVES = 32
+SHELL_WAVE_PODS = 128
+SHELL_WAVE_SLEEP = 0.35      # real seconds between waves (the reference's)
+SHELL_DEADLINE_S = 300.0     # real seconds to converge after the churn
+SHELL_CLOCK_SCALE = 600.0    # the reference's FastClock: x600 wall time
+SHELL_CLOUD = dict(node_ready_delay=30.0, register_delay=10.0,
+                   create_fleet_rate=0.05, create_fleet_burst=4,
+                   describe_rate=0.2, describe_burst=40,
+                   terminate_rate=0.1, terminate_burst=8)
+SHELL_MAIN_ARGS = ("--soak", "--soak-scenario", "soak_smoke",
+                   "--solver-backend", "device")
+SHELL_MAIN_TIMEOUT = 300
+
+
+def fast_clock():
+    """The reference's FastClock (tests/test_runtime_soak.py): the wall
+    clock x SHELL_CLOCK_SCALE from a fixed base, so boot delays, TTLs and
+    batcher windows elapse in scaled time while asyncio stays concurrent."""
+    from karpenter_tpu_torch.utils.clock import RealClock
+
+    class FastClock(RealClock):
+        def __init__(self):
+            self._t0 = time.monotonic()
+            self._base = 1_000_000.0
+
+        def now(self) -> float:
+            return (self._base
+                    + (time.monotonic() - self._t0) * SHELL_CLOCK_SCALE)
+    return FastClock()
+
+
+class Turbo:
+    """The reference runtime soak's requeue clamp: 50 ms real, so every
+    controller runs many cycles within the window."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.name = getattr(inner, "name", type(inner).__name__)
+
+    def reconcile(self, now: float) -> float:
+        self.inner.reconcile(now)
+        return 0.05
+
+
+async def http_get(port: int, path: str) -> bytes:
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\n\r\n".encode())
+    await writer.drain()
+    out = await reader.read()
+    writer.close()
+    return out
+
+
+def phase_shell(soak_digests: dict) -> dict:
+    """build_operator(Options(solver_backend="device", leader_elect=True,
+    ...)) over FakeCloud(generate_catalog()) on a fast real clock, its
+    Runtime started under the reference runtime soak's churn scaled to
+    4,096 pods: converged, no crash, coalesced terminations and describes,
+    /metrics and /readyz served, the lease released on stop(), B0 and B
+    launched and equal to their plain versions at a captured input. Then
+    `python -m karpenter_tpu_torch.main --soak` must print phase 4j's
+    soak_smoke digests. Returns the kernels' launches in the phase."""
+    import asyncio
+    import logging
+    import random
+    import socket
+    import tempfile
+    from karpenter_tpu_torch import catalog, integrity, models
+    from karpenter_tpu_torch.cloud.fake import FakeCloud, FakeCloudConfig
+    from karpenter_tpu_torch.main import build_operator
+    from karpenter_tpu_torch.metrics import INTEGRITY_VERDICTS
+    from karpenter_tpu_torch.models import labels as L
+    from karpenter_tpu_torch.models.nodeclaim import Phase
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    from karpenter_tpu_torch.ops import screen_k as sk, solve_scan as ss
+    from karpenter_tpu_torch.ops import solver
+    from karpenter_tpu_torch.utils.leaderelection import FileLeaseBackend
+    from karpenter_tpu_torch.utils.options import Options
+
+    t_phase = time.perf_counter()
+    reset_sequences()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shell-", dir=root)
+    lease = os.path.join(tmp, "leader.lease")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    clock = fast_clock()
+    cloud = FakeCloud(catalog.generate_catalog(), clock=clock,
+                      config=FakeCloudConfig(**SHELL_CLOUD))
+    opts = Options(solver_backend="device", leader_elect=True,
+                   leader_elect_lease_file=lease,
+                   leader_elect_identity="chip-smoke",
+                   intent_journal_file=os.path.join(tmp, "intents.wal"),
+                   interruption_queue="soak-q", metrics_port=port)
+    runtime, store, _ = build_operator(opts, cloud=cloud)
+    check(runtime.clock is clock and runtime.elector is not None,
+          "build_operator: one clock everywhere and an elector")
+    bcloud = next(c for c in runtime.controllers
+                  if getattr(c, "name", "") == "provisioner").cloud
+    runtime.controllers = [Turbo(c) for c in runtime.controllers]
+    served = {}
+
+    async def churn():
+        rng = random.Random(42)
+        n = 0
+        for wave in range(SHELL_WAVES):
+            for _ in range(SHELL_WAVE_PODS):
+                store.add_pod(models.Pod(
+                    name=f"s{n}", requests=models.Resources.parse(
+                        {"cpu": ["250m", "1", "2"][n % 3],
+                         "memory": "1Gi"})))
+                n += 1
+            if wave % 2 == 0:
+                running = [i for i in cloud.instances.values()
+                           if i.state == "running"]
+                if running:  # chaos kill mid-flight
+                    cloud.kill_instance(rng.choice(running).id,
+                                        reason="chaos")
+            bound = [p for p in store.pods.values() if p.node_name]
+            for p in rng.sample(bound, min(2, len(bound))):
+                store.delete_pod(p.namespace, p.name)
+            await asyncio.sleep(SHELL_WAVE_SLEEP)
+        return n
+
+    def converged():
+        return store.pods and all(p.node_name for p in store.pods.values())
+
+    async def drive():
+        run = asyncio.create_task(runtime.start())
+        t0 = time.perf_counter()
+        added = await churn()
+        t1 = time.perf_counter()
+        for path in ("/metrics", "/readyz"):
+            served[path] = await http_get(port, path)
+        deadline = time.monotonic() + SHELL_DEADLINE_S
+        while time.monotonic() < deadline and not converged():
+            await asyncio.sleep(0.25)
+        ok = converged()
+        t2 = time.perf_counter()
+        runtime.stop()
+        await asyncio.wait_for(run, timeout=60)
+        return ok, added, t1 - t0, t2 - t1
+
+    # every oracle flag of the run, (check, the flagged existing node's
+    # claim name): the over-capacity state's are consolidation replacements
+    # (ROADMAP §3), as tests/test_torch_sim_overcap.py holds on the CPU
+    oracle_flags = []
+    verify = integrity.verify_result
+
+    def spy(cat, enc, result):
+        v = verify(cat, enc, result)
+        oracle_flags.extend(
+            (x.check, result.nodes[int(x.detail.split()[1])].existing_name
+             if x.check == "capacity" else None) for x in v)
+        return v
+
+    ss.launches = ss.offer_launches = sk.launches = tk.launches = 0
+    c0 = counter_totals()
+    verdicts0 = dict(INTEGRITY_VERDICTS._values)
+    # the over-capacity state's flags (below) each log a warning; their
+    # count is logged once instead
+    ilog = logging.getLogger("karpenter_tpu_torch.integrity")
+    level = ilog.level
+    ilog.setLevel(logging.ERROR)
+    integrity.verify_result = spy
+    try:
+        with Capture(solver, "solve_scan",
+                     lambda a, kw: (a[3].shape[0],
+                                    kw.get("n_max", 0))) as cap_b:
+            ok, added, churn_s, settle_s = asyncio.run(drive())
+    finally:
+        integrity.verify_result = verify
+        ilog.setLevel(level)
+    launches = {"screen_k": sk.launches, "offer_argmin": ss.offer_launches,
+                "solve_scan": ss.launches, "tournament": tk.launches}
+    delta = tuple(b - a for a, b in zip(c0, counter_totals()))
+    flags = {k[0]: v - verdicts0.get(k, 0.0)
+             for k, v in INTEGRITY_VERDICTS._values.items()
+             if k[1] == "violation" and v != verdicts0.get(k, 0.0)}
+    unbound = sum(1 for p in store.pods.values() if not p.node_name)
+    sim_s = clock.now() - 1_000_000.0
+    replacements = {name for kind, _, _, note in store.events
+                    if kind == "disruption"
+                    and note.startswith("replacements: ")
+                    for name in ast.literal_eval(note.split(": ", 1)[1])}
+    flagged = {name for _, name in oracle_flags}
+    log(f"[shell] build_operator on the device rung, {len(cloud.types)} "
+        f"types: {added} pods added in {SHELL_WAVES} waves ({churn_s:.1f} s "
+        f"of churn), converged {ok} {settle_s:.1f} s after it ({unbound} "
+        f"unbound of {len(store.pods)}); {sim_s:.0f} scaled sim s; nodes "
+        f"{len(store.nodes)}, claims {len(store.nodeclaims)}; crash counts "
+        f"{runtime.crash_counts}, backoff counts {runtime.backoff_counts}; "
+        f"batcher {bcloud.stats}; counter deltas {delta}; integrity flags by "
+        f"check {flags}; oracle flags {len(oracle_flags)} on "
+        f"{len(flagged)} nodes, of {len(replacements)} consolidation "
+        f"replacements; kernel launches {launches}")
+    check(added == SHELL_WAVES * SHELL_WAVE_PODS, f"shell: {added} pods added")
+    check(ok, f"shell: not converged within {SHELL_DEADLINE_S:g} s of the "
+          f"churn: {unbound} pods unbound")
+    check(runtime.crash_counts == {}, f"shell: controller crashes "
+          f"{runtime.crash_counts}")
+    # the shell may reach the reference's over-capacity state (ROADMAP §3:
+    # a consolidation replacement over capacity, flagged by the oracle, the
+    # device answer shipped metered); no other flag, fallback or degrade
+    check(delta[0] == 0 and delta[1] == 0 and delta[3] == 0
+          and set(flags) <= {"capacity"},
+          f"shell: fallbacks / optimizer fallbacks / integrity flags / "
+          f"fault_fallbacks {delta}, flags by check {flags}")
+    check({c for c, _ in oracle_flags} <= {"capacity"}
+          and None not in flagged and flagged <= replacements,
+          f"shell: oracle flags on nodes that are not consolidation "
+          f"replacements: {sorted(map(str, flagged - replacements))}, "
+          f"checks {sorted({c for c, _ in oracle_flags})}")
+    check(bcloud.stats["terminate_batches"] >= 1
+          and bcloud.stats["describe_coalesced"] >= 1,
+          f"shell: no coalesced termination batch or describe "
+          f"{bcloud.stats}")
+    indexed = {k for g in store._pending_groups.values() for k in g}
+    truth = {k for k, p in store.pods.items()
+             if p.phase == "Pending" and p.node_name is None
+             and L.NOMINATED not in p.annotations}
+    check(indexed == truth, "shell: the pending-group index drifted")
+    iids = {i.id for i in cloud.instances.values() if i.state == "running"}
+    for c in store.nodeclaims.values():
+        check(c.phase not in (Phase.FAILED, Phase.TERMINATED),
+              f"shell: claim residue {c.name} {c.phase}")
+        if not c.is_deleting() and c.provider_id:
+            check(c.provider_id.rsplit("/", 1)[-1] in iids,
+                  f"shell: claim {c.name} without a running instance")
+    head = {p: served[p].split(b"\r\n", 1)[0].decode() for p in served}
+    check(head["/metrics"] == "HTTP/1.1 200 OK"
+          and b"karpenter_tpu_cloudprovider_api_duration_seconds"
+          in served["/metrics"],
+          f"shell: /metrics answered {head['/metrics']}")
+    ready = json.loads(served["/readyz"].split(b"\r\n\r\n", 1)[1])
+    check(head["/readyz"] in ("HTTP/1.1 200 OK",
+                              "HTTP/1.1 503 Service Unavailable")
+          and "ready" in ready, f"shell: /readyz answered {head['/readyz']}")
+    held = FileLeaseBackend(lease).get()
+    check(held is not None and held.holder == "",
+          f"shell: the lease was not released on stop(): {held}")
+    for k in ("offer_argmin", "solve_scan"):
+        check(launches[k] > 0, f"kernel {k} was not launched in the shell")
+    check_scan_calls(cap_b, "shell", ("largest solve",))
+    log(f"[check] shell: converged, no crash, {bcloud.stats['terminate_batches']}"
+        f" coalesced termination batches and "
+        f"{bcloud.stats['describe_coalesced']} coalesced describes, /metrics "
+        f"{head['/metrics']!r}, /readyz {head['/readyz']!r} "
+        f"{ready.get('ready')}, the lease released (transitions "
+        f"{held.transitions})")
+
+    # the production entry point, in a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "karpenter_tpu_torch.main", *SHELL_MAIN_ARGS],
+        capture_output=True, text=True, timeout=SHELL_MAIN_TIMEOUT,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m karpenter_tpu_torch.main "
+          f"{' '.join(SHELL_MAIN_ARGS)} exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    got = dict(line.strip().split("=", 1) for line in proc.stdout.splitlines()
+               if line.strip().startswith(("soak_hash=",
+                                           "load_fingerprint=")))
+    want = soak_digests["soak_smoke"]
+    check(got.get("soak_hash") == want[0]
+          and got.get("load_fingerprint") == want[2],
+          f"python -m karpenter_tpu_torch.main --soak printed {got}, phase "
+          f"4j's device run {want[0]} / {want[2]}")
+    log(f"[check] python -m karpenter_tpu_torch.main "
+        f"{' '.join(SHELL_MAIN_ARGS)}: exit 0 in {wall:.1f} s, soak_hash "
+        f"{got['soak_hash'][:16]} and load_fingerprint "
+        f"{got['load_fingerprint'][:16]} equal to phase 4j's device run")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[shell] phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3276,6 +3821,14 @@ def main() -> None:
     # sequence, counts zeroed at the phase's start ---
     warm_launches = counted("warm", phase_warm)
 
+    # --- 4j. the soak: bench c13's open-loop traffic plane, counts zeroed
+    # at the phase's start ---
+    soak_launches, soak_digests, soak_err = counted("soak", phase_soak)
+    scatter["soak"] = soak_launches["resident_patch"]
+
+    # --- 4k. the operator shell: build_operator on the asyncio Runtime,
+    # counts zeroed just before the Runtime starts ---
+    shell_launches = counted("shell", phase_shell, soak_digests)
 
     # --- 5. times ---
     solve_ms = wall_ms(lambda: solver.solve_device(cat, enc), 5)
@@ -3368,6 +3921,11 @@ def main() -> None:
         by_phase[k]["chaos"] = {"launches": chaos_launches[k]}
         by_phase[k]["fleet_runner"] = {"launches": fleet_runner_launches[k]}
         by_phase[k]["warm"] = {"launches": warm_launches[k]}
+        by_phase[k]["soak"] = {"launches": soak_launches[k]}
+        if k in ("offer_argmin", "solve_scan"):
+            by_phase[k]["soak"]["batched_launches"] = \
+                soak_launches["batched_buckets"]
+        by_phase[k]["shell"] = {"launches": shell_launches[k]}
     by_phase["tournament"]["grid"] = c_grid
     by_phase["tournament"]["optimizer"] = {
         "launches": opt_launches["tournament"]}
@@ -3391,7 +3949,8 @@ def main() -> None:
          "by_phase": by_phase[name]}
         for name, source, replaces, err in (
             ("screen_k", "karpenter_tpu_torch/csrc/screen_k.cu",
-             "karpenter_tpu/ops/pallas_screen.py:69", max(err_a, op_err_a)),
+             "karpenter_tpu/ops/pallas_screen.py:69",
+             max(err_a, op_err_a, soak_err)),
             ("offer_argmin", "karpenter_tpu_torch/csrc/solve_scan.cu",
              "karpenter_tpu/ops/solver.py:425", 0.0),
             ("solve_scan", "karpenter_tpu_torch/csrc/solve_scan.cu",

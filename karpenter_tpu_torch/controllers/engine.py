@@ -1,19 +1,16 @@
 """Deterministic reconcile engine.
 
-The port's own copy of `karpenter_tpu/controllers/engine.py`. The
-reference's optional leader-election `elector` (for its async runtime,
-ROADMAP item 15) is not ported, so its field and calls are left out;
-every other line keeps the reference's semantics, including the
-watchdog's tick outside the traced window and that only a retryable
-`CloudError` is absorbed — a kernel's error raises out of `tick`, after
-the watchdog has evaluated.
+The port's own copy of `karpenter_tpu/controllers/engine.py`, every line
+with the reference's semantics, including the optional leader-election
+`elector`, the watchdog's tick outside the traced window and that only a
+retryable `CloudError` is absorbed — a kernel's error raises out of
+`tick`, after the watchdog has evaluated.
 
 Controllers implement `reconcile(now) -> requeue_after_seconds`, mirroring
 controller-runtime's Reconcile contract (the reference's 14+ controllers,
 pkg/controllers/controllers.go:67). The engine runs them round-robin on an
-injectable clock, so tests step simulated time; the reference's async
-runtime (controllers/runtime.py, not ported) drives the same controllers
-on wall-clock time.
+injectable clock, so tests step simulated time; the async runtime
+(controllers/runtime.py) drives the same controllers on wall-clock time.
 """
 
 from __future__ import annotations
@@ -40,11 +37,14 @@ class Engine:
     clock: object
     controllers: List[Controller] = field(default_factory=list)
     hooks: List[Callable[[float], None]] = field(default_factory=list)
-    # (the reference's optional leader-election `elector` sits here: not
-    # ported, ROADMAP §1 item 15)
+    # optional utils.leaderelection.Elector: controllers reconcile only
+    # while this replica holds the lease (hooks still run — they model the
+    # environment, not the controller plane)
+    elector: Optional[object] = None
     # optional obs.watchdog.Watchdog: ticked OUTSIDE the traced window
     # (it observes the control plane, it is not part of the reconcile
-    # cost the phase ledger decomposes) and on every tick
+    # cost the phase ledger decomposes) and on every tick including
+    # non-leader ones — invariants hold whether or not we lead
     watchdog: Optional[object] = None
     _next_run: Dict[str, float] = field(default_factory=dict)
 
@@ -60,13 +60,20 @@ class Engine:
     def tick(self) -> None:
         now = self.clock.now()
         # one trace per tick, one span per controller reconcile. Opened
-        # only when a controller is actually due, so an idle tick records
-        # nothing — but a BUSY tick's trace encloses the per-tick hooks
-        # too (`engine.hooks`), so hook time (cloud tick, workload
-        # arrivals) is attributable instead of an unexplained gap in the
-        # phase ledger. When tracing is off everything here is the shared
-        # no-op singleton.
+        # only when a controller is actually due AND this replica leads,
+        # so an idle tick (or a non-leader standby, whose controllers
+        # stay permanently "due") still records nothing — but a BUSY
+        # tick's trace now encloses the per-tick hooks too
+        # (`engine.hooks`), so hook time (cloud tick, workload arrivals)
+        # is attributable instead of an unexplained gap in the phase
+        # ledger. Leadership is read BEFORE the elector's own
+        # bookkeeping below (which keeps its original hooks-then-elector
+        # order): the one tick where leadership is first acquired runs
+        # untraced — a fair trade against a standby flooding every
+        # tracer sink forever. When tracing is off everything here is
+        # the shared no-op singleton and the tick is exactly as before.
         trace_on = (TRACER.enabled
+                    and (self.elector is None or self.elector.is_leader())
                     and any(now >= self._next_run.get(c.name, 0.0)
                             for c in self.controllers))
         tick_sp = (TRACER.trace("engine.tick", sim_now=now)
@@ -86,8 +93,18 @@ class Engine:
             with hooks_sp:
                 for fn in self.hooks:
                     fn(now)
+            if self.elector is not None:
+                if now >= self._next_run.get(self.elector.name, 0.0):
+                    self._next_run[self.elector.name] = (
+                        now + max(0.0, self.elector.reconcile(now)))
+                if not self.elector.is_leader():
+                    return
             for c in self.controllers:
                 if now >= self._next_run.get(c.name, 0.0):
+                    # gated on trace_on, not TRACER.enabled: with no
+                    # open tick trace (the leadership-acquisition edge
+                    # above) a bare span would start its own root trace
+                    # per controller — the tick must be truly untraced
                     sp = (TRACER.span(f"reconcile:{c.name}",
                                       controller=c.name)
                           if trace_on else NOOP_SPAN)

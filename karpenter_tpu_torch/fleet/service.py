@@ -37,8 +37,8 @@ staging and bucket order, and the virtual timeline is untouched.
 The port's fault contract differs from the reference's on purpose: a
 bucket degrades to serial re-runs only on `ops/solver.InjectedFault` (the
 fault-injection seam); a kernel's or a readback's error raises out of
-`pump()` (ROADMAP §3). Not ported yet: the open-loop
-`AdmissionController` (ROADMAP §1 item 17). A refused submission's pods
+`pump()` (ROADMAP §3). The open-loop `AdmissionController` gives each
+offered arrival batch of loadgen/ its admit, defer or shed verdict. A refused submission's pods
 are noted with the explain recorder, and the fleet watchdog reads
 `backlog()`, each tenant's `max_wait` and `pipeline_state()`. A bucket
 whose membership repeats the previous pump's keeps its stacked request
@@ -55,7 +55,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 from ..cloud.provider import CloudError
 from ..metrics import (FLEET_BATCH_SIZE, FLEET_QUEUE_DEPTH,
                        FLEET_SHAPE_CLASS, FLEET_SOLVE_WAIT, FLEET_SOLVES,
-                       FLEET_STARVATION, FLEET_THROTTLED, PIPELINE_INFLIGHT)
+                       FLEET_STARVATION, FLEET_THROTTLED, LOADGEN_ADMITTED,
+                       LOADGEN_DEFERRED, LOADGEN_SHED, PIPELINE_INFLIGHT)
 from ..metrics.tenant import tenant_scope
 from ..obs.tracer import NOOP_SPAN, TRACER
 from ..ops import solver as ops_solver
@@ -171,6 +172,204 @@ class _TenantState:
         default_factory=lambda: deque(maxlen=8192))
 
 
+@dataclass(frozen=True)
+class AdmissionDecision:
+    """One admission verdict for an offered arrival batch."""
+
+    action: str               # "admit" | "defer" | "shed"
+    reason: str = ""          # shed reason / defer trigger
+    delay: float = 0.0        # re-offer backoff (defer only), sim seconds
+
+
+class AdmissionController:
+    """Per-tenant queue-depth and in-flight budgets for the OPEN-LOOP
+    serving path (loadgen/): the closed-loop runners wait for drain, so
+    the in-flight cap alone bounds them — an open-loop arrival process
+    does not wait, and without an explicit admission verdict a saturated
+    tenant's pending-pod backlog grows without bound. Three-way verdict
+    per offered batch:
+
+    - ADMIT while the tenant's PENDING depth (unplaced pods in its
+      store) stays under the defer budget AND its solve tickets queued
+      in the shared service stay under the in-flight budget;
+    - DEFER past either soft budget: the batch is parked and re-offered
+      after a SEED-DETERMINISTIC backoff (exponential schedule plus a
+      jitter hashed from (seed, batch key, attempt) — no RNG stream is
+      consumed, so arrivals and faults draw exactly what they would
+      without backpressure, the repeat contract). The soft budget reads
+      PENDING depth only — parked batches must not count against the
+      budget their own re-offers are judged by, or the waiting room
+      would wedge itself shut (every re-offer seeing the queue it is
+      part of);
+    - SHED past the hard budget — pending + deferred + arriving, the
+      total work-in-system bound — or once a batch exhausts its
+      re-offer attempts: the batch is dropped and metered
+      `loadgen_shed_total{tenant,reason}` — overload degrades into a
+      bounded queue plus an explicit, attributable drop rate instead of
+      an unbounded backlog (the watchdog's overload_unbounded invariant
+      polices exactly that bound).
+
+    `enabled=False` keeps the verdicts flowing as ADMIT while still
+    carrying the budgets — the watchdog reads them as the threshold the
+    controller SHOULD have engaged at (the fires-with-shedding-disabled
+    acceptance check).
+
+    `rate_limit` (pods per sim second, per tenant) adds a RATE budget on
+    top of the depth budgets: a token bucket refilled by sim time (burst
+    capacity `rate_burst`, default 2x the rate) charged by first offers
+    only — a tenant arriving faster than its configured rate sheds the
+    excess with reason `rate` even while its queue is empty (depths
+    bound work-in-system; rates bound work-per-second). Deterministic
+    like everything else here: the bucket advances on the caller's sim
+    clock, no RNG, so the repeat contract covers the shed set.
+    """
+
+    DEFER_DEPTH = 192         # waiting pods before soft backpressure
+    SHED_DEPTH = 384          # waiting pods before drops (the hard bound)
+    INFLIGHT_BUDGET = 8       # queued service tickets before deferring
+    MAX_DEFERS = 6            # re-offers before a batch is shed
+    BACKOFF_BASE = 2.0        # first defer delay, sim seconds
+    BACKOFF_MAX = 30.0        # backoff ceiling
+
+    def __init__(self, service: Optional["SolverService"] = None,
+                 defer_depth: Optional[int] = None,
+                 shed_depth: Optional[int] = None,
+                 inflight_budget: Optional[int] = None,
+                 max_defers: Optional[int] = None,
+                 backoff_base: Optional[float] = None,
+                 backoff_max: Optional[float] = None,
+                 rate_limit: Optional[float] = None,
+                 rate_burst: Optional[float] = None,
+                 enabled: bool = True, seed: int = 0):
+        self.service = service
+        # per-tenant arrival-rate budget (None = no rate limiting):
+        # tenant -> (tokens, last sim stamp). is-None checks throughout:
+        # rate_limit=0.0 is a legitimate "admit nothing" budget, not an
+        # unset one
+        self.rate_limit = None if rate_limit is None else float(rate_limit)
+        if rate_burst is not None:
+            self.rate_burst: Optional[float] = float(rate_burst)
+        elif self.rate_limit is not None:
+            self.rate_burst = 2.0 * self.rate_limit
+        else:
+            self.rate_burst = None
+        self._rate_buckets: Dict[str, Tuple[float, float]] = {}
+        self.defer_depth = (self.DEFER_DEPTH if defer_depth is None
+                            else int(defer_depth))
+        self.shed_depth = (self.SHED_DEPTH if shed_depth is None
+                           else int(shed_depth))
+        self.inflight_budget = (self.INFLIGHT_BUDGET
+                                if inflight_budget is None
+                                else int(inflight_budget))
+        self.max_defers = (self.MAX_DEFERS if max_defers is None
+                           else int(max_defers))
+        self.backoff_base = (self.BACKOFF_BASE if backoff_base is None
+                             else float(backoff_base))
+        self.backoff_max = (self.BACKOFF_MAX if backoff_max is None
+                            else float(backoff_max))
+        self.enabled = bool(enabled)
+        self.seed = int(seed)
+        self.stats: Dict[str, Dict[str, int]] = {}
+
+    def _tstats(self, tenant: str) -> Dict[str, int]:
+        return self.stats.setdefault(tenant, {
+            "offered": 0, "admitted": 0, "deferred": 0, "shed": 0})
+
+    def backoff(self, key: str, attempts: int) -> float:
+        """Deterministic re-offer delay: exponential in the attempt
+        count, jittered by a hash of (seed, batch key, attempt) so two
+        tenants' deferred batches do not re-offer in lockstep — and no
+        RNG stream is consumed (same seed, same delays, always)."""
+        import hashlib
+        base = min(self.backoff_base * (2 ** max(0, attempts)),
+                   self.backoff_max)
+        h = int.from_bytes(
+            hashlib.sha256(f"{self.seed}|{key}|{attempts}".encode())
+            .digest()[:4], "big")
+        return round(base * (0.75 + 0.5 * h / 0xFFFFFFFF), 6)
+
+    def _rate_exhausted(self, tenant: str, arriving: int,
+                        now: Optional[float]) -> bool:
+        """Advance the tenant's token bucket to `now` and try to charge
+        `arriving` tokens; True = the rate budget is exhausted (shed).
+        Only first offers are charged — a deferred batch paid on its
+        original arrival."""
+        if self.rate_limit is None or now is None:
+            return False
+        tokens, last = self._rate_buckets.get(
+            tenant, (self.rate_burst, None))
+        if last is not None:
+            tokens = min(self.rate_burst,
+                         tokens + (float(now) - last) * self.rate_limit)
+        if arriving > tokens:
+            self._rate_buckets[tenant] = (tokens, float(now))
+            return True
+        self._rate_buckets[tenant] = (tokens - arriving, float(now))
+        return False
+
+    def decide(self, tenant: str, pending: int, deferred: int,
+               arriving: int, attempts: int = 0,
+               key: str = "",
+               now: Optional[float] = None) -> AdmissionDecision:
+        """Verdict for one offered batch of `arriving` pods while the
+        tenant has `pending` unplaced pods in its store and `deferred`
+        pods parked in the generator's waiting room (EXCLUDING this
+        batch when it is a re-offer). Meters the defer/shed families;
+        the caller records the canonical ledger entry (the fingerprint
+        lives with the LoadPlan). `now` (sim time) feeds the optional
+        per-tenant arrival-rate budget."""
+        st = self._tstats(tenant)
+        if attempts == 0:
+            st["offered"] += arriving
+        if not self.enabled:
+            st["admitted"] += arriving
+            LOADGEN_ADMITTED.inc(arriving, tenant=tenant)
+            return AdmissionDecision("admit")
+        if attempts == 0 and self._rate_exhausted(tenant, arriving, now):
+            st["shed"] += arriving
+            LOADGEN_SHED.inc(arriving, tenant=tenant, reason="rate")
+            return AdmissionDecision("shed", "rate")
+        depth = pending + deferred + arriving
+        if depth > self.shed_depth:
+            st["shed"] += arriving
+            LOADGEN_SHED.inc(arriving, tenant=tenant, reason="queue_depth")
+            return AdmissionDecision("shed", "queue_depth")
+        if attempts >= self.max_defers:
+            st["shed"] += arriving
+            LOADGEN_SHED.inc(arriving, tenant=tenant, reason="defer_budget")
+            return AdmissionDecision("shed", "defer_budget")
+        queued = 0
+        if self.service is not None:
+            state = self.service.tenants.get(tenant)
+            queued = state.queued if state is not None else 0
+        if pending + arriving > self.defer_depth \
+                or queued >= self.inflight_budget:
+            st["deferred"] += arriving
+            LOADGEN_DEFERRED.inc(tenant=tenant)
+            trigger = ("inflight" if queued >= self.inflight_budget
+                       else "queue_depth")
+            # tenant is part of the jitter key: batch keys are PLAN-local
+            # (every tenant's schedule starts at a000000), so without it
+            # tenants replaying one trace would re-offer in lockstep
+            return AdmissionDecision(
+                "defer", trigger,
+                delay=self.backoff(f"{tenant}|{key}", attempts))
+        st["admitted"] += arriving
+        LOADGEN_ADMITTED.inc(arriving, tenant=tenant)
+        return AdmissionDecision("admit")
+
+    def snapshot(self) -> dict:
+        return {"enabled": self.enabled,
+                "defer_depth": self.defer_depth,
+                "shed_depth": self.shed_depth,
+                "inflight_budget": self.inflight_budget,
+                "max_defers": self.max_defers,
+                "rate_limit": self.rate_limit,
+                "rate_burst": self.rate_burst,
+                "tenants": {t: dict(s)
+                            for t, s in sorted(self.stats.items())}}
+
+
 class SolverService:
     """The shared solve queue + fair scheduler. One per fleet process."""
 
@@ -194,6 +393,7 @@ class SolverService:
                  shared_catalog=None,
                  batch: bool = False,
                  max_batch: Optional[int] = None,
+                 admission: Optional[AdmissionController] = None,
                  device=None):
         """device: where the tenant facades' device rung runs (the CUDA
         card unless given; "cpu" runs the kernels' plain versions)."""
@@ -212,8 +412,10 @@ class SolverService:
         self.batch = bool(batch)
         self.max_batch = (self.MAX_BATCH if max_batch is None
                           else int(max_batch))
-        # (the reference's open-loop admission controller, `admission=`,
-        # comes with ROADMAP §1 item 17)
+        # open-loop admission/backpressure budgets (loadgen/ routes every
+        # offered arrival through this when armed); None = closed-loop
+        # runners, no admission layer
+        self.admission = admission
         self.tenants: Dict[str, _TenantState] = {}
         self.clients: Dict[str, TenantSolverClient] = {}
         self._queue: List[SolveTicket] = []
@@ -740,8 +942,7 @@ class SolverService:
         return len(self._queue)
 
     def debug_payload(self) -> dict:
-        """The /debug/fleet payload (the reference's admission block comes
-        with ROADMAP §1 item 17)."""
+        """The /debug/fleet payload."""
         return {"tenants": self.snapshot(),
                 "inflight_cap": self.inflight_cap,
                 "window_seconds": self.window,
@@ -752,6 +953,8 @@ class SolverService:
                           "overlap_ratio": round(
                               self.pipeline_overlap_ratio(), 4),
                           **self.pipeline_state()},
+                "admission": (self.admission.snapshot()
+                              if self.admission is not None else None),
                 "catalog_shared": dict(self.shared_catalog.stats)}
 
     def snapshot(self) -> Dict[str, dict]:

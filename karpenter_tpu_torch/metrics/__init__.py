@@ -135,6 +135,49 @@ FLEET_QUEUE_DEPTH = REGISTRY.gauge(
     "under the async/open-loop callers a persistently growing value for "
     "one tenant is the admission-control engage signal",
     ("tenant",), label_defaults=_TENANT)
+LOADGEN_ARRIVALS = REGISTRY.counter(
+    "karpenter_tpu_loadgen_arrivals_total",
+    "Pods offered by the open-loop load generator (loadgen/), by arrival "
+    "process (poisson / diurnal / bursty / trace) — offered load, before "
+    "the admission controller's admit/defer/shed verdict, so "
+    "offered - admitted - shed = currently deferred",
+    ("process", "tenant"), label_defaults=_TENANT)
+LOADGEN_ADMITTED = REGISTRY.counter(
+    "karpenter_tpu_loadgen_admitted_total",
+    "Offered pods the admission controller let into the store "
+    "(fleet/service.AdmissionController): the load the control plane "
+    "actually serves. admitted/offered is the soak acceptance ratio the "
+    "bench c13 keys report",
+    ("tenant",), label_defaults=_TENANT)
+LOADGEN_SHED = REGISTRY.counter(
+    "karpenter_tpu_loadgen_shed_total",
+    "Offered pods the admission controller DROPPED, by reason: "
+    "'queue_depth' = the tenant's waiting-pod depth (pending + deferred) "
+    "already exceeded the shed budget, 'defer_budget' = the arrival "
+    "exhausted its re-offer attempts without the backlog clearing, "
+    "'rate' = the tenant's per-second arrival-rate token bucket was "
+    "empty (rate limits are RATE budgets, not depth budgets — a "
+    "steady trickle above the configured rate sheds even with an "
+    "empty queue). "
+    "Zero below saturation (the soak_smoke assert); nonzero past it is "
+    "overload degrading PREDICTABLY — unbounded queue growth instead "
+    "of shedding is the watchdog's overload_unbounded invariant",
+    ("tenant", "reason"), label_defaults=_TENANT)
+LOADGEN_DEFERRED = REGISTRY.counter(
+    "karpenter_tpu_loadgen_deferred_total",
+    "Arrival batches the admission controller deferred for a later "
+    "re-offer with seed-deterministic backoff (each re-offer of the "
+    "same batch counts again): soft backpressure — the load is delayed, "
+    "not dropped, and the deferred backlog is bounded by the shed budget",
+    ("tenant",), label_defaults=_TENANT)
+LOADGEN_BACKLOG = REGISTRY.gauge(
+    "karpenter_tpu_loadgen_backlog",
+    "Pods currently held in the load generator's deferred queue "
+    "awaiting re-offer (per tenant): the admission controller's "
+    "waiting room. Bounded by the shed budget whenever shedding is "
+    "armed; growth past that with shedding disabled is exactly the "
+    "overload_unbounded excursion",
+    ("tenant",), label_defaults=_TENANT)
 DCAT_EVICTIONS = REGISTRY.counter(
     "karpenter_tpu_solver_dcat_evictions_total",
     "Device-resident catalog entries evicted, by reason: 'weakref' = "
@@ -221,6 +264,9 @@ CLUSTER_UTILIZATION = REGISTRY.gauge(
     "karpenter_cluster_utilization_percent",
     "Requested / allocatable across ready nodes, per resource",
     ("resource", "tenant"), label_defaults=_TENANT)
+BATCH_SIZE = REGISTRY.histogram(
+    "karpenter_tpu_cloud_batcher_batch_size", "requests per wire call",
+    ("op",), buckets=(1, 2, 5, 10, 25, 50, 100, 250, 500))
 RECONCILE_DURATION = REGISTRY.histogram(
     "karpenter_tpu_controller_reconcile_duration_seconds",
     "Per-controller reconcile pass wall time (the controller-runtime "
@@ -232,6 +278,17 @@ RECONCILE_ERRORS = REGISTRY.counter(
     "Reconcile passes that raised, by disposition (backoff = retryable "
     "cloud throttle, crash = survived unexpected error)",
     ("controller", "disposition"))
+CLOUD_API_DURATION = REGISTRY.histogram(
+    "karpenter_tpu_cloudprovider_api_duration_seconds",
+    "Wire-level cloud API call duration (the aws-sdk-go-prometheus "
+    "middleware the reference wires at operator.go:98; sits BELOW the "
+    "batcher, so one coalesced wire call = one observation)",
+    ("method",),
+    buckets=(.0005, .001, .005, .01, .05, .1, .5, 1, 5))
+CLOUD_API_ERRORS = REGISTRY.counter(
+    "karpenter_tpu_cloudprovider_api_errors_total",
+    "Wire-level cloud API errors (raised, or returned in-band by "
+    "create_fleet), by exception class", ("method", "error"))
 NODEPOOL_USAGE = REGISTRY.gauge(
     "karpenter_nodepools_usage",
     "Resources consumed by a NodePool's claims — reference series name, "

@@ -242,18 +242,47 @@ def make_sim(types: Optional[List[InstanceType]] = None,
                       warmpath=warm_engine).arm(clock.now())
         engine.watchdog = wd
 
-    # cloud → store node materialization (kubelet joining the cluster):
-    # the in-process fake pushes node events through a callback. (The
-    # reference also polls a cloud without that hook — its RemoteCloud in
-    # another process, not ported.)
-    cloud.on_node_created.append(store.add_node)
+    # cloud → store node materialization (kubelet joining the cluster).
+    # The in-process fake pushes node events through a callback; a cloud
+    # without that hook (RemoteCloud — another process, no shared memory)
+    # is synced by POLLING its node/instance views each tick, the
+    # watch-fallback analog.
+    is_local = hasattr(cloud, "on_node_created")
+    if is_local:
+        cloud.on_node_created.append(store.add_node)
 
     def _tick(now: float) -> None:
-        cloud.tick()
-        # terminated instances drop their nodes (cloud-side node deletion)
+        from .cloud.provider import CloudError
+        try:
+            cloud.tick()
+            if is_local:
+                insts = cloud.instances
+            else:
+                for node in cloud.describe_nodes():
+                    cur = store.nodes.get(node.name)
+                    if cur is None:
+                        store.add_node(node)
+                    else:
+                        # sync kubelet-owned fields only — locally applied
+                        # taints (cordons) must survive the poll
+                        cur.ready = node.ready
+                        cur.conditions.update(node.conditions)
+                insts = {i.id: i for i in cloud.describe()}
+        except CloudError as e:
+            if e.retryable:
+                return  # transient (throttle/transport): sync next tick
+            raise
+        # terminated instances drop their nodes (cloud-side node deletion).
+        # The polled view (describe) omits terminated instances entirely,
+        # so remotely the signal is ABSENCE; the local fast path sees the
+        # fake's full instance map and checks state.
         for node in list(store.nodes.values()):
-            inst = cloud.instances.get(node.provider_id.rsplit("/", 1)[-1])
-            if inst is not None and inst.state == "terminated":
+            iid = node.provider_id.rsplit("/", 1)[-1]
+            inst = insts.get(iid)
+            if inst is None:
+                if not is_local:
+                    store.delete_node(node.name)
+            elif inst.state == "terminated":
                 store.delete_node(node.name)
     engine.add_hook(_tick)
     if fault_plan is not None:

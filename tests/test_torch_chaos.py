@@ -81,17 +81,23 @@ def _reset_sequences() -> None:
 
 
 def _reset_planes() -> None:
-    """Both packages' delta and resident planes and explain recorders
-    start each run empty: memo keys hold id(facade), and a reused id must
-    not meet a dead facade's entry in one package and not in the other."""
+    """Both packages' delta and resident planes, explain recorders and
+    integrity meters start each run empty: memo keys hold id(facade), and
+    a reused id must not meet a dead facade's entry in one package and not
+    in the other; an unrecovered violation an earlier module left in one
+    package's meter holds its integrity_breach excursion open, so a drill
+    pages once there and twice in the other (ROADMAP §3's test-order
+    hazard)."""
+    from karpenter_tpu.integrity import INTEGRITY as REF_INTEGRITY
     from karpenter_tpu.obs.explain import RECORDER as REF_RECORDER
     from karpenter_tpu.ops.delta import DELTA as REF_DELTA
     from karpenter_tpu.ops.resident import RESIDENT as REF_RESIDENT
+    from karpenter_tpu_torch.integrity import INTEGRITY as PORT_INTEGRITY
     from karpenter_tpu_torch.obs.explain import RECORDER as PORT_RECORDER
     from karpenter_tpu_torch.ops.delta import DELTA as PORT_DELTA
     from karpenter_tpu_torch.ops.resident import RESIDENT as PORT_RESIDENT
-    for plane in (REF_DELTA, REF_RESIDENT, REF_RECORDER, PORT_DELTA,
-                  PORT_RESIDENT, PORT_RECORDER):
+    for plane in (REF_DELTA, REF_RESIDENT, REF_RECORDER, REF_INTEGRITY,
+                  PORT_DELTA, PORT_RESIDENT, PORT_RECORDER, PORT_INTEGRITY):
         plane.reset()
 
 

@@ -135,6 +135,42 @@ def test_make_sim_needs_a_card_or_a_device(monkeypatch):
     assert sim.solver.device.type == "cpu"
 
 
+def test_operator_and_soak_need_a_card_or_a_device():
+    """The operator shell and the soak without a card and without a device
+    raise; Options(device="cpu") / device="cpu" build them on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from karpenter_tpu_torch.catalog import small_catalog
+    from karpenter_tpu_torch.cloud.fake import FakeCloud
+    from karpenter_tpu_torch.loadgen import SoakRunner
+    from karpenter_tpu_torch.main import build_operator
+    from karpenter_tpu_torch.utils.options import Options
+    for backend in ("device", "host"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_operator(Options(solver_backend=backend, metrics_port=0),
+                           cloud=FakeCloud(small_catalog()))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SoakRunner("soak_smoke", backend=backend).build()
+    # the defaults solve on the device rung, as make_sim's does
+    assert Options().solver_backend == "device"
+    assert SoakRunner("soak_smoke").backend == "device"
+    from karpenter_tpu_torch.loadgen.__main__ import main as loadgen_main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loadgen_main(["soak_smoke"])
+    runtime, _, _ = build_operator(Options(metrics_port=0, device="cpu"),
+                                   cloud=FakeCloud(small_catalog()))
+    prov = next(c for c in runtime.controllers
+                if getattr(c, "name", "") == "provisioner")
+    assert prov.solver.backend == "device"
+    runtime, _, _ = build_operator(
+        Options(solver_backend="device", metrics_port=0, device="cpu"),
+        cloud=FakeCloud(small_catalog()))
+    assert runtime.controllers
+    runner = SoakRunner("soak_smoke", backend="device", device="cpu")
+    runner.build()
+    assert runner.service.device == "cpu"
+
+
 def test_optimizer_tournament_needs_a_card_or_a_device():
     """The optimizer's device tournament (kernels A and C) without a card
     and without device= raises, as the screen does; device="cpu" runs

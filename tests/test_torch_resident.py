@@ -89,8 +89,21 @@ def _leave_the_reference_as_found():
     ref_pod._sig_intern.clear()
     for P in (REF, PORT):
         P.R.RESIDENT.reset()
+        _drop_audit_keys(P)
         _pkg(P.pkg + ".ops.delta").DELTA.reset()
         _pkg(P.pkg + ".integrity").INTEGRITY.reset()
+
+
+# ``ResidentStateManager.audit`` creates these stats keys on first use and
+# ``reset()`` keeps them (zeroed), so a manager that audited earlier in the
+# process carries three keys the other package's may lack (ROADMAP §3's
+# test-order hazard). This module compares whole stats dicts.
+_AUDIT_KEYS = ("audits", "audit_rows", "audit_corrupt")
+
+
+def _drop_audit_keys(P):
+    for key in _AUDIT_KEYS:
+        P.R.RESIDENT.stats.pop(key, None)
 
 
 @pytest.fixture(autouse=True)
@@ -103,6 +116,7 @@ def _fresh_resident(monkeypatch):
         _pkg(P.pkg + ".ops.delta").DELTA.reset()
         P.S.release_shared_views(("shared",))
         P.R.RESIDENT.reset()
+        _drop_audit_keys(P)
     # both packages' monotone unions of requested resource columns hold
     # the same columns: they set the request matrices' widths
     cols = REF.S._cols_union | PORT.S._cols_union
@@ -541,6 +555,31 @@ def test_warm_identical_solve_ships_zero_upload_bytes():
         assert P.dm.TRANSFERS.totals()[0] == h0
         assert P.R.RESIDENT.stats["clean_hits"] >= 1
         got[P.name] = dict(P.R.RESIDENT.stats)
+    assert got["port"] == got["ref"]
+
+
+def test_memo_served_solve_after_a_resident_reset_uploads_nothing(
+        monkeypatch):
+    """A resident reset leaves the delta plane's memo, whose keys hold
+    id(facade): a solve it serves uploads nothing, so the facade has no
+    resident row (ROADMAP §3: a later facade that reuses a freed one's id
+    meets this state)."""
+    monkeypatch.delenv("KARPENTER_TPU_DELTA", raising=False)
+    got = {}
+    for P in (REF, PORT):
+        delta = _pkg(P.pkg + ".ops.delta").DELTA
+        types = P.conv(small_catalog())
+        f = _facade(P, P.Provider(lambda: types))
+        pods, pool = P.conv(mk_pods(16)), P.conv(POOL)
+        first = _out_tuple(f.solve(pods, pool))
+        key = ("facade", id(f))
+        assert any(k[:2] == key for k in P.R.RESIDENT._entries)
+        P.R.RESIDENT.reset()
+        s0 = delta.stats["serves"]
+        assert _out_tuple(f.solve(pods, pool)) == first
+        assert delta.stats["serves"] > s0
+        assert not any(k[:2] == key for k in P.R.RESIDENT._entries)
+        got[P.name] = (first, delta.stats["serves"] - s0)
     assert got["port"] == got["ref"]
 
 

@@ -332,8 +332,36 @@ def _fake_loadgen(depth: int, armed: bool):
 
 
 def trip_overload_unbounded(P):
-    """Seeded overload with shedding DISABLED: the open-loop backlog grows
-    past the admission budget and never shrinks."""
+    """The reference's `test_loadgen.py::
+    test_shedding_disabled_trips_watchdog`, fed by the real admission
+    controller: soak_overload with shedding DISABLED grows its open-loop
+    backlog past the admission budget, and the fleet watchdog fires
+    overload_unbounded. Run on a flight-recorder ring of its own, as the
+    reference's loadgen module does."""
+    old = P.TRACER.recorder
+    P.TRACER.recorder = P.FlightRecorder(size=old.size)
+    try:
+        runner = P.mod("loadgen").SoakRunner("soak_overload", seed=0,
+                                             backend="host",
+                                             admission=False, **P.dev)
+        rep = runner.run()
+    finally:
+        P.TRACER.recorder = old
+    assert rep.stats["shed_pods"] == 0
+    assert rep.stats["overload_findings"] >= 1
+    assert rep.stats["max_waiting_depth"] > 60  # past the budget
+    found = _findings(runner.watchdog, "overload_unbounded")
+    assert found and all(f.severity == "critical" for f in found)
+    assert all("DISABLED" in f.message for f in found)
+    return [runner.watchdog] + [s.sim.watchdog for s in runner.shards]
+
+
+def trip_overload_grace_edge_and_shrink(P):
+    """The watchdog's overload_unbounded semantics over a stand-in
+    observable (the reference's `test_watchdog.py::
+    test_trip_overload_unbounded`): quiet under budget and inside the
+    grace, one critical finding past it, cleared by draining, and a
+    shrinking over-budget backlog never fires."""
     lg = _fake_loadgen(0, False)
     clock = P.FakeClock()
     wd = P.Watchdog(clock, loadgen=lg, overload_grace=45.0).arm()
@@ -851,6 +879,7 @@ TRIPS = {f.__name__: f for f in (
     trip_claim_leak, trip_claim_leak_duplicate_token, trip_store_cloud_drift,
     trip_intent_age, trip_warm_audit_lag, trip_warm_divergence,
     trip_fleet_starvation, trip_pipeline_stall, trip_overload_unbounded,
+    trip_overload_grace_edge_and_shrink,
     trip_optimizer_divergence, trip_integrity_breach, trip_recompute_runaway,
     trip_recompute_steady_plateau_never_fires, trip_recompute_jump_absorbed,
     trip_overload_jump_absorbed, trip_profile_unattributed,

@@ -1,14 +1,18 @@
-"""The watchdog findings that chip_smoke holds its operator phase and its
-storm to (`OP_REF_FINDINGS`, `STORM_REF_FINDINGS`): the same procedures
-run on the CPU through one package's `make_sim` and `ScenarioRunner`.
+"""The watchdog findings that chip_smoke holds its operator phase, its
+storm and its soak to (`OP_REF_FINDINGS`, `STORM_REF_FINDINGS`,
+`SOAK_REF_FINDINGS`): the same procedures run on the CPU through one
+package's `make_sim`, `ScenarioRunner` and `SoakRunner`.
 
     JAX_PLATFORMS=cpu python3 tools/ref_findings.py operator karpenter_tpu native
     JAX_PLATFORMS=cpu python3 tools/ref_findings.py storm karpenter_tpu native
+    JAX_PLATFORMS=cpu python3 tools/ref_findings.py soak karpenter_tpu device
     python3 tools/ref_findings.py storm karpenter_tpu_torch device
 
 The package is `karpenter_tpu` (the reference) or `karpenter_tpu_torch`
-(the port, its device rung on the CPU: the kernels' plain versions). Each
-run takes minutes. It prints the end state hash and every finding.
+(the port, its device rung on the CPU: the kernels' plain versions). The
+operator and storm runs take minutes, the soak seconds. It prints the end
+state hash and every finding (the soak: for each of chip_smoke's
+`SOAK_SCENARIOS` at seed 0, the fleet watchdog's and every shard's).
 """
 
 from __future__ import annotations
@@ -122,9 +126,33 @@ def storm(pkg: str, backend: str):
     return runner.last_sim
 
 
+def soak(pkg: str, backend: str) -> None:
+    """chip_smoke's soak phase: each of SOAK_SCENARIOS at seed 0 through
+    the package's SoakRunner; prints the three digests and the findings
+    of the fleet watchdog and of every shard's."""
+    for name in C.SOAK_SCENARIOS:
+        kw = _restart(pkg)
+        t0 = time.perf_counter()
+        runner = _mod(pkg, "loadgen").SoakRunner(name, seed=0,
+                                                 backend=backend, **kw)
+        rep = runner.run()
+        print(f"soak {name} {pkg} {backend}: wall "
+              f"{time.perf_counter() - t0:.1f} s, ok {rep.ok}, soak_hash "
+              f"{rep.soak_hash[:16]}, fault {rep.fault_fingerprint[:16]}, "
+              f"load {rep.load_fingerprint[:16]}")
+        for where, wd in [("fleet", runner.watchdog)] + [
+                (s.name, s.sim.watchdog) for s in runner.shards]:
+            for f in wd.findings:
+                print(f"  {where}: {f.invariant} {f.severity} {f.key}: "
+                      f"{f.message}")
+
+
 def main() -> None:
     what, pkg, backend = sys.argv[1:4]
     os.environ.pop("KARPENTER_TPU_OPTIMIZER", None)  # armed: the default
+    if what == "soak":
+        soak(pkg, backend)
+        return
     t0 = time.perf_counter()
     sim = {"operator": operator, "storm": storm}[what](pkg, backend)
     wd = sim.watchdog

@@ -191,6 +191,31 @@ Phases (any failure exits non-zero):
              to their plain versions at the largest solve's inputs. Then `python -m karpenter_tpu_torch.main --soak
              --soak-scenario soak_smoke --solver-backend device` exits 0
              printing 4j's device digests.
+  4l. federation  bench c17's procedure (bench.py:1158-1236): 3 processes
+             x 40 tenants of federation_smoke at seed 0, every bucket over
+             the in-memory wire (each payload through the JSON codec) to one
+             SolverServer on the card; the federated digests equal an
+             in-process device run's, a native run's and the reference's CPU
+             run's (tools/ref_findings.py federation), 0 wire failures, 0
+             local buckets, catalog uploads <= the distinct views, the
+             server's stats the reference's (each shard solves
+             synchronously, so every bucket carries one request, as in the
+             reference). One full wire bucket: 16 tenants x 8,192 grid pods
+             deferred into one pump, one [16, Gp, W] stack crossing the wire
+             and one launch each of batched B0 and B on the server,
+             SolveOutputs equal to an in-process batched service's, batched
+             B0/B equal to their plain versions at that stack. Bench c18's
+             drills, fed_flap and fed_server_restart at seed 0, twice each:
+             repeat-equal, the reference's digests and findings, the
+             restart's digests those of its in-process arm, no stale frame
+             decoded, at least one rejoin. Then `python -m
+             karpenter_tpu_torch.federation.server` in a subprocess (READY
+             <port>), `python -m karpenter_tpu_torch.fleet federation_smoke
+             --federate --server-addr` against it (exit 0, the in-process
+             run's fleet hash), a client living across a kill and a restart
+             with --generation 2 (one generation change, one re-handshake,
+             the catalog re-uploaded once, 0 failures), the fleet CLI again.
+             Prints c17's and c18's keys and the server's B0/B launches.
   5. time    median wall times of the solve and the screen, stage by stage;
              per-kernel device time from torch.profiler and CUDA events
              beside its bound, its plain version's time and one torch
@@ -207,8 +232,9 @@ and its times at a full-size input (A: the main path's screen; B0, B: the
 facade's solve; C: the operator loop's first subset search); `by_phase`
 holds each phase's launches (the main path, the facade, the operator, the
 optimizer, the chaos phase, the fleet runner, the warm path, the soak,
-the operator shell and, for B0 and B, the fleet's batched rounds and
-the soak's launches in batched buckets) and times (the
+the operator shell, the federation phase and, for B0 and B, the fleet's
+batched rounds, the soak's launches in batched buckets and the federation
+server's launches) and times (the
 fleet's at its wide bucket: 16 requests in one launch). Its resident_patch
 row is the row scatter of ops/resident (the port of the reference's
 _jit_scatter, a library index_copy_): launches from phase 4h, times at the
@@ -1326,9 +1352,10 @@ def phase_operator(dev):
 
 # --- the optimizer phase: bench c14's procedure on the card ---------------
 
-# the larger squeeze fleet: 96 nodes (24 tiles, 192 nodes, took 253 s of
-# the script's wall on one H100; PERF.md)
-OPT_TILES = 12
+# the larger squeeze fleet: 64 nodes, cut from 24 tiles (192 nodes took
+# 253 s of the script's wall on one H100) and then from 12 (128 s for the
+# three runs) to leave room for the federation phase; PERF.md §4
+OPT_TILES = 8
 OPT_RUN_S = 900.0       # sim seconds a measurement runs (bench c14's)
 # c14 at 2 tiles at the reference's default, delta plane armed: the subsets
 # scored, savings and joint consolidations that
@@ -2169,32 +2196,52 @@ def phase_chaos() -> dict:
 FLEET_RUNNER_TENANTS = 50   # `make fleet` runs fleet_smoke at 50 tenants
 
 
-def fleet_run(name: str, **kw) -> tuple:
+def fleet_findings(runner) -> dict:
+    """(invariant, severity) -> count over the fleet watchdog and every
+    shard's (tools/ref_findings.py counts the reference's the same way)."""
+    out: dict = {}
+    for wd in [runner.watchdog] + [s.sim.watchdog for s in runner.shards]:
+        for f in wd.findings:
+            out[(f.invariant, f.severity)] = out.get(
+                (f.invariant, f.severity), 0) + 1
+    return out
+
+
+def fleet_run(name: str, want_findings=None,
+              wire_weather: bool = False, tag: str = "fleet-runner",
+              **kw) -> tuple:
     """(report, runner, wall ms) of one FleetRunner run on the card with
     the sequences restarted; its report must be ok and nothing may have
-    degraded (device fallbacks, fault_fallback buckets, integrity flags)."""
+    degraded (device fallbacks, integrity flags, fault_fallback buckets
+    unless `wire_weather`: a dead wire re-runs its bucket's tickets
+    through their facades), and its watchdogs must fire the reference's
+    CPU run's findings: none, or `want_findings`. Logs the run's B0 and B
+    launches; the kernels' counters are never reset here."""
     from karpenter_tpu_torch.fleet import FleetRunner
     from karpenter_tpu_torch.ops import solve_scan as ss
     reset_sequences()
     c0 = counter_totals()
-    ss.launches = ss.offer_launches = 0
+    b0, b = ss.offer_launches, ss.launches
     t0 = time.perf_counter()
     runner = FleetRunner(name, **kw)
     rep = runner.run()
     wall = (time.perf_counter() - t0) * 1e3
     delta = tuple(b - a for a, b in zip(c0, counter_totals()))
-    check(rep.ok, f"fleet {name} {kw}: {rep.summary()}")
-    check(delta == (0, 0, 0, 0), f"fleet {name} {kw}: fallbacks / optimizer "
-          f"fallbacks / integrity flags / fault_fallbacks {delta}")
-    # the fleet watchdog over the shared service and every shard's own:
-    # the reference's CPU runs of the fleet catalog fire none
-    check(rep.stats["watchdog_findings"] == 0
-          and runner.watchdog.verdict() == "ok",
-          f"fleet {name} {kw}: watchdog findings "
-          f"{rep.stats['watchdog_findings']:g}, fleet verdict "
-          f"{runner.watchdog.verdict()}")
+    what = {k: v for k, v in kw.items() if k != "service_factory"}
+    check(rep.ok, f"fleet {name} {what}: {rep.summary()}")
+    check(delta[:3] == (0, 0, 0) and (wire_weather or delta[3] == 0),
+          f"fleet {name} {what}: fallbacks / optimizer fallbacks / "
+          f"integrity flags / fault_fallbacks {delta}")
+    want = want_findings or {}
+    got = fleet_findings(runner)
+    check(got == want, f"fleet {name} {what}: watchdog findings {got}, the "
+          f"reference's CPU run's {want}")
     st = rep.stats
-    log(f"[fleet-runner] {name} {kw}: tenants {rep.tenants}, wall "
+    fed = (f", wire buckets {st['federated_wire_buckets']:g}, local "
+           f"buckets {st['federated_local_buckets']:g}, wire failures "
+           f"{st['federated_wire_failures']:g}, fault_fallbacks "
+           f"{delta[3]:g}" if "federated_wire_buckets" in st else "")
+    log(f"[{tag}] {name} {what}: tenants {rep.tenants}, wall "
         f"{wall:.1f} ms, sim {rep.sim_seconds:g} s; solves_dispatched "
         f"{st['solves_dispatched']:g}, solve_batches "
         f"{st.get('solve_batches', 0):g}, batched_tickets "
@@ -2203,8 +2250,9 @@ def fleet_run(name: str, **kw) -> tuple:
         f"pipeline_overlap_ratio {st.get('pipeline_overlap_ratio', '-')}, "
         f"slo_alerts {st['slo_alerts']:g}, watchdog_findings "
         f"{st['watchdog_findings']:g}, faults_injected "
-        f"{st['faults_injected']:g}; B0 / B launches {ss.offer_launches} / "
-        f"{ss.launches}; fleet hash {rep.fleet_hash[:16]}")
+        f"{st['faults_injected']:g}{fed}; B0 / B launches "
+        f"{ss.offer_launches - b0} / {ss.launches - b}; fleet hash "
+        f"{rep.fleet_hash[:16]}, wire {rep.wire_fingerprint[:16] or '-'}")
     return rep, runner, wall
 
 
@@ -2223,7 +2271,7 @@ def phase_fleet_runner() -> dict:
                               "tournament"), 0)
 
     def run(name, **kw):
-        sk.launches = tk.launches = 0
+        sk.launches = tk.launches = ss.launches = ss.offer_launches = 0
         out = fleet_run(name, **kw)
         for k, n in (("screen_k", sk.launches), ("tournament", tk.launches),
                      ("offer_argmin", ss.offer_launches),
@@ -3037,6 +3085,414 @@ def phase_shell(soak_digests: dict) -> dict:
     return launches
 
 
+# --- phase 4l: the federation plane — bench c17 and c18 on the card --------
+
+FED_PROCS = 3            # c17's fleet processes sharing one server (bench.py:1178)
+FED_TENANTS = 40         # tenants a process: c17's 120 on an attached slice
+#                          (bench.py:1180); never cut
+FED_DRILLS = ("fed_flap", "fed_server_restart")   # c18's drills (bench.py:1260)
+FED_WIDE = 16            # tenants of one full wire bucket (SolverService.MAX_BATCH)
+FED_WIDE_PODS = 8_192    # grid pods a tenant (seed = the tenant's index)
+FED_READY_TIMEOUT = 120  # seconds for the subprocess server's READY line
+FED_CLI_TIMEOUT = 300    # seconds for one `python -m karpenter_tpu_torch.fleet`
+# The reference's CPU run of the same procedures (`JAX_PLATFORMS=cpu python3
+# tools/ref_findings.py federation karpenter_tpu device`): the fleet hash,
+# fleet fingerprint and wire fingerprint of c17 (every process's, equal),
+# of each drill and of the fleet CLI's `federation_smoke --federate` (8
+# tenants), each run's watchdog findings (invariant, severity) -> count,
+# and c17's server stats
+FED_REF = {
+    "c17": ("168fab903e75c4634b8934719e3263fc96ee20b68058c131fe7bffb27dfa64b9",
+            "03dc7a643a0419498ef45dfd0bdfa232caa25887ead1ef472a6e1ff5822ba14a",
+            "", {}),
+    "fed_flap": (
+        "bb41aa378e4bd5238efa3775f5d4e8deb9907f7871e65f78adfe5218c42769e8",
+        "e4c33136ea9afe1ab92807915b8df835de73586b4e5e29753254228413d18126",
+        "a91ee0cc3753cda52b6e3c4db11924352d502aca9dd070ea2b4840647ed1354d",
+        {("federation_degraded", "warning"): 1}),
+    "fed_server_restart": (
+        "bb41aa378e4bd5238efa3775f5d4e8deb9907f7871e65f78adfe5218c42769e8",
+        "e4c33136ea9afe1ab92807915b8df835de73586b4e5e29753254228413d18126",
+        "a74bb3e4e2a4105d13d6c1d685f88045b97fc03673b51b338223edd142b0b2e4",
+        {}),
+    "cli": ("faa1521bb81124e63a85d40210c6dcc7c36886f10ff513d20351c18127e4d352",
+            "e4c33136ea9afe1ab92807915b8df835de73586b4e5e29753254228413d18126",
+            "", {}),
+}
+# c17's server: the shards solve synchronously (each tick pumps its own
+# solve), so every one of the 333 buckets carries one request, as in the
+# reference; FED_WIDE's deferred pump is the full bucket
+FED_REF_C17_SERVER = {"catalog_uploads": 1, "buckets": 333, "rows": 333,
+                      "padded_rows": 333, "max_bucket_rows": 1,
+                      "unknown_token": 0, "restarts": 0}
+
+
+def fed_digest(rep) -> tuple:
+    return rep.fleet_hash, rep.fleet_fingerprint, rep.wire_fingerprint
+
+
+def fed_stats(rep) -> tuple:
+    """A report's digests, per-tenant digests and stats but those read
+    on the host clock: what a repeat must reproduce."""
+    return (fed_digest(rep), rep.tenant_hashes, rep.tenant_fingerprints,
+            {k: v for k, v in rep.stats.items()
+             if k not in ("aggregate_solves_per_wall_sec",
+                          "pipeline_overlap_ratio")})
+
+
+class ServerLaunches:
+    """Counts kernel B0's and B's launches inside the federation server's
+    solve_bucket RPC (the server's share of the phase's launches), by
+    wrapping SolverServer._rpc_solve_bucket."""
+
+    def __enter__(self):
+        from karpenter_tpu_torch.federation.server import SolverServer
+        from karpenter_tpu_torch.ops import solve_scan as ss
+        self.cls, self.real = SolverServer, SolverServer._rpc_solve_bucket
+        self.offer_argmin = self.solve_scan = self.buckets = 0
+        watch = self
+
+        def counted(srv, payload):
+            b0, b = ss.offer_launches, ss.launches
+            try:
+                return watch.real(srv, payload)
+            finally:
+                watch.offer_argmin += ss.offer_launches - b0
+                watch.solve_scan += ss.launches - b
+                watch.buckets += 1
+        SolverServer._rpc_solve_bucket = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._rpc_solve_bucket = self.real
+
+
+def _ready_port(proc, timeout: float) -> int:
+    """The port of a federation server subprocess's `READY <port>` line."""
+    import select
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    line = proc.stdout.readline().strip() if ready else ""
+    check(line.startswith("READY "), f"federation server printed {line!r} "
+          f"(exit {proc.poll()}) within {timeout} s, not READY <port>")
+    return int(line.split()[1])
+
+
+def _stop(proc) -> None:
+    if proc is None or proc.poll() is not None:
+        return
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def phase_federation() -> tuple:
+    """The federation plane on the card. Bench c17's procedure: FED_PROCS
+    processes x FED_TENANTS tenants of federation_smoke at seed 0, every
+    bucket crossing the in-memory wire to one SolverServer on the card;
+    each process's digests equal the reference's CPU run's, an in-process
+    device run's and a native run's; no wire failure, no local bucket,
+    catalog uploads <= the distinct views, the server's stats the
+    reference's. One full wire bucket: FED_WIDE tenants x FED_WIDE_PODS
+    grid pods on the 810-type catalog deferred into one pump, so one
+    [16, Gp, W] stack crosses the wire; its SolveOutputs equal an
+    in-process batched service's. Bench c18's drills (fed_flap,
+    fed_server_restart) twice each: repeat-equal, the reference's digests
+    and findings, the restart's digests those of its in-process arm, no
+    stale frame decoded. The process boundary: `python -m
+    karpenter_tpu_torch.federation.server` in a subprocess, `python -m
+    karpenter_tpu_torch.fleet federation_smoke --federate --server-addr`
+    against it (exit 0, the in-process run's digests), a client living
+    across a kill and a restart with --generation 2, the fleet CLI again.
+    Then batched B0 and B against their plain versions at the wire
+    bucket's stack. Returns (launches, the server's B0/B launches, c17's
+    keys, c18's keys)."""
+    from karpenter_tpu_torch import catalog, models
+    from karpenter_tpu_torch.catalog import CatalogProvider
+    from karpenter_tpu_torch.federation import build_federated_service
+    from karpenter_tpu_torch.federation import server as fed_server
+    from karpenter_tpu_torch.metrics import (FEDERATION_RPCS,
+                                             FEDERATION_WIRE_BYTES)
+    from karpenter_tpu_torch.models.nodepool import NodePool
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    from karpenter_tpu_torch.ops import resident, screen_k as sk
+    from karpenter_tpu_torch.ops import solve_scan as ss, solver
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    sk.launches = tk.launches = ss.launches = ss.offer_launches = 0
+    r0 = resident.launches
+    srvl = ServerLaunches().__enter__()
+    try:
+        # --- c17: 3 processes x 40 tenants, one server on the card ---
+        wire0 = (FEDERATION_WIRE_BYTES.value(direction="sent")
+                 + FEDERATION_WIRE_BYTES.value(direction="received"))
+        srv = fed_server.SolverServer(run_id="bench-c17")
+        fed_reps, disp, tens, wall17, views = [], 0.0, 0, 0.0, 0
+        t17 = time.perf_counter()
+        for p in range(FED_PROCS):
+            def factory(clock, kw, _proc=f"p{p:03d}"):
+                return build_federated_service(
+                    clock, run_id="bench-c17", process=_proc,
+                    shared_server=srv, **kw)
+            rep, runner, wall = fleet_run(
+                "federation_smoke", FED_REF["c17"][3], tag="federation",
+                tenants=FED_TENANTS, seed=SEED, backend="device",
+                service_factory=factory)
+            fs = runner.service.federation_state()
+            check(fs["failures"] == 0 and fs["local_buckets"] == 0
+                  and fs["wire_buckets"] > 0 and fs["stale_decoded"] == 0,
+                  f"c17 process p{p:03d}: wire failures {fs['failures']}, "
+                  f"local buckets {fs['local_buckets']}, wire buckets "
+                  f"{fs['wire_buckets']}")
+            fed_reps.append(rep)
+            disp += float(runner.service.stats["dispatched"])
+            tens += (runner.service.fed.stats["tensor_bytes_sent"]
+                     + runner.service.fed.stats["tensor_bytes_received"])
+            views = max(views, int(rep.stats["catalog_views_minted"]))
+            wall17 += wall / 1e3
+        c17_ms = (time.perf_counter() - t17) * 1e3
+        wire = (FEDERATION_WIRE_BYTES.value(direction="sent")
+                + FEDERATION_WIRE_BYTES.value(direction="received") - wire0)
+        local, native = (fleet_run(
+            "federation_smoke", tag="federation", tenants=FED_TENANTS,
+            seed=SEED, backend=backend)[0] for backend in ("device",
+                                                           "native"))
+        for rep in fed_reps:
+            check(rep.tenant_hashes == local.tenant_hashes == \
+                  native.tenant_hashes
+                  and rep.tenant_fingerprints == local.tenant_fingerprints
+                  == native.tenant_fingerprints,
+                  "c17: federated per-tenant digests != in-process device "
+                  "!= native")
+            check(fed_digest(rep) == FED_REF["c17"][:3],
+                  f"c17: digests {fed_digest(rep)}, the reference's "
+                  f"{FED_REF['c17'][:3]}")
+        st17 = {k: srv.stats[k] for k in FED_REF_C17_SERVER}
+        check(st17 == FED_REF_C17_SERVER, f"c17 server stats {st17}, the "
+              f"reference's {FED_REF_C17_SERVER}")
+        check(srv.stats["catalog_uploads"] <= views,
+              f"c17: {srv.stats['catalog_uploads']} catalog uploads for "
+              f"{views} distinct views")
+        c17 = {"c17_fleet_settled": all(r.ok for r in fed_reps),
+               "c17_federated_solves_per_sec": round(disp / wall17, 1),
+               "c17_catalog_uploads_per_cluster":
+                   int(srv.stats["catalog_uploads"]),
+               "c17_wire_overhead_frac": round(1.0 - tens / wire, 4),
+               "c17_mesh_batch_capacity": int(srv.stats["max_bucket_rows"]),
+               "c17_wire_buckets": int(srv.stats["buckets"]),
+               "c17_wall_ms": round(c17_ms, 1)}
+        log(f"[federation] c17 ({FED_PROCS} processes x {FED_TENANTS} "
+            f"tenants, one server on the card): {json.dumps(c17)}; server "
+            f"stats {srv.stats}; wire {int(wire)} B for {tens} tensor B")
+
+        # --- one full wire bucket: 16 tenants deferred into one pump ---
+        types = catalog.generate_catalog()
+        pool = NodePool(name="default")
+        wide = [grid_pods(models, FED_WIDE_PODS, t) for t in range(FED_WIDE)]
+        reset_sequences()
+        srv_w = fed_server.SolverServer(run_id="fed-wide")
+        svc_w = build_federated_service(
+            FakeClock(), run_id="fed-wide", process="p100",
+            shared_server=srv_w, backend="device", batch=True)
+        cl_w = [svc_w.register(f"t{t:03d}", CatalogProvider(lambda: types))
+                for t in range(FED_WIDE)]
+        b0w, bw = srvl.offer_argmin, srvl.solve_scan
+        with Recorder(fed_server, "dispatch_packed") as rec_stack, \
+                Recorder(solver, "solve_scan_batched") as rec_scan:
+            got = batched_round(svc_w, cl_w, wide, pool)
+        wide_server = (srvl.offer_argmin - b0w, srvl.solve_scan - bw)
+        fs = svc_w.federation_state()
+        check(srv_w.stats["buckets"] == 1
+              and srv_w.stats["max_bucket_rows"] == FED_WIDE
+              and fs["wire_buckets"] == 1 and fs["wire_tickets"] == FED_WIDE
+              and fs["failures"] == 0 and wide_server == (1, 1),
+              f"full wire bucket: server stats {srv_w.stats}, client "
+              f"{fs}, server B0/B launches {wide_server}")
+        reset_sequences()
+        svc_l, cl_l = fleet_service("device", True, FED_WIDE, types)
+        want = batched_round(svc_l, cl_l, wide, pool)
+        check(got == want, "full wire bucket: SolveOutputs differ from the "
+              "in-process batched service's")
+        (gstack, conf, *_), _ = rec_stack.calls[0]
+        log(f"[federation] full wire bucket: {FED_WIDE} tenants x "
+            f"{FED_WIDE_PODS} grid pods, one stack {list(gstack.shape)} f32"
+            f" ({gstack.nbytes} B) and conflict stack "
+            f"{None if conf is None else list(conf.shape)} over the wire, "
+            f"one B0 and one B launch on the server; SolveOutputs equal the "
+            f"in-process batched service's; server stats {srv_w.stats}")
+
+        # --- c18: the wire-weather and crash-restart drills, twice each ---
+        rpc0 = FEDERATION_RPCS.sum()
+        t18 = time.perf_counter()
+        c18_runs = {}
+        for name in FED_DRILLS:
+            want_d = FED_REF[name]
+            runs = [fleet_run(name, want_d[3],
+                              wire_weather=name == "fed_flap",
+                              tag="federation", seed=SEED)
+                    for _ in range(2)]
+            for rep, runner, _ in runs:
+                fs = runner.service.federation_state()
+                check(fed_digest(rep) == want_d[:3] and fs["stale_decoded"] == 0,
+                      f"c18 {name}: digests {fed_digest(rep)}, the "
+                      f"reference's {want_d[:3]}; stale_decoded "
+                      f"{fs['stale_decoded']}")
+            a, b = (fed_stats(r[0]) for r in runs)
+            check(a == b, f"c18 {name}: the repeat differs: {a} != {b}")
+            c18_runs[name] = runs
+        c18_ms = (time.perf_counter() - t18) * 1e3
+        attempts = FEDERATION_RPCS.sum() - rpc0
+        retries = sum(r[1].service.federation_state()["retries"]
+                      for runs in c18_runs.values() for r in runs)
+        fed_rst = c18_runs["fed_server_restart"][0][0]
+        arm = fleet_run("fed_server_restart", tag="federation", seed=SEED,
+                        federate=False)[0]
+        check(arm.tenant_hashes == fed_rst.tenant_hashes
+              and arm.tenant_fingerprints == fed_rst.tenant_fingerprints,
+              "c18 fed_server_restart: federated digests != its in-process "
+              "arm's")
+        flap, rst = (c18_runs[n][0][1].service.federation_state()
+                     for n in FED_DRILLS)
+        check(flap["rejoins"] + rst["rejoins"] >= 1
+              and rst["failures"] == 0 and rst["generation_changes"] == 1,
+              f"c18: rejoins {flap['rejoins']} + {rst['rejoins']}, restart "
+              f"failures {rst['failures']}, generation changes "
+              f"{rst['generation_changes']}")
+        c18 = {"c18_fleet_settled": True,
+               "c18_rejoin_ms": round(float(flap["last_rejoin_ms"]), 3),
+               "c18_retry_frac": (round(retries / attempts, 4)
+                                  if attempts else 0.0),
+               "c18_restart_reupload_bytes": int(rst["reupload_bytes"]),
+               "c18_generation_changes": int(rst["generation_changes"]),
+               "c18_rejoins": int(flap["rejoins"] + rst["rejoins"]),
+               "c18_wall_ms": round(c18_ms / 2, 1)}
+        log(f"[federation] c18 (each drill twice; wall a pass): "
+            f"{json.dumps(c18)}")
+
+        # --- the process boundary: a server subprocess on the card ---
+        cli_want = fleet_run("federation_smoke", tag="federation",
+                             seed=SEED, backend="device")[0]
+        check(fed_digest(cli_want) == FED_REF["cli"][:3],
+              f"federation_smoke in process: {fed_digest(cli_want)}, the "
+              f"reference's federated {FED_REF['cli'][:3]}")
+        server_cmd = [sys.executable, "-m",
+                      "karpenter_tpu_torch.federation.server",
+                      "--run-id", "fed-cli"]
+        log_dir = os.path.join(root, "build", "federation")
+        os.makedirs(log_dir, exist_ok=True)
+        proc = None
+        try:
+            def spawn(port: int, generation: int):
+                err = open(os.path.join(log_dir, f"server-gen{generation}"
+                                                 f".log"), "w")
+                p = subprocess.Popen(
+                    server_cmd + ["--port", str(port), "--generation",
+                                  str(generation)],
+                    stdout=subprocess.PIPE, stderr=err, text=True, cwd=root)
+                err.close()
+                return p
+
+            def fleet_cli(port: int, what: str) -> float:
+                t0 = time.perf_counter()
+                out = subprocess.run(
+                    [sys.executable, "-m", "karpenter_tpu_torch.fleet",
+                     "federation_smoke", "--federate", "--server-addr",
+                     f"127.0.0.1:{port}"], capture_output=True, text=True,
+                    timeout=FED_CLI_TIMEOUT, cwd=root)
+                wall = time.perf_counter() - t0
+                check(out.returncode == 0, f"fleet CLI {what} exited "
+                      f"{out.returncode}: {out.stdout[-2000:]} "
+                      f"{out.stderr[-2000:]}")
+                got = dict(line.strip().split("=", 1)
+                           for line in out.stdout.splitlines()
+                           if line.strip().startswith(
+                               ("fleet_hash=", "federated_wire_buckets=",
+                                "federated_wire_failures=")))
+                check(got.get("fleet_hash") == cli_want.fleet_hash
+                      and float(got.get("federated_wire_buckets", 0)) > 0
+                      and float(got.get("federated_wire_failures", 1)) == 0,
+                      f"fleet CLI {what}: printed {got}, the in-process "
+                      f"run's fleet hash {cli_want.fleet_hash}")
+                log(f"[federation] python -m karpenter_tpu_torch.fleet "
+                    f"federation_smoke --federate --server-addr "
+                    f"127.0.0.1:{port} ({what}): exit 0 in {wall:.1f} s, "
+                    f"fleet hash {got['fleet_hash'][:16]} (the in-process "
+                    f"run's), wire buckets {got['federated_wire_buckets']}")
+                return wall
+
+            t0 = time.perf_counter()
+            proc = spawn(0, 1)
+            port = _ready_port(proc, FED_READY_TIMEOUT)
+            ready_s = time.perf_counter() - t0
+            fleet_cli(port, "generation 1")
+            with env_set(KARPENTER_TPU_DELTA=0):
+                svc_h = build_federated_service(
+                    FakeClock(), server_addr=f"127.0.0.1:{port}",
+                    run_id="fed-regen", backend="device", batch=True)
+                small = catalog.small_catalog()
+                ch = svc_h.register("a", CatalogProvider(lambda: small))
+                burst = [models.Pod(name=f"w0-{i}", requests=models.Resources
+                                    .parse({"cpu": "500m", "memory": "1Gi"}))
+                         for i in range(4)]
+                t = ch.solve_async(burst, pool)
+                svc_h.pump()
+                check(bool(t.result().launches) and svc_h.fed._server_gen == 1,
+                      "HTTP client: the first solve failed")
+                up0 = svc_h.fed.stats["uploads"]
+                _stop(proc)
+                proc = spawn(port, 2)
+                _ready_port(proc, FED_READY_TIMEOUT)
+                t = ch.solve_async([models.Pod(
+                    name=f"w1-{i}", requests=models.Resources.parse(
+                        {"cpu": "500m", "memory": "1Gi"})) for i in range(4)],
+                    pool)
+                svc_h.pump()
+            cs, fs = svc_h.fed.stats, svc_h.federation_state()
+            check(bool(t.result().launches) and svc_h.fed._server_gen == 2
+                  and cs["generation_changes"] == 1
+                  and cs["rehandshakes"] == 1 and cs["uploads"] == up0 + 1
+                  and cs["reupload_bytes"] > 0
+                  and cs["stale_decoded"] == 0 and fs["failures"] == 0,
+                  f"HTTP client across the restart: generation "
+                  f"{svc_h.fed._server_gen}, stats {cs}, failures "
+                  f"{fs['failures']}")
+            log(f"[federation] server subprocess READY in {ready_s:.1f} s; "
+                f"a client across kill + restart --generation 2: generation "
+                f"changes 1, re-handshakes 1, the catalog re-uploaded once "
+                f"({cs['reupload_bytes']} B), stale decoded 0, wire "
+                f"failures 0")
+            fleet_cli(port, "generation 2")
+        finally:
+            _stop(proc)
+    finally:
+        srvl.__exit__(None, None, None)
+    launches = {"screen_k": sk.launches, "offer_argmin": ss.offer_launches,
+                "solve_scan": ss.launches, "tournament": tk.launches,
+                "resident_patch": resident.launches - r0}
+    server = {"offer_argmin": srvl.offer_argmin,
+              "solve_scan": srvl.solve_scan, "buckets": srvl.buckets}
+    check(launches["offer_argmin"] > 0 and launches["solve_scan"] > 0
+          and server["offer_argmin"] > 0 and server["solve_scan"] > 0,
+          f"the federation phase launched no batched solve on the server: "
+          f"{launches}, server {server}")
+
+    # --- batched B0 and B against their plain versions at the wire stack ---
+    (sargs, skw), = rec_scan.calls[:1]
+    check_batched(ss, sargs, skw, "the full wire bucket")
+    log(f"[check] federation: c17 x{FED_PROCS} processes == in-process == "
+        f"native == the reference's digests, 0 wire failures, 0 local "
+        f"buckets; one {FED_WIDE}-row wire bucket == in-process; c18 "
+        f"drills repeat-equal with the reference's digests; the subprocess "
+        f"server answered the fleet CLI across a restart; batched B0/B == "
+        f"plain at the wire stack; launches {launches}, of them on the "
+        f"server {server}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, server, c17, c18
+
+
 # --- phase 4h: the delta plane and the device-resident state on the card --
 
 PATCH_FRACTIONS = (0.01, 0.10, 0.60)   # of the facade mix's encoded groups
@@ -3830,6 +4286,12 @@ def main() -> None:
     # counts zeroed just before the Runtime starts ---
     shell_launches = counted("shell", phase_shell, soak_digests)
 
+    # --- 4l. the federation plane: bench c17 and c18 through the port's
+    # SolverServer on the card, counts zeroed at the phase's start ---
+    fed_launches, fed_server_launches, _, _ = counted("federation",
+                                                      phase_federation)
+    scatter["federation"] = fed_launches["resident_patch"]
+
     # --- 5. times ---
     solve_ms = wall_ms(lambda: solver.solve_device(cat, enc), 5)
     screen_ms = wall_ms(lambda: consolidate.consolidation_screen(
@@ -3926,6 +4388,11 @@ def main() -> None:
             by_phase[k]["soak"]["batched_launches"] = \
                 soak_launches["batched_buckets"]
         by_phase[k]["shell"] = {"launches": shell_launches[k]}
+        by_phase[k]["federation"] = {"launches": fed_launches[k]}
+        if k in ("offer_argmin", "solve_scan"):
+            # the server's share: one batched launch of each per bucket
+            by_phase[k]["federation"]["server_launches"] = \
+                fed_server_launches[k]
     by_phase["tournament"]["grid"] = c_grid
     by_phase["tournament"]["optimizer"] = {
         "launches": opt_launches["tournament"]}

@@ -19,8 +19,9 @@ The port's own copy of `karpenter_tpu/faults/injector.py`:
 ICE windows and clock jumps need no adapter here: FakeCloud._launch_one
 and FakeClock.now() consult the plan/jump list directly (nil-guarded).
 `corruption_fault_hook` arms `ops/solver.set_corruption_hook` with the
-plan's `on_corruption`. The wire seams raise NotImplementedError when a
-plan would arm them (ROADMAP item 12).
+plan's `on_corruption`. `wire_fault_hook` (count-based) and
+`wire_fault_plan_hook` (a plan's WireFault rules) arm the federation
+transport's request and reply seams (`federation/transport.py`).
 """
 
 from __future__ import annotations
@@ -181,26 +182,51 @@ def fleet_device_fault_hook(plans: dict):
         solver_mod.set_dispatch_fault_hook(None)
 
 
-def _no_wire_plane(what: str):
-    return NotImplementedError(
-        f"{what}: the federation transport is not ported to "
-        f"karpenter_tpu_torch yet (ROADMAP item 12)")
-
-
+@contextlib.contextmanager
 def wire_fault_hook(fail_methods=("solve_bucket",), after: int = 0,
                     error: Optional[type] = None):
-    """The reference arms the federation transport's count-based wire
-    seam here; the transport is not ported, so arming it raises."""
-    raise _no_wire_plane("wire_fault_hook")
+    """Arm the federation transport's wire-fault seam: RPCs whose method
+    is in `fail_methods` raise after `after` successful probes of those
+    methods — `after=0` kills the first matching call (the mid-solve
+    server-crash drill: the client's degrade ladder must host-solve the
+    bucket, arm its cooldown, and trip the watchdog's
+    federation_degraded invariant). Raises ConnectionError by default —
+    exactly what a dead server produces at the socket. Always disarms
+    on exit, same leak-proofing contract as the other seams."""
+    from ..federation import transport as transport_mod
+    state = {"seen": 0}
+    err = error if error is not None else ConnectionError
+
+    def probe(method: str) -> None:
+        if method not in fail_methods:
+            return
+        state["seen"] += 1
+        if state["seen"] > after:
+            raise err(f"injected wire fault on {method} "
+                      f"(call {state['seen']})")
+
+    prev = transport_mod.set_wire_fault_hook(probe)
+    try:
+        yield state
+    finally:
+        transport_mod.set_wire_fault_hook(prev)
 
 
 @contextlib.contextmanager
 def wire_fault_plan_hook(plan: Optional[FaultPlan]):
-    """Arm both federation wire seams for the plan's WireFault rules —
-    in the port a plan WITH such rules raises (no transport to arm, and
-    a rule must never silently not fire); a plan without them is a
-    no-op, as in the reference."""
+    """Arm BOTH federation wire seams (pre-RPC request probe and the
+    reply-frame garbler) for the plan's WireFault rules — the seeded
+    counterpart of the count-based `wire_fault_hook` above, with every
+    firing recorded on the plan's canonical timeline so wire weather
+    rides the chaos fingerprints. Always disarms both seams on exit."""
+    from ..federation import transport as transport_mod
     if plan is None or not plan.has_wire_faults:
         yield
         return
-    raise _no_wire_plane("a FaultPlan with WireFault rules")
+    prev_req = transport_mod.set_wire_fault_hook(plan.on_wire)
+    prev_rep = transport_mod.set_wire_reply_hook(plan.on_wire_reply)
+    try:
+        yield
+    finally:
+        transport_mod.set_wire_fault_hook(prev_req)
+        transport_mod.set_wire_reply_hook(prev_rep)

@@ -17,10 +17,8 @@ Where the port differs from the reference:
   damages one row on the host and commits a NEW tensor on the same
   device, never the caller's in place (an aliased DeviceCatalog must not
   rot with it);
-- `WireFault` rules are kept and their seams (`on_wire`,
-  `on_wire_reply`) copied, but arming them on a transport raises
-  (`injector.wire_fault_plan_hook`): the federation plane is not ported
-  (item 12).
+- `WireFault` rules fire through the federation transport's seams
+  (`on_wire`, `on_wire_reply`; armed by `injector.wire_fault_plan_hook`).
 
 The hooks the plan drives are all nil-guarded at their call sites
 (`FakeCloud.fault_plan`, `ops.solver._dispatch_fault_hook`,

@@ -5,12 +5,16 @@
     python -m karpenter_tpu_torch.fleet fleet_noisy_neighbor --seed 7
     python -m karpenter_tpu_torch.fleet fleet_smoke --seeds 2 --repeat 2
     python -m karpenter_tpu_torch.fleet fleet_smoke --batch --device cpu
+    python -m karpenter_tpu_torch.fleet federation_smoke --federate \
+        --server-addr 127.0.0.1:<port>
 
 The port's copy of the reference's fleet CLI (`python -m
 karpenter_tpu.fleet`), plus `--device`: the service and the shards run on
 the CUDA card unless it names another (`--device cpu` runs the kernels'
-plain versions). `--federate` and `--server-addr` raise: the federation
-plane is not ported (ROADMAP item 12). Exit status is non-zero when any
+plain versions). `--federate` routes the batched buckets through the
+federation plane: an embedded `SolverServer` on the same device unless
+`--server-addr` dials one (`python -m
+karpenter_tpu_torch.federation.server`). Exit status is non-zero when any
 run fails its invariants or a repeat diverges.
 """
 
@@ -83,28 +87,59 @@ def main(argv=None) -> int:
                     help="torch device of the service and the shards "
                          "(default: the CUDA card)")
     ap.add_argument("--federate", action="store_true",
-                    help="not ported (ROADMAP item 12): raises")
+                    help="route batched buckets through the federation "
+                         "plane (karpenter_tpu_torch/federation): an "
+                         "embedded SolverServer behind an in-memory wire "
+                         "unless --server-addr dials a real one. Implies "
+                         "--batch and a device backend — per-tenant "
+                         "hashes and fingerprints must match the "
+                         "in-process run (the cross-process determinism "
+                         "contract)")
     ap.add_argument("--server-addr", default="",
-                    help="not ported (ROADMAP item 12): raises")
+                    help="host:port of a running federation solver "
+                         "server (python -m karpenter_tpu_torch."
+                         "federation.server); empty with --federate "
+                         "embeds one")
     args = ap.parse_args(argv)
 
-    if args.federate or args.server_addr:
-        raise NotImplementedError(
-            "--federate / --server-addr: the federation plane is not "
-            "ported to karpenter_tpu_torch yet (ROADMAP item 12)")
     if not args.scenario:
         for sc in FLEET_SCENARIOS.values():
             print(f"{sc.name} [{sc.tenants} tenants]: {sc.description}")
         return 0
 
     seeds = (list(range(args.seeds)) if args.seeds > 0 else [args.seed])
+    runner_kwargs = dict(tenants=args.tenants or None,
+                         backend=args.backend,
+                         batch=args.batch or None,
+                         inflight_cap=args.inflight_cap or None,
+                         journal_dir=args.journal_dir or None,
+                         device=args.device)
+    sc_meta = FLEET_SCENARIOS.get(args.scenario)
+    if args.federate and sc_meta is not None and sc_meta.federate \
+            and not args.server_addr:
+        # federate-by-default scenarios (fed_*) already build their own
+        # embedded server inside FleetRunner — and must, so mid-run
+        # actuators (the fed_server_restart drive hook) can reach it.
+        # --federate is then redundant; a --server-addr still overrides.
+        pass
+    elif args.federate:
+        from ..federation import build_federated_service
+        # federation only engages for device-batchable buckets: a host
+        # backend would stage nothing for the wire and silently test the
+        # local path, so --federate picks device unless overridden
+        if args.backend == "host":
+            runner_kwargs["backend"] = "device"
+        runner_kwargs["batch"] = True
+
+        def service_factory(clock, kw,
+                            _addr=args.server_addr, _sc=args.scenario):
+            # run_id from scenario name, never wall clock: envelopes
+            # must be byte-identical across seeded repeats
+            return build_federated_service(clock, server_addr=_addr,
+                                           run_id=f"fed-{_sc}", **kw)
+        runner_kwargs["service_factory"] = service_factory
     failed = run_matrix(args.scenario, seeds, repeat=args.repeat,
-                        tenants=args.tenants or None,
-                        backend=args.backend,
-                        batch=args.batch or None,
-                        inflight_cap=args.inflight_cap or None,
-                        journal_dir=args.journal_dir or None,
-                        device=args.device)
+                        **runner_kwargs)
     return 1 if failed else 0
 
 

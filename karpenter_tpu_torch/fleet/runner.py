@@ -1,11 +1,12 @@
 """FleetRunner: drive N tenant shards through one process and judge them.
 
 The port's own copy of `karpenter_tpu/fleet/runner.py`. The service is the
-port's `SolverService` on `device=` (the CUDA card unless given) and the
-SLO engine, the explain recorder (`report.explain`), the fleet watchdog
-over the shared service and each shard's own watchdog ride every run, as
-in the reference. Not ported yet: federation (`federate` raises; ROADMAP
-item 12).
+port's `SolverService` on `device=` (the CUDA card unless given), or what
+`service_factory` builds (a `FederatedSolverService` whose buckets cross
+the wire); federated scenarios embed a `SolverServer` on the same device.
+The SLO engine, the explain recorder (`report.explain`), the fleet
+watchdog over the shared service and each shard's own watchdog ride every
+run, as in the reference.
 
 Modeled on `faults/runner.ScenarioRunner` (and the RestartRunner's
 build/drive/judge shape): build every shard on ONE FakeClock and ONE
@@ -103,6 +104,7 @@ class FleetRunner:
                  journal_dir: Optional[str] = None,
                  warmpath: Optional[bool] = None,
                  batch: Optional[bool] = None,
+                 service_factory=None,
                  federate: Optional[bool] = None,
                  device=None):
         self.scenario: FleetScenario = (
@@ -121,14 +123,23 @@ class FleetRunner:
         # identical armed or not (the chaos parity contract —
         # tests/test_fleet.py compares a run each way)
         self.batch = self.scenario.batch if batch is None else bool(batch)
-        # federate-by-default scenarios (fed_*) and federate=True route
-        # buckets through the federation plane, which is not ported
+        # federation seam: a callable (clock, service_kwargs) -> service
+        # replaces the in-process SolverService with e.g. a
+        # FederatedSolverService whose buckets cross the wire. The judge
+        # (hashes, fingerprints, invariants) is untouched — the
+        # cross-process determinism contract is asserted BY running the
+        # same scenario through both factories.
+        self.service_factory = service_factory
+        # federate-by-default scenarios (fed_*) build their own embedded
+        # server + factory in build(); federate=False forces the
+        # in-process arm of the same scenario (the parity drill)
         self.federate = (self.scenario.federate if federate is None
                          else bool(federate))
+        self.fed_server = None     # embedded SolverServer when federated
         self.device = device
         # FLEET-level wire FaultPlan (scenario.wire_rules): WireFault
-        # weather on ONE canonical timeline, seeded from the fleet seed —
-        # FleetReport.wire_fingerprint
+        # weather + drive-hook events on ONE canonical timeline, seeded
+        # from the fleet seed — FleetReport.wire_fingerprint
         self.wire_plan = None
         self.clock: Optional[FakeClock] = None
         self.service: Optional[SolverService] = None
@@ -142,24 +153,42 @@ class FleetRunner:
 
     def build(self) -> None:
         sc = self.scenario
-        if self.federate:
-            raise NotImplementedError(
-                f"fleet scenario {sc.name!r} routes its buckets through "
-                f"the federation plane, which is not ported to "
-                f"karpenter_tpu_torch yet (ROADMAP item 12); run it with "
-                f"federate=False for the in-process arm")
         self.clock = FakeClock()
         self.origin = self.clock.now()
+        if self.federate and self.service_factory is None:
+            # federate-by-default: embed one SolverServer on the runner's
+            # device that the runner can also actuate (the
+            # fed_server_restart drive hook reboots it) behind the
+            # in-memory wire. Federation engages only for device-
+            # batchable buckets, so force the same shape the CLI's
+            # --federate does.
+            from ..federation.server import SolverServer
+            self.batch = True
+            if self.backend == "host":
+                self.backend = "device"
+            self.fed_server = SolverServer(run_id=f"fed-{sc.name}",
+                                           device=self.device)
+
+            def _factory(clock, kw, _srv=self.fed_server,
+                         _sc=sc.name):
+                from ..federation import build_federated_service
+                return build_federated_service(
+                    clock, run_id=f"fed-{_sc}", shared_server=_srv, **kw)
+            self.service_factory = _factory
         if sc.wire_rules is not None:
             from ..faults.plan import FaultPlan
             self.wire_plan = FaultPlan(seed=self.seed,
                                        rules=sc.wire_rules())
             self.wire_plan.clock = self.clock
             self.wire_plan.origin = self.origin
-        self.service = SolverService(self.clock, backend=self.backend,
-                                     inflight_cap=self.inflight_cap,
-                                     quantum=sc.quantum, window=sc.window,
-                                     batch=self.batch, device=self.device)
+        service_kwargs = dict(backend=self.backend,
+                              inflight_cap=self.inflight_cap,
+                              quantum=sc.quantum, window=sc.window,
+                              batch=self.batch, device=self.device)
+        if self.service_factory is not None:
+            self.service = self.service_factory(self.clock, service_kwargs)
+        else:
+            self.service = SolverService(self.clock, **service_kwargs)
         self.shards = []
         for i in range(self.tenants):
             name = f"t{i:03d}"
@@ -271,6 +300,21 @@ class FleetRunner:
             stats["batched_tickets"] = float(svc.stats["batched_tickets"])
             stats["pipeline_overlap_ratio"] = round(
                 svc.pipeline_overlap_ratio(), 4)
+        fed_state = getattr(svc, "federation_state", None)
+        if fed_state is not None:
+            fs = fed_state()
+            stats["federated_wire_buckets"] = float(fs["wire_buckets"])
+            stats["federated_wire_tickets"] = float(fs["wire_tickets"])
+            stats["federated_local_buckets"] = float(fs["local_buckets"])
+            stats["federated_wire_failures"] = float(fs["failures"])
+            cstats = svc.fed.stats
+            stats["federation_catalog_uploads"] = float(cstats["uploads"])
+            stats["federation_announce_hits"] = float(
+                cstats["announce_hits"])
+            stats["federation_retries"] = float(cstats["retries"])
+            stats["federation_rejoins"] = float(fs["rejoins"])
+            stats["federation_generation_changes"] = float(
+                cstats["generation_changes"])
         if self.wire_plan is not None:
             stats["wire_faults_injected"] = float(
                 len(self.wire_plan.timeline))

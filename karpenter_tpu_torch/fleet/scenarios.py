@@ -1,8 +1,8 @@
 """Fleet scenario catalog — the port's copy of the reference's
 (`karpenter_tpu/fleet/scenarios.py`), every scenario unchanged. The
-fed_* scenarios federate by default and raise when run (the federation
-plane is ROADMAP item 12); `federation_smoke` runs in process, as it does
-in the reference without `--federate`.
+fed_* scenarios federate by default (an embedded `SolverServer` behind
+the in-memory wire); `federation_smoke` runs in process unless run with
+`--federate`, as in the reference.
 
 A FleetScenario describes a whole fleet: how many tenant shards, each
 tenant's workload (seeded from the tenant's OWN rng stream, so tenant

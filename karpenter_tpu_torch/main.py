@@ -11,8 +11,9 @@ point:
 
 The solver runs on the CUDA card unless `--device` names another
 (`Options.device`); without a card and without `--device` the device rung
-raises. `--federate` raises NotImplementedError: the federation plane is
-ROADMAP item 12.
+raises. `--fleet-tenants N --federate` routes the fleet's buckets through
+the federation plane (`--server-addr host:port` dials a running
+`python -m karpenter_tpu_torch.federation.server`).
 
 Wires options → providers (dependency order mirrors the reference's
 operator construction, pkg/operator/operator.go:127-199: pricing →
@@ -201,16 +202,27 @@ def run_fleet(opts: Options) -> int:
                    if opts.intent_journal_file else None)
     if journal_dir:
         os.makedirs(journal_dir, exist_ok=True)
+    backend = opts.solver_backend
+    batch = opts.fleet_batch or None
+    service_factory = None
     if opts.federate:
-        raise NotImplementedError(
-            "--federate routes the fleet's buckets through the federation "
-            "plane, which is not ported to karpenter_tpu_torch yet (ROADMAP "
-            "item 12); run the fleet without it for the in-process arm")
+        # federation only engages for device-batchable buckets: --federate
+        # implies the batched engine and a device backend unless the user
+        # picked a non-default backend explicitly
+        from .federation import build_federated_service
+        if backend == "host":
+            backend = "device"
+        batch = True
+
+        def service_factory(clock, kw, _addr=opts.server_addr):
+            return build_federated_service(clock, server_addr=_addr,
+                                           run_id="fed-fleet_smoke", **kw)
     runner = FleetRunner("fleet_smoke", tenants=opts.fleet_tenants,
-                         backend=opts.solver_backend,
+                         backend=backend,
                          inflight_cap=opts.fleet_inflight_cap,
                          journal_dir=journal_dir,
-                         batch=opts.fleet_batch or None,
+                         batch=batch,
+                         service_factory=service_factory,
                          device=opts.device or None)
     report = runner.run()
     print(report.summary())

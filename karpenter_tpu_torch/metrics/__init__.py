@@ -436,6 +436,75 @@ SLO_BURN_ALERTS = REGISTRY.counter(
     "so the alert arrives with its evidence",
     ("slo", "tenant"), label_defaults=_TENANT)
 
+# --- the federation plane (federation/) ---
+FEDERATION_RPCS = REGISTRY.counter(
+    "karpenter_tpu_federation_rpcs_total",
+    "Federation-plane RPCs issued by this process (federation/"
+    "transport.py), by method (handshake, has_catalog, put_catalog, "
+    "solve_bucket, report, healthz) and outcome: 'ok' = the server "
+    "answered, 'error' = a server-side refusal, 'transport' = the frame "
+    "never arrived or did not parse (timeout, dropped socket, corrupt "
+    "reply), 'stale' = the split-brain guard rejected a frame from a "
+    "superseded boot generation before decoding it",
+    ("method", "outcome"))
+FEDERATION_RETRIES = REGISTRY.counter(
+    "karpenter_tpu_federation_retries_total",
+    "In-place retry attempts the federation client spent on IDEMPOTENT "
+    "RPCs (handshake/has_catalog/report/healthz — solve_bucket never "
+    "blind-retries), by method. Each retry waits a seed-deterministic "
+    "full-jitter backoff (the cloud batcher's discipline); the bench's "
+    "c18_retry_frac is this over total RPC attempts",
+    ("method",))
+FEDERATION_BREAKER = REGISTRY.counter(
+    "karpenter_tpu_federation_breaker_total",
+    "Circuit-breaker transitions on the federation wire, by event: "
+    "'open' = a wire failure tripped the breaker (local dispatch "
+    "begins), 'probe_ok'/'probe_fail' = the cheap healthz probe issued "
+    "every FED_COOLDOWN buckets while open, 'half_open' = a clean probe "
+    "promoted the next bucket to a wire trial, 'rejoin' = the trial "
+    "succeeded and the wire is live again (latency in "
+    "federation_state's last_rejoin_ms — bench key c18_rejoin_ms)",
+    ("event",))
+FEDERATION_GENERATION = REGISTRY.counter(
+    "karpenter_tpu_federation_generation_total",
+    "Server boot-generation protocol events observed by a federation "
+    "client: 'observed_change' = a reply frame carried a NEWER "
+    "generation (the server restarted), 'rehandshake' = the recovery "
+    "re-negotiated schema + compress against the new boot, 'replayed' = "
+    "a frame the dying/rebooting boot refused was rebuilt and replayed "
+    "once post-recovery, 'stale_rejected' = the split-brain guard "
+    "refused a frame from an OLDER generation before decoding",
+    ("event",))
+FEDERATION_WIRE_BYTES = REGISTRY.counter(
+    "karpenter_tpu_federation_wire_bytes_total",
+    "Serialized federation payload bytes by direction ('sent' / "
+    "'received'), measured at the transport after JSON encoding — the "
+    "numerator of the bench's c17_wire_overhead_frac: wire bytes per "
+    "solve vs the tensor bytes the catalog-token protocol avoided "
+    "re-shipping",
+    ("direction",))
+FEDERATION_CATALOG = REGISTRY.counter(
+    "karpenter_tpu_federation_catalog_total",
+    "Cross-process catalog-token protocol events: 'announce_hit' = the "
+    "server already held the content-keyed view (zero tensor bytes "
+    "crossed), 'announce_miss' = the token was unknown, 'upload' = the "
+    "client shipped the catalog tensors. Steady state is one 'upload' "
+    "per catalog view per CLUSTER — every further process announces "
+    "into a hit (bench key c17_catalog_uploads_per_cluster)",
+    ("event",))
+FEDERATION_FALLBACKS = REGISTRY.counter(
+    "karpenter_tpu_federation_fallbacks_total",
+    "Buckets a federated client ran LOCALLY instead of over the wire, "
+    "by reason: 'error' = the solve RPC failed mid-flight (server "
+    "crash, transport drop — the bucket's tickets degrade through the "
+    "host-solve path exactly like a device fault), 'cooldown' = the "
+    "circuit breaker was open (or a manually-armed countdown active) "
+    "and the wire wasn't attempted — while open, a healthz probe every "
+    "FED_COOLDOWN buckets decides when to trial the wire again, "
+    "'no_token' = the bucket's catalog view carries no content token "
+    "so it cannot cross processes",
+    ("reason",))
+
 # --- the delta plane, the recompute and phase ledgers, and the device
 # telemetry plane (obs/profile, obs/recompute, obs/devicemem,
 # ops/delta, ops/resident) ---

@@ -942,11 +942,15 @@ class InFlightBatch:
     the batch holds its pinned upload buffers until then."""
 
     def __init__(self, reqs: List[BatchableSolve], packed,
-                 dispatched_at: float, event=None, keep: tuple = ()):
+                 dispatched_at: float, event=None, keep: tuple = (),
+                 group: Optional[int] = None):
         self.reqs = reqs
         self._packed = packed       # device int32 [Bp, L]
         self._event = event         # torch.cuda.Event after the launch
         self._keep = keep           # host buffers the uploads read from
+        # the residency-ledger group of the staged uploads: the batch owns
+        # it, unless a caller (the federation server) adopts it
+        self.group = group
         self.dispatched_at = dispatched_at
         self._buf: Optional[np.ndarray] = None
         self.wait_s = 0.0           # host time spent blocked on the device
@@ -1140,7 +1144,7 @@ def _launch_stack(reqs: List[BatchableSolve], gstack_np: np.ndarray,
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(dev))
     ifb = InFlightBatch(reqs, packed, time.perf_counter(), event=event,
-                        keep=keep)
+                        keep=keep, group=grp)
     # the in-flight batch OWNS the staged uploads and the pending packed
     # output: residency drops when it drains (block() frees _packed) or
     # when the batch object itself dies
@@ -1186,15 +1190,23 @@ def dispatch_batch(reqs: List[BatchableSolve], mesh=None,
 
 def dispatch_packed(gstack_np: np.ndarray, conf_np: Optional[np.ndarray],
                     dcat: DeviceCatalog, statics: dict, shape_class: str = "",
-                    mesh=None) -> InFlightBatch:
+                    mesh=None, resident_key: Optional[tuple] = None,
+                    token=None) -> InFlightBatch:
     """Dispatch an ALREADY-PACKED request stack ([B, Gp, W] f32, plus the
     [B, Gp, Gp] conflict stack when the statics track conflicts): the
     federation server's entry point, whose clients packed the rows on
     their own hosts. Returns the in-flight batch without blocking; its
     rows() are the packed [Bp, L] int32 to ship back, decoded by the
-    owning clients (`InFlightBatch.from_rows`)."""
+    owning clients (`InFlightBatch.from_rows`), and its `group` the
+    residency-ledger group of the staged uploads.
+
+    resident_key: route the stack through the device-resident manager
+    (the server's per-client-process key, with the catalog's content
+    token): a client whose tenant rows did not change between pumps
+    patches instead of re-shipping the stack to the card."""
     reject_mesh(mesh)
-    return _launch_stack([], gstack_np, conf_np, dcat, statics, shape_class)
+    return _launch_stack([], gstack_np, conf_np, dcat, statics, shape_class,
+                         resident_key=resident_key, token=token)
 
 
 def probe_dispatch_fault(backend: str) -> None:

@@ -45,6 +45,11 @@ ENV_KNOBS: tuple = (
     ("KARPENTER_TPU_DURATIONS", "<repo>/scale_durations.jsonl",
      "duration-event JSONL sink for the scale suite "
      "(metrics/durations.py, the Timestream analog)"),
+    ("KARPENTER_TPU_FED_TIMEOUT", "10",
+     "federation per-RPC wire deadline in seconds (federation/"
+     "transport.py) — every HTTP transport call and handshake respects "
+     "it; a timed-out RPC surfaces as a retryable ServerError and "
+     "feeds the client's retry/breaker ladder"),
     ("KARPENTER_TPU_INTEGRITY", "1",
      "solution-integrity plane master gate — 0 restores the unverified "
      "solve path byte-for-byte (integrity/)"),
@@ -136,8 +141,7 @@ class Options:
     # identical either way; only read in fleet mode
     fleet_batch: bool = False
     # federation mode (docs/federation.md): route the fleet's batched
-    # buckets through the federation plane (federation/, not ported:
-    # ROADMAP item 12 — --federate raises until then) —
+    # buckets through the federation plane (federation/) —
     # the device half of every solve runs in a SolverServer process
     # reached over the cloud/remote.py wire, catalogs cross once per
     # cluster via content tokens, and wire failures degrade buckets to

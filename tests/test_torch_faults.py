@@ -7,8 +7,8 @@ same canonical timeline and fingerprint in both packages, exactly. The
 port's plan raises the port's own `ops/solver.InjectedFault` (the one
 exception its facade, optimizer and batched pump degrade on), its
 CorruptionFault rules damage torch tensors exactly as the reference's
-damage device arrays, and the rules whose planes are not ported
-(WireFault's transport seams: item 12) raise instead of never firing.
+damage device arrays, and its WireFault rules fire through the
+federation transport's seams as the reference's do.
 """
 
 from __future__ import annotations
@@ -219,9 +219,8 @@ def test_rule_family_timeline_and_fingerprint_equal(family):
 
 
 def test_wire_seams_equal_the_reference_when_driven_directly():
-    """The WireFault seams are copied (their transport is item 12): driven
-    by hand they raise the same classes on the same probes and garble the
-    same reply frames, on one timeline."""
+    """The WireFault seams, driven by hand: they raise the same classes on
+    the same probes and garble the same reply frames, on one timeline."""
     def drive(P):
         plan = P.plan.FaultPlan(seed=2, rules=[
             P.plan.WireFault(kind="flap", at=0.0, window=50.0, nth=2,
@@ -294,13 +293,73 @@ def test_corruption_fault_raises_naming_item_7():
     assert len(port.timeline) == 6
 
 
+def _wire_drive(P):
+    """Both wire seams of P's federation transport, armed by each hook in
+    turn and probed over a scripted sequence of RPCs on a fake clock: what
+    each probe raised (or the reply bytes it passed on), the plan's
+    timeline and fingerprint, and that both seams are disarmed after."""
+    import importlib
+    tr = importlib.import_module(
+        P.plan.__name__.rsplit(".", 2)[0] + ".federation.transport")
+    W = P.plan.WireFault
+    rules = [W(kind="flap", at=0.0, window=20.0, nth=2,
+               methods=("solve_bucket",)),
+             W(kind="latency", at=0.0, window=1e9, nth=2, count=1,
+               methods=("has_catalog",)),
+             W(kind="reset", at=5.0, window=10.0, nth=1, count=2,
+               methods=("report",)),
+             W(kind="slow_handshake", at=0.0, window=1e9, nth=1, count=1),
+             W(kind="corrupt_frame", at=0.0, window=1e9, nth=2, count=1,
+               methods=("solve_bucket",)),
+             W(kind="blackhole", at=30.0, window=5.0)]
+    plan = P.plan.FaultPlan(seed=3, rules=rules)
+    clock = P.clock.FakeClock()
+    plan.clock, plan.origin = clock, clock.now()
+    methods = ("solve_bucket", "has_catalog", "report", "handshake",
+               "healthz")
+    trail = []
+    with P.injector.wire_fault_plan_hook(plan):
+        for step in range(40):
+            for m in methods:
+                try:
+                    tr._probe_wire_fault(m)
+                    trail.append((step, m, "ok",
+                                  tr._probe_wire_reply(m, b'{"ok": 1}')))
+                except Exception as e:  # noqa: BLE001 — recorded
+                    trail.append((step, m, type(e).__name__, str(e)))
+            clock.step(1.0)
+    assert tr._wire_fault_hook is None and tr._wire_reply_hook is None
+    counted = []
+    with P.injector.wire_fault_hook(fail_methods=("solve_bucket",),
+                                    after=2) as state:
+        for m in ("solve_bucket", "report", "solve_bucket", "solve_bucket"):
+            try:
+                tr._probe_wire_fault(m)
+                counted.append((m, "ok"))
+            except ConnectionError as e:
+                counted.append((m, str(e)))
+    assert tr._wire_fault_hook is None
+    return trail, plan.timeline, plan.fingerprint(), counted, dict(state)
+
+
 def test_wire_fault_hooks_raise_naming_item_12():
-    plan = port_plan.FaultPlan(seed=0, rules=[port_plan.WireFault()])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        with port_injector.wire_fault_plan_hook(plan):
-            pass
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_injector.wire_fault_hook()
+    """The wire seams the federation transport exposes, armed by the
+    plan's WireFault rules (flap, latency, reset, slow_handshake,
+    corrupt_frame, blackhole) and by the count-based hook: every probe's
+    outcome, the canonical timeline and the fingerprint equal the
+    reference's, and both hooks disarm on exit. (The name dates from
+    before the federation plane was ported, when arming raised.)"""
+    ref = _wire_drive(REF)
+    port = _wire_drive(PORT)
+    assert port == ref
+    trail, timeline, _, counted, state = port
+    kinds = {d.split(":")[0] for _, _, d in timeline}
+    assert kinds == {"flap", "latency", "reset", "slow_handshake",
+                     "corrupt_frame", "blackhole"}
+    assert any(out != b'{"ok": 1}' for *_, kind, out in trail
+               if kind == "ok")
+    assert [c[1] == "ok" for c in counted] == [True, True, True, False]
+    assert state == {"seen": 3}
     # a plan without wire rules arms nothing, as in the reference
     with port_injector.wire_fault_plan_hook(port_plan.FaultPlan(seed=0)):
         pass

@@ -231,8 +231,16 @@ def test_tenant_identity_is_the_references():
 @pytest.mark.parametrize("name", ["fed_flap", "fed_partition",
                                   "fed_server_restart"])
 def test_federated_scenarios_raise_naming_item_12(name):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        FleetRunner(name, seed=0, device="cpu").run()
+    """The federated drills (an embedded SolverServer behind the in-memory
+    wire) at seed 0: digests, wire fingerprint and the federation stats
+    equal the reference's. (The name dates from before the federation
+    plane was ported, when these scenarios raised.)"""
+    ref, port = _both(name, seed=0)
+    assert port.wire_fingerprint == ref.wire_fingerprint
+    fed = {k: v for k, v in port.stats.items()
+           if k.startswith(("federat", "wire_", "catalog_"))}
+    assert fed == {k: ref.stats[k] for k in fed}
+    assert port.stats["federated_wire_buckets"] > 0
 
 
 def test_slo_engine_equals_the_reference_on_synthetic_indicators():
@@ -283,6 +291,15 @@ def test_fleet_cli_lists_and_runs(capsys):
                  "device", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "[PASS]" in out and "tenants=3" in out and "solve_batches" in out
-    for flags in (["--federate"], ["--server-addr", "localhost:1"]):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            main(["fleet_smoke", "--device", "cpu"] + flags)
+    # --federate: the buckets cross the in-memory wire to an embedded
+    # SolverServer; the report equals the reference CLI's
+    from karpenter_tpu.fleet.__main__ import main as ref_main
+    args = ["federation_smoke", "--tenants", "4", "--federate"]
+    outs = []
+    for fn, extra in ((ref_main, []), (main, ["--device", "cpu"])):
+        _reset_sequences()
+        assert fn(args + extra) == 0
+        outs.append([line for line in capsys.readouterr().out.split("\n")
+                     if "wall" not in line and "overlap" not in line])
+    assert outs[1] == outs[0]
+    assert any("federated_wire_buckets" in line for line in outs[1])

@@ -664,6 +664,11 @@ class TestRuntime:
         def case(P):
             saved = dict(P.exposition.READINESS_PROBES)
             P.exposition.READINESS_PROBES.clear()
+            # the body carries the process-global degraded_mode gauge:
+            # start it empty, whatever an earlier module left in it
+            degraded = P.mod("metrics").DEGRADED_MODE
+            saved_degraded = dict(degraded._values)
+            degraded._values.clear()
             port = _free_port()
 
             async def get(path):
@@ -690,6 +695,8 @@ class TestRuntime:
             finally:
                 P.exposition.READINESS_PROBES.clear()
                 P.exposition.READINESS_PROBES.update(saved)
+                degraded._values.clear()
+                degraded._values.update(saved_degraded)
             assert b"200 OK" in up
             assert b"503 Service Unavailable" in down
             body = json.loads(down.split(b"\r\n\r\n", 1)[1])
@@ -815,10 +822,25 @@ class TestOperator:
         assert "fleet=fleet_smoke" in out["karpenter_tpu_torch"][0]
         assert out["karpenter_tpu_torch"] == out["karpenter_tpu"]
 
-    def test_federate_raises_naming_item_12(self):
-        opts = PORT.options(["--fleet-tenants", "2", "--federate"])
-        with pytest.raises(NotImplementedError, match="item 12"):
-            PORT.main.run_fleet(opts)
+    def test_federate_raises_naming_item_12(self, capsys):
+        """`run_fleet --federate`: the fleet's buckets cross the in-memory
+        wire to an embedded SolverServer (the device rung, batched), and
+        the report equals the reference's. (The name dates from before
+        the federation plane was ported, when --federate raised.)"""
+        out = {}
+        for P in (REF, PORT):
+            _reset_sequences()
+            # the device rung named: the reference's default (auto) takes
+            # a host rung on the CPU, where no bucket is batchable
+            opts = P.options(["--fleet-tenants", "2", "--federate",
+                              "--solver-backend", "device"])
+            assert P.main.run_fleet(opts) == 0
+            out[P.pkg] = [line for line in capsys.readouterr().out.split("\n")
+                          if "wall" not in line and "overlap" not in line]
+        assert "fleet=fleet_smoke" in out["karpenter_tpu_torch"][0]
+        assert any("federated_wire_buckets" in line
+                   for line in out["karpenter_tpu_torch"])
+        assert out["karpenter_tpu_torch"] == out["karpenter_tpu"]
 
     def test_main_soak_entry_point(self):
         """`python -m karpenter_tpu_torch.main --soak` prints the

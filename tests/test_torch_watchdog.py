@@ -2,9 +2,9 @@
 watchdog.py`) held against the JAX reference's.
 
 The cases of the reference's `tests/test_watchdog.py` rerun through the
-port (its two federation trips wait for the federation plane, ROADMAP
-item 12): every invariant in `INVARIANTS` but those two is TRIPPED by a
-seeded fault, the no-fault side stays quiet, clock jumps are absorbed, the
+port: every invariant in `INVARIANTS` is TRIPPED by a seeded fault (the
+two federation invariants over a federated service's ladder state), the
+no-fault side stays quiet, clock jumps are absorbed, the
 chaos, restart and fleet catalogs run with it armed and produce no
 warning, and `/debug/watchdog` and `/readyz` serve it. Each trip is written
 once over a namespace of either package's objects and runs through both:
@@ -318,6 +318,81 @@ def trip_pipeline_stall(P):
     wd2.tick(force=True)
     assert not _findings(wd2, "pipeline_stall")
     return [wd, wd2]
+
+
+def trip_federation_degraded(P):
+    """A wire failure arms the federated client's cooldown — the watchdog
+    pages while the fleet is silently running buckets on the local path
+    instead of over the wire."""
+    build = P.mod("federation").build_federated_service
+    SolverService = P.mod("fleet.service").SolverService
+    clock = P.FakeClock()
+    svc = build(clock, run_id="wd-test", backend="host", **P.dev)
+    wd = P.Watchdog(clock, service=svc).arm()
+    wd.tick(force=True)
+    assert not _findings(wd, "federation_degraded")
+    # seed the exact state _dispatch_bucket leaves after a wire failure:
+    # failure count, cooldown window, last error
+    svc._fed_failures = 1
+    svc._fed_cooldown = 3
+    svc._fed_last_error = "ConnectionError: connection refused"
+    wd.tick(force=True)
+    found = _findings(wd, "federation_degraded")
+    assert found and found[0].severity == "warning"
+    assert found[0].key == "wire"
+    assert found[0].attrs["cooldown"] == 3
+    # recovery: the cooldown is spent and the wire probes clean — the
+    # edge clears so a later failure can page again
+    svc._fed_cooldown = 0
+    wd.tick(force=True)
+    assert ("federation_degraded", "wire") not in wd._active
+    # an in-process service exposes no federation_state and never
+    # evaluates the monitor
+    svc2 = SolverService(P.FakeClock(), backend="host", **P.dev)
+    wd2 = P.Watchdog(svc2.clock, service=svc2).arm()
+    wd2.tick(force=True)
+    assert not _findings(wd2, "federation_degraded")
+    return [wd, wd2]
+
+
+def trip_federation_rejoin(P):
+    """The recovery ladder's own invariant: the breaker sits open past
+    the grace while healthz probes pass — the server is healthy but the
+    client never rejoins. Probes failing (server genuinely down) must NOT
+    fire: degraded is then the correct steady state."""
+    build = P.mod("federation").build_federated_service
+    clock = P.FakeClock()
+    svc = build(clock, run_id="wd-rejoin", backend="host", **P.dev)
+    wd = P.Watchdog(clock, service=svc).arm()
+    wd.tick(force=True)
+    assert not _findings(wd, "federation_rejoin")
+    # seed the exact state the breaker leaves after a wire failure: open,
+    # cooldown armed, degraded-since stamped
+    svc._breaker = "open"
+    svc._fed_failures = 1
+    svc._fed_cooldown = 8
+    svc._fed_last_error = "ConnectionError: connection reset"
+    svc._degraded_since = clock.now()
+    svc._probe_ok_degraded = 0
+    # degraded pages immediately; rejoin stays quiet — no probe has
+    # passed yet, so "stuck" cannot be distinguished from "down"
+    _age(wd, wd.REJOIN_GRACE + 15.0)
+    assert _findings(wd, "federation_degraded")
+    assert not _findings(wd, "federation_rejoin")
+    # healthz probes pass while STILL degraded past the grace: the ladder
+    # should have closed the breaker by now — page
+    svc._probe_ok_degraded = 3
+    wd.tick(force=True)
+    found = _findings(wd, "federation_rejoin")
+    assert found and found[0].severity == "warning"
+    assert found[0].key == "wire"
+    assert found[0].attrs["probes_ok"] == 3
+    assert found[0].attrs["breaker"] == "open"
+    assert found[0].attrs["degraded_for"] >= wd.REJOIN_GRACE
+    # edge-triggered: the excursion fires once, not per tick
+    _age(wd, 20.0)
+    assert len(_findings(wd, "federation_rejoin")) == 1
+    return [wd]
 
 
 def _fake_loadgen(depth: int, armed: bool):
@@ -878,7 +953,8 @@ def jump_does_not_fake_warm_audit_lag(P):
 TRIPS = {f.__name__: f for f in (
     trip_claim_leak, trip_claim_leak_duplicate_token, trip_store_cloud_drift,
     trip_intent_age, trip_warm_audit_lag, trip_warm_divergence,
-    trip_fleet_starvation, trip_pipeline_stall, trip_overload_unbounded,
+    trip_fleet_starvation, trip_pipeline_stall, trip_federation_degraded,
+    trip_federation_rejoin, trip_overload_unbounded,
     trip_overload_grace_edge_and_shrink,
     trip_optimizer_divergence, trip_integrity_breach, trip_recompute_runaway,
     trip_recompute_steady_plateau_never_fires, trip_recompute_jump_absorbed,
@@ -928,10 +1004,9 @@ def _normal(f) -> dict:
 
 @pytest.mark.parametrize("name", sorted(TRIPS))
 def test_trip_equals_the_reference(name):
-    """One seeded fault per invariant (the two federation invariants wait
-    for the federation plane), each asserting the no-fault side too,
-    through both packages: the same findings, at the same sim time, with
-    the same attributes, and the same counters."""
+    """One seeded fault per invariant, each asserting the no-fault side
+    too, through both packages: the same findings, at the same sim time,
+    with the same attributes, and the same counters."""
     out = {}
     for P in (REF, PORT):
         _reset_sequences()

@@ -1,11 +1,13 @@
 """The watchdog findings that chip_smoke holds its operator phase, its
 storm and its soak to (`OP_REF_FINDINGS`, `STORM_REF_FINDINGS`,
-`SOAK_REF_FINDINGS`): the same procedures run on the CPU through one
-package's `make_sim`, `ScenarioRunner` and `SoakRunner`.
+`SOAK_REF_FINDINGS`), and the digests and findings of its federation
+phase (`FED_REF`): the same procedures run on the CPU through one
+package's `make_sim`, `ScenarioRunner`, `SoakRunner` and `FleetRunner`.
 
     JAX_PLATFORMS=cpu python3 tools/ref_findings.py operator karpenter_tpu native
     JAX_PLATFORMS=cpu python3 tools/ref_findings.py storm karpenter_tpu native
     JAX_PLATFORMS=cpu python3 tools/ref_findings.py soak karpenter_tpu device
+    JAX_PLATFORMS=cpu python3 tools/ref_findings.py federation karpenter_tpu device
     python3 tools/ref_findings.py storm karpenter_tpu_torch device
 
 The package is `karpenter_tpu` (the reference) or `karpenter_tpu_torch`
@@ -147,11 +149,68 @@ def soak(pkg: str, backend: str) -> None:
                       f"{f.message}")
 
 
+def _fed_findings(runner) -> dict:
+    """(invariant, severity) -> count over the fleet watchdog and every
+    shard's, as chip_smoke's federation phase counts them."""
+    out: dict = {}
+    for wd in [runner.watchdog] + [s.sim.watchdog for s in runner.shards]:
+        for f in wd.findings:
+            key = (f.invariant, f.severity)
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def federation(pkg: str, backend: str) -> None:
+    """chip_smoke's federation phase on the CPU: bench c17's procedure
+    (FED_PROCS processes x FED_TENANTS tenants of federation_smoke at
+    seed 0, one shared SolverServer), the c18 drills (FED_DRILLS at seed
+    0), and federation_smoke federated at its own tenant count (what
+    the fleet CLI's --federate runs). Prints each run's digests, its
+    findings and the c17 server's stats."""
+    fed = _mod(pkg, "federation")
+    FleetRunner = _mod(pkg, "fleet").FleetRunner
+
+    def run(name, **kw):
+        _restart(pkg)
+        for path, plane in (("ops.delta", "DELTA"),
+                            ("ops.resident", "RESIDENT"),
+                            ("obs.explain", "RECORDER")):
+            getattr(_mod(pkg, path), plane).reset()
+        t0 = time.perf_counter()
+        runner = FleetRunner(name, **kw, **dev)
+        rep = runner.run()
+        print(f"{name} {pkg} {kw.get('tenants', '')}: wall "
+              f"{time.perf_counter() - t0:.1f} s, ok {rep.ok}, fleet "
+              f"{rep.fleet_hash}, fingerprint {rep.fleet_fingerprint}, "
+              f"wire {rep.wire_fingerprint}, findings "
+              f"{_fed_findings(runner)}")
+        return runner
+
+    dev = {"device": "cpu"} if pkg == "karpenter_tpu_torch" else {}
+    server = fed.SolverServer(run_id="bench-c17", **dev)
+    for p in range(C.FED_PROCS):
+        def factory(clock, kw, _proc=f"p{p:03d}"):
+            return fed.build_federated_service(
+                clock, run_id="bench-c17", process=_proc,
+                shared_server=server, **kw)
+        run("federation_smoke", tenants=C.FED_TENANTS, seed=0,
+            backend=backend, service_factory=factory)
+    print(f"c17 server stats {server.stats}")
+    for name in C.FED_DRILLS:
+        run(name, seed=0)
+    run("federation_smoke", seed=0, backend=backend, federate=True,
+        service_factory=lambda clock, kw: fed.build_federated_service(
+            clock, run_id="fed-federation_smoke", **kw))
+
+
 def main() -> None:
     what, pkg, backend = sys.argv[1:4]
     os.environ.pop("KARPENTER_TPU_OPTIMIZER", None)  # armed: the default
     if what == "soak":
         soak(pkg, backend)
+        return
+    if what == "federation":
+        federation(pkg, backend)
         return
     t0 = time.perf_counter()
     sim = {"operator": operator, "storm": storm}[what](pkg, backend)

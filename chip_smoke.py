@@ -216,6 +216,25 @@ Phases (any failure exits non-zero):
              with --generation 2 (one generation change, one re-handshake,
              the catalog re-uploaded once, 0 failures), the fleet CLI again.
              Prints c17's and c18's keys and the server's B0/B launches.
+  4m. mesh  the multi-device path on 8 virtual shards of the card
+             (parallel.virtual_devices(8, "cuda:0")), every answer held bit
+             for bit against mesh=None on the card: run_sharded_solve at
+             the grid mix (phase 3's pods) and at the reference's bench
+             shape (128 self-anti-affine groups x 40 pods, ~5k nodes), kernel
+             M equal to its plain version (atol 0), to kernel B on one
+             device and to solve_host; Solver(backend="mesh") at 100,000
+             grid pods == backend="device"; the mesh screen over phase 3's
+             cluster == mesh=None; score_subsets_device(mesh=) at the
+             operator loop's first subset search == mesh=None;
+             dispatch_batch over a batch mesh on a 16 x 8,192 grid-pod
+             bucket == mesh=None, then the bucket with one tenant's request
+             changed: one row patched, one row scatter a shard;
+             SolverServer(mesh=) serving 4l's deferred 16-row pump == the
+             in-process batched service, c17_mesh_batch_capacity = 16 x 8.
+             Where more than one card exists, the grid mix over the real
+             cards too; otherwise one line says multi-card was not run.
+             Prints M's time a solve and a step, the launches of A, B0, B,
+             C and M per shard, and the mesh walls beside mesh=None's.
   5. time    median wall times of the solve and the screen, stage by stage;
              per-kernel device time from torch.profiler and CUDA events
              beside its bound, its plain version's time and one torch
@@ -234,8 +253,10 @@ holds each phase's launches (the main path, the facade, the operator, the
 optimizer, the chaos phase, the fleet runner, the warm path, the soak,
 the operator shell, the federation phase and, for B0 and B, the fleet's
 batched rounds, the soak's launches in batched buckets and the federation
-server's launches) and times (the
-fleet's at its wide bucket: 16 requests in one launch). Its resident_patch
+server's launches, and the mesh phase's, with their count per shard) and
+times (the fleet's at its wide bucket: 16 requests in one launch). Its
+mesh_scan row is kernel M: launches and times from phase 4m (times at
+the grid mix; by_phase also at the bench shape). Its resident_patch
 row is the row scatter of ops/resident (the port of the reference's
 _jit_scatter, a library index_copy_): launches from phase 4h, times at the
 facade mix's gbuf with k = 1% of its rows, by_phase every phase's launches
@@ -1176,6 +1197,7 @@ def phase_operator(dev):
     screen's k, the first subset search's tournament)."""
     import numpy as np
     import torch
+    from karpenter_tpu_torch import optimizer as O
     from karpenter_tpu_torch import sim as S
     from karpenter_tpu_torch.obs.tracer import TRACER
     from karpenter_tpu_torch.optimizer import tournament_k as tk
@@ -1204,9 +1226,12 @@ def phase_operator(dev):
     try:
         with Recorder(solver, "solve_scan", keep=2) as rec_b, \
                 Recorder(consolidate, "screen_k", keep=2) as rec_a, \
-                Recorder(tk, "tournament", keep=2) as rec_c:
+                Recorder(tk, "tournament", keep=2) as rec_c, \
+                Recorder(O, "score_subsets_device", keep=1) as rec_s:
             times_d = run_d.drive()
             torch.cuda.synchronize()
+        # the first subset search's inputs, for phase 4m's mesh tournament
+        OP_SEARCH[:] = rec_s.calls[:1]
     finally:
         TRACER.configure(enabled=False)
         TRACER._sinks.remove(sink)
@@ -1348,6 +1373,11 @@ def phase_operator(dev):
             "disruption reconcile: idle share not measured")
     return (launches, rec_b.calls[-1], (aargs, akw), err_a,
             rec_c.calls[0][0], err_c)
+
+
+# the operator loop's first subset search (score_subsets_device's
+# arguments), kept for phase 4m's mesh tournament
+OP_SEARCH: list = []
 
 
 # --- the optimizer phase: bench c14's procedure on the card ---------------
@@ -3788,7 +3818,8 @@ def phase_planes(c14: dict, recompute_snap: dict) -> dict:
     gc.collect()
     audit = dm.DEVICEMEM.audit()
     live = dm.live_device_tensors()
-    tracked = {dm._storage_key(a) for a in list(dm.DEVICEMEM._arrays.values())}
+    tracked = {dm._storage_key(t) for a in list(dm.DEVICEMEM._arrays.values())
+               for t in getattr(a, "parts", (a,))}
     big = sorted(((dm._storage_nbytes(t), tuple(t.shape), str(t.dtype))
                   for t in live if dm._storage_key(t) not in tracked),
                  reverse=True)[:5]
@@ -4093,6 +4124,374 @@ def scan_kernel_times(ss, sargs, skw, where: str):
     return b0, bk
 
 
+# --- phase 4m: the mesh, 8 virtual shards of the card ----------------------
+
+MESH_SHARDS = 8          # the reference's 8 virtual devices (tests/conftest.py)
+MESH_DEVICE = "cuda:0"   # the device the virtual shards share
+MESH_BENCH_GROUPS = 128  # the reference's bench shape (test_parallel.py):
+MESH_BENCH_PODS = 40     # 128 self-anti-affine groups x 40 pods, ~5k nodes
+
+
+class uncounted:
+    """Leaves every kernel's launch count as it found it: the launches of
+    a block that compares a kernel with its yardstick (mesh=None, the
+    plain version, a timing loop) are not the path's."""
+
+    def __enter__(self):
+        from karpenter_tpu_torch.ops import mesh_scan, resident, screen_k
+        from karpenter_tpu_torch.ops import solve_scan
+        from karpenter_tpu_torch.optimizer import tournament_k
+        self.fields = [(screen_k, "launches"), (solve_scan, "launches"),
+                       (solve_scan, "offer_launches"),
+                       (tournament_k, "launches"), (mesh_scan, "launches"),
+                       (resident, "launches")]
+        self.saved = [getattr(m, f) for m, f in self.fields]
+        return self
+
+    def __exit__(self, *exc):
+        for (m, f), v in zip(self.fields, self.saved):
+            setattr(m, f, v)
+
+
+def mesh_scan_work(Gp: int, T: int, Z: int, C: int, R: int, n_max: int):
+    """(bytes, operations) the sharded scan must move and do at least:
+    kernel B's count (each input read once, takes written once) at R
+    columns; the mesh adds no work, only launches and gathers."""
+    ZC = Z * C
+    nbytes = (4 * T * R + 4 * T * ZC + T * ZC
+              + Gp * (4 * R + 4 + T + Z + C + 4)
+              + n_max * (4 + 4 * R + Z + C + 1)
+              + 4 * Gp * n_max + 4 * Gp + 8)
+    ops = Gp * (n_max * (4 * R + ZC + 6) + T * (4 * R + 2 * ZC))
+    return nbytes, ops
+
+
+def sharded_inputs(solver, cat, enc, n_max: int):
+    """run_sharded_solve's arguments (the reference's: all R columns, zero
+    node state) and the same inputs as one-device tensors for kernel B."""
+    import numpy as np
+    import torch
+    from karpenter_tpu_torch.ops.encode import align_resources
+    R = enc.requests.shape[1]
+    Gp = solver._bucket(enc.G, 8)
+    args = (align_resources(cat.allocatable, R).astype(np.float32),
+            cat.price.astype(np.float32), cat.available.astype(bool),
+            *solver._group_inputs(enc, Gp))
+    dev = torch.device(MESH_DEVICE)
+    t = [torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in args]
+    Z, C = cat.Z, cat.C
+    one = (*t, torch.zeros((Gp, 1), dtype=torch.int32, device=dev),
+           torch.zeros((Gp, 1), dtype=torch.bool, device=dev),
+           torch.zeros((Gp, 1), dtype=torch.bool, device=dev),
+           torch.zeros((1, 1, R), dtype=torch.float32, device=dev),
+           *solver._fresh_nodes(n_max, R, Z, C, dev), 0, n_max)
+    return args, one
+
+
+def mesh_sharded_case(name, parallel, msc, ss, solver, cat, enc, mesh):
+    """run_sharded_solve at one shape: kernel M equal to its plain version
+    (atol 0), to kernel B on one device (mesh=None) and to solve_host.
+    Returns M's times and walls at that shape."""
+    import numpy as np
+    import torch
+    from karpenter_tpu_torch.ops.binpack import solve_host
+    R = enc.requests.shape[1]
+    Gp = solver._bucket(enc.G, 8)
+    n_max = -(-solver._auto_node_budget(cat, enc, 0) // mesh.size) * mesh.size
+    args, one = sharded_inputs(solver, cat, enc, n_max)
+    zeros = (np.zeros((Gp, n_max), np.int32), np.zeros((Gp, n_max), bool),
+             np.zeros((Gp, 1), bool), np.zeros((1, 1, R), np.float32),
+             np.zeros(n_max, np.int32), np.zeros((n_max, R), np.float32),
+             np.zeros((n_max, cat.Z), bool), np.zeros((n_max, cat.C), bool),
+             np.zeros(n_max, bool), np.asarray(0, np.int32))
+    parts = msc.shard_args(mesh, n_max, *args, *zeros)
+    m0 = msc.launches
+    out = parallel.run_sharded_solve(mesh, *args, n_max=n_max)
+    torch.cuda.synchronize()
+    check(msc.launches - m0 == (Gp + 1) * mesh.size,
+          f"{name}: kernel M launched {msc.launches - m0} times, not "
+          f"(Gp + 1) x shards = {(Gp + 1) * mesh.size}")
+    plain = msc.mesh_scan_plain(mesh, *parts, n_max)
+    names = ("ntype", "cum", "zmask", "cmask", "nopen", "nused", "takes",
+             "unsched", "overflow")
+    for a, b, what in zip(out, plain, names):
+        check(torch.equal(a, b.to(a.dtype)),
+              f"{name}: kernel M != its plain version ({what})")
+    with uncounted():
+        ref = ss.solve_scan_cuda(*one)
+        torch.cuda.synchronize()
+    for a, b, what in zip((out[0], out[6], out[7], out[5], out[8]), ref,
+                          ("ntype", "takes", "unsched", "nused", "overflow")):
+        check(torch.equal(a, b.to(a.dtype).reshape(a.shape)),
+              f"{name}: the sharded scan != kernel B on one device ({what})")
+    h = solve_host(cat, enc)
+    nused = int(out[5])
+    takes = out[6].cpu().numpy()
+    ntype = out[0].cpu().numpy()
+    check(nused == len(h.nodes) and not bool(out[8]),
+          f"{name}: {nused} nodes, solve_host {len(h.nodes)}")
+    want = np.zeros((Gp, nused), np.int32)
+    for i, n in enumerate(h.nodes):
+        for g, c in n.pods_by_group.items():
+            want[g, i] = c
+    check(np.array_equal(ntype[:nused], [n.type_idx for n in h.nodes])
+          and np.array_equal(takes[:, :nused], want),
+          f"{name}: the sharded solve differs from solve_host")
+    with uncounted():
+        m_ms = cuda_ms(lambda: msc.mesh_scan_cuda(mesh, *parts, n_max), 3)
+        k_ms, = profiled_ms(lambda: msc.mesh_scan_cuda(mesh, *parts, n_max),
+                            "mesh_step_kernel")
+        plain_ms = cuda_ms(lambda: msc.mesh_scan_plain(mesh, *parts, n_max),
+                           1)
+        one_ms = cuda_ms(lambda: ss.solve_scan_cuda(*one), 10)
+        wall = wall_ms(lambda: msc.mesh_scan_cuda(mesh, *parts,
+                                                  n_max)[5].item(), 3)
+        wall_one = wall_ms(lambda: ss.solve_scan_cuda(*one)[3].item(), 3)
+    nb, ops = mesh_scan_work(Gp, cat.T, cat.Z, cat.C, R, n_max)
+    row = {"ms": m_ms, "plain_ms": plain_ms, **bound(nb, ops),
+           "library_ms": None, "kernel_ms": k_ms,
+           "step_ms": m_ms / (Gp + 1), "mesh_none_ms": one_ms,
+           "wall_ms": wall, "mesh_none_wall_ms": wall_one,
+           "shape": {"Gp": Gp, "n_max": n_max, "R": R, "shards": mesh.size}}
+    log(f"[mesh] {name}: run_sharded_solve over {mesh.describe()}, Gp={Gp} "
+        f"n_max={n_max} R={R}: {nused} nodes; kernel M == plain (atol 0), "
+        f"== kernel B on one device, == solve_host. M: {m_ms:.3f} ms a "
+        f"solve ({(Gp + 1) * mesh.size} launches, {m_ms / (Gp + 1):.4f} ms "
+        f"a step), one launch {k_ms} ms (profiler), plain {plain_ms:.1f} ms, "
+        f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}); B0 + B on "
+        f"one device {one_ms:.3f} ms; wall {wall:.2f} ms vs mesh=None "
+        f"{wall_one:.2f} ms")
+    return row, (args, n_max)
+
+
+def phase_mesh(cat, enc, views, counts) -> tuple:
+    """Phase 4m: the port's multi-device path on MESH_SHARDS virtual shards
+    of the card, every answer held bit for bit against mesh=None on the
+    card: run_sharded_solve at the grid mix and at the bench shape (kernel
+    M == its plain version == kernel B on one device == solve_host);
+    Solver(backend="mesh") at N_PODS grid pods == backend="device"; the
+    mesh screen at phase 3's cluster == mesh=None; score_subsets_device
+    (mesh=) at the operator loop's first subset search == mesh=None;
+    dispatch_batch over a batch mesh on a FED_WIDE x FED_WIDE_PODS bucket
+    == mesh=None, then the bucket with one tenant's request changed: one
+    row patched, one scatter per shard; SolverServer(mesh=) serving phase
+    4l's deferred FED_WIDE-row pump == the in-process batched service,
+    c17_mesh_batch_capacity == FED_WIDE x the mesh size. Over the real
+    cards too where more than one exists. Returns (launches, M's row)."""
+    import numpy as np
+    import torch
+    from karpenter_tpu_torch import catalog, models, parallel
+    from karpenter_tpu_torch.catalog import CatalogProvider
+    from karpenter_tpu_torch.federation import build_federated_service
+    from karpenter_tpu_torch.federation import server as fed_server
+    from karpenter_tpu_torch.models.nodepool import NodePool
+    from karpenter_tpu_torch.ops import consolidate, resident
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    from karpenter_tpu_torch.ops import screen_k as sk, solve_scan as ss
+    from karpenter_tpu_torch.ops import solver
+    from karpenter_tpu_torch.ops.encode import encode_pods
+    from karpenter_tpu_torch.ops.facade import Solver
+    from karpenter_tpu_torch.optimizer import tournament as tmod
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    t_phase = time.perf_counter()
+    with parallel.virtual_devices(MESH_SHARDS, MESH_DEVICE):
+        mesh = parallel.make_mesh(MESH_SHARDS)
+        bmesh = parallel.make_batch_mesh(MESH_SHARDS)
+    check(mesh.virtual and mesh.size == MESH_SHARDS,
+          f"mesh: {mesh.describe()}")
+    sk.launches = tk.launches = ss.launches = ss.offer_launches = 0
+    msc.launches = 0
+    r0 = resident.launches
+
+    # --- run_sharded_solve: the grid mix and the bench shape ---
+    m_grid, _ = mesh_sharded_case("grid mix", parallel, msc, ss, solver,
+                                  cat, enc, mesh)
+    bpods = [models.Pod(
+        name=f"g{k}-{i}", labels={"app": f"g{k}"},
+        requests=models.Resources.parse({"cpu": ["6", "7"][k % 2],
+                                         "memory": "6Gi"}),
+        affinity_terms=[models.PodAffinityTerm(
+            topology_key="kubernetes.io/hostname",
+            label_selector={"app": f"g{k}"}, anti=True)])
+        for k in range(MESH_BENCH_GROUPS) for i in range(MESH_BENCH_PODS)]
+    benc = encode_pods(bpods, cat)
+    m_bench, _ = mesh_sharded_case("bench shape", parallel, msc, ss, solver,
+                                   cat, benc, mesh)
+
+    # --- Solver(backend="mesh") at the main path's pods ---
+    types = catalog.generate_catalog()
+    pods = grid_pods(models, N_PODS, SEED)
+    pool = NodePool(name="default")
+    with parallel.virtual_devices(MESH_SHARDS, MESH_DEVICE):
+        msolver = Solver(CatalogProvider(lambda: types), backend="mesh")
+    check(msolver.mesh() == mesh, f"Solver.mesh() {msolver.mesh()}")
+    dsolver = Solver(CatalogProvider(lambda: types), backend="device")
+    b0 = ss.offer_launches
+    t0 = time.perf_counter()
+    mo = msolver.solve(pods, pool)
+    facade_mesh_ms = (time.perf_counter() - t0) * 1e3
+    n_b0 = ss.offer_launches - b0
+    check(n_b0 > 0 and n_b0 % MESH_SHARDS == 0,
+          f"Solver(backend='mesh'): B0 launched {n_b0} times, not once a "
+          f"shard a scan")
+    with uncounted():
+        t0 = time.perf_counter()
+        do = dsolver.solve(pods, pool)
+        facade_one_ms = (time.perf_counter() - t0) * 1e3
+    check(out_tuple(mo) == out_tuple(do),
+          "Solver(backend='mesh') != Solver(backend='device')")
+    log(f"[mesh] Solver(backend='mesh') over {mesh.describe()} at "
+        f"{N_PODS} grid pods: {len(mo.launches)} node launches, {n_b0} of "
+        f"B0, SolveOutput == "
+        f"backend='device'; wall {facade_mesh_ms:.1f} ms vs "
+        f"{facade_one_ms:.1f} ms (first solves of each facade)")
+
+    # --- the mesh screen at phase 3's cluster ---
+    with uncounted():
+        s0, sl0 = consolidate.consolidation_screen(cat, enc, views, counts)
+    a0 = sk.launches
+    s1, sl1 = consolidate.consolidation_screen(cat, enc, views, counts,
+                                               mesh=mesh)
+    check(sk.launches - a0 == MESH_SHARDS,
+          f"mesh screen: A launched {sk.launches - a0} times, not once a "
+          f"shard")
+    # the column total is a psum of f32 partial sums: exact, so equal,
+    # for every group that requests something; a group that requests
+    # nothing (k = BIG) rounds in another order, within f32 rounding
+    zero = ~enc.requests.any(axis=1)
+    check(np.array_equal(s0, s1) and np.array_equal(sl0[:, ~zero],
+                                                    sl1[:, ~zero]),
+          "mesh screen != mesh=None screen")
+    if zero.any():
+        check(np.allclose(sl1[:, zero], sl0[:, zero], rtol=1e-6, atol=0),
+              "mesh screen slack (all-zero request groups) beyond rtol 1e-6")
+    with uncounted():
+        screen_wall = wall_ms(lambda: consolidate.consolidation_screen(
+            cat, enc, views, counts, mesh=mesh), 3)
+        screen_one = wall_ms(lambda: consolidate.consolidation_screen(
+            cat, enc, views, counts), 3)
+    log(f"[mesh] consolidation_screen(mesh=) N={len(views)} G={enc.G}: "
+        f"screen and slack == mesh=None (atol 0; {int(zero.sum())} "
+        f"all-zero request groups at rtol 1e-6); wall {screen_wall:.2f} ms "
+        f"vs {screen_one:.2f} ms")
+
+    # --- score_subsets_device(mesh=) at the loop's first subset search ---
+    check(bool(OP_SEARCH), "the operator loop ran no subset search")
+    (sargs, skw), = OP_SEARCH
+    skw = {k: v for k, v in skw.items() if k not in ("mesh", "device")}
+    with uncounted():
+        one = tmod.score_subsets_device(*sargs, **skw)
+    c0 = tk.launches
+    got = tmod.score_subsets_device(*sargs, **skw, mesh=mesh)
+    n_c = tk.launches - c0
+    check(1 <= n_c <= MESH_SHARDS, f"mesh tournament: {n_c} launches of C")
+    for a, b in zip(got, one):
+        check(np.array_equal(a, b), "mesh tournament != mesh=None")
+    masks = sargs[5]
+    log(f"[mesh] score_subsets_device(mesh=) at the loop's first search "
+        f"(S={masks.shape[0]}, N={masks.shape[1]}): feasible, savings, "
+        f"residual, repl_lb == mesh=None (atol 0); C launched {n_c} times "
+        f"(one a shard with mask rows)")
+
+    # --- the batch mesh: one wide bucket, then one tenant changed ---
+    wide = [grid_pods(models, FED_WIDE_PODS, t) for t in range(FED_WIDE)]
+    encs = [encode_pods(w, cat) for w in wide]
+    R = enc.requests.shape[1]
+    dcat = solver._auto_dcat(cat, R, torch.device(MESH_DEVICE))
+    reqs = [solver.prepare_batchable(cat, e, dcat=dcat) for e in encs]
+    check(len({r.signature for r in reqs}) == 1,
+          "the wide bucket's requests do not share one signature")
+    rkey = ("mesh-wide",)
+    reset_sequences()
+    st0 = dict(resident.RESIDENT.stats)
+    rows_m = solver.dispatch_batch(reqs, mesh=bmesh, resident_key=rkey).rows()
+    with uncounted():
+        rows_1 = solver.dispatch_batch(reqs).rows()
+    B = len(reqs)
+    check(np.array_equal(rows_m[:B], rows_1[:B]),
+          "batch mesh rows != mesh=None rows")
+    changed = encode_pods(wide[3][: len(wide[3]) * 99 // 100], cat)
+    reqs2 = list(reqs)
+    reqs2[3] = solver.prepare_batchable(cat, changed, dcat=dcat)
+    check(reqs2[3].signature == reqs[0].signature,
+          "the changed request left the bucket's signature")
+    st1 = dict(resident.RESIDENT.stats)
+    sc0 = resident.launches
+    rows_m2 = solver.dispatch_batch(reqs2, mesh=bmesh,
+                                    resident_key=rkey).rows()
+    st2 = dict(resident.RESIDENT.stats)
+    patch_launches = resident.launches - sc0
+    with uncounted():
+        rows_12 = solver.dispatch_batch(reqs2).rows()
+    check(np.array_equal(rows_m2[:B], rows_12[:B]),
+          "batch mesh rows != mesh=None rows after the change")
+    check(st1["full_uploads"] - st0["full_uploads"] == 1
+          and st2["patches"] - st1["patches"] == 1
+          and st2["rows_patched"] - st1["rows_patched"] == 1
+          and patch_launches == MESH_SHARDS,
+          f"batch mesh resident stack: stats {st0} -> {st1} -> {st2}, "
+          f"scatter launches {patch_launches}")
+    with uncounted():
+        bm_wall = wall_ms(lambda: solver.dispatch_batch(
+            reqs, mesh=bmesh).rows(), 3)
+        b1_wall = wall_ms(lambda: solver.dispatch_batch(reqs).rows(), 3)
+    log(f"[mesh] dispatch_batch over {bmesh.describe()}: {FED_WIDE} x "
+        f"{FED_WIDE_PODS} grid pods, rows == mesh=None; then one tenant's "
+        f"request changed (1% of its pods dropped): 1 row of "
+        f"{rows_m.shape[0]} patched "
+        f"({st2['patched_bytes'] - st1['patched_bytes']} B), "
+        f"{patch_launches} scatters (one a shard), rows == mesh=None; "
+        f"wall {bm_wall:.1f} ms vs {b1_wall:.1f} ms")
+
+    # --- SolverServer(mesh=) serving phase 4l's deferred 16-row pump ---
+    reset_sequences()
+    srv = fed_server.SolverServer(run_id="fed-mesh", mesh=bmesh)
+    svc = build_federated_service(FakeClock(), run_id="fed-mesh",
+                                  process="p200", shared_server=srv,
+                                  backend="device", batch=True)
+    cl = [svc.register(f"t{t:03d}", CatalogProvider(lambda: types))
+          for t in range(FED_WIDE)]
+    got_w = batched_round(svc, cl, wide, pool)
+    reset_sequences()
+    with uncounted():
+        svc_l, cl_l = fleet_service("device", True, FED_WIDE, types)
+        want_w = batched_round(svc_l, cl_l, wide, pool)
+    capacity = bmesh.size * srv.stats["max_bucket_rows"]
+    hs = srv.handle("handshake", {"schema": fed_server.WIRE_SCHEMA_VERSION})
+    check(got_w == want_w, "SolverServer(mesh=): SolveOutputs differ from "
+          "the in-process batched service's")
+    check(srv.stats["buckets"] == 1 and capacity == FED_WIDE * bmesh.size
+          and hs.get("result", {}).get("mesh_devices") == bmesh.size,
+          f"SolverServer(mesh=): stats {srv.stats}, capacity {capacity}, "
+          f"handshake {hs}")
+    log(f"[mesh] SolverServer(mesh={bmesh.describe()}) serving the deferred "
+        f"{FED_WIDE}-row pump: SolveOutputs == in-process batched service; "
+        f"c17_mesh_batch_capacity {capacity} = {FED_WIDE} x {bmesh.size}")
+
+    # --- the real cards, where more than one exists ---
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        real = parallel.make_mesh(min(n_cards, MESH_SHARDS))
+        with uncounted():
+            mesh_sharded_case(f"grid mix, {real.size} cards", parallel, msc,
+                              ss, solver, cat, enc, real)
+    else:
+        log(f"[mesh] multi-card not run: {n_cards} CUDA device on this "
+            f"machine; the distinct-card collectives are unverified")
+
+    launches = {"screen_k": sk.launches, "offer_argmin": ss.offer_launches,
+                "solve_scan": ss.launches, "tournament": tk.launches,
+                "mesh_scan": msc.launches,
+                "resident_patch": resident.launches - r0}
+    per_shard = {k: v / MESH_SHARDS for k, v in launches.items()}
+    log(f"[mesh] phase 4m launches {launches}; per shard {per_shard}; "
+        f"phase wall {(time.perf_counter() - t_phase):.1f} s")
+    m_grid["by_shape"] = {"grid": dict(m_grid), "bench": m_bench}
+    return launches, m_grid
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4292,6 +4691,11 @@ def main() -> None:
                                                       phase_federation)
     scatter["federation"] = fed_launches["resident_patch"]
 
+    # --- 4m. the mesh: 8 virtual shards of the card, every answer held
+    # against mesh=None, counts zeroed at the phase's start ---
+    mesh_launches, m_row = counted("mesh", phase_mesh, cat, enc, views,
+                                   counts)
+
     # --- 5. times ---
     solve_ms = wall_ms(lambda: solver.solve_device(cat, enc), 5)
     screen_ms = wall_ms(lambda: consolidate.consolidation_screen(
@@ -4389,6 +4793,8 @@ def main() -> None:
                 soak_launches["batched_buckets"]
         by_phase[k]["shell"] = {"launches": shell_launches[k]}
         by_phase[k]["federation"] = {"launches": fed_launches[k]}
+        by_phase[k]["mesh"] = {"launches": mesh_launches[k],
+                               "per_shard": mesh_launches[k] / MESH_SHARDS}
         if k in ("offer_argmin", "solve_scan"):
             # the server's share: one batched launch of each per bucket
             by_phase[k]["federation"]["server_launches"] = \
@@ -4435,6 +4841,19 @@ def main() -> None:
         "max_abs_err": 0.0, **scatter_rows["gbuf_1pct"],
         "by_phase": {**{ph: {"launches": n} for ph, n in scatter.items()},
                      **scatter_rows}})
+    # kernel M: launches and times from phase 4m (its main path: the node
+    # mesh's solves), times at the grid mix
+    kernels.append({
+        "name": "mesh_scan", "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/mesh_scan.cu",
+        "replaces": "karpenter_tpu/parallel/mesh.py:66",
+        "also_replaces": "karpenter_tpu/ops/solver.py:1162",
+        "launches": mesh_launches["mesh_scan"], "max_abs_err": 0.0,
+        **{k: m_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+        "by_phase": {"mesh": {"launches": mesh_launches["mesh_scan"],
+                              "per_shard": mesh_launches["mesh_scan"]
+                              / MESH_SHARDS, **m_row["by_shape"]}}})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -557,11 +557,12 @@ class DisruptionController:
         from ..ops.solver import InjectedFault
         try:
             with sp:
-                # the reference passes mesh=solver.screen_mesh(len(views));
-                # the port's screen runs on the solver's device on every
-                # rung
+                # sharded over the solver's mesh where screen_mesh says
+                # so (a mesh backend, or hybrid from 1,024 nodes), else on
+                # the solver's device on every rung
                 screen, slack = consolidation_screen(
-                    cat, enc, views, counts, device=self.solver.device)
+                    cat, enc, views, counts, device=self.solver.device,
+                    mesh=self.solver.screen_mesh(len(views)))
         except InjectedFault:
             # an injected device fault degrades to plain cost order,
             # metered like the facade's solve fallback so the event is
@@ -671,10 +672,12 @@ class DisruptionController:
             RECOMPUTE.classify("optimizer", served=True)
             return False
         use_device = self.solver.backend in ("device", "mesh")
-        # the reference passes mesh=solver.screen_mesh(len(views)) on the
-        # device rung; the port scores on the solver's device (the card
-        # unless the solver was given one), the host and native rungs in
-        # NumPy as the reference does
+        # the device rungs score on the solver's mesh where screen_mesh
+        # says so, else on its device (the card unless the solver was
+        # given one); the host and native rungs in NumPy, as the
+        # reference does
+        mesh = (self.solver.screen_mesh(len(views)) if use_device
+                else None)
         sp = (TRACER.span("optimizer.search", candidates=len(candidates),
                           nodes=len(views))
               if TRACER.enabled else NOOP_SPAN)
@@ -683,7 +686,7 @@ class DisruptionController:
                 plan = plan_repack(scat, enc, views, counts, slack,
                                    cand_idx, max_k=min(budget, MAX_K),
                                    exclude=exclude,
-                                   use_device=use_device,
+                                   use_device=use_device, mesh=mesh,
                                    device=self.solver.device)
             sp.set(scored=plan.scored, feasible=plan.feasible,
                    backend=plan.backend)

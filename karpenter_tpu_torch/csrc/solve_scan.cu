@@ -94,6 +94,7 @@ namespace cg = cooperative_groups;
 #define NT 512   // B threads per block
 #define NWARP (NT / 32)
 #define CL_MAX 16
+#define MAX_DEVICES 64  // devices a per-device memo keeps (others: no memo)
 
 // the per-group record (int32 words) B0 writes and B reads
 #define REC_COUNT 0
@@ -740,13 +741,19 @@ extern "C" int offer_argmin_launch(
   a.W = W;
   a.Gp = Gp;
   const size_t smem = sizeof(int) * (size_t)T;
-  static size_t smem_set = 48 * 1024;
-  if (smem > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  // a function attribute belongs to one device, so the memo of the largest
+  // size set is kept per device (0: the default 48 KiB)
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  static size_t smem_set[MAX_DEVICES];
+  size_t* set = dev < MAX_DEVICES ? &smem_set[dev] : nullptr;
+  if (smem > 48 * 1024 && (set == nullptr || smem > *set)) {
+    e = cudaFuncSetAttribute(
         offer_argmin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
+    if (set != nullptr) *set = smem;
   }
   offer_argmin_kernel<<<dim3(Gp, Bp), NT0, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

@@ -94,6 +94,7 @@ namespace cg = cooperative_groups;
 #define RMAX 16        // resource columns carried in registers
 #define CL_MAX 16      // the largest (non-portable) cluster on Hopper
 #define SPB_MAX 32     // subsets one block may hold
+#define MAX_DEVICES 64  // devices a per-device memo keeps (others: no memo)
 
 #define NBUF 4         // ring buffers of k chunks (see slice_pass)
 #define ISSUER (NT - 32)  // the thread that issues and waits on the ring
@@ -901,25 +902,34 @@ static cudaLaunchConfig_t cluster_cfg(int blocks, int CL, int smem_bytes,
 // Clusters of CL blocks the card co-schedules at smem_bytes a block (0 if
 // none), or a negative cudaError_t. The kernel's attributes are set, and
 // the answer kept, for the last (CL, smem_bytes) asked.
+struct ClusterMemo {
+  int set_smem = -1, cl = 0, smem = -1, n = 0;
+  bool nonportable = false;
+};
+
 template <bool XS, int RKB>
 static int active_clusters(int CL, int smem_bytes) {
-  static int set_smem = -1, memo_cl = 0, memo_smem = -1, memo_n = 0;
-  static bool nonportable = false;
-  if (CL == memo_cl && smem_bytes == memo_smem) return memo_n;
-  cudaError_t e = cudaSuccess;
-  if (smem_bytes != set_smem) {
+  // a function attribute belongs to one device, so the memo is per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  static ClusterMemo memos[MAX_DEVICES];
+  ClusterMemo unmemoed;
+  ClusterMemo& m = dev < MAX_DEVICES ? memos[dev] : unmemoed;
+  if (CL == m.cl && smem_bytes == m.smem) return m.n;
+  if (smem_bytes != m.set_smem) {
     e = cudaFuncSetAttribute(tournament_kernel<XS, RKB>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
     if (e != cudaSuccess) return -(int)e;
-    set_smem = smem_bytes;
+    m.set_smem = smem_bytes;
   }
-  if (CL > 8 && !nonportable) {
+  if (CL > 8 && !m.nonportable) {
     e = cudaFuncSetAttribute(tournament_kernel<XS, RKB>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
     if (e != cudaSuccess) return -(int)e;
-    nonportable = true;
+    m.nonportable = true;
   }
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_cfg(CL, CL, smem_bytes, nullptr, attr);
@@ -927,9 +937,9 @@ static int active_clusters(int CL, int smem_bytes) {
   e = cudaOccupancyMaxActiveClusters(
       &n, (const void*)tournament_kernel<XS, RKB>, &cfg);
   if (e != cudaSuccess) return -(int)e;
-  memo_cl = CL;
-  memo_smem = smem_bytes;
-  memo_n = n;
+  m.cl = CL;
+  m.smem = smem_bytes;
+  m.n = n;
   return n;
 }
 

@@ -613,23 +613,21 @@ def build_federated_service(clock, server_addr: str = "", run_id: str = "",
     """Assemble the client stack: transport → handshake → service.
 
     server_addr "host:port" dials a `make_fed_server` process over HTTP;
-    empty embeds a SolverServer on the service's `device` behind an
-    InMemoryTransport (full wire fidelity, no socket). A `mesh` raises
-    (`ops/solver.reject_mesh`). shared_server lets several
+    empty embeds a SolverServer on the service's `device` (or over the
+    batch `mesh`) behind an InMemoryTransport (full wire fidelity, no
+    socket). shared_server lets several
     services in one process model several fleet processes against ONE
     server (pass each a distinct `process` name). The handshake runs
     here, so schema skew fails assembly, not the first bucket."""
-    from ..ops.solver import reject_mesh
     from .server import SolverServer
     from .transport import HTTPTransport, InMemoryTransport
-    reject_mesh(mesh)
     if server_addr:
         host, _, port = server_addr.rpartition(":")
         transport = HTTPTransport(host or "127.0.0.1", int(port))
         transport.handshake()
     else:
         server = shared_server if shared_server is not None else \
-            SolverServer(run_id=run_id,
+            SolverServer(run_id=run_id, mesh=mesh,
                          device=service_kwargs.get("device"))
         transport = InMemoryTransport(server)
     fed = FederatedSolverClient(transport, run_id=run_id, process=process)

@@ -30,8 +30,9 @@ Every RPC runs under the server's lock, and all of the server's device
 work (catalog uploads, the stack's upload, the launch, the event and the
 one read of the rows) goes to the card's default stream, whichever
 handler thread runs it: RPCs are ordered on the card as they are under
-the lock. The batch mesh of the reference (``mesh=``, ``--mesh``) is not
-ported: it raises through `ops/solver.reject_mesh`.
+the lock. With a batch mesh (``mesh=``, ``--mesh``) the catalogs are
+replicated over its shards and each bucket's request rows split over
+them (`ops/solver.dispatch_packed(mesh=)`).
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from ..cloud.remote import (WIRE_SCHEMA_VERSION, CloudError, NotFoundError,
                             encode_error)
 from ..metrics import FEDERATION_CATALOG
 from ..obs import devicemem as dm
-from ..ops.solver import (DeviceCatalog, _put, dispatch_packed, reject_mesh,
+from ..ops.solver import (DeviceCatalog, _put, _put_sharded, dispatch_packed,
                           resolve_device)
 from .envelopes import (CatalogUploadEnvelope, ReportAck, SolveBucketRequest,
                         SolveBucketResult, decode_envelope, encode_envelope,
@@ -66,8 +67,9 @@ class SolverServer:
 
     device: where the catalogs live and the buckets run (the CUDA card
     unless given; "cpu" runs the kernels' plain versions).
-    mesh: the reference's batch mesh; not ported, so anything but None
-    raises (`ops/solver.reject_mesh`).
+    mesh: a `parallel/mesh.make_batch_mesh` Mesh — catalogs are
+    replicated over its shards and every bucket's request rows split over
+    them; `device` is then the mesh's first shard's.
     use_resident: route request stacks through the device-resident
     manager (per-client-process keys), so a steady-state client whose
     tenant rows barely change between pumps patches instead of
@@ -80,8 +82,9 @@ class SolverServer:
                  generation: int = 1,
                  compress_capability: bool = True,
                  device=None):
-        reject_mesh(mesh)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.devices[0])
         self.run_id = run_id
         self.use_resident = use_resident
         self.max_catalogs = max_catalogs
@@ -105,8 +108,8 @@ class SolverServer:
             "handshakes": 0, "catalog_hits": 0, "catalog_misses": 0,
             "catalog_uploads": 0, "buckets": 0, "rows": 0,
             "padded_rows": 0, "reports": 0, "unknown_token": 0,
-            # largest padded batch one launch carried — the bench's
-            # c17_mesh_batch_capacity observable (one device: x1)
+            # largest padded batch one dispatch carried — x mesh size
+            # this is the bench's c17_mesh_batch_capacity observable
             "max_bucket_rows": 0, "healthz": 0, "restarts": 0,
             "compress_rejected": 0,
         }
@@ -162,17 +165,23 @@ class SolverServer:
 
     def _stream(self):
         """The card's default stream for this RPC's device work, in
-        whichever thread handles it (a no-op on the CPU)."""
-        if self.device.type != "cuda":
-            return contextlib.nullcontext()
-        return torch.cuda.stream(torch.cuda.default_stream(self.device))
+        whichever thread handles it (a no-op on the CPU); with a mesh, the
+        default stream of each of its cards."""
+        devs = (dict.fromkeys(self.mesh.devices) if self.mesh is not None
+                else (self.device,))
+        stack = contextlib.ExitStack()
+        for d in devs:
+            if d.type == "cuda":
+                stack.enter_context(
+                    torch.cuda.stream(torch.cuda.default_stream(d)))
+        return stack
 
     # --- RPCs --------------------------------------------------------------
 
     def _rpc_handshake(self, payload: dict) -> dict:
         self.stats["handshakes"] += 1
         return {"wire_schema": WIRE_SCHEMA_VERSION, "run_id": self.run_id,
-                "mesh_devices": 1,
+                "mesh_devices": int(self.mesh.size) if self.mesh else 1,
                 "resident": bool(self.use_resident),
                 "generation": self.generation,
                 # capability, not schema: this server decodes zlib'd
@@ -233,15 +242,23 @@ class SolverServer:
             self._catalogs.move_to_end(token)
             return {"stored": True, "duplicate": True}
         zovh = unpack_array(env.ovh_z) if env.ovh_z else None
-        dev = self.device
+        if self.mesh is not None:
+            from ..parallel.collectives import Sharding
+            rep = Sharding(self.mesh)
+
+            def put(x):
+                return _put_sharded(x, rep)
+        else:
+            def put(x):
+                return _put(x, self.device)
         # the dtypes of an in-process upload (ops/solver.device_catalog)
         with dm.attributed(reason="catalog_put", kind="catalog",
                            token=token) as grp:
             dcat = DeviceCatalog(
-                alloc=_put(unpack_array(env.alloc).astype(np.float32), dev),
-                price=_put(unpack_array(env.price).astype(np.float32), dev),
-                avail=_put(unpack_array(env.avail).astype(bool), dev),
-                ovh_z=(_put(zovh.astype(np.float32), dev)
+                alloc=put(unpack_array(env.alloc).astype(np.float32)),
+                price=put(unpack_array(env.price).astype(np.float32)),
+                avail=put(unpack_array(env.avail).astype(bool)),
+                ovh_z=(put(zovh.astype(np.float32))
                        if zovh is not None else None))
         dm.DEVICEMEM.adopt(grp, dcat)
         self._catalogs[token] = dcat
@@ -272,7 +289,7 @@ class SolverServer:
         t0 = _time.perf_counter()
         ifb = dispatch_packed(
             gstack, conf, dcat, statics, shape_class=env.shape_class,
-            resident_key=rkey, token=token)
+            mesh=self.mesh, resident_key=rkey, token=token)
         # the server is the owner of record of the staged uploads (a
         # resident stack outlives the batch); the batch's event, then the
         # ONE read of the packed rows
@@ -423,7 +440,7 @@ def main(argv: Optional[list] = None) -> int:
                         "plain versions)")
     p.add_argument("--mesh", action="store_true",
                    help="lay bucket batch axes over all local devices "
-                        "(not ported: raises)")
+                        "(every CUDA card)")
     p.add_argument("--no-resident", action="store_true",
                    help="disable the device-resident stack path")
     p.add_argument("--generation", type=int, default=1,
@@ -439,8 +456,11 @@ def main(argv: Optional[list] = None) -> int:
     args = p.parse_args(argv)
     if args.ready_delay:
         time.sleep(args.ready_delay)
-    server = SolverServer(mesh=True if args.mesh else None,
-                          run_id=args.run_id,
+    mesh = None
+    if args.mesh:
+        from ..parallel.mesh import make_batch_mesh
+        mesh = make_batch_mesh()
+    server = SolverServer(mesh=mesh, run_id=args.run_id,
                           use_resident=not args.no_resident,
                           generation=args.generation,
                           compress_capability=not args.no_compress,

@@ -75,7 +75,7 @@ def main(argv=None) -> int:
                          "(0: scenario/service default)")
     ap.add_argument("--backend", default="host",
                     help="shared solver backend (host | native | device "
-                         "| hybrid)")
+                         "| hybrid | mesh)")
     ap.add_argument("--batch", action="store_true",
                     help="arm the service's batched+pipelined dispatch "
                          "engine (per-tenant hashes and fingerprints are "

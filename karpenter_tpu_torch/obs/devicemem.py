@@ -302,7 +302,10 @@ class ResidencyLedger:
             if live_arrays is None:
                 live_arrays = live_device_tensors()
             with self._lock:
-                tracked = {_storage_key(a) for a in list(self._arrays.values())}
+                # a mesh upload (parallel/collectives.ShardedTensor) is one
+                # tracked array whose bytes live in its shards' parts
+                tracked = {_storage_key(t) for a in list(self._arrays.values())
+                           for t in getattr(a, "parts", (a,))}
             seen: set = set()
             for arr in live_arrays:
                 try:

@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "karpenter_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("screen_k", "solve_scan", "tournament")
+SOURCES = ("screen_k", "solve_scan", "tournament", "mesh_scan")
 NATIVE_SRC = Path(__file__).resolve().parents[2] / "native" / "ffd.cpp"
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 

@@ -12,7 +12,19 @@ every candidate at once:
 The screen over-approximates (a filter and priority order, never a
 verdict). k runs through kernel A (`ops/screen_k`); the body around it
 (eligibility, column sum, `others`, the screen test and the packing) is
-plain PyTorch on the device. Multi-device (`mesh=`) is not ported.
+plain PyTorch on the device.
+
+With `mesh=` the candidate-node axis splits over the mesh's shards (N
+padded to a multiple of its size with inactive rows): the node matrix is
+split, the group matrix and the catalog replicated, kernel A runs per
+shard on its rows, and the [G] column total is a psum of the shards' f32
+partial sums (`parallel/collectives`), as GSPMD reduces the reference's.
+k is integer-valued, so while a column's sum stays below 2^24 the
+partial sums are exact and the mesh's screen and slack equal mesh=None's
+element for element. Past that (a group that requests nothing has k =
+BIG on its eligible nodes) the sums round in another order: that slack
+agrees within f32 rounding, and a verdict could move only where a node's
+`others` lies within a few f32 ulps of its need.
 """
 
 from __future__ import annotations
@@ -25,7 +37,7 @@ import torch
 from ..obs import devicemem as dm
 from .encode import CatalogTensors, EncodedPods, align_zone_overhead
 from .screen_k import screen_k
-from .solver import (_auto_dcat, _put, _read, _request_cols, reject_mesh,
+from .solver import (_auto_dcat, _put, _put_sharded, _read, _request_cols,
                      resolve_device)
 
 
@@ -46,22 +58,36 @@ def eligibility(avail, node_type, node_zmask, node_cmask, node_active,
     return ok_t & off & node_active[:, None]
 
 
+def _screen_k(alloc, avail, node_type, node_cum, node_zmask, node_cmask,
+              node_active, group_req, compat, allow_zone, allow_cap
+              ) -> torch.Tensor:
+    """k [N, G] of the screen's rows: headroom, eligibility, kernel A."""
+    talloc = alloc[node_type]                                 # [N, R]
+    headroom = talloc - node_cum                              # [N, R]
+    elig = eligibility(avail, node_type, node_zmask, node_cmask,
+                       node_active, compat, allow_zone, allow_cap)
+    return screen_k(headroom, group_req, elig)                # [N, G]
+
+
+def _screen_tail(k, total, node_active, node_groups):
+    """(screen [N] f32, slack [N, G] f32) of the screen's rows, given the
+    f32 column total over ALL rows."""
+    others = total[None, :] - k                               # [N, G]
+    need = node_groups.to(torch.float32)                      # [N, G]
+    screen = ((need <= others) | (need == 0)).all(dim=1) & node_active
+    return screen.to(torch.float32), others - need
+
+
 def _screen_body(alloc, avail, node_type, node_cum, node_zmask, node_cmask,
                  node_active, group_req, compat, allow_zone, allow_cap,
                  node_groups) -> torch.Tensor:
     """ONE packed f32 vector: [0:N] screen (1.0 = candidate may
     consolidate), [N:N+N*G] headroom slack (others' capacity minus need,
     row-major [N, G]). The port of `_screen_kernel_impl`."""
-    talloc = alloc[node_type]                                 # [N, R]
-    headroom = talloc - node_cum                              # [N, R]
-    elig = eligibility(avail, node_type, node_zmask, node_cmask,
-                       node_active, compat, allow_zone, allow_cap)
-    k = screen_k(headroom, group_req, elig)                   # [N, G]
-    total = k.sum(dim=0)                                      # [G]
-    others = total[None, :] - k                               # [N, G]
-    need = node_groups.to(torch.float32)                      # [N, G]
-    screen = ((need <= others) | (need == 0)).all(dim=1) & node_active
-    return torch.cat([screen.to(torch.float32), (others - need).reshape(-1)])
+    k = _screen_k(alloc, avail, node_type, node_cum, node_zmask, node_cmask,
+                  node_active, group_req, compat, allow_zone, allow_cap)
+    screen, slack = _screen_tail(k, k.sum(dim=0), node_active, node_groups)
+    return torch.cat([screen, slack.reshape(-1)])
 
 
 def _pack_screen_nodes(node_type, node_cum, node_zmask, node_cmask, active,
@@ -120,16 +146,17 @@ def _screen_onebuf(alloc, avail, nbuf, gbuf, cols: tuple) -> torch.Tensor:
     return _screen_body(*_unpack_screen(alloc, avail, nbuf, gbuf, cols))
 
 
-def _screen_args(cat: CatalogTensors, enc: EncodedPods, views):
-    """Numpy node-side screen inputs (the reference's `_screen_args`, one
-    device): type, cum (zone reservation charged), zone and captype
-    masks, active flags."""
+def _screen_args(cat: CatalogTensors, enc: EncodedPods, views, Np: int = 0):
+    """Numpy node-side screen inputs (the reference's `_screen_args`):
+    type, cum (zone reservation charged), zone and captype masks, active
+    flags; padded with inactive rows to Np when Np > N."""
     R = enc.requests.shape[1]
     N = len(views)
-    node_type = np.zeros(N, np.int32)
-    node_cum = np.zeros((N, R), np.float32)
-    node_zmask = np.zeros((N, cat.Z), bool)
-    node_cmask = np.zeros((N, cat.C), bool)
+    Np = max(Np, N)
+    node_type = np.zeros(Np, np.int32)
+    node_cum = np.zeros((Np, R), np.float32)
+    node_zmask = np.zeros((Np, cat.Z), bool)
+    node_cmask = np.zeros((Np, cat.C), bool)
     for i, v in enumerate(views):
         node_type[i] = v.virtual.type_idx
         node_cum[i, : len(v.virtual.cum)] = v.virtual.cum
@@ -142,7 +169,9 @@ def _screen_args(cat: CatalogTensors, enc: EncodedPods, views):
         node_cum = node_cum + np.where(
             node_zmask[:, :, None], zovh[node_type], np.float32(0.0)
         ).max(axis=1)
-    return node_type, node_cum, node_zmask, node_cmask, np.ones(N, bool)
+    active = np.zeros(Np, bool)
+    active[:N] = True
+    return node_type, node_cum, node_zmask, node_cmask, active
 
 
 def screen_packed(cat: CatalogTensors, enc: EncodedPods, views: "List",
@@ -163,15 +192,58 @@ def screen_packed(cat: CatalogTensors, enc: EncodedPods, views: "List",
     return _screen_onebuf(dcat.alloc, dcat.avail, nbuf, gbuf, cols)
 
 
+def screen_packed_mesh(cat: CatalogTensors, enc: EncodedPods, views: "List",
+                       group_counts: np.ndarray, mesh) -> torch.Tensor:
+    """The packed screen vector of an Np-row screen over `mesh` (Np = N
+    rounded up to a multiple of its size; the padding rows are inactive),
+    on shard 0's device. The same two uploads as one device: the node
+    matrix split over the shards, the group matrix replicated; the
+    catalog from the mesh-keyed epoch cache. Per shard: kernel A on its
+    rows and the f32 column sum; the psum of those is the total every
+    shard's tail reads; screen and slack gathered in the packed layout."""
+    from ..parallel import collectives as col
+    N = len(views)
+    ms = int(mesh.size)
+    Np = -(-N // ms) * ms
+    R = enc.requests.shape[1]
+    cols = _request_cols(enc, cat)
+    counts = group_counts
+    if Np > N:
+        counts = np.concatenate([group_counts, np.zeros(
+            (Np - N, enc.G), group_counts.dtype)])
+    dcat = _auto_dcat(cat, R, mesh=mesh)
+    with dm.attributed(reason="screen_upload"):
+        nbuf = _put_sharded(_pack_screen_nodes(
+            *_screen_args(cat, enc, views, Np), counts, list(cols)),
+            col.Sharding(mesh, 0))
+        gbuf = _put_sharded(_pack_screen_groups(
+            enc.requests, enc.compat, enc.allow_zone, enc.allow_cap,
+            list(cols)), col.Sharding(mesh))
+    rows, ks = [], []
+    for s, d in enumerate(mesh.devices):
+        with col.on_shard(d):
+            rows.append(_unpack_screen(dcat.alloc.parts[s],
+                                       dcat.avail.parts[s], nbuf.parts[s],
+                                       gbuf.parts[s], cols))
+            ks.append(_screen_k(*rows[s][:11]))
+    totals = col.psum([k.sum(dim=0) for k in ks], mesh)
+    tails = [_screen_tail(k, t, r[6], r[11])
+             for k, t, r in zip(ks, totals, rows)]
+    return torch.cat([col.gather([t[0] for t in tails]),
+                      col.gather([t[1] for t in tails]).reshape(-1)])
+
+
 def consolidation_screen(cat: CatalogTensors, enc: EncodedPods,
                          views: "List", group_counts: np.ndarray,
                          device=None, mesh=None
                          ) -> Tuple[np.ndarray, np.ndarray]:
     """views: `state.cluster.NodeView`s (only `.virtual` is read);
     group_counts [N, G] = pods of group g on node n. Returns (screen [N]
-    bool, slack [N, G]), after ONE host read."""
-    reject_mesh(mesh)
-    dev = resolve_device(device)
+    bool, slack [N, G]), after ONE host read.
+
+    mesh: split the candidate-node axis over the mesh's shards
+    (`screen_packed_mesh`); `device` is then unused."""
+    dev = resolve_device(device) if mesh is None else None
     N = len(views)
     if N == 0:
         return np.zeros(0, bool), np.zeros((0, enc.G), np.float32)
@@ -181,7 +253,12 @@ def consolidation_screen(cat: CatalogTensors, enc: EncodedPods,
     # an InjectedFault and degrades to cost order; anything else raises)
     if _solver_mod._dispatch_fault_hook is not None:
         _solver_mod._dispatch_fault_hook("screen")
-    buf = _read(screen_packed(cat, enc, views, group_counts, dev))
+    if mesh is not None:
+        Np = -(-N // int(mesh.size)) * int(mesh.size)
+        buf = _read(screen_packed_mesh(cat, enc, views, group_counts, mesh))
+    else:
+        Np = N
+        buf = _read(screen_packed(cat, enc, views, group_counts, dev))
     screen = buf[:N] > 0.5
-    slack = buf[N: N + N * enc.G].reshape(N, enc.G)
+    slack = buf[Np: Np + Np * enc.G].reshape(Np, enc.G)[:N]
     return screen, slack

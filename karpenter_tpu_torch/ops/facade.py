@@ -56,7 +56,9 @@ from .colocate import (BundleNode, ColocationPlan, has_colocation,
                        plan_colocation)
 from .encode import (CatalogTensors, EncodedPods, align_resources,
                      encode_catalog, encode_pods)
-from .solver import reject_mesh, resolve_device
+from .solver import resolve_device
+
+_MESH_UNSET = object()  # Solver.mesh() not built yet
 
 MAX_OVERRIDES = 60  # reference MaxInstanceTypes (instance.go:62)
 
@@ -370,8 +372,10 @@ class Solver:
         """device: where the device rung runs — the CUDA card unless the
         caller passes one (device="cpu" runs the kernels' plain versions,
         as the tests do). A "device" or "hybrid" facade without a card and
-        without `device` raises, as solve_device does; "mesh" is not
-        ported and raises."""
+        without `device` raises, as solve_device does. A "mesh" facade
+        shards its solves over `mesh()` and raises when fewer than two
+        devices exist (a mesh request never runs on one device in
+        silence); its `device` defaults to the mesh's first shard's."""
         from collections import OrderedDict
         self.catalog = catalog
         # fleet seam: when set, catalog views resolve through the
@@ -386,12 +390,21 @@ class Solver:
         self.profile_dir = profile_dir
         if backend == "auto":
             backend = self._detect_backend()
-        if backend == "mesh":
-            reject_mesh(backend)
         self.backend = backend
-        self.device = (resolve_device(device)
-                       if backend in ("device", "hybrid") or device is not None
-                       else None)
+        self._mesh_obj = _MESH_UNSET
+        if backend == "mesh":
+            if self.mesh() is None:
+                from ..parallel.mesh import device_count
+                raise RuntimeError(
+                    f"backend='mesh' needs more than one device and "
+                    f"{device_count()} exist; set_virtual_devices(n, device) "
+                    f"asks for virtual shards of one device")
+            self.device = (resolve_device(device) if device is not None
+                           else self.mesh().devices[0])
+        else:
+            self.device = (resolve_device(device)
+                           if backend in ("device", "hybrid")
+                           or device is not None else None)
         self._cat_cache: "OrderedDict[tuple, CatalogTensors]" = OrderedDict()
         self._dcat_cache: Dict[tuple, object] = {}  # device-resident tensors
         self._last_cat_key: tuple = ()
@@ -433,8 +446,41 @@ class Solver:
             "backend=auto resolved to %s", backend)
         return backend
 
-    # (the reference's mesh(), screen_mesh() and SCREEN_MESH_MIN_NODES sit
-    # here: ROADMAP §1 item 13, multi-device)
+    def mesh(self):
+        """The mesh this solver shards over, or None on one device. Built
+        lazily on first use: a "nodes" mesh over every device
+        `parallel.mesh.device_count()` reports (the CUDA cards, or the
+        virtual shards a caller asked for), when there is more than
+        one."""
+        if self._mesh_obj is _MESH_UNSET:
+            from ..parallel.mesh import device_count, make_mesh
+            self._mesh_obj = make_mesh() if device_count() > 1 else None
+        return self._mesh_obj
+
+    def _auto_mesh(self):
+        """The mesh "hybrid" routes to on its own: mesh() when its shards
+        are the virtual ones a caller asked for. A mesh over distinct cards
+        is taken only on request (backend="mesh", an explicit mesh=) until
+        a machine with more than one card has run it (ROADMAP §3); there
+        hybrid stays on one device."""
+        m = self.mesh()
+        return m if m is not None and m.virtual else None
+
+    # screen sharding threshold in CANDIDATE NODES — deliberately separate
+    # from device_min_pods (a pod-count calibration for solve routing):
+    # the [N, G] screen's cost model is per-node rows, and tuning one
+    # knob must not silently retune the other
+    SCREEN_MESH_MIN_NODES = 1024
+
+    def screen_mesh(self, n_nodes: int):
+        """Mesh for the consolidation screen's node axis, or None when the
+        single-device path is the right call (small clusters, no mesh)."""
+        if self.backend == "mesh":
+            return self.mesh()
+        if (self.backend == "hybrid"
+                and n_nodes >= self.SCREEN_MESH_MIN_NODES):
+            return self._auto_mesh()
+        return None
 
     # solves routed to the fallback backend after a device fault before
     # the device path is probed again (count-based: deterministic in sim)
@@ -450,7 +496,7 @@ class Solver:
 
     def _resolve_backend(self, total_pods: int) -> str:
         backend = self._resolve_backend_healthy(total_pods)
-        if backend == "device" and self._device_suspended > 0:
+        if backend in ("device", "mesh") and self._device_suspended > 0:
             # degraded mode after a mid-solve device fault: reroute and
             # burn down the cooldown; the gauge clears when it reaches
             # zero (the NEXT device-sized solve re-probes the device)
@@ -488,7 +534,9 @@ class Solver:
         if self.backend != "hybrid":
             return self.backend
         if total_pods >= self.device_min_pods:
-            return "device"
+            # virtual shards asked for: shard the node axis over them; the
+            # same facade call the provisioner makes reaches every shard
+            return "mesh" if self._auto_mesh() is not None else "device"
         from . import native
         return "native" if native.available() else "host"
 
@@ -802,7 +850,7 @@ class Solver:
             ex_fp))
         return prep
 
-    def _device_dcat(self, prep: PreparedSolve):
+    def _device_dcat(self, prep: PreparedSolve, mesh=None):
         """Device-resident catalog tensors for a prepared solve — the ONE
         residency-cache policy the serial run and the batched stage
         share. Keys on prep.cat_key (captured at prepare time), so
@@ -817,15 +865,16 @@ class Solver:
             # PROCESS-global cache (ops/solver._auto_dcat), so tenant
             # facades sharing this view — and its gated/daemonset-
             # derived tokens — share one upload
-            return _auto_dcat(cat, R, self.device)
+            return _auto_dcat(cat, R, self.device, mesh=mesh)
         # keyed on (nodeclass hash, catalog epoch, R, placement, block
         # gating) — NOT id(cat): a freed CatalogTensors' address can be
         # reused by its successor
-        dkey = prep.cat_key + (R, False, prep.blocks_gated, prep.ds_fp)
+        dkey = prep.cat_key + (R, mesh is not None, prep.blocks_gated,
+                               prep.ds_fp)
         dcat = self._dcat_cache.get(dkey)
         if dcat is None:
             # device residency follows the host LRU: every variant
-            # (block-gating states) of any CACHED
+            # (block-gating states, mesh vs single) of any CACHED
             # catalog view may stay — mixed pools and alternating
             # NodeClasses must not thrash a full host→device transfer
             # per solve
@@ -835,10 +884,11 @@ class Solver:
                       if k[:n] not in self._cat_cache]:
                 del self._dcat_cache[k]
                 DCAT_EVICTIONS.inc(reason="facade_lru")
-            rk = self._resident_key(prep)
+            rk = None if mesh is not None else self._resident_key(prep)
             dcat = device_catalog(
                 cat, R, self.device,
-                resident_key=rk + ("dcat",) if rk is not None else None)
+                resident_key=rk + ("dcat",) if rk is not None else None,
+                mesh=mesh)
             self._dcat_cache[dkey] = dcat
         return dcat
 
@@ -1079,10 +1129,13 @@ class Solver:
             else:
                 from .solver import InjectedFault, solve_device
                 try:
-                    dcat = self._device_dcat(prep)
+                    mesh = self.mesh() if backend == "mesh" else None
+                    dcat = self._device_dcat(prep, mesh)
                     result = solve_device(
                         cat, enc, existing, dcat=dcat, device=self.device,
-                        resident_key=self._resident_key(prep))
+                        mesh=mesh,
+                        resident_key=(None if mesh is not None
+                                      else self._resident_key(prep)))
                 except InjectedFault as e:
                     # an injected mid-solve device fault costs ONE rerouted
                     # solve, metered as the reference meters it. Anything
@@ -1204,7 +1257,7 @@ class Solver:
               if TRACER.enabled else NOOP_SPAN)
         with sp:
             violations = verify_result(prep.cat, prep.enc, result)
-            device_backed = backend == "device"
+            device_backed = backend in ("device", "mesh")
             if not violations and device_backed and not prep.existing:
                 if self._canary is None:
                     self._canary = CanarySampler()

@@ -61,9 +61,15 @@ a patch never waits for the card; `audit()` is the one place that reads
 resident rows back (it synchronises, and it counts through `_read`).
 
 No fallback hides the device: a patch or scatter that fails drops the
-entry (its next upload re-seeds cold) and raises out of the solve. The
-mesh-grouped patch of the reference is not ported (`mesh=` raises in the
-port, ROADMAP item 13).
+entry (its next upload re-seeds cold) and raises out of the solve.
+
+Sharded residency (`upload(sharding=)`, the mesh path): a buffer can live
+split over a mesh (`parallel/collectives.ShardedTensor`, the federation
+server's batched stacks over its batch mesh). A layout change re-seeds
+under `shape_change`; a patch of an axis-0 split buffer groups the
+changed rows by owning shard into an [n_sh, k] index (padded with
+idempotent duplicates, as the reference's), ships each shard only its own
+rows through `_put_sharded`, and runs `_scatter_rows` once per shard.
 
 Staleness: `observe_view(prefix, base_token)` records the newest token
 the facade resolved for a view; entries under the prefix whose token no
@@ -150,6 +156,9 @@ class ResidentEntry:
     # shape change (patching across devices would commit to the wrong
     # one)
     device: Optional[torch.device] = None
+    # the mesh layout of a sharded buffer (parallel/collectives.Sharding),
+    # None on one device
+    sharding: object = None
     stats: Dict[str, int] = field(default_factory=lambda: {
         "patches": 0, "full": 0, "clean": 0,
         "rows_patched": 0, "rows_total": 0})
@@ -189,7 +198,7 @@ class ResidentStateManager:
                shape_class: Optional[str] = None,
                donate: bool = True,
                patch_across_tokens: bool = False,
-               device=None) -> torch.Tensor:
+               device=None, sharding=None) -> torch.Tensor:
         """Return a device tensor holding `matrix`'s bytes: the patched
         resident buffer when the view matches, a full (re-)upload on any
         fallback trigger. `matrix` is digested on axis 0 (rows = pod
@@ -210,9 +219,17 @@ class ResidentStateManager:
         read: the patch lands in a copy and the entry is rebound.
 
         device: where the buffer lives (default: the CUDA card; the CPU
-        tests pass "cpu"). A device change re-seeds under shape_change."""
+        tests pass "cpu"). A device change re-seeds under shape_change.
+
+        sharding: commit (and patch) the buffer split on axis 0 over a
+        mesh (`parallel.collectives.Sharding(mesh, 0)`; `device` is then
+        unused) — the batched stacks of a batch mesh. A layout change
+        re-seeds under shape_change."""
         from .solver import resolve_device
-        dev = resolve_device(device)
+        if sharding is not None and sharding.axis != 0:
+            raise ValueError("a resident buffer splits on axis 0 only")
+        dev = (resolve_device(device) if sharding is None
+               else sharding.mesh.devices[0])
         token = tuple(token) if token is not None else None
         mat = np.ascontiguousarray(matrix)
         with self._lock:
@@ -222,7 +239,9 @@ class ResidentStateManager:
                 reason = "first_sight"
             elif ent.shape != mat.shape:
                 reason = "shape_change"
-            elif ent.device != dev:
+            elif ent.device != dev or ent.sharding != sharding:
+                # the bytes live on the wrong device(s), or the layout
+                # changed (replicated <-> sharded, the mesh grew)
                 reason = "shape_change"
             elif ent.dtype != mat.dtype:
                 reason = "dtype_change"
@@ -235,7 +254,7 @@ class ResidentStateManager:
         if reason is not None:
             return self._corruption_seam(
                 key, self._full_upload(key, mat, token, shape_class,
-                                       reason, dev))
+                                       reason, dev, sharding=sharding))
         digests = dm.UploadMeter._row_digests(mat.reshape(mat.shape[0], -1))
         changed = np.nonzero(digests != ent.digests)[0]
         rows = int(mat.shape[0])
@@ -243,7 +262,8 @@ class ResidentStateManager:
         if changed.size > rows * PATCH_MAX_FRAC:
             return self._corruption_seam(
                 key, self._full_upload(key, mat, token, shape_class,
-                                       "dense", dev, digests=digests))
+                                       "dense", dev, digests=digests,
+                                       sharding=sharding))
         try:
             return self._corruption_seam(
                 key, self._patch(ent, mat, digests, changed, row_bytes,
@@ -263,7 +283,7 @@ class ResidentStateManager:
     def _full_upload(self, key: tuple, mat: np.ndarray,
                      token: Optional[tuple], shape_class: Optional[str],
                      reason: str, dev: torch.device,
-                     digests: Optional[np.ndarray] = None):
+                     digests: Optional[np.ndarray] = None, sharding=None):
         from ..metrics import DEVICEMEM_PATCH, RESIDENT_FALLBACKS
         from . import solver as _ops
         RESIDENT_FALLBACKS.inc(reason=reason)
@@ -272,7 +292,8 @@ class ResidentStateManager:
                 mat.reshape(mat.shape[0], -1))
         with dm.attributed(kind="resident_state",
                            shape_class=shape_class) as grp:
-            buf = _ops._put(mat, dev)
+            buf = (_ops._put_sharded(mat, sharding) if sharding is not None
+                   else _ops._put(mat, dev))
         # shipped-bytes redundancy metering: with residency armed the
         # meter sees what actually crosses to the card, so a steady warm
         # path collapses upload_redundant_frac toward zero changed bytes.
@@ -288,7 +309,7 @@ class ResidentStateManager:
             ent = ResidentEntry(key=key, token=token, shape=mat.shape,
                                 dtype=mat.dtype, digests=digests, buf=buf,
                                 group=grp, shape_class=shape_class,
-                                device=dev)
+                                device=dev, sharding=sharding)
         else:
             # refresh IN PLACE: the entry object stays the ledger owner
             # of its previous groups, so a predecessor buffer another
@@ -298,6 +319,7 @@ class ResidentStateManager:
             ent.digests, ent.buf, ent.group = digests, buf, grp
             ent.shape_class = shape_class
             ent.device = dev
+            ent.sharding = sharding
         dm.DEVICEMEM.adopt(grp, ent)
         ent.stats["full"] += 1
         ent.stats["rows_total"] += int(mat.shape[0])
@@ -336,20 +358,48 @@ class ResidentStateManager:
                 DEVICEMEM_PATCH.inc(float(avoided), outcome="avoided")
             return ent.buf
         from . import solver as _ops
-        idx_np = changed.astype(np.int32)
-        rows_np = np.ascontiguousarray(mat[changed])
+        grouped = ent.sharding is not None
+        n_sh = ent.sharding.mesh.size if grouped else 1
+        if grouped:
+            # per-shard row blocks: shard s owns rows [s*q, (s+1)*q) of
+            # the axis-0-split buffer, so its changed indices group into
+            # ITS slot of an [n_sh, k] index matrix — each shard then
+            # receives only the rows it will write. Groups pad to the
+            # widest with IDEMPOTENT duplicates: a repeated index rewrites
+            # the same new row, an empty group rewrites one of its own
+            # UNCHANGED rows with its current bytes — byte-identical
+            # no-ops either way, so the duplicate writes' order can't
+            # matter.
+            q = rows // n_sh
+            groups = [changed[(changed >= s * q) & (changed < (s + 1) * q)]
+                      for s in range(n_sh)]
+            k = max(int(g.size) for g in groups)
+            idx_np = np.empty((n_sh, k), np.int32)
+            for s, g in enumerate(groups):
+                fill = int(g[0]) if g.size else s * q
+                idx_np[s, :g.size] = g
+                idx_np[s, g.size:] = fill
+            rows_np = np.ascontiguousarray(mat[idx_np])   # [n_sh, k, ...]
+            changed_rows = np.ascontiguousarray(mat[changed])
+        else:
+            idx_np = changed.astype(np.int32)
+            rows_np = changed_rows = np.ascontiguousarray(mat[changed])
         sp = (TRACER.span("solve.resident_patch", rows=int(changed.size),
                           total_rows=rows,
-                          donate=bool(donate), shards=1)
+                          donate=bool(donate), shards=n_sh)
               if TRACER.enabled else NOOP_SPAN)
         with sp:
             b0 = dm.TRANSFERS.totals()[0]
             with dm.attributed(reason="resident_patch",
                                kind="resident_state",
                                shape_class=shape_class):
-                idx_dev = _ops._put(idx_np, ent.device)
-                rows_dev = _ops._put(rows_np, ent.device)
-            new_buf = _scatter_rows(ent.buf, idx_dev, rows_dev, donate)
+                if grouped:
+                    idx_dev = _ops._put_sharded(idx_np, ent.sharding)
+                    rows_dev = _ops._put_sharded(rows_np, ent.sharding)
+                else:
+                    idx_dev = _ops._put(idx_np, ent.device)
+                    rows_dev = _ops._put(rows_np, ent.device)
+            new_buf = self._scatter(ent, idx_dev, rows_dev, donate)
             # rebind the entry to the scatter output (the same tensor when
             # donating; a patched copy otherwise, whose predecessor stays
             # alive for whoever still reads it)
@@ -360,7 +410,7 @@ class ResidentStateManager:
                                shape_class=shape_class, group=ent.group)
             sp.set(h2d_bytes=dm.TRANSFERS.totals()[0] - b0)
         dm.UPLOADS.observe(ent.key + ("resident", "patch"),
-                           rows_np.reshape(rows_np.shape[0], -1))
+                           changed_rows.reshape(changed_rows.shape[0], -1))
         ent.digests = digests
         patched = int(changed.size) * row_bytes
         ent.stats["patches"] += 1
@@ -378,6 +428,21 @@ class ResidentStateManager:
         if avoided:
             DEVICEMEM_PATCH.inc(float(avoided), outcome="avoided")
         return new_buf
+
+    @staticmethod
+    def _scatter(ent: "ResidentEntry", idx, rows, donate: bool):
+        """The patch's row scatter: `_scatter_rows` on the one buffer, or
+        on each shard's block of a split buffer with its own slot of the
+        grouped index, made local to the block."""
+        buf = ent.buf
+        if ent.sharding is None:
+            return _scatter_rows(buf, idx, rows, donate)
+        from ..parallel.collectives import ShardedTensor
+        q = buf.shape[0] // ent.sharding.mesh.size
+        parts = [_scatter_rows(p, i[0] - s * q, r[0], donate)
+                 for s, (p, i, r) in enumerate(zip(buf.parts, idx.parts,
+                                                   rows.parts))]
+        return ShardedTensor(parts, ent.sharding, buf.shape)
 
     def _corruption_seam(self, key: tuple, buf):
         """Chaos seam (faults/plan.CorruptionFault): when the process

@@ -23,8 +23,15 @@ request matrices and the catalog tensors stay on the card across solves
 and only their changed rows cross (`ops/resident`).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`, which
-runs the same path with the scan's plain PyTorch version. Multi-device
-(`mesh=`) is not ported.
+runs the same path with the scan's plain PyTorch version.
+
+With `mesh=` (`parallel/mesh`) the solve runs sharded: `solve_device`
+splits the node axis over a "nodes" mesh (kernel M, `ops/mesh_scan`;
+the uploads go through `_put_sharded`, one count each, as the
+reference's), and `dispatch_batch` / `dispatch_packed` split a bucket's
+request rows over a "batch" mesh (batched B0 and B on each shard, no
+collectives). A mesh request runs sharded or raises; it never runs as
+mesh=None.
 """
 
 from __future__ import annotations
@@ -105,21 +112,27 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def reject_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device (mesh=) solving is not ported to karpenter_tpu_torch "
-            "yet; it runs on one card with mesh=None")
-
-
 @dataclass(frozen=True)
 class DeviceCatalog:
-    """Catalog tensors resident on one device."""
+    """Catalog tensors resident on one device, or replicated over a mesh
+    (each field then a `parallel.collectives.ShardedTensor`)."""
 
     alloc: torch.Tensor                   # f32 [T, R]
     price: torch.Tensor                   # f32 [T, Z, C], +inf = no offering
     avail: torch.Tensor                   # bool [T, Z, C]
     ovh_z: Optional[torch.Tensor] = None  # f32 [T, Z, R] or None
+
+    @property
+    def mesh(self):
+        """The mesh this catalog is replicated over, or None."""
+        return getattr(self.alloc, "mesh", None)
+
+    def shard(self, s: int) -> "DeviceCatalog":
+        """Shard s's replica of a mesh catalog, as a one-device catalog."""
+        return DeviceCatalog(
+            alloc=self.alloc.parts[s], price=self.price.parts[s],
+            avail=self.avail.parts[s],
+            ovh_z=self.ovh_z.parts[s] if self.ovh_z is not None else None)
 
 
 # device-boundary crossings issued since import (uploads, reads): diff
@@ -150,46 +163,84 @@ class _Staging(threading.local):
 _staging = _Staging()
 
 
-def _put(x, dev: torch.device) -> torch.Tensor:
-    """Host -> device upload of one numpy array, counted and attributed on
-    the device telemetry plane (under the ambient `dm.attributed(...)`
-    context). On the card the copy goes from a pinned host buffer with
-    non_blocking=True, so an upload never makes the host wait for work
-    already queued on the stream (the caching host allocator holds the
-    pinned block until the copy has run; inside a batched staging the
-    in-flight batch keeps it too). On the CPU the tensor is an independent
-    copy, never a view of the caller's array."""
-    global _TRANSFERS
-    _TRANSFERS += 1
-    dev = torch.device(dev)
-    arr = np.ascontiguousarray(x)
+def _h2d(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """One uncounted host -> device copy. On the card the copy goes from a
+    pinned host buffer with non_blocking=True, so an upload never makes
+    the host wait for work already queued on the stream (the caching host
+    allocator holds the pinned block until the copy has run; inside a
+    batched staging the in-flight batch keeps it too). On the CPU the
+    tensor is an independent copy, never a view of the caller's array."""
     if dev.type == "cuda":
         host = torch.from_numpy(arr.copy() if not arr.flags.writeable
                                 else arr).pin_memory()
         out = host.to(dev, non_blocking=True)
         if _staging.keep is not None:
             _staging.keep.append(host)
-    else:
-        out = torch.tensor(arr, device=dev)
+        return out
+    return torch.tensor(arr, device=dev)
+
+
+def _put(x, dev: torch.device) -> torch.Tensor:
+    """Host -> device upload of one numpy array, counted and attributed on
+    the device telemetry plane (under the ambient `dm.attributed(...)`
+    context)."""
+    global _TRANSFERS
+    _TRANSFERS += 1
+    out = _h2d(np.ascontiguousarray(x), torch.device(dev))
     dm.on_upload(out)
     return out
 
 
-def _read(t: torch.Tensor) -> np.ndarray:
+def _put_sharded(x, sharding):
+    """Host -> mesh upload of one numpy array under an explicit layout
+    (`parallel.collectives.Sharding`): the mesh path's `_put`, counted once
+    and attributed as `mesh_shard` with the logical array's bytes, as the
+    reference's `_put_sharded` is. Each device receives its own blocks (a
+    split) or one copy (replicated); the shards of a virtual mesh share
+    one upload to their device and read blocks of it."""
+    from ..parallel import collectives as col
+    global _TRANSFERS
+    _TRANSFERS += 1
+    arr = np.ascontiguousarray(x)
+    mesh = sharding.mesh
+    if len(set(mesh.devices)) == 1:
+        out = col.place(_h2d(arr, mesh.devices[0]), sharding)
+    elif sharding.axis is None:
+        copies = {d: _h2d(arr, d) for d in dict.fromkeys(mesh.devices)}
+        out = col.ShardedTensor([copies[d] for d in mesh.devices], sharding,
+                                arr.shape)
+    else:
+        blocks = np.split(arr, mesh.size, axis=sharding.axis)
+        out = col.ShardedTensor(
+            [_h2d(np.ascontiguousarray(b), d)
+             for b, d in zip(blocks, mesh.devices)], sharding, arr.shape)
+    dm.on_upload(out, sharded=True)
+    return out
+
+
+def _read(t) -> np.ndarray:
     """Device -> host read of one tensor (waits for the card), counted
-    and attributed as a readback."""
+    and attributed as a readback. A ShardedTensor reads as its logical
+    tensor (a replicated one from its first shard)."""
     global _READS
     _READS += 1
+    if not isinstance(t, torch.Tensor):
+        from ..parallel.collectives import to_tensor
+        t = to_tensor(t)
     out = t.cpu().numpy()
     dm.on_readback(out.nbytes)
     return out
 
 
-def device_catalog(cat: CatalogTensors, R: int, device: torch.device,
-                   resident_key: Optional[tuple] = None) -> DeviceCatalog:
+def device_catalog(cat: CatalogTensors, R: int, device: torch.device = None,
+                   resident_key: Optional[tuple] = None,
+                   mesh=None) -> DeviceCatalog:
     """The catalog tensors on `device`.
 
-    resident_key: route the four catalog tensors through the
+    mesh: replicate the catalog over the mesh's shards instead (the
+    sharded solve reads it on every shard); `device` is then unused.
+
+    resident_key (one device only): route the four catalog tensors through the
     device-resident state manager (ops/resident.py) — an epoch bump then
     ships only the instance-type rows whose content changed (an ICE mark
     flips a few avail rows, not the catalog), as a NON-donated patch: a
@@ -197,7 +248,13 @@ def device_catalog(cat: CatalogTensors, R: int, device: torch.device,
     co-tenant, so its tensors keep their bytes and the patch lands in a
     copy."""
     from .resident import RESIDENT
-    if resident_key is not None and RESIDENT.armed:
+    if mesh is not None:
+        from ..parallel.collectives import Sharding
+        rep = Sharding(mesh)
+
+        def put(name, x):
+            return _put_sharded(x, rep)
+    elif resident_key is not None and RESIDENT.armed:
         tok = cat.cache_token
 
         def put(name, x):
@@ -209,7 +266,7 @@ def device_catalog(cat: CatalogTensors, R: int, device: torch.device,
             return _put(x, device)
     zovh = align_zone_overhead(cat, R)
     sp = (TRACER.span("solve.catalog_put", T=int(cat.T), R=int(R),
-                      mesh=False)
+                      mesh=mesh is not None)
           if TRACER.enabled else NOOP_SPAN)
     with sp:
         b0 = transfer_bytes()[0]
@@ -282,28 +339,35 @@ def release_shared_views(prefix: tuple) -> int:
 
 
 def _dcat_fits(dcat: DeviceCatalog, cat: CatalogTensors, R: int,
-               device: torch.device) -> bool:
+               device: torch.device = None, mesh=None) -> bool:
     """Can this device catalog serve a solve of `cat` at R resource
-    columns on `device`?"""
+    columns on `device` (or replicated over `mesh`)?"""
+    if dcat.alloc.shape[1] < R or ((dcat.ovh_z is not None)
+                                   != (cat.zone_overhead is not None)):
+        return False
+    if mesh is not None or dcat.mesh is not None:
+        return dcat.mesh == mesh
     on = dcat.alloc.device
-    return (dcat.alloc.shape[1] >= R and on.type == device.type
-            and (device.index is None or on.index == device.index)
-            and (dcat.ovh_z is not None) == (cat.zone_overhead is not None))
+    return (on.type == device.type
+            and (device.index is None or on.index == device.index))
 
 
-def _auto_dcat(cat: CatalogTensors, R: int,
-               device: torch.device) -> DeviceCatalog:
-    """Epoch-cached device catalog. Every eviction path meters
+def _auto_dcat(cat: CatalogTensors, R: int, device: torch.device = None,
+               mesh=None) -> DeviceCatalog:
+    """Epoch-cached device catalog: on `device`, or replicated over `mesh`
+    (keyed on the mesh itself, so one replicated upload serves every
+    later solve on it). Every eviction path meters
     dcat_evictions_total{reason}: churn here is re-upload cost."""
     while _dcat_evict_pending:  # flush GC-deferred weakref evictions
         _count_dcat_eviction(_dcat_evict_pending.pop())
-    device = torch.device(device)
+    if mesh is None:
+        device = torch.device(device)
     tok = cat.cache_token
     by_token = tok is not None and len(tok) > 0 and tok[0] == "shared"
-    key = ((tuple(tok), str(device)) if by_token
-           else (id(cat), str(device)))
+    place = mesh if mesh is not None else str(device)
+    key = (tuple(tok), place) if by_token else (id(cat), place)
     ent = _dcat_cache.get(key)
-    if ent is not None and _dcat_fits(ent, cat, R, device):
+    if ent is not None and _dcat_fits(ent, cat, R, device, mesh):
         return ent
     if ent is not None:
         # present but unusable (resource axis grew / overhead flipped)
@@ -315,9 +379,9 @@ def _auto_dcat(cat: CatalogTensors, R: int,
     # but NOT the availability fingerprint (tok[2]), so an epoch bump
     # ships only the changed type rows, and two distinct daemonset-
     # derived views never collide on one resident entry
-    rkey = (("dcat", "shared", tok[1]) + tuple(tok[3:]) if by_token
-            else None)
-    dcat = device_catalog(cat, R, device, resident_key=rkey)
+    rkey = (("dcat", "shared", tok[1]) + tuple(tok[3:])
+            if by_token and mesh is None else None)
+    dcat = device_catalog(cat, R, device, resident_key=rkey, mesh=mesh)
     _dcat_cache[key] = dcat
     if by_token:
         # token-keyed entries deliberately OUTLIVE any one CatalogTensors
@@ -631,7 +695,7 @@ class _Staged:
     cols: tuple
     track: bool
     zone_ovh: bool
-    gbuf: torch.Tensor
+    gbuf: Optional[torch.Tensor]
     conflict: Optional[torch.Tensor]
     existing: List[VirtualNode]
     node_type: np.ndarray
@@ -641,17 +705,26 @@ class _Staged:
     has_prior: bool
     has_banned: bool
     shape_class: str = ""
+    # a node mesh: its inputs are put per node budget (`_scan_mesh`), from
+    # these host group inputs (the six of _group_inputs, then conflict)
+    mesh: object = None
+    groups_np: tuple = ()
 
 
 def _stage(cat: CatalogTensors, enc: EncodedPods,
            existing: List[VirtualNode], dev: torch.device,
            dcat: Optional[DeviceCatalog] = None,
            resident_key: Optional[tuple] = None,
-           n_max: Optional[int] = None) -> _Staged:
+           n_max: Optional[int] = None, mesh=None) -> _Staged:
     R = enc.requests.shape[1]
     n_existing = len(existing)
     Gp = _bucket(enc.G, 8)
-    if dcat is None or not _dcat_fits(dcat, cat, R, dev):
+    if mesh is not None:
+        # the reference's mesh catalog: replicated, at exactly R columns
+        if (dcat is None or not _dcat_fits(dcat, cat, R, mesh=mesh)
+                or dcat.alloc.shape[1] != R):
+            dcat = device_catalog(cat, R, mesh=mesh)
+    elif dcat is None or not _dcat_fits(dcat, cat, R, dev):
         dcat = _auto_dcat(cat, R, dev)
     node_type = np.zeros(n_existing, np.int32)
     node_cum = np.zeros((n_existing, R), np.float32)
@@ -670,11 +743,16 @@ def _stage(cat: CatalogTensors, enc: EncodedPods,
     cols = _request_cols(enc, cat)
     shape_class = f"g{Gp}/n{n_max}"
     # pad group inputs; padded groups have count 0 -> no-ops in the scan
-    gbuf_np = _pack_groups(*_group_inputs(enc, Gp), list(cols))
+    groups_np = _group_inputs(enc, Gp)
     conflict_np = (_pad_to(_pad_to(enc.conflict, Gp, 0), Gp, 1) if track
                    else None)
     from .resident import RESIDENT
-    if resident_key is not None and RESIDENT.armed:
+    if mesh is not None:
+        gbuf = conflict = None
+        groups_np = groups_np + (conflict_np if track
+                                 else np.zeros((Gp, 1), bool),)
+    elif resident_key is not None and RESIDENT.armed:
+        gbuf_np = _pack_groups(*groups_np, list(cols))
         # device-resident delta path (ops/resident.py): the request
         # matrix stays on the card across reconciles and only CHANGED
         # group rows cross, patched in place (the reference donates these
@@ -692,6 +770,7 @@ def _stage(cat: CatalogTensors, enc: EncodedPods,
         # redundancy meter: how much of this view's request matrix is
         # byte-identical to the previous solve's upload — the measured
         # headroom the resident path above spends
+        gbuf_np = _pack_groups(*groups_np, list(cols))
         dm.UPLOADS.observe(("serial", id(dcat), Gp), gbuf_np)
         with dm.attributed(shape_class=shape_class):
             gbuf = _maybe_corrupt("gbuf", _put(gbuf_np, dev))
@@ -704,14 +783,14 @@ def _stage(cat: CatalogTensors, enc: EncodedPods,
                    has_prior=any(n.prior_by_group for n in existing),
                    has_banned=any(n.banned_groups is not None
                                   for n in existing),
-                   shape_class=shape_class)
+                   shape_class=shape_class, mesh=mesh,
+                   groups_np=groups_np if mesh is not None else ())
 
 
 def _scan(st: _Staged, n_max: int) -> ScanOut:
     """The group scan at one node budget: its outputs, still on the device
     (they do not depend on the sparse budget k_max; only the packing
     does)."""
-    dev = st.gbuf.device
     existing, Gp = st.existing, st.Gp
     n_existing = len(existing)
     prior = np.zeros((Gp, n_max if st.has_prior else 1), np.int32)
@@ -723,6 +802,9 @@ def _scan(st: _Staged, n_max: int) -> ScanOut:
                     prior[g, i] = cnt
         if st.has_banned and n.banned_groups is not None:
             banned[: len(n.banned_groups), i] = n.banned_groups
+    if st.mesh is not None:
+        return _scan_mesh(st, n_max, prior, banned)
+    dev = st.gbuf.device
     with dm.attributed(shape_class=st.shape_class):
         nbuf = (None if n_existing == 0 else
                 _put(_pack_nodes(_pad_to(st.node_type, n_max),
@@ -736,6 +818,42 @@ def _scan(st: _Staged, n_max: int) -> ScanOut:
     return _scan_onebuf(
         st.dcat, st.gbuf, prior_dev, banned_dev, st.conflict, nbuf,
         n_existing, n_max, st.cols, st.track, st.zone_ovh)
+
+
+def _scan_mesh(st: _Staged, n_max: int, prior: np.ndarray,
+               banned: np.ndarray) -> ScanOut:
+    """`_scan` on a node mesh (the reference's `_mesh_packed_fn` call):
+    every input put once with the reference's layout (groups, conflict and
+    the scalars replicated; node state split on the node axis; prior and
+    banned split on it when they span the nodes), then the sharded scan
+    (`parallel.mesh.sharded_solve_fn`, kernel M on the card), its outputs
+    gathered on shard 0's device. Nothing compiles per shape, so the
+    reference's executable cache has no counterpart."""
+    from ..parallel.collectives import Sharding
+    from ..parallel.mesh import sharded_solve_fn
+    mesh, dcat = st.mesh, st.dcat
+    rep, nodes, gn = Sharding(mesh), Sharding(mesh, 0), Sharding(mesh, 1)
+    n_existing = len(st.existing)
+    R = dcat.alloc.shape[1]
+    put = _put_sharded
+    with dm.attributed(shape_class=st.shape_class):
+        args = (dcat.alloc, dcat.price, dcat.avail,
+                *(put(x, rep) for x in st.groups_np[:6]),
+                put(prior, gn if st.has_prior else rep),
+                put(banned, gn if st.has_banned else rep),
+                put(st.groups_np[6], rep),
+                dcat.ovh_z if st.zone_ovh
+                else put(np.zeros((1, 1, R), np.float32), rep),
+                put(_pad_to(st.node_type, n_max), nodes),
+                put(_pad_to(st.node_cum, n_max), nodes),
+                put(_pad_to(st.node_zmask, n_max), nodes),
+                put(_pad_to(st.node_cmask, n_max), nodes),
+                put(_pad_to(np.ones(n_existing, bool), n_max), nodes),
+                put(np.asarray(n_existing, np.int32), rep))
+    (ntype, _cum, _zmask, _cmask, _nopen, nused, takes, unsched,
+     overflow) = sharded_solve_fn(mesh, n_max)(
+        *args, track_conflicts=st.track, zone_ovh=st.zone_ovh)
+    return ntype, takes, unsched, nused, overflow
 
 
 def _dispatch(st: _Staged, n_max: int, k_max: int) -> torch.Tensor:
@@ -754,6 +872,9 @@ def solve_device(cat: CatalogTensors, enc: EncodedPods,
     result to the SolveResult solve_host produces. `enc` must be
     spread-free (split_spread_groups).
 
+    mesh: split the node axis over a "nodes" mesh (`parallel/mesh`;
+    `_scan_mesh`); `device` and `resident_key` are then unused.
+
     dcat: the catalog already on the device (the facade's per-view cache);
     one that cannot serve this solve (too few resource columns, another
     device, zone overhead flipped) is replaced by the process cache's.
@@ -769,15 +890,15 @@ def solve_device(cat: CatalogTensors, enc: EncodedPods,
     for the card), solve.decode. The per-solve transfer-byte deltas land
     on the two transfer gauges either way."""
     from ..metrics import TRANSFER_BYTES_D2H, TRANSFER_BYTES_H2D
-    reject_mesh(mesh)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else None
     u0, d0 = transfer_bytes()
-    span = (TRACER.span("solve.device", backend="device",
+    span = (TRACER.span("solve.device",
+                        backend="mesh" if mesh is not None else "device",
                         pods=int(enc.counts.sum()), groups=int(enc.G))
             if TRACER.enabled else NOOP_SPAN)
     with span:
         result = _solve_device_impl(cat, enc, existing, n_max, dcat, dev,
-                                    resident_key)
+                                    resident_key, mesh)
         u1, d1 = transfer_bytes()
         TRANSFER_BYTES_H2D.set(u1 - u0)
         TRANSFER_BYTES_D2H.set(d1 - d0)
@@ -788,26 +909,38 @@ def solve_device(cat: CatalogTensors, enc: EncodedPods,
 def _solve_device_impl(cat: CatalogTensors, enc: EncodedPods,
                        existing: Optional[List[VirtualNode]],
                        n_max: Optional[int], dcat: Optional[DeviceCatalog],
-                       dev: torch.device,
-                       resident_key: Optional[tuple]) -> SolveResult:
+                       dev: Optional[torch.device],
+                       resident_key: Optional[tuple],
+                       mesh=None) -> SolveResult:
+    """The solve's loop: stage, scan, pack, one read; regrow the node
+    budget and scan again on overflow. On a node mesh the node budget is a
+    multiple of the mesh size (again after every regrow) and each scan
+    puts its inputs sharded (`_scan_mesh`)."""
     assert not enc.spread_zone.any(), "run split_spread_groups before solve"
     existing = existing or []
     n_existing = len(existing)
     total_pods = int(enc.counts.sum())
     auto_n = n_max is None
+    ms = int(mesh.size) if mesh is not None else 1
     with _span("solve.prep") as sp:
         if auto_n:
             n_max = _auto_node_budget(cat, enc, n_existing)
+        n_max = -(-n_max // ms) * ms  # shardable node axis
         sp.set(n_max=int(n_max), groups_padded=int(_bucket(enc.G, 8)))
     with _span("solve.device_put") as sp:
         b0 = transfer_bytes()[0]
-        st = _stage(cat, enc, existing, dev, dcat, resident_key, n_max)
-        sp.set(gbuf_shape=str(tuple(st.gbuf.shape)),
+        st = _stage(cat, enc, existing, dev, dcat, resident_key, n_max,
+                    mesh=mesh)
+        sp.set(gbuf_shape=str(None if st.gbuf is None
+                              else tuple(st.gbuf.shape)),
                h2d_bytes=transfer_bytes()[0] - b0)
     if _dispatch_fault_hook is not None:
-        _dispatch_fault_hook("device")
+        _dispatch_fault_hook("mesh" if mesh is not None else "device")
     while True:
-        with _span("solve.dispatch"):
+        with _span("solve.dispatch") as sp:
+            if mesh is not None:
+                sp.set(backend="mesh", shards=ms, n_max=int(n_max),
+                       note="includes replicated input puts")
             out = _scan(st, n_max)  # ONE scan per node budget
         packed = None
         with _span("solve.readback") as sp, \
@@ -835,6 +968,7 @@ def _solve_device_impl(cat: CatalogTensors, enc: EncodedPods,
         # node budget too small: regrow it and scan again (the reference's
         # loop)
         n_max = min(_bucket(n_max * 2), _bucket(n_existing + total_pods))
+        n_max = -(-n_max // ms) * ms
 
     with _span("solve.decode"):
         res = _decode_solution(cat, enc, existing, st.node_cum,
@@ -873,10 +1007,13 @@ def solve_packed(cat: CatalogTensors, enc: EncodedPods,
 # have count 0; padded batch rows have ALL counts zeroed), so rows decode
 # independently and equal serial solves.
 #
-# Not ported: the batch mesh (`mesh=`, ROADMAP §1 item 13: raises), and
-# the donated stack (the in-flight batch holds its uploads until its
-# event instead). Nothing compiles per shape, so the reference's
-# dispatch-cache hit/miss event has no counterpart.
+# With a batch mesh (`mesh=`, `parallel/mesh.make_batch_mesh`) Bp rounds
+# up to a multiple of the mesh size, the stack splits its request rows
+# over the shards, the catalog is replicated on the same mesh, and each
+# shard runs batched B0 and B over its Bp/S rows; the rows are gathered
+# for the one read. Not ported: the donated stack (the in-flight batch
+# holds its uploads until its event instead). Nothing compiles per shape,
+# so the reference's dispatch-cache hit/miss event has no counterpart.
 
 
 @dataclass
@@ -1041,16 +1178,22 @@ def _batch_bucket(b: int) -> int:
 def _stage_batch_stack(gstack_np: np.ndarray, conf_np: Optional[np.ndarray],
                        dev: torch.device,
                        resident_key: Optional[tuple] = None, token=None,
-                       shape_class: str = ""):
+                       shape_class: str = "", mesh=None):
     """Upload one packed request stack ([Bp, Gp, W] f32, plus the optional
     [Bp, Gp, Gp] conflict stack) through the counted `_put` — or, with a
     resident_key, the stack through the resident manager (an unchanged
-    tenant's rows patch instead of re-uploading). On the card every copy
+    tenant's rows patch instead of re-uploading). With a batch mesh both
+    split their request rows over the shards (`_put_sharded`; a resident
+    stack lives sharded and patches per shard). On the card every copy
     goes from a pinned host buffer with non_blocking=True: a pageable copy
     on the stream would make the host wait for the batch already in
     flight. Returns (gstack, conf, ledger group, the host buffers to keep
     until the batch's event). A resident stack is patched out of place:
     the next pump reads it while this batch may still run."""
+    sharding = None
+    if mesh is not None:
+        from ..parallel.collectives import Sharding
+        sharding = Sharding(mesh, 0)
     keep: list = []
     _staging.keep = keep
     try:
@@ -1061,10 +1204,16 @@ def _stage_batch_stack(gstack_np: np.ndarray, conf_np: Optional[np.ndarray],
                 gstack = RESIDENT.upload(
                     resident_key + ("batch_gbuf",) + tuple(gstack_np.shape),
                     gstack_np, token=token, shape_class=shape_class,
-                    donate=False, device=dev)
+                    donate=False, device=dev, sharding=sharding)
+            elif sharding is not None:
+                gstack = _maybe_corrupt("gbuf",
+                                        _put_sharded(gstack_np, sharding))
             else:
                 gstack = _maybe_corrupt("gbuf", _put(gstack_np, dev))
-            conf = _put(conf_np, dev) if conf_np is not None else None
+            conf = None
+            if conf_np is not None:
+                conf = (_put_sharded(conf_np, sharding)
+                        if sharding is not None else _put(conf_np, dev))
     finally:
         _staging.keep = None
     return gstack, conf, grp, tuple(keep)
@@ -1093,34 +1242,56 @@ def _scan_batched_args(dcat: DeviceCatalog, gstack: torch.Tensor,
 
 
 def _dispatch_stack(gstack: torch.Tensor, conf: Optional[torch.Tensor],
-                    dcat: DeviceCatalog, st: dict) -> torch.Tensor:
+                    dcat: DeviceCatalog, st: dict,
+                    mesh=None) -> torch.Tensor:
     """The device half shared by dispatch_batch and dispatch_packed: the
     batched scan (one launch each of B0 and B on the card) and the packing
-    of every row. Returns the packed [Bp, L] int32, still on the device
-    (no synchronisation).
+    of every row. With a batch mesh, each shard runs its own launch of B0
+    and B over its rows against its replica of the catalog, and the rows
+    are gathered on shard 0's device (no collective between the shards).
+    Returns the packed [Bp, L] int32, still on the device (no
+    synchronisation).
 
     NO fault-hook probe here: one launch serves MANY tenants, so the
     caller probes through probe_dispatch_fault under each tenant's scope
     BEFORE dispatching (fleet/service._dispatch_bucket)."""
     with _span("solve.dispatch") as sp:
         sp.set(backend="device", batch=int(gstack.shape[0]),
-               n_max=st["n_max"])
-        args, kw = _scan_batched_args(dcat, gstack, conf, st)
-        return pack_solution_batched(*solve_scan_batched(*args, **kw),
-                                     st["k_max"])
+               n_max=st["n_max"], mesh=mesh is not None)
+        if mesh is None:
+            args, kw = _scan_batched_args(dcat, gstack, conf, st)
+            return pack_solution_batched(*solve_scan_batched(*args, **kw),
+                                         st["k_max"])
+        from ..parallel.collectives import gather, on_shard
+        rows = []
+        for s, d in enumerate(mesh.devices):
+            with on_shard(d):
+                args, kw = _scan_batched_args(
+                    dcat.shard(s), gstack.parts[s],
+                    conf.parts[s] if conf is not None else None, st)
+                rows.append(pack_solution_batched(
+                    *solve_scan_batched(*args, **kw), st["k_max"]))
+        return gather(rows)
 
 
 def _launch_stack(reqs: List[BatchableSolve], gstack_np: np.ndarray,
                   conf_np: Optional[np.ndarray], dcat: DeviceCatalog,
                   statics: dict, shape_class: str,
                   resident_key: Optional[tuple] = None,
-                  token=None) -> InFlightBatch:
+                  token=None, mesh=None) -> InFlightBatch:
     """Pad the batch axis to its bucket (padded rows repeat row 0 with
-    every count zeroed: no-ops in the scan), upload, dispatch, record the
-    batch's event; returns without waiting for the card."""
+    every count zeroed: no-ops in the scan; with a batch mesh, up to a
+    multiple of its size, so every shard owns whole rows), upload,
+    dispatch, record the batch's event; returns without waiting for the
+    card."""
+    if mesh is not None and dcat.mesh != mesh:
+        raise ValueError("a batch-mesh dispatch needs a catalog replicated "
+                         "on the same mesh")
     dev = dcat.alloc.device
     B = int(gstack_np.shape[0])
     Bp = _batch_bucket(B)
+    if mesh is not None:
+        Bp = -(-Bp // mesh.size) * mesh.size
     track = statics["track_conflicts"]
     with _span("solve.batch_pack") as sp:
         b0 = transfer_bytes()[0]
@@ -1135,10 +1306,10 @@ def _launch_stack(reqs: List[BatchableSolve], gstack_np: np.ndarray,
         gstack, conf, grp, keep = _stage_batch_stack(
             gstack_np, conf_np if track else None, dev,
             resident_key=resident_key, token=token,
-            shape_class=shape_class)
+            shape_class=shape_class, mesh=mesh)
         sp.set(requests=B, padded=Bp, shape_class=shape_class,
                h2d_bytes=transfer_bytes()[0] - b0)
-    packed = _dispatch_stack(gstack, conf, dcat, statics)
+    packed = _dispatch_stack(gstack, conf, dcat, statics, mesh=mesh)
     event = None
     if dev.type == "cuda":
         event = torch.cuda.Event()
@@ -1160,10 +1331,14 @@ def dispatch_batch(reqs: List[BatchableSolve], mesh=None,
     and return without blocking (the card executes while the caller stages
     the next bucket).
 
+    mesh: lay the REQUEST axis over a batch mesh
+    (`parallel/mesh.make_batch_mesh`): Bp rounds up to a multiple of its
+    size, the bucket's catalog is replicated on the same mesh (one upload
+    per (view, mesh), cached), and rows decode exactly as on one device.
+
     resident_key: route the stacked request matrix through the
     device-resident manager (the fleet's stable buckets): tenant rows that
     did not change between pumps are not shipped again."""
-    reject_mesh(mesh)
     assert reqs, "empty batch"
     first = reqs[0]
     assert all(r.signature == first.signature for r in reqs), \
@@ -1183,9 +1358,12 @@ def dispatch_batch(reqs: List[BatchableSolve], mesh=None,
         conf_np = np.stack([_pad_to(_pad_to(r.enc.conflict, Gp, 0), Gp, 1)
                             if r.enc.conflict is not None
                             else np.zeros((Gp, Gp), bool) for r in reqs])
-    return _launch_stack(reqs, gstack_np, conf_np, first.dcat, st,
+    dcat = first.dcat
+    if mesh is not None:
+        dcat = _auto_dcat(first.cat, first.enc.requests.shape[1], mesh=mesh)
+    return _launch_stack(reqs, gstack_np, conf_np, dcat, st,
                          first.shape_class, resident_key=resident_key,
-                         token=first.cat.cache_token)
+                         token=first.cat.cache_token, mesh=mesh)
 
 
 def dispatch_packed(gstack_np: np.ndarray, conf_np: Optional[np.ndarray],
@@ -1203,10 +1381,12 @@ def dispatch_packed(gstack_np: np.ndarray, conf_np: Optional[np.ndarray],
     resident_key: route the stack through the device-resident manager
     (the server's per-client-process key, with the catalog's content
     token): a client whose tenant rows did not change between pumps
-    patches instead of re-shipping the stack to the card."""
-    reject_mesh(mesh)
+    patches instead of re-shipping the stack to the card.
+
+    mesh: a batch mesh the catalog `dcat` is replicated on (the server's
+    `SolverServer(mesh=)`): the rows split over its shards."""
     return _launch_stack([], gstack_np, conf_np, dcat, statics, shape_class,
-                         resident_key=resident_key, token=token)
+                         resident_key=resident_key, token=token, mesh=mesh)
 
 
 def probe_dispatch_fault(backend: str) -> None:

@@ -103,8 +103,8 @@ def plan_repack(cat, enc, views: Sequence, counts: np.ndarray,
     """Run the tournament over subsets of `candidate_idx` (positions in
     `views`) and return the ranked exact-verify queue. Deterministic for
     fixed inputs. `use_device` scores on `device` (the CUDA card unless
-    given) through kernels A and C, else on the host in NumPy; a mesh is
-    not ported and raises."""
+    given) through kernels A and C, else on the host in NumPy; with a
+    `mesh` the subset rows split over its shards (stats backend "mesh")."""
     t0 = time.perf_counter()
     N = len(views)
     prices = np.array([float(v.price) for v in views], np.float32)
@@ -126,7 +126,7 @@ def plan_repack(cat, enc, views: Sequence, counts: np.ndarray,
         feasible, savings, residual, repl_lb = score_subsets_device(
             cat, enc, views, counts, prices, masks, mesh=mesh,
             iters=iters, exclude=exclude, device=device)
-        backend = "device"
+        backend = "mesh" if mesh is not None else "device"
         if exclude is not None and exclude.any():
             # supply-side exclusion rode the active bit into the kernel
             # (same as the host path); subsets CONTAINING an excluded

@@ -23,8 +23,11 @@ Two backends:
   k from kernel A (`ops/screen_k`) and everything after k in kernel C
   (`optimizer/tournament_k`), ONE packed [S·4] readback. It runs on the
   CUDA card unless the caller passes `device=` ("cpu" runs both kernels'
-  plain versions). The reference's subset-axis mesh sharding is not
-  ported: `mesh` must be None.
+  plain versions). With `mesh=` the subset rows split over the mesh's
+  shards (`parallel/mesh`): each shard computes k through kernel A on the
+  replicated node and group matrices and runs kernel C over its own
+  subset rows; the price row, which rides the last shard in the
+  reference's layout, is broadcast to every shard.
 """
 
 from __future__ import annotations
@@ -41,8 +44,8 @@ from ..ops.consolidate import (_pack_screen_groups, _pack_screen_nodes,
                                _screen_args, _unpack_screen, eligibility)
 from ..ops.encode import align_resources
 from ..ops.screen_k import screen_k
-from ..ops.solver import (_auto_dcat, _put, _read, _request_cols, reject_mesh,
-                          resolve_device)
+from ..ops.solver import (_auto_dcat, _put, _put_sharded, _read,
+                          _request_cols, resolve_device)
 from . import tournament_k
 from .relax import RELAX_ITERS, relax_residuals, replacement_lower_bound
 
@@ -145,11 +148,12 @@ def score_subsets_host(headroom: np.ndarray, group_req: np.ndarray,
 # blocking read.
 
 
-def tournament_onebuf(alloc, avail, nbuf, gbuf, mbuf, pslot, cols: tuple,
-                      iters: int = RELAX_ITERS) -> torch.Tensor:
+def tournament_onebuf(alloc, avail, nbuf, gbuf, masks, price_row, pslot,
+                      cols: tuple, iters: int = RELAX_ITERS) -> torch.Tensor:
     """The port of `_tournament_impl`: unpack the screen's packing, k
-    through kernel A (the screen's own k), then kernel C. Returns the
-    packed f32 [S*4] vector on the inputs' device."""
+    through kernel A (the screen's own k), then kernel C over the [S, N]
+    victim masks. Returns the packed f32 [S*4] vector on the inputs'
+    device."""
     (alloc_k, avail, node_type, node_cum, node_zmask, node_cmask, active,
      req, compat, allow_zone, allow_cap, counts) = _unpack_screen(
         alloc, avail, nbuf, gbuf, cols)
@@ -157,8 +161,8 @@ def tournament_onebuf(alloc, avail, nbuf, gbuf, mbuf, pslot, cols: tuple,
     elig = eligibility(avail, node_type, node_zmask, node_cmask, active,
                        compat, allow_zone, allow_cap)
     k = screen_k(headroom, req, elig)                       # [N, G]
-    return tournament_k.tournament(headroom, req, k, counts, mbuf[:-1],
-                                   mbuf[-1], pslot, iters=iters)
+    return tournament_k.tournament(headroom, req, k, counts, masks,
+                                   price_row, pslot, iters=iters)
 
 
 def score_subsets_device(cat, enc, views, group_counts: np.ndarray,
@@ -175,9 +179,18 @@ def score_subsets_device(cat, enc, views, group_counts: np.ndarray,
     active bit — the same `active &= ~exclude` the host path applies, so
     the two backends agree about who may absorb a repack. Probes the
     dispatch-fault hook at "optimizer" like every other kernel dispatch.
-    A mesh is not ported and raises."""
-    reject_mesh(mesh)
-    dev = resolve_device(device)
+
+    mesh: split the subset rows over the mesh's shards (the reference's
+    `_mesh_tournament_fn` layout; `device` is then unused): node matrix,
+    group matrix and per-slot prices replicated, the [Sp + 1, N] mask
+    matrix (masks, zero-mask padding, the price row last) split on its
+    rows, Sp + 1 a multiple of the mesh size. Padding rows are inert (need
+    0: feasible, savings 0) and dropped. The price row lands on the last
+    shard and is broadcast to every shard; each shard runs A and C over its
+    own mask rows (a shard whose block is the price row alone runs none),
+    and the packed rows are gathered for the one read."""
+    from ..parallel import collectives as col
+    dev = resolve_device(device) if mesh is None else None
     if _solver_mod._dispatch_fault_hook is not None:
         _solver_mod._dispatch_fault_hook("optimizer")
     S = masks.shape[0]
@@ -187,21 +200,45 @@ def score_subsets_device(cat, enc, views, group_counts: np.ndarray,
         cat, enc, views)
     if exclude is not None:
         active = active & ~exclude
+    ms = int(mesh.size) if mesh is not None else 1
+    Sp = -(-(S + 1) // ms) * ms - 1
+    mbuf_np = np.zeros((Sp + 1, len(views)), np.float32)
+    mbuf_np[:S] = masks
+    mbuf_np[-1] = prices.astype(np.float32)
     parts = [_pack_screen_nodes(node_type, node_cum, node_zmask, node_cmask,
                                 active, group_counts, list(cols)),
              _pack_screen_groups(enc.requests, enc.compat, enc.allow_zone,
                                  enc.allow_cap, list(cols)),
-             np.concatenate([masks.astype(np.float32),
-                             prices.astype(np.float32)[None, :]]),
-             group_slot_prices(cat, enc)[None, :]]
-    with dm.attributed(reason="screen_upload"):
-        flat = _put(np.concatenate([p.reshape(-1) for p in parts]), dev)
-    nbuf, gbuf, mbuf, pslot = [
-        t.view(p.shape) for t, p in zip(flat.split([p.size for p in parts]),
-                                        parts)]
-    dcat = _auto_dcat(cat, R, dev)
-    buf = _read(tournament_onebuf(dcat.alloc, dcat.avail, nbuf, gbuf, mbuf,
-                                  pslot[0], cols, iters))
-    out = buf.reshape(S, 4)
+             mbuf_np, group_slot_prices(cat, enc)[None, :]]
+    if mesh is None:
+        with dm.attributed(reason="screen_upload"):
+            flat = _put(np.concatenate([p.reshape(-1) for p in parts]), dev)
+        nbuf, gbuf, mbuf, pslot = [
+            t.view(p.shape) for t, p in zip(
+                flat.split([p.size for p in parts]), parts)]
+        dcat = _auto_dcat(cat, R, dev)
+        buf = _read(tournament_onebuf(dcat.alloc, dcat.avail, nbuf, gbuf,
+                                      mbuf[:-1], mbuf[-1], pslot[0], cols,
+                                      iters))
+    else:
+        rep = col.Sharding(mesh)
+        dcat = _auto_dcat(cat, R, mesh=mesh)
+        with dm.attributed(reason="screen_upload"):
+            nbuf, gbuf, pslot = (_put_sharded(p, rep) for p in
+                                 (parts[0], parts[1], parts[3][0]))
+            mbuf = _put_sharded(mbuf_np, col.Sharding(mesh, 0))
+        price_row = col.broadcast(mbuf.parts[-1][-1], mesh)
+        out = []
+        for s, d in enumerate(mesh.devices):
+            rows = mbuf.parts[s][:-1] if s == ms - 1 else mbuf.parts[s]
+            if rows.shape[0] == 0:
+                continue
+            with col.on_shard(d):
+                out.append(tournament_onebuf(
+                    dcat.alloc.parts[s], dcat.avail.parts[s], nbuf.parts[s],
+                    gbuf.parts[s], rows, price_row[s], pslot.parts[s], cols,
+                    iters))
+        buf = _read(col.gather(out))
+    out = buf.reshape(Sp, 4)[:S]
     return (out[:, 0] > 0.5, out[:, 1].astype(np.float32),
             out[:, 2].astype(np.float32), out[:, 3].astype(np.float32))

@@ -14,8 +14,9 @@ observations must be equal, exactly. Before each run both packages'
 claim-name, pod-uid and instance-id sequences restart at the same value
 and their process-global meters and planes are reset.
 
-The reference's batch-mesh case becomes a raise-test (`reject_mesh`). On
-top: the frames both packages encode are byte-equal and each decodes the
+The reference's batch-mesh case runs through both packages: the
+reference's server over its 8 virtual devices, the port's over 8 CPU
+shards, each giving the in-process digests. On top: the frames both packages encode are byte-equal and each decodes the
 other's; a port server answers a reference client, and a reference server
 a port client, with the rows of the same package's server; a resident
 stack crosses the wire unchanged and with one changed row (the repair of
@@ -1101,22 +1102,46 @@ def test_case_equals_the_reference(name):
 
 
 def test_mesh_sharded_server_raises_through_reject_mesh():
-    """The reference lays a bucket's request axis over a batch mesh; the
-    port supports one card, so every mesh request raises with
-    `reject_mesh`'s message (ROADMAP item 13), never running silently on
-    one device."""
+    """Once a raise-test of the batch mesh (the name is kept): the
+    reference's test_mesh_sharded_server_keeps_digest_parity through both
+    packages. Laying each bucket's request axis over a batch mesh of 8
+    shards is an execution detail: the federated digests equal the
+    in-process run's, and the reference's. The server reports its
+    shards; `--mesh` without cards raises for lack of devices instead of
+    serving on one."""
+    from karpenter_tpu.parallel.mesh import make_batch_mesh as ref_mesh
+    from karpenter_tpu_torch import parallel
     from karpenter_tpu_torch.federation.server import main
-    msg = "multi-device \\(mesh=\\) solving is not ported"
-    with pytest.raises(NotImplementedError, match=msg):
-        PORT.server_mod.SolverServer(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match=msg):
-        PORT.build_federated_service(PORT.FakeClock(), mesh=object(),
-                                     backend="device", device="cpu")
-    with pytest.raises(NotImplementedError, match=msg):
-        main(["--mesh", "--device", "cpu"])
-    server = mk_server(PORT, run_id="x")
-    out = server.handle("handshake", {"schema": V})
-    assert out["result"]["mesh_devices"] == 1
+    with parallel.virtual_devices(8, "cpu"):
+        port_mesh = parallel.make_batch_mesh()
+
+    def case(P):
+        mesh = ref_mesh() if not P.port else port_mesh
+
+        def build(clock, kw):
+            return P.build_federated_service(clock, run_id="fed-3",
+                                             process="p000", mesh=mesh, **kw)
+        runner = mk_runner(P, "federation_smoke", tenants=4, seed=3,
+                           backend="device", service_factory=build)
+        fed = runner.run()
+        local = mk_runner(P, "federation_smoke", tenants=4, seed=3,
+                          backend="device").run()
+        assert fed.ok, fed.summary()
+        assert local.ok, local.summary()
+        assert fed.fleet_hash == local.fleet_hash
+        assert fed.fleet_fingerprint == local.fleet_fingerprint
+        assert fed.stats["federated_wire_buckets"] > 0
+        server = runner.service.fed.transport.server
+        assert server.stats["max_bucket_rows"] % 8 == 0
+        hs = server.handle("handshake", {"schema": V})["result"]
+        assert hs["mesh_devices"] == 8
+        return [fed.fleet_hash, fed.fleet_fingerprint,
+                dict(fed.tenant_hashes), dict(fed.tenant_fingerprints)]
+    out = _both(case)
+    assert out["karpenter_tpu_torch"]["case"] == out["karpenter_tpu"]["case"]
+    if not __import__("torch").cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs"):
+            main(["--mesh", "--device", "cpu"])
 
 
 # --- across the packages ----------------------------------------------------

@@ -825,14 +825,15 @@ class TestBatchedDispatch:
         assert payload["inflight_cap"] == svc.inflight_cap
 
 
-# --- the port's own rules: the card unless device=, no mesh --------------
+# --- the port's own rules: the card unless device=, a mesh when asked ----
 
 
 def test_fleet_entry_points_need_a_card_or_a_device():
     """Without a card and without device=, a device-rung service's tenant
-    facade and prepare_batchable raise, as solve_device does; a mesh is
-    not ported; the batched scan takes the plain version only for CPU
-    tensors."""
+    facade and prepare_batchable raise, as solve_device does; a batch mesh
+    of CPU shards gives mesh=None's rows, and one needs its shards asked
+    for (no card: make_batch_mesh raises); the batched scan takes the
+    plain version only for CPU tensors."""
     import torch
     from karpenter_tpu_torch.ops import solve_scan as ss
     if torch.cuda.is_available():
@@ -848,8 +849,15 @@ def test_fleet_entry_points_need_a_card_or_a_device():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_solver.prepare_batchable(pcat, penc)
     req = port_solver.prepare_batchable(pcat, penc, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_solver.dispatch_batch([req], mesh=object())
+    from karpenter_tpu_torch import parallel
+    with pytest.raises(RuntimeError, match="needs 8 devices"):
+        parallel.make_batch_mesh(8)
+    with parallel.virtual_devices(8, "cpu"):
+        mesh = parallel.make_batch_mesh(8)
+    rows = port_solver.dispatch_batch([req], mesh=mesh).rows()
+    assert rows.shape[0] == 8
+    np.testing.assert_array_equal(rows[:1],
+                                  port_solver.dispatch_batch([req]).rows())
     meta = torch.empty((4, 2), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         ss.solve_scan_batched(meta)

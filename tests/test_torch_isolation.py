@@ -99,8 +99,9 @@ def test_entry_points_raise_without_cuda():
 def test_solver_facade_needs_a_card_or_a_device():
     """Solver(prov, backend="device") — and "hybrid" — without a card and
     without device= raises, as solve_device does; device="cpu" runs the
-    plain versions, "auto" resolves to a host rung, "mesh" is not
-    ported."""
+    plain versions, "auto" resolves to a host rung. "mesh" needs more than
+    one device: make_mesh(n) raises when fewer than n cards exist, and
+    never builds CPU shards in their place."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from karpenter_tpu_torch.catalog import CatalogProvider, small_catalog
@@ -111,7 +112,12 @@ def test_solver_facade_needs_a_card_or_a_device():
     for backend in ("device", "hybrid"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Solver(prov, backend=backend)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    from karpenter_tpu_torch.parallel import make_mesh
+    for n in (1, 2, 8):
+        with pytest.raises(RuntimeError, match=f"needs {n} devices and 0 "
+                                               f"CUDA devices exist"):
+            make_mesh(n)
+    with pytest.raises(RuntimeError, match="needs more than one device"):
         Solver(prov, backend="mesh")
     assert Solver(prov, backend="auto").backend in ("native", "host")
     out = Solver(prov, backend="device", device="cpu").solve(

@@ -459,3 +459,39 @@ def test_tournament_tiers(cuda, shape, tier, cl, spb, k_smem):
     want = tk.tournament_plain(*args)
     assert torch.equal(got, want)
     assert torch.equal(strided, want)
+
+
+@pytest.mark.parametrize("size", [3, 8])
+@pytest.mark.parametrize("case", ["fresh", "resumed", "zone_overhead"])
+def test_mesh_scan_kernel_matches_plain(cuda, case, size, monkeypatch):
+    """Kernel M (csrc/mesh_scan.cu) on `size` virtual shards of the card
+    against its plain version on the same card (atol 0): the packed vector
+    of solve_device(mesh=) is the one mesh_scan_plain gives at the same
+    sharded inputs, and the solve equals mesh=None's."""
+    from karpenter_tpu_torch import parallel
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    cat, enc, existing = _golden_case(case)
+    with parallel.virtual_devices(size, "cuda:0"):
+        mesh = parallel.make_mesh(size)
+    calls = []
+    real = msc.mesh_scan_cuda
+
+    def rec(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+    monkeypatch.setattr(msc, "mesh_scan_cuda", rec)
+    n0 = msc.launches
+    got = solve_device(cat, enc, existing, mesh=mesh)
+    torch.cuda.synchronize()
+    (a, kw), = calls[:1]
+    Gp = a[4][0].shape[0]
+    assert msc.launches - n0 == len(calls) * (Gp + 1) * size
+    out_k = real(*a, **kw)
+    out_p = msc.mesh_scan_plain(*a, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(out_k, out_p):
+        assert torch.equal(x, y.to(x.dtype))
+    one = solve_device(cat, enc, existing, device=cuda)
+    assert [(n.type_idx, n.pods_by_group) for n in got.nodes] == \
+        [(n.type_idx, n.pods_by_group) for n in one.nodes]
+    assert got.unschedulable == one.unschedulable

@@ -326,14 +326,32 @@ def test_relax_budget_floor_binds():
 
 
 def test_score_subsets_device_rejects_a_mesh():
+    """Once a raise-test of `mesh=` (the name is kept): the tournament over
+    a mesh of 8 CPU shards (6 nodes, the price row on the last shard's
+    block) equals mesh=None's, and the reference's mesh tournament at the
+    device path's tolerances."""
+    from karpenter_tpu.parallel import make_mesh as ref_make_mesh
+    from karpenter_tpu_torch import parallel
     ref, port, _ = _synthetic(1, N=6, n_groups=3)
+    cat, enc, views, _, _ = ref
     pcat, penc, pviews, counts, _slack = port
     prices = np.ones(6, np.float32)
     masks = np.eye(6, dtype=np.float32)[:2]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_tournament.score_subsets_device(pcat, penc, pviews, counts,
-                                             prices, masks, mesh=object(),
-                                             device="cpu")
+    with parallel.virtual_devices(8, "cpu"):
+        mesh = parallel.make_mesh(8)
+    got = port_tournament.score_subsets_device(pcat, penc, pviews, counts,
+                                               prices, masks, mesh=mesh)
+    one = port_tournament.score_subsets_device(pcat, penc, pviews, counts,
+                                               prices, masks, device="cpu")
+    for a, b in zip(got, one):
+        np.testing.assert_array_equal(a, b)
+    want = ref_tournament.score_subsets_device(cat, enc, views, counts,
+                                               prices, masks,
+                                               mesh=ref_make_mesh(8))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    for i in (2, 3):
+        np.testing.assert_allclose(got[i], want[i], rtol=RTOL, atol=ATOL)
 
 
 def test_sequential_savings_is_xla_dot_below_32_nodes():

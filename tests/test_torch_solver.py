@@ -452,7 +452,20 @@ def test_pack_solution_matches_nonzero_fill():
 
 
 def test_mesh_is_not_ported(small):
+    """Once a raise-test of `mesh=` (the name is kept): solve_device over
+    a node mesh of 8 CPU shards gives the reference's mesh solve and the
+    port's mesh=None solve."""
+    from karpenter_tpu.parallel import make_mesh as ref_make_mesh
+    from karpenter_tpu_torch import parallel
+    enc = encode_pods(mk_pods(30) + mk_pods(9, cpu="2", mem="4Gi",
+                                            prefix="b"), small)
     pcat = convert.catalog_from_arrays(vars(small))
-    penc = convert.pods_from_arrays(vars(encode_pods(mk_pods(3), small)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_solver.solve_device(pcat, penc, device="cpu", mesh=object())
+    penc = convert.pods_from_arrays(vars(enc))
+    with parallel.virtual_devices(8, "cpu"):
+        mesh = parallel.make_mesh(8)
+    got = port_solver.solve_device(pcat, penc, mesh=mesh)
+    for want in (port_solver.solve_device(pcat, penc, device="cpu"),
+                 ref_solver.solve_device(small, enc, mesh=ref_make_mesh(8))):
+        assert [(n.type_idx, n.pods_by_group) for n in got.nodes] == \
+            [(n.type_idx, n.pods_by_group) for n in want.nodes]
+        assert got.unschedulable == want.unschedulable

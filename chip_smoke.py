@@ -235,6 +235,25 @@ Phases (any failure exits non-zero):
              cards too; otherwise one line says multi-card was not run.
              Prints M's time a solve and a step, the launches of A, B0, B,
              C and M per shard, and the mesh walls beside mesh=None's.
+  4n. measure  the measurement plane at phase 3's grid mix, after 5 and
+             4h: provenance() on the card (backend cuda, the card's name,
+             no CPU fallback) beside nvidia-smi's name and power limit;
+             kernel_device_time and screen_device_time, B0 and B (A) launch
+             counts zeroed just before each and read just after, each slope
+             >= 0.8 x the CUDA-event time of its kernels at the probe's own
+             inputs, the solve's 8 variants 8 distinct packed vectors and
+             the screen's 8 node buffers distinct, with each call's host
+             enqueue and device busy time (torch.profiler); this run's
+             solve, facade and screen walls and the two slopes stamped
+             (obs/perfarchive.run_stamp) and appended 3 times to a
+             PerfArchive in a temporary directory whose root is the
+             checkout (the TPU wrappers bootstrap as bench / mesh): the
+             torch gate PASSES with no other run in a torch baseline, a
+             copy with kernel_device_ms x 1.5 FAILS on exactly that key
+             (python -m karpenter_tpu_torch.obs.perf_gate exits 1); then
+             python -m karpenter_tpu_torch.obs.device_report --pods 2000
+             --rounds 4 on the card exits 0 with the resident breakdown of
+             its --device cpu run.
   5. time    median wall times of the solve and the screen, stage by stage;
              per-kernel device time from torch.profiler and CUDA events
              beside its bound, its plain version's time and one torch
@@ -253,7 +272,8 @@ holds each phase's launches (the main path, the facade, the operator, the
 optimizer, the chaos phase, the fleet runner, the warm path, the soak,
 the operator shell, the federation phase and, for B0 and B, the fleet's
 batched rounds, the soak's launches in batched buckets and the federation
-server's launches, and the mesh phase's, with their count per shard) and
+server's launches, the mesh phase's, with their count per shard, and for
+A, B0 and B the measurement phase's, with its probe's times) and
 times (the fleet's at its wide bucket: 16 requests in one launch). Its
 mesh_scan row is kernel M: launches and times from phase 4m (times at
 the grid mix; by_phase also at the bench shape). Its resident_patch
@@ -750,8 +770,9 @@ def phase_facade():
     """Solver.solve at full width on the card against the native rung (and
     the host rung on a subset), a resumed solve, the launch counts, the
     wall and its stages, and the device/native crossover on two pod mixes.
-    Returns B0's and B's launch counts in the first solve and the
-    solve_scan arguments that solve gave them."""
+    Returns B0's and B's launch counts in the first solve, the
+    solve_scan arguments that solve gave them and the median wall with the
+    delta plane off."""
     import torch
     from karpenter_tpu_torch import catalog, models
     from karpenter_tpu_torch.obs.tracer import TRACER
@@ -925,7 +946,7 @@ def phase_facade():
             f"(Solver.DEVICE_MIN_PODS = {F.Solver.DEVICE_MIN_PODS})")
     delta_off.__exit__()
     watch.check("crossover")
-    return launches, (sargs, skw)
+    return launches, (sargs, skw), wall
 
 
 # --- the operator phase: make_sim, the control loop on the card -----------
@@ -4492,6 +4513,237 @@ def phase_mesh(cat, enc, views, counts) -> tuple:
     return launches, m_grid
 
 
+MEASURE_ITERS = 40          # slope_time's N (the reference's default)
+MEASURE_EVENT_ITERS = 20    # CUDA-event loop of the probed kernels
+MEASURE_SLOPE_FLOOR = 0.8   # a call cannot take less than its kernels
+MEASURE_INFLATE = 1.5       # the regression 4n plants in one _ms key
+MEASURE_INFLATED_KEY = "kernel_device_ms"
+MEASURE_ARCHIVE_RUNS = 3
+MEASURE_REPORT_ARGS = ["--pods", "2000", "--rounds", "4"]
+
+
+def probe_breakdown(dispatch, n: int, iters: int) -> dict:
+    """Where one probe call's time goes on the card: the host's enqueue of
+    `iters` calls (no wait) a call, and the device busy time of one call
+    (torch.profiler: every kernel the call launches, the packing's
+    included)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        dispatch(i % n)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    ev = device_kernel_us(lambda: dispatch(0))
+    busy = sum(us for us, _ in ev.values()) / 1e3 if ev else None
+    return {"enqueue_ms": enqueue_ms, "device_busy_ms": busy,
+            "kernels_a_call": sum(c for _, c in ev.values()) if ev else None}
+
+
+def report_doc(device_report, argv) -> tuple:
+    """One in-process run of the port's device report: (exit code, its
+    JSON line, wall s). The report's table stays off this script's
+    output (its JSON line is not the kernels line)."""
+    import contextlib
+    import io
+    from karpenter_tpu_torch.integrity import INTEGRITY
+    from karpenter_tpu_torch.ops.delta import DELTA
+    from karpenter_tpu_torch.ops.resident import RESIDENT
+    DELTA.reset()
+    RESIDENT.reset()
+    INTEGRITY.reset()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = device_report.main(argv)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    check(rc == 0 and lines, f"device_report {argv}: exit {rc}")
+    return rc, json.loads(lines[-1]), wall
+
+
+def phase_measure(cat, enc, views, counts, walls: dict) -> dict:
+    """Phase 4n: the measurement plane on the card at phase 3's grid mix.
+    provenance() says cuda, the card's name and no CPU fallback; each
+    device-time probe launches its kernels (B0 and B in
+    kernel_device_time, A in screen_device_time; counts zeroed just
+    before and read just after), is >= MEASURE_SLOPE_FLOOR x the CUDA-event
+    time of those kernels at the probe's own inputs, and feeds them
+    distinct inputs (the solve's variants give distinct packed vectors);
+    a stamped result of this run's headline numbers appended
+    MEASURE_ARCHIVE_RUNS times to a PerfArchive in a temporary directory
+    (the repo root bootstraps the TPU wrappers as bench / mesh) passes the
+    `torch` gate, and one copy with MEASURE_INFLATED_KEY x MEASURE_INFLATE
+    fails it on exactly that key, no legacy run in a torch baseline; the
+    device report on the card exits 0 with the resident breakdown of its
+    --device cpu run. Returns the probes' launches and times."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    from karpenter_tpu_torch.obs import device_report, perf_gate, perfarchive
+    from karpenter_tpu_torch.ops import consolidate, screen_k as sk
+    from karpenter_tpu_torch.ops import solve_scan as ss, solver
+
+    t_phase = time.perf_counter()
+    prov = solver.provenance()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    log(f"[measure] {smi.stdout.strip().splitlines()[0]} | provenance "
+        f"{json.dumps(prov, sort_keys=True)}")
+    check(prov["backend"] == "cuda" and "error" not in prov
+          and prov["device_kind"] == torch.cuda.get_device_name(0)
+          and prov["cpu_fallback"] is False
+          and prov["device_count"] == torch.cuda.device_count()
+          and prov["torch"] == torch.__version__
+          and prov["cuda"] == torch.version.cuda,
+          f"provenance on the card: {prov}")
+
+    # --- kernel_device_time: B0 and B, counts zeroed just before ---
+    ss.launches = 0
+    ss.offer_launches = 0
+    slope_b = solver.kernel_device_time(cat, enc, iters=MEASURE_ITERS)
+    launches = {"offer_argmin": ss.offer_launches, "solve_scan": ss.launches}
+    check(launches["offer_argmin"] > 0 and launches["solve_scan"] > 0,
+          f"kernel_device_time launched B0/B {launches}")
+    with uncounted():
+        with Recorder(solver, "solve_scan") as rec:
+            dispatch = solver._kernel_dispatch(cat, enc)
+        outs = {dispatch(i).cpu().numpy().tobytes()
+                for i in range(solver.PROBE_VARIANTS)}
+        sargs, skw = rec.calls[0]
+        ev_b = cuda_ms(lambda: ss.solve_scan_cuda(*sargs, **skw),
+                       MEASURE_EVENT_ITERS)
+        brk_b = probe_breakdown(dispatch, solver.PROBE_VARIANTS,
+                                MEASURE_ITERS)
+    check(len(outs) >= 2, f"kernel_device_time's variants gave "
+          f"{len(outs)} distinct packed vector(s)")
+    ratio_b = slope_b * 1e3 / ev_b
+    log(f"[measure] kernel_device_time at the grid mix: slope "
+        f"{slope_b * 1e3:.4f} ms a call; B0 + B by CUDA events "
+        f"{ev_b:.4f} ms (ratio {ratio_b:.3f}); one call's host enqueue "
+        f"{brk_b['enqueue_ms']:.4f} ms, device busy "
+        f"{brk_b['device_busy_ms']} ms in {brk_b['kernels_a_call']} kernels; "
+        f"{len(outs)} distinct packed vectors of {solver.PROBE_VARIANTS}; "
+        f"launches in the probe {launches}")
+    check(ratio_b >= MEASURE_SLOPE_FLOOR,
+          f"kernel_device_time {slope_b * 1e3:.4f} ms < "
+          f"{MEASURE_SLOPE_FLOOR} x B0 + B's {ev_b:.4f} ms")
+
+    # --- screen_device_time: A, counts zeroed just before ---
+    sk.launches = 0
+    slope_a = consolidate.screen_device_time(cat, enc, views, counts,
+                                             iters=MEASURE_ITERS)
+    launches["screen_k"] = sk.launches
+    check(launches["screen_k"] > 0, "screen_device_time launched no A")
+    with uncounted():
+        with Recorder(consolidate, "_screen_onebuf") as rec_n, \
+                Recorder(consolidate, "screen_k", keep=1) as rec_a:
+            sdispatch = consolidate._screen_dispatch(cat, enc, views, counts)
+            souts = {sdispatch(i).cpu().numpy().tobytes()
+                     for i in range(solver.PROBE_VARIANTS)}
+        nbufs = [args[2] for args, _ in rec_n.calls]
+        (head, req, elig), akw = rec_a.calls[0]
+        ev_a = cuda_ms(lambda: sk.screen_k_cuda(head, req, elig, **akw),
+                       MEASURE_EVENT_ITERS)
+        brk_a = probe_breakdown(sdispatch, solver.PROBE_VARIANTS,
+                                MEASURE_ITERS)
+    distinct_in = len({t.cpu().numpy().tobytes() for t in nbufs})
+    check(distinct_in == solver.PROBE_VARIANTS,
+          f"screen_device_time's {len(nbufs)} node buffers hold "
+          f"{distinct_in} distinct ones")
+    ratio_a = slope_a * 1e3 / ev_a
+    log(f"[measure] screen_device_time at the grid mix (N={len(views)}): "
+        f"slope {slope_a * 1e3:.4f} ms a call; A by CUDA events "
+        f"{ev_a:.4f} ms (ratio {ratio_a:.3f}); one call's host enqueue "
+        f"{brk_a['enqueue_ms']:.4f} ms, device busy "
+        f"{brk_a['device_busy_ms']} ms in {brk_a['kernels_a_call']} kernels; "
+        f"{distinct_in} distinct node buffers, {len(souts)} distinct packed "
+        f"screens of {solver.PROBE_VARIANTS}")
+    check(ratio_a >= MEASURE_SLOPE_FLOOR,
+          f"screen_device_time {slope_a * 1e3:.4f} ms < "
+          f"{MEASURE_SLOPE_FLOOR} x A's {ev_a:.4f} ms")
+
+    # --- the archive: this run's stamped headline, gated as family torch ---
+    stamp = perfarchive.run_stamp(prov, seed=SEED)
+    check(stamp["comparable"] is True, f"the card's stamp: {stamp}")
+    detail = {"solve_wall_ms": walls["solve"],
+              "facade_wall_ms": walls["facade"],
+              "screen_wall_ms": walls["screen"],
+              "kernel_device_ms": slope_b * 1e3,
+              "screen_device_ms": slope_a * 1e3}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, perfarchive.ARCHIVE_NAME)
+        arch = perfarchive.PerfArchive(path, root=root)
+        for k in range(MEASURE_ARCHIVE_RUNS):
+            arch.append(arch.ingest_bench_result(
+                {**stamp, "run_id": f"{stamp['run_id']}-{k}",
+                 "detail": detail}, family="torch", source="chip_smoke.py"))
+        runs = arch.load()
+        legacy = [r for r in runs if r.run_id.startswith("legacy:")]
+        check(legacy and {r.family for r in legacy} <= {"bench", "mesh"},
+              "the repo's TPU wrappers did not bootstrap as bench / mesh")
+        ok = arch.gate(runs, family="torch")
+        gated = [v for v in ok.verdicts if v.status != "insufficient-baseline"]
+        check(ok.ok and len(gated) == len(detail)
+              and all(v.n == MEASURE_ARCHIVE_RUNS - 1 for v in gated),
+              f"the torch gate over {MEASURE_ARCHIVE_RUNS} identical runs:\n"
+              + ok.summary())
+        # legacy runs included: a TPU-era run in family torch would add
+        # its keys and samples here
+        base = arch.baselines(runs, family="torch")
+        check(set(base) == set(detail)
+              and all(v["n"] == MEASURE_ARCHIVE_RUNS for v in base.values()),
+              f"a torch baseline holds another run: {base}")
+        arch.append(arch.ingest_bench_result(
+            {**stamp, "run_id": f"{stamp['run_id']}-inflated",
+             "detail": {**detail, MEASURE_INFLATED_KEY:
+                        detail[MEASURE_INFLATED_KEY] * MEASURE_INFLATE}},
+            family="torch", source="chip_smoke.py"))
+        bad = arch.gate(family="torch")
+        flagged = sorted(v.metric for v in bad.regressions)
+        check(not bad.ok and flagged == [MEASURE_INFLATED_KEY],
+              f"the inflated run flags {flagged}:\n" + bad.summary())
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_cli = perf_gate.main(["--archive", path, "--root", root,
+                                     "--json"])
+        check(rc_cli == 1, f"perf_gate exit {rc_cli} on the regression")
+        check(not os.path.exists(os.path.join(root,
+                                              perfarchive.ARCHIVE_NAME)),
+              "4n wrote perf_archive.jsonl into the checkout")
+    log(f"[measure] archive: {MEASURE_ARCHIVE_RUNS} stamped torch runs "
+        f"({json.dumps({k: round(v, 4) for k, v in detail.items()})}) "
+        f"PASS against {len(legacy)} bootstrapped TPU runs (bench / mesh, "
+        f"never in a torch baseline); {MEASURE_INFLATED_KEY} x "
+        f"{MEASURE_INFLATE} FAILS on exactly {flagged}; the CLI exits 1")
+
+    # --- the device report, card against --device cpu ---
+    _, card, card_s = report_doc(device_report, MEASURE_REPORT_ARGS)
+    _, host, host_s = report_doc(device_report,
+                                 MEASURE_REPORT_ARGS + ["--device", "cpu"])
+    check(card["resident"] is not None and card["resident"] == host["resident"],
+          f"device report resident breakdown, card {card['resident']} vs "
+          f"cpu {host['resident']}")
+    st = card["resident"]["stats"]
+    log(f"[measure] device_report {' '.join(MEASURE_REPORT_ARGS)} on the card "
+        f"({card_s:.1f} s) == --device cpu ({host_s:.1f} s): rows patched "
+        f"{st['rows_patched']}, full uploads {st['full_uploads']}, clean "
+        f"hits {st['clean_hits']}, shipped {card['resident']['shipped_bytes']}"
+        f" B, avoided {st['avoided_bytes']} B; upload redundancy card "
+        f"{card['upload_redundant_frac']} / cpu "
+        f"{host['upload_redundant_frac']}; live-tensor audit {card['audit']}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[measure] phase 4n {phase_s:.1f} s")
+    return {"launches": launches,
+            "solve": {"slope_ms": slope_b * 1e3, "event_ms": ev_b,
+                      "ratio": ratio_b, **brk_b},
+            "screen": {"slope_ms": slope_a * 1e3, "event_ms": ev_a,
+                       "ratio": ratio_a, **brk_a}}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4648,7 +4900,7 @@ def main() -> None:
         return out
 
     # --- 4b. the facade: Solver.solve, counts zeroed just before it ---
-    facade_launches, facade_scan = counted("facade", phase_facade)
+    facade_launches, facade_scan, facade_ms = counted("facade", phase_facade)
 
     # --- 4c. the operator: make_sim's loop, counts zeroed just before it;
     # the recompute ledger reads the phase's redundant work ---
@@ -4815,6 +5067,17 @@ def main() -> None:
     planes_launches, scatter_rows = phase_planes(c14, recompute_snap)
     scatter["planes"] = planes_launches
     log(f"[planes] row scatter launches by phase {scatter}")
+
+    # --- 4n. the measurement plane: provenance, the device-time probes
+    # (counts zeroed just before each), the archive's gate and the device
+    # report, at phase 3's inputs ---
+    measure = phase_measure(cat, enc, views, counts,
+                            {"solve": solve_ms, "facade": facade_ms,
+                             "screen": screen_ms})
+    for k, n in measure["launches"].items():
+        by_phase[k]["measure"] = {
+            "launches": n, **measure["screen" if k == "screen_k"
+                                     else "solve"]}
     kernels = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": op_launches[name],

@@ -1,16 +1,19 @@
 """Scheduling models (the port's own copies of `karpenter_tpu.models`)."""
 
 from . import labels
-from .instancetype import InstanceType, Offering, Overhead
-from .nodeclaim import NodeClaim
-from .nodepool import NodeClassSpec, NodePool
-from .pod import (DaemonSet, Pod, PodAffinityTerm, Taint, Toleration,
-                  TopologySpreadConstraint)
+from .instancetype import InstanceType, Offering, Overhead, sort_by_price, truncate
+from .nodeclaim import Node, NodeClaim, Phase, new_nodeclaim_name
+from .nodepool import Budget, DisruptionSpec, NodeClassSpec, NodePool
+from .pod import (DO_NOT_DISRUPT, DaemonSet, Pod, PodAffinityTerm, Taint,
+                  Toleration, TopologySpreadConstraint, tolerates_all)
 from .requirements import Operator, Requirement, Requirements, ValueSet
-from .resources import Resources, parse_quantity
+from .resources import Resources, parse_quantity, pod_requests
 
-__all__ = ["labels", "InstanceType", "Offering", "Overhead", "NodeClaim",
-           "NodeClassSpec", "NodePool", "DaemonSet", "Pod",
-           "PodAffinityTerm", "Taint", "Toleration",
-           "TopologySpreadConstraint", "Operator", "Requirement",
-           "Requirements", "ValueSet", "Resources", "parse_quantity"]
+__all__ = [
+    "labels", "InstanceType", "Offering", "Overhead", "sort_by_price",
+    "truncate", "Node", "NodeClaim", "Phase", "new_nodeclaim_name", "Budget",
+    "DisruptionSpec", "NodeClassSpec", "NodePool", "DO_NOT_DISRUPT",
+    "DaemonSet", "Pod", "PodAffinityTerm", "Taint", "Toleration",
+    "TopologySpreadConstraint", "tolerates_all", "Operator", "Requirement",
+    "Requirements", "ValueSet", "Resources", "parse_quantity", "pod_requests",
+]

@@ -1,8 +1,7 @@
 """InstanceType + Offering: the supply side of scheduling.
 
-The port's own copy of `karpenter_tpu/models/instancetype.py` (the
-price-ordering and truncation helpers, which the port does not run, are
-left out).
+The port's own copy of `karpenter_tpu/models/instancetype.py`, unchanged
+in semantics (the port imports nothing of the JAX package).
 
 Mirrors the reference core's `cloudprovider.InstanceType{Name, Requirements,
 Offerings, Capacity, Overhead}` and `Offering{Price, Available, Requirements,
@@ -17,7 +16,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from . import labels as L
-from .requirements import Operator, Requirement, Requirements
+from .requirements import Operator, Requirement, Requirements, ValueSet
 from .resources import Resources
 
 
@@ -74,6 +73,19 @@ class InstanceType:
         alloc = self.capacity.sub(self.overhead.total())
         return Resources({k: max(0.0, v) for k, v in alloc.items()})
 
+    def available_offerings(self) -> List[Offering]:
+        return [o for o in self.offerings if o.available]
+
+    def cheapest_price(self, zones: Optional[set] = None,
+                       capacity_types: Optional[set] = None) -> Optional[float]:
+        prices = [
+            o.price for o in self.offerings
+            if o.available
+            and (zones is None or o.zone in zones)
+            and (capacity_types is None or o.capacity_type in capacity_types)
+        ]
+        return min(prices) if prices else None
+
     def zones(self) -> List[str]:
         return sorted({o.zone for o in self.offerings})
 
@@ -83,3 +95,79 @@ class InstanceType:
         out[L.ZONE] = zone
         out[L.CAPACITY_TYPE] = capacity_type
         return out
+
+
+def sort_by_price(types: List[InstanceType], zones: Optional[set] = None,
+                  capacity_types: Optional[set] = None) -> List[InstanceType]:
+    """Cheapest-first ordering (reference InstanceTypes.OrderByPrice)."""
+    def key(it: InstanceType):
+        p = it.cheapest_price(zones, capacity_types)
+        return (p is None, p if p is not None else 0.0)
+    return sorted(types, key=key)
+
+
+def truncate(types: List[InstanceType], requirements: Requirements,
+             limit: int = 60) -> List[InstanceType]:
+    """Cheapest-`limit` types, honoring minValues flexibility floors.
+
+    Reference: InstanceTypes.Truncate (used at
+    pkg/providers/instance/instance.go:293, MaxInstanceTypes=60
+    instance.go:62). minValues turns truncation into constrained selection:
+    after truncation every keyed minValues must still count >= that many
+    distinct compatible values; raise if unsatisfiable.
+    """
+    ordered = sort_by_price(types)
+    mv_keys = [k for k in requirements.keys() if requirements.min_values(k)]
+    if not mv_keys:
+        return ordered[:limit]
+    # Constrained selection under the hard `limit` cap: first reserve slots
+    # for types contributing missing distinct values (cheapest contributor per
+    # value, only values the requirement actually allows), then fill the rest
+    # cheapest-first. Error (like the reference's Truncate) if minValues can't
+    # be met within `limit`.
+    selected: List[InstanceType] = []
+    chosen = set()
+    for key in mv_keys:
+        need = requirements.min_values(key) or 0
+        want = requirements.get(key)
+        have = _distinct_values(selected, key, want)
+        for cand in ordered:
+            if len(have) >= need:
+                break
+            if id(cand) in chosen:
+                continue
+            new = _distinct_values([cand], key, want) - have
+            if new:
+                selected.append(cand)
+                chosen.add(id(cand))
+                have |= new
+        if len(have) < need:
+            raise ValueError(
+                f"minValues {need} for {key} unsatisfiable: only {len(have)} "
+                f"distinct compatible values across {len(ordered)} instance types")
+    if len(selected) > limit:
+        raise ValueError(
+            f"minValues requirements need {len(selected)} instance types but "
+            f"truncation limit is {limit}")
+    for cand in ordered:
+        if len(selected) >= limit:
+            break
+        if id(cand) not in chosen:
+            selected.append(cand)
+            chosen.add(id(cand))
+    return sort_by_price(selected)
+
+
+def _distinct_values(types: List[InstanceType], key: str,
+                     want: "ValueSet | None" = None) -> set:
+    """Distinct values of `key` across `types`, filtered to those the
+    requirement's own value set allows (minValues counts compatible values,
+    not just any values)."""
+    out = set()
+    for it in types:
+        vs = it.requirements.get(key)
+        if vs is not None and not vs.complement:
+            for v in vs.values:
+                if want is None or want.contains(v):
+                    out.add(v)
+    return out

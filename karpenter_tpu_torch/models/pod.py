@@ -1,8 +1,7 @@
 """Pod model: the demand side of scheduling.
 
-The port's own copy of `karpenter_tpu/models/pod.py` (`Taint.evicts`,
-which the port does not call, is left out). The signature intern table is
-this package's own: pods of the two packages never share group ids.
+The port's own copy of `karpenter_tpu/models/pod.py`. The signature intern
+table is this package's own: pods of the two packages never share group ids.
 
 Carries exactly the scheduling-relevant surface the reference's core
 scheduler consumes (website/content/en/docs/concepts/scheduling.md):
@@ -55,6 +54,9 @@ class Taint:
     key: str
     effect: str  # NoSchedule | PreferNoSchedule | NoExecute
     value: str = ""
+
+    def evicts(self) -> bool:
+        return self.effect == "NoExecute"
 
 
 def tolerates_all(tolerations: List[Toleration], taints: List[Taint]) -> bool:

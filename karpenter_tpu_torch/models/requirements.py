@@ -20,7 +20,7 @@ non-emptiness / membership are exact — this is what the encoder
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from enum import Enum
 from typing import Dict, Iterable, Iterator, Optional
 
@@ -117,6 +117,11 @@ class ValueSet:
     def is_does_not_exist(self) -> bool:
         return self.dne
 
+    def is_conflict(self) -> bool:
+        """Unsatisfiable: matches no value and does not accept absence."""
+        return (not self.dne and not self.complement and not self.values
+                and self.gt is None and self.lt is None)
+
     # --- algebra ---
     def intersection(self, other: "ValueSet") -> "ValueSet":
         if self.dne or other.dne:
@@ -193,21 +198,19 @@ class Requirements:
             self.add(r)
 
     # --- construction ---
-    def single_values(self) -> Dict[str, str]:
-        """Keys pinned to exactly one value -> node labels (reference:
-        pkg/cloudprovider/cloudprovider.go instanceToNodeClaim derives node
-        labels from single-valued requirements the same way)."""
-        out = {}
-        for k, vs in self._sets.items():
-            if not vs.complement and len(vs.values) == 1:
-                (out[k],) = vs.values
-        return out
-
     @classmethod
     def from_labels(cls, labels: "Dict[str, str] | None") -> "Requirements":
         r = cls()
         for k, v in (labels or {}).items():
             r.add(Requirement(k, Operator.IN, (v,)))
+        return r
+
+    @classmethod
+    def from_node_selector_terms(cls, terms: Iterable[dict]) -> "Requirements":
+        """Build from a list of {key, operator, values} dicts (k8s shape)."""
+        r = cls()
+        for t in terms:
+            r.add(Requirement(t["key"], Operator(t["operator"]), tuple(t.get("values", ()))))
         return r
 
     def __eq__(self, other) -> bool:
@@ -263,6 +266,16 @@ class Requirements:
     def __len__(self) -> int:
         return len(self._sets)
 
+    def single_values(self) -> Dict[str, str]:
+        """Keys pinned to exactly one value -> node labels (reference:
+        pkg/cloudprovider/cloudprovider.go instanceToNodeClaim derives node
+        labels from single-valued requirements the same way)."""
+        out = {}
+        for k, vs in self._sets.items():
+            if not vs.complement and len(vs.values) == 1:
+                (out[k],) = vs.values
+        return out
+
     # --- compatibility ---
     def compatible(self, provided: "Requirements") -> bool:
         """True if something satisfying `provided` can satisfy self.
@@ -283,6 +296,25 @@ class Requirements:
                 if want.is_does_not_exist():
                     return False
                 if not want.intersects(have):
+                    return False
+        return True
+
+    def intersect_ok(self, other: "Requirements") -> bool:
+        """Symmetric non-empty-intersection check on shared keys only."""
+        for k, a in self._sets.items():
+            b = other._sets.get(k)
+            if b is not None and not a.intersects(b):
+                return False
+        return True
+
+    def labels_satisfy(self, labels: Dict[str, str]) -> bool:
+        """Check concrete labels (a live node) against self."""
+        for k, want in self._sets.items():
+            if k in labels:
+                if want.is_does_not_exist() or not want.contains(labels[k]):
+                    return False
+            else:
+                if not _tolerates_absence(want):
                     return False
         return True
 

@@ -16,8 +16,9 @@ resources the same open-ended way).
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Dict, Mapping
+from typing import Dict, Iterable, Mapping
 
 # --- quantity parsing -------------------------------------------------------
 
@@ -49,6 +50,19 @@ def parse_quantity(q: "str | int | float") -> float:
     raise ValueError(f"invalid quantity suffix: {q!r}")
 
 
+def format_quantity(v: float, binary: bool = False) -> str:
+    """Human-readable quantity (for logs/events only; not round-trip exact)."""
+    if v == 0:
+        return "0"
+    if binary:
+        for suf in ("Ei", "Pi", "Ti", "Gi", "Mi", "Ki"):
+            if abs(v) >= _BIN_SUFFIX[suf]:
+                return f"{v / _BIN_SUFFIX[suf]:g}{suf}"
+    if abs(v) < 1 and v == round(v * 1000) / 1000:
+        return f"{round(v * 1000)}m"
+    return f"{v:g}"
+
+
 # --- resource names ---------------------------------------------------------
 
 CPU = "cpu"
@@ -74,6 +88,10 @@ _MIB = float(2**20)
 
 def resource_axis() -> tuple:
     return tuple(_RESOURCE_AXIS)
+
+
+def resource_index(name: str) -> int:
+    return _RESOURCE_INDEX[name]
 
 
 def num_resources() -> int:
@@ -149,3 +167,46 @@ class Resources(Dict[str, float]):
             vec[_RESOURCE_INDEX[k]] = v / device_scale(k)
         return vec
 
+    @staticmethod
+    def from_vector(vec: Iterable[float]) -> "Resources":
+        out = Resources()
+        for i, v in enumerate(vec):
+            if v and i < len(_RESOURCE_AXIS):
+                name = _RESOURCE_AXIS[i]
+                out[name] = float(v) * device_scale(name)
+        return out
+
+
+def merge(*rs: Mapping[str, float]) -> Resources:
+    out = Resources()
+    for r in rs:
+        out = out.add(r)
+    return out
+
+
+def pod_requests(containers: Iterable[Mapping[str, float]],
+                 init_containers: Iterable[Mapping[str, float]] = (),
+                 overhead: "Mapping[str, float] | None" = None) -> Resources:
+    """Effective pod request: max(sum(containers), max(initContainers)) + overhead.
+
+    Same aggregation Kubernetes (and the reference's scheduling simulation)
+    uses for pod resource accounting.
+    """
+    total = Resources()
+    for c in containers:
+        total = total.add(c)
+    for ic in init_containers:
+        for k, v in ic.items():
+            if v > total.get(k, 0.0):
+                total[k] = v
+    if overhead:
+        total = total.add(overhead)
+    if total.get(PODS, 0.0) == 0:
+        total[PODS] = 1.0  # every pod consumes one pod slot
+    return total
+
+
+def ceil_div(a: float, b: float) -> int:
+    if b <= 0:
+        return 0
+    return int(math.ceil(a / b - 1e-9))

@@ -5,8 +5,10 @@ telemetry plane —, decision provenance (the explain recorder) and the
 online invariant watchdog (the port's copies of `karpenter_tpu.obs`).
 Importing the package installs the process ledgers as tracer sinks and
 registers their /debug routes; all are free while tracing is off and
-nothing touches the device. The reference's perf archive belongs to the
-port's bench (ROADMAP item 5)."""
+nothing touches the device. The cross-run perf archive and its gate
+(`obs/perfarchive`, `python -m karpenter_tpu_torch.obs.perf_gate`) and the
+device report (`python -m karpenter_tpu_torch.obs.device_report`) are
+modules of their own, imported where they run."""
 
 from .tracer import (NOOP_SPAN, TRACER, FlightRecorder, Span, Trace, Tracer,
                      summarize, to_chrome_events, write_chrome_trace)

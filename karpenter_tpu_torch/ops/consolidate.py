@@ -37,8 +37,8 @@ import torch
 from ..obs import devicemem as dm
 from .encode import CatalogTensors, EncodedPods, align_zone_overhead
 from .screen_k import screen_k
-from .solver import (_auto_dcat, _put, _put_sharded, _read, _request_cols,
-                     resolve_device)
+from .solver import (PROBE_VARIANTS, _auto_dcat, _put, _put_sharded, _read,
+                     _request_cols, resolve_device, slope_time)
 
 
 def eligibility(avail, node_type, node_zmask, node_cmask, node_active,
@@ -190,6 +190,47 @@ def screen_packed(cat: CatalogTensors, enc: EncodedPods, views: "List",
                                         list(cols)), dev)
     dcat = _auto_dcat(cat, R, dev)
     return _screen_onebuf(dcat.alloc, dcat.avail, nbuf, gbuf, cols)
+
+
+def _screen_dispatch(cat: CatalogTensors, enc: EncodedPods, views: "List",
+                     group_counts: np.ndarray, device=None):
+    """screen_device_time's dispatch: i -> the packed screen of variant
+    i % PROBE_VARIANTS, whose node matrix is the production one with every
+    node's cum[:, 0] raised by i x 0.001 (f32): same shapes, distinct
+    inputs (the packed screens may agree where no change crosses a floor
+    of kernel A). The group matrix and the catalog are the production
+    ones."""
+    dev = resolve_device(device)
+    R = enc.requests.shape[1]
+    cols = _request_cols(enc, cat)
+    dcat = _auto_dcat(cat, R, dev)
+    node_type, node_cum, node_zmask, node_cmask, active = _screen_args(
+        cat, enc, views)
+    with dm.attributed(reason="screen_upload"):
+        gbuf = _put(_pack_screen_groups(enc.requests, enc.compat,
+                                        enc.allow_zone, enc.allow_cap,
+                                        list(cols)), dev)
+        variants = []
+        for i in range(PROBE_VARIANTS):
+            cum = node_cum.copy()
+            cum[:, 0] += np.float32(i) * np.float32(0.001)
+            variants.append(_put(_pack_screen_nodes(
+                node_type, cum, node_zmask, node_cmask, active, group_counts,
+                list(cols)), dev))
+    return lambda i: _screen_onebuf(dcat.alloc, dcat.avail,
+                                    variants[i % PROBE_VARIANTS], gbuf, cols)
+
+
+def screen_device_time(cat: CatalogTensors, enc: EncodedPods, views: "List",
+                       group_counts: np.ndarray, iters: int = 40,
+                       device=None) -> float:
+    """Per-call time of the screen's dispatch on `device` (default: the
+    card), in seconds: solver.slope_time over PROBE_VARIANTS node matrices
+    with perturbed cum, through the production dispatch (`_screen_onebuf`:
+    kernel A on a card, its plain version with device="cpu")."""
+    return slope_time(_screen_dispatch(cat, enc, views, group_counts,
+                                       device), iters=iters,
+                      n_variants=PROBE_VARIANTS)
 
 
 def screen_packed_mesh(cat: CatalogTensors, enc: EncodedPods, views: "List",

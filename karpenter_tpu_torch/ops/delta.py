@@ -433,7 +433,8 @@ def copy_solve_result(result):
     """Independent copy of a SolveResult: the memo must never alias
     node objects the caller goes on to mutate (bind/commit extends
     pods_by_group in place)."""
-    from .binpack import SolveResult, copy_virtual_node
+    from ..state.cluster import copy_virtual_node
+    from .binpack import SolveResult
     return SolveResult(
         nodes=[copy_virtual_node(n) for n in result.nodes],
         unschedulable=dict(result.unschedulable),

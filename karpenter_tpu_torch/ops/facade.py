@@ -51,7 +51,7 @@ from ..models.resources import Resources
 from ..obs.tracer import NOOP_SPAN, TRACER
 from .affinity import apply_zone_affinity
 from .binpack import (SolveResult, SpreadConstraintCounts, VirtualNode,
-                      copy_virtual_node, solve_host, split_spread_groups)
+                      solve_host, split_spread_groups)
 from .colocate import (BundleNode, ColocationPlan, has_colocation,
                        plan_colocation)
 from .encode import (CatalogTensors, EncodedPods, align_resources,
@@ -712,6 +712,7 @@ class Solver:
             # masks so the main solve sees consumed capacity — work on
             # copies: callers (disruption) reuse their VirtualNodes across
             # many solves in one reconcile
+            from ..state.cluster import copy_virtual_node
             existing = [copy_virtual_node(vn) for vn in (existing or [])]
             existing_pods = dict(existing_pods or {})
             cat_plan = cat

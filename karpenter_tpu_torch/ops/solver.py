@@ -32,6 +32,11 @@ reference's), and `dispatch_batch` / `dispatch_packed` split a bucket's
 request rows over a "batch" mesh (batched B0 and B on each shard, no
 collectives). A mesh request runs sharded or raises; it never runs as
 mesh=None.
+
+The measurement seams are the reference's: `provenance()` stamps a run
+as a card run or a CPU fallback, and `kernel_device_time` times the
+fresh-solve dispatch (`kernel_args`) by the slope method (`slope_time`),
+which `ops/consolidate.screen_device_time` shares.
 """
 
 from __future__ import annotations
@@ -151,6 +156,37 @@ def transfer_bytes() -> Tuple[int, int]:
     transfer-attribution ledger (obs/devicemem.TRANSFERS), so the same
     bytes are decomposable per (reason, tenant, shape class)."""
     return dm.TRANSFERS.totals()
+
+
+def provenance() -> dict:
+    """Where this process runs the port, for run artifacts and reports:
+    the backend torch resolved (`cuda` with a card, else `cpu`), the
+    card's name, the device and host counts, torch's and CUDA's versions,
+    and `cpu_fallback` (True without a card). A producer stamps its run
+    comparable only when `cpu_fallback` is False, so a CPU run can never
+    stand in a card's history. Never raises: an exception becomes an
+    `error` key."""
+    out: dict = {"backend": None, "device_kind": None, "device_count": 0,
+                 "host_count": 1, "cpu_fallback": True, "torch": None,
+                 "cuda": None}
+    try:
+        out["torch"] = torch.__version__
+        out["cuda"] = torch.version.cuda
+        if torch.cuda.is_available():
+            out["backend"] = "cuda"
+            out["device_count"] = torch.cuda.device_count()
+            out["device_kind"] = torch.cuda.get_device_name(0)
+            out["cpu_fallback"] = False
+        else:
+            out["backend"] = "cpu"
+            out["device_count"] = 1
+            out["device_kind"] = "cpu"
+        dist = torch.distributed
+        if dist.is_available() and dist.is_initialized():
+            out["host_count"] = dist.get_world_size()
+    except Exception as e:  # noqa: BLE001 — provenance must not crash a run
+        out["error"] = f"{type(e).__name__}: {e}"
+    return out
 
 
 class _Staging(threading.local):
@@ -860,6 +896,116 @@ def _dispatch(st: _Staged, n_max: int, k_max: int) -> torch.Tensor:
     """The device call at one (n_max, k_max) budget: the packed int32
     result, still on the device."""
     return pack_solution(*_scan(st, n_max), k_max)
+
+
+# ---------------------------------------------------------------------------
+# device-time probes: the fresh-solve kernel inputs and the slope method
+# ---------------------------------------------------------------------------
+
+def kernel_args(cat: CatalogTensors, enc: EncodedPods,
+                dcat: Optional[DeviceCatalog] = None, device=None):
+    """Kernel inputs of a fresh solve (no existing nodes) on `device`
+    (default: the card), prepared as solve_device prepares them: the
+    benchmarking seam that times the scan apart from the host's staging.
+
+    Returns (args, statics). args are `_scan_onebuf`'s positional inputs
+    (dcat, gbuf, prior, banned, conflict, nbuf, n_existing), with prior,
+    banned and nbuf None and n_existing 0; statics are n_max, k_max,
+    cols, track_conflicts and zone_ovh. `_run_onebuf(args, statics)` is
+    one dispatch: the scan (kernels B0 and B on the card) and its
+    packing."""
+    dev = resolve_device(device)
+    R = enc.requests.shape[1]
+    Gp = _bucket(enc.G, 8)
+    if dcat is None or not _dcat_fits(dcat, cat, R, dev):
+        dcat = _auto_dcat(cat, R, dev)
+    n_max = _auto_node_budget(cat, enc, 0)
+    k_max = _bucket(2 * n_max)
+    track = enc.conflict is not None
+    zone_ovh = dcat.ovh_z is not None
+    cols = _request_cols(enc, cat)
+    conflict = (_put(_pad_to(_pad_to(enc.conflict, Gp, 0), Gp, 1), dev)
+                if track else None)
+    gbuf = _put(_pack_groups(*_group_inputs(enc, Gp), list(cols)), dev)
+    args = (dcat, gbuf, None, None, conflict, None, 0)
+    statics = dict(n_max=n_max, k_max=k_max, cols=cols,
+                   track_conflicts=track, zone_ovh=zone_ovh)
+    return args, statics
+
+
+def _run_onebuf(args, statics) -> torch.Tensor:
+    """One dispatch of kernel_args' inputs: the packed int32 result, still
+    on the device."""
+    scan = {k: v for k, v in statics.items() if k != "k_max"}
+    return pack_solution(*_scan_onebuf(*args, **scan), statics["k_max"])
+
+
+def slope_time(dispatch, iters: int = 40, n_variants: int = 8) -> float:
+    """Per-call device time via the slope method, in seconds.
+
+    Two pipelined loops of N and 2N dispatches, each blocked once (a
+    `torch.cuda.synchronize` of the output's device; on the CPU a call
+    has finished when it returns); the per-call time is (t_2N - t_N) / N,
+    which cancels the loop's one wait for the card and the host's ramp
+    into the launch queue. The slope is the card's time a call while the
+    queue stays ahead of the host; where the host takes longer to
+    dispatch a call than the card takes to run it, the slope is the
+    host's. `dispatch(i)` returns the output for input variant
+    i % n_variants: callers cycle >= 2 materially distinct inputs, so no
+    layer can answer a repeat from a cache. Shared by kernel_device_time
+    and consolidate.screen_device_time, so the two timings stay
+    methodologically identical."""
+
+    def loop(n):
+        out = None
+        t0 = time.perf_counter()
+        for i in range(n):
+            out = dispatch(i)
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        return time.perf_counter() - t0
+
+    loop(n_variants)  # warm: kernel builds, caches
+    t1 = min(loop(iters) for _ in range(2))
+    t2 = min(loop(2 * iters) for _ in range(2))
+    return max((t2 - t1) / iters, 1e-9)
+
+
+PROBE_VARIANTS = 8
+
+
+def _kernel_dispatch(cat: CatalogTensors, enc: EncodedPods, device=None):
+    """kernel_device_time's dispatch: i -> the packed result of variant
+    i % PROBE_VARIANTS, whose group buffer is kernel_args' with every
+    count raised by i (same shapes, distinct work). Each variant is run
+    and read once first: one that overflows the node budget raises, since
+    production would scan it again at a larger budget and the probe would
+    time a scan no solve keeps. (A take budget too small for the takes
+    costs production a second packing of the same scan, not a scan; the
+    probe times the first packing, as the reference's does.)"""
+    args, statics = kernel_args(cat, enc, device=device)
+    gbuf = args[1]
+    Rk = len(statics["cols"])
+    variants = []
+    for i in range(PROBE_VARIANTS):
+        g = gbuf.clone()
+        g[:, Rk] += float(i)  # counts: exact in f32 far past any pod count
+        variants.append(args[:1] + (g,) + args[2:])
+    for i, v in enumerate(variants):
+        if int(_run_onebuf(v, statics)[1]):
+            raise ValueError(f"probe variant {i} overflows the node budget "
+                             f"n_max {statics['n_max']}")
+    return lambda i: _run_onebuf(variants[i % PROBE_VARIANTS], statics)
+
+
+def kernel_device_time(cat: CatalogTensors, enc: EncodedPods,
+                       iters: int = 40, device=None) -> float:
+    """Per-call time of the solve's dispatch on `device` (default: the
+    card), in seconds: slope_time over PROBE_VARIANTS group buffers with
+    perturbed counts. On a card each call launches kernels B0 and B (and
+    the packing); with device="cpu" it runs their plain versions."""
+    return slope_time(_kernel_dispatch(cat, enc, device), iters=iters,
+                      n_variants=PROBE_VARIANTS)
 
 
 def solve_device(cat: CatalogTensors, enc: EncodedPods,

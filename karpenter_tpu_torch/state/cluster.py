@@ -1,8 +1,7 @@
 """ClusterState: the solver-facing view of live nodes.
 
 The port's own copy of `karpenter_tpu/state/cluster.py`, unchanged in
-semantics. The reference's `copy_virtual_node` lives in the port's
-`ops/binpack` (the facade's colocation branch needed it first).
+semantics.
 
 The reference keeps an in-memory cluster mirror (`state.NewCluster`,
 cmd/controller/main.go:43) that the scheduler and disruption controllers
@@ -60,6 +59,20 @@ class NodeView:
         if self.claim.annotations.get(DO_NOT_DISRUPT) == "true":
             return True
         return any(p.do_not_disrupt() for p in self.pods)
+
+
+def copy_virtual_node(vn: VirtualNode) -> VirtualNode:
+    """Independent copy of a VirtualNode (masks/cum/placement maps are
+    fresh objects): the one copy both the facade's colocation branch and
+    the warm-path ledger/audit snapshots use, so a new VirtualNode field
+    has a single place to be added to."""
+    return VirtualNode(
+        type_idx=vn.type_idx, zone_mask=vn.zone_mask.copy(),
+        cap_mask=vn.cap_mask.copy(), cum=vn.cum.copy(),
+        pods_by_group=dict(vn.pods_by_group),
+        prior_by_group=dict(vn.prior_by_group),
+        banned_groups=vn.banned_groups,
+        existing_name=vn.existing_name)
 
 
 def pool_node_views(store: Store, cat: CatalogTensors, clock_now: float,

@@ -82,7 +82,7 @@ class Auditor:
     # --- commit-time snapshot ---
     def on_commit(self, ledgers: Dict[str, PoolLedger],
                   occupancy: List[Tuple[Optional[str], List[Pod]]]) -> None:
-        from ..ops.binpack import copy_virtual_node
+        from ..state.cluster import copy_virtual_node
         self._baselines = {
             name: _Baseline(
                 ledger=led,
@@ -133,7 +133,7 @@ class Auditor:
                 continue
             self.stats["audits"] += 1
             self.stats["audited_pods"] += len(b.pods)
-            from ..ops.binpack import copy_virtual_node
+            from ..state.cluster import copy_virtual_node
             led = base.ledger
             out = self.solver.solve(
                 b.pods, led.pool, led.node_class,

@@ -11,8 +11,11 @@ meters — must be equal, exactly. The solver cases run the reference's
 `solve_device` on JAX-CPU and the port's with `device="cpu"` on the same
 encoded input and compare the bytes each moved per reason.
 
-Not ported: the reference's `TestDeviceReport` case drives its
-`tools/device_report.py`, a tool of the JAX package.
+The reference's `TestDeviceReport` case drives its `tools/device_report.py`;
+here the same arguments drive it and the port's counterpart,
+`karpenter_tpu_torch/obs/device_report.py` with `--device cpu`: the same
+JSON keys, and equal transfer counts and bytes, upload-redundancy fraction
+and resident breakdown.
 """
 
 from __future__ import annotations
@@ -100,6 +103,7 @@ def _fresh_planes():
     for P in (REF, PORT):
         _mod(P, "ops.delta").DELTA.reset()
         _mod(P, "ops.resident").RESIDENT.reset()
+        _mod(P, "integrity").INTEGRITY.reset()
     # both packages' monotone unions of requested resource columns hold
     # the same columns: they set the request matrices' widths
     cols = REF.S._cols_union | PORT.S._cols_union
@@ -624,3 +628,66 @@ def test_debug_device_serves_the_plane():
         assert "residency" in payload and "transfers" in payload
         assert "uploads" in payload and "orphans" in payload
         assert payload["residency"]["watermark_bytes"] >= 0
+
+
+def _report_doc(P, argv, capsys, monkeypatch):
+    """One run of the package's device report: its JSON line. The report
+    prints the transfer ledger's totals since import, so each run gets a
+    fresh ledger (restored after the test): what the worker's earlier
+    tests moved is not the report's."""
+    for Q in (REF, PORT):
+        _mod(Q, "ops.delta").DELTA.reset()
+        _mod(Q, "ops.resident").RESIDENT.reset()
+        _mod(Q, "integrity").INTEGRITY.reset()
+        monkeypatch.setattr(Q.dm, "TRANSFERS", Q.dm.TransferLedger())
+    if P is REF:
+        import tools.device_report as dr
+        rc = dr.main(argv)
+    else:
+        from karpenter_tpu_torch.obs import device_report as dr
+        rc = dr.main(argv + ["--device", "cpu"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    line = [ln for ln in out.strip().splitlines() if ln.startswith("{")][-1]
+    return json.loads(line)
+
+
+def _resident(doc):
+    """The resident breakdown, its counters read as missing == 0: the
+    audit counters join the stats at a package's first resident audit and
+    reset() zeroes them without removing them, so whether they are listed
+    depends on what ran earlier in the process."""
+    res = doc["resident"]
+    if res is None:
+        return None
+    return {**res, "stats": {k: v for k, v in res["stats"].items() if v}}
+
+
+def _keys(doc):
+    return {k: sorted(v) if isinstance(v, dict) and k != "kinds" else None
+            for k, v in doc.items()}
+
+
+@pytest.mark.parametrize("argv", [
+    ["--pods", "64", "--rounds", "2"],
+    ["--pods", "400", "--rounds", "3", "--churn-pct", "5"],
+    ["--pods", "200", "--rounds", "3", "--churn-pct", "0", "--no-resident"]],
+    ids=["reference_case", "churn", "warm_no_resident"])
+def test_device_report_equals_the_reference(argv, capsys, monkeypatch):
+    want = _report_doc(REF, argv, capsys, monkeypatch)
+    got = _report_doc(PORT, argv, capsys, monkeypatch)
+    assert got["rounds"] == int(argv[3])
+    if argv[3] == "2":
+        # the reference's case: 64 pods at 1% churn churn none, so the
+        # single warm round re-uploads a byte-identical matrix, and the
+        # cold seeding round must not dilute the reported fraction
+        assert got["upload_redundant_frac"] >= 0.99
+    assert got["residency"]["watermark_bytes"] > 0
+    assert got["audit"]["coverage"] >= 0.0
+    assert _keys(got) == _keys(want)
+    assert sorted(got["audit"]) == sorted(want["audit"])
+    for k in ("pods", "rounds", "churn_pct", "uploads", "reads",
+              "upload_redundant_frac", "transfers"):
+        assert got[k] == want[k], k
+    assert _resident(got) == _resident(want)
+    assert (got["resident"] is None) == ("--no-resident" in argv)

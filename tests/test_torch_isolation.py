@@ -267,3 +267,32 @@ def test_delta_and_resident_planes_are_the_ports_own():
         device_catalog(cat, cat.allocatable.shape[1], None,
                        resident_key=("isolation",))
     RESIDENT.reset()
+
+
+def test_measurement_plane_needs_a_card_or_a_device():
+    """The device-time probes, their kernel inputs and the device report
+    without a card and without a device raise; device="cpu" /
+    --device cpu runs them on the host. provenance() says the run is a
+    CPU fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from karpenter_tpu_torch.models.nodeclaim import NodeClaim
+    from karpenter_tpu_torch.obs import device_report
+    from karpenter_tpu_torch.ops import consolidate, solver
+    from karpenter_tpu_torch.state.cluster import NodeView
+    cat, enc = _tiny_problem()
+    res = solver.solve_device(cat, enc, device="cpu")
+    views = [NodeView(claim=NodeClaim(name=f"n{i}", nodepool="d"), node=None,
+                      pods=[], virtual=n, price=0.0)
+             for i, n in enumerate(res.nodes)]
+    counts = np.zeros((len(views), enc.G), np.int32)
+    for call in (lambda: solver.kernel_args(cat, enc),
+                 lambda: solver.kernel_device_time(cat, enc, iters=2),
+                 lambda: consolidate.screen_device_time(cat, enc, views,
+                                                        counts, iters=2),
+                 lambda: device_report.main(["--pods", "16", "--rounds",
+                                             "2"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert solver.kernel_device_time(cat, enc, iters=2, device="cpu") > 0
+    assert solver.provenance()["cpu_fallback"] is True

@@ -221,8 +221,12 @@ Phases (any failure exits non-zero):
              for bit against mesh=None on the card: run_sharded_solve at
              the grid mix (phase 3's pods) and at the reference's bench
              shape (128 self-anti-affine groups x 40 pods, ~5k nodes), kernel
-             M equal to its plain version (atol 0), to kernel B on one
-             device and to solve_host; Solver(backend="mesh") at 100,000
+             M (its persistent route: one cooperative launch a solve)
+             equal to its plain version (atol 0), to kernel B on one
+             device and to solve_host; at the grid mix M's per-step route
+             (a launch a shard a step, the distinct-card one) run once
+             too, its launches counted apart, == the plain version;
+             Solver(backend="mesh") at 100,000
              grid pods == backend="device"; the mesh screen over phase 3's
              cluster == mesh=None; score_subsets_device(mesh=) at the
              operator loop's first subset search == mesh=None;
@@ -276,7 +280,8 @@ server's launches, the mesh phase's, with their count per shard, and for
 A, B0 and B the measurement phase's, with its probe's times) and
 times (the fleet's at its wide bucket: 16 requests in one launch). Its
 mesh_scan row is kernel M: launches and times from phase 4m (times at
-the grid mix; by_phase also at the bench shape). Its resident_patch
+the grid mix; `routes` both routes' launches, times and bound; by_phase
+also at the bench shape). Its resident_patch
 row is the row scatter of ops/resident (the port of the reference's
 _jit_scatter, a library index_copy_): launches from phase 4h, times at the
 facade mix's gbuf with k = 1% of its rows, by_phase every phase's launches
@@ -4209,9 +4214,14 @@ def sharded_inputs(solver, cat, enc, n_max: int):
     return args, one
 
 
-def mesh_sharded_case(name, parallel, msc, ss, solver, cat, enc, mesh):
+def mesh_sharded_case(name, parallel, msc, ss, solver, cat, enc, mesh,
+                      per_step=False):
     """run_sharded_solve at one shape: kernel M equal to its plain version
-    (atol 0), to kernel B on one device (mesh=None) and to solve_host.
+    (atol 0), to kernel B on one device (mesh=None) and to solve_host, M
+    launched once a solve where the shards share the card ((Gp + 1) a
+    shard where they sit on distinct cards). With per_step, M's per-step
+    route is also run once through mesh_scan_per_step_cuda, its launches
+    counted apart from the path's, and held against the plain version.
     Returns M's times and walls at that shape."""
     import numpy as np
     import torch
@@ -4226,18 +4236,20 @@ def mesh_sharded_case(name, parallel, msc, ss, solver, cat, enc, mesh):
              np.zeros((n_max, cat.Z), bool), np.zeros((n_max, cat.C), bool),
              np.zeros(n_max, bool), np.asarray(0, np.int32))
     parts = msc.shard_args(mesh, n_max, *args, *zeros)
+    route = msc.mesh_route(mesh.devices)
+    per_solve = 1 if route == "persistent" else (Gp + 1) * mesh.size
     m0 = msc.launches
     out = parallel.run_sharded_solve(mesh, *args, n_max=n_max)
     torch.cuda.synchronize()
-    check(msc.launches - m0 == (Gp + 1) * mesh.size,
-          f"{name}: kernel M launched {msc.launches - m0} times, not "
-          f"(Gp + 1) x shards = {(Gp + 1) * mesh.size}")
+    check(msc.launches - m0 == per_solve,
+          f"{name}: kernel M ({route}) launched {msc.launches - m0} times, "
+          f"not {per_solve}")
     plain = msc.mesh_scan_plain(mesh, *parts, n_max)
     names = ("ntype", "cum", "zmask", "cmask", "nopen", "nused", "takes",
              "unsched", "overflow")
     for a, b, what in zip(out, plain, names):
         check(torch.equal(a, b.to(a.dtype)),
-              f"{name}: kernel M != its plain version ({what})")
+              f"{name}: kernel M ({route}) != its plain version ({what})")
     with uncounted():
         ref = ss.solve_scan_cuda(*one)
         torch.cuda.synchronize()
@@ -4258,10 +4270,12 @@ def mesh_sharded_case(name, parallel, msc, ss, solver, cat, enc, mesh):
     check(np.array_equal(ntype[:nused], [n.type_idx for n in h.nodes])
           and np.array_equal(takes[:, :nused], want),
           f"{name}: the sharded solve differs from solve_host")
+    kname = ("mesh_persistent_kernel" if route == "persistent"
+             else "mesh_step_kernel")
     with uncounted():
         m_ms = cuda_ms(lambda: msc.mesh_scan_cuda(mesh, *parts, n_max), 3)
         k_ms, = profiled_ms(lambda: msc.mesh_scan_cuda(mesh, *parts, n_max),
-                            "mesh_step_kernel")
+                            kname)
         plain_ms = cuda_ms(lambda: msc.mesh_scan_plain(mesh, *parts, n_max),
                            1)
         one_ms = cuda_ms(lambda: ss.solve_scan_cuda(*one), 10)
@@ -4270,18 +4284,52 @@ def mesh_sharded_case(name, parallel, msc, ss, solver, cat, enc, mesh):
         wall_one = wall_ms(lambda: ss.solve_scan_cuda(*one)[3].item(), 3)
     nb, ops = mesh_scan_work(Gp, cat.T, cat.Z, cat.C, R, n_max)
     row = {"ms": m_ms, "plain_ms": plain_ms, **bound(nb, ops),
-           "library_ms": None, "kernel_ms": k_ms,
+           "library_ms": None, "kernel_ms": k_ms, "route": route,
+           "launches_a_solve": per_solve,
            "step_ms": m_ms / (Gp + 1), "mesh_none_ms": one_ms,
            "wall_ms": wall, "mesh_none_wall_ms": wall_one,
            "shape": {"Gp": Gp, "n_max": n_max, "R": R, "shards": mesh.size}}
     log(f"[mesh] {name}: run_sharded_solve over {mesh.describe()}, Gp={Gp} "
-        f"n_max={n_max} R={R}: {nused} nodes; kernel M == plain (atol 0), "
-        f"== kernel B on one device, == solve_host. M: {m_ms:.3f} ms a "
-        f"solve ({(Gp + 1) * mesh.size} launches, {m_ms / (Gp + 1):.4f} ms "
-        f"a step), one launch {k_ms} ms (profiler), plain {plain_ms:.1f} ms, "
-        f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}); B0 + B on "
-        f"one device {one_ms:.3f} ms; wall {wall:.2f} ms vs mesh=None "
+        f"n_max={n_max} R={R}: {nused} nodes; kernel M ({route}) == plain "
+        f"(atol 0), == kernel B on one device, == solve_host. M: "
+        f"{m_ms:.3f} ms a solve ({per_solve} launch"
+        f"{'es' if per_solve > 1 else ''}, B0 {mesh.size}), {kname} "
+        f"{k_ms} ms a launch (profiler), plain {plain_ms:.1f} ms, bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']}); B0 + B on one "
+        f"device {one_ms:.3f} ms; wall {wall:.2f} ms vs mesh=None "
         f"{wall_one:.2f} ms")
+    if per_step:
+        # the per-step route (the distinct-card one) on the same shards:
+        # launched through its own function, counted apart, held against
+        # the plain version
+        with uncounted():
+            s0 = msc.launches
+            out_s = msc.mesh_scan_per_step_cuda(mesh, *parts, n_max)
+            torch.cuda.synchronize()
+            n_step = msc.launches - s0
+        check(n_step == (Gp + 1) * mesh.size,
+              f"{name}: the per-step route launched M {n_step} times, not "
+              f"(Gp + 1) x shards = {(Gp + 1) * mesh.size}")
+        for a, b, what in zip(out_s, plain, names):
+            check(torch.equal(a, b.to(a.dtype)),
+                  f"{name}: kernel M (per_step) != its plain version "
+                  f"({what})")
+        with uncounted():
+            s_ms = cuda_ms(lambda: msc.mesh_scan_per_step_cuda(
+                mesh, *parts, n_max), 3)
+            sk_ms, = profiled_ms(lambda: msc.mesh_scan_per_step_cuda(
+                mesh, *parts, n_max), "mesh_step_kernel")
+            s_wall = wall_ms(lambda: msc.mesh_scan_per_step_cuda(
+                mesh, *parts, n_max)[5].item(), 3)
+        row["per_step"] = {
+            "ms": s_ms, "kernel_ms": sk_ms, "launches": n_step,
+            "launches_a_solve": n_step, "step_ms": s_ms / (Gp + 1),
+            "wall_ms": s_wall, "plain_ms": plain_ms,
+            **{k: row[k] for k in ("bound_ms", "bound_by", "library_ms")}}
+        log(f"[mesh] {name}, per-step route on the same shards: == plain "
+            f"(atol 0); {n_step} launches (counted apart), {s_ms:.3f} ms a "
+            f"solve, mesh_step_kernel {sk_ms} ms a launch (profiler), wall "
+            f"{s_wall:.2f} ms; persistent {m_ms:.3f} ms, wall {wall:.2f} ms")
     return row, (args, n_max)
 
 
@@ -4328,7 +4376,7 @@ def phase_mesh(cat, enc, views, counts) -> tuple:
 
     # --- run_sharded_solve: the grid mix and the bench shape ---
     m_grid, _ = mesh_sharded_case("grid mix", parallel, msc, ss, solver,
-                                  cat, enc, mesh)
+                                  cat, enc, mesh, per_step=True)
     bpods = [models.Pod(
         name=f"g{k}-{i}", labels={"app": f"g{k}"},
         requests=models.Resources.parse({"cpu": ["6", "7"][k % 2],
@@ -5105,15 +5153,25 @@ def main() -> None:
         "by_phase": {**{ph: {"launches": n} for ph, n in scatter.items()},
                      **scatter_rows}})
     # kernel M: launches and times from phase 4m (its main path: the node
-    # mesh's solves), times at the grid mix
+    # mesh's solves, on the virtual mesh's persistent route), times at the
+    # grid mix; `routes` holds both routes' launches, times and bound (the
+    # per-step route's launches are its check's, counted apart)
+    m_keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
     kernels.append({
         "name": "mesh_scan", "route": "cuda",
         "source": "karpenter_tpu_torch/csrc/mesh_scan.cu",
         "replaces": "karpenter_tpu/parallel/mesh.py:66",
         "also_replaces": "karpenter_tpu/ops/solver.py:1162",
         "launches": mesh_launches["mesh_scan"], "max_abs_err": 0.0,
-        **{k: m_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")},
+        **{k: m_row[k] for k in m_keys},
+        "routes": {
+            "persistent": {"kernel": "mesh_persistent_kernel",
+                           "launches": mesh_launches["mesh_scan"],
+                           "launches_a_solve": m_row["launches_a_solve"],
+                           **{k: m_row[k] for k in m_keys}},
+            "per_step": {"kernel": "mesh_step_kernel",
+                         **m_row["per_step"]}},
         "by_phase": {"mesh": {"launches": mesh_launches["mesh_scan"],
                               "per_shard": mesh_launches["mesh_scan"]
                               / MESH_SHARDS, **m_row["by_shape"]}}})

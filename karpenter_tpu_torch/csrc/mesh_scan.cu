@@ -1,43 +1,62 @@
-// mesh_scan: kernel M, one shard's part of the node-sharded group scan.
+// mesh_scan: kernel M, the node-sharded group scan.
 //
 // Replaces the XLA programs karpenter_tpu/parallel/mesh.py::sharded_solve_fn
 // (:66) and karpenter_tpu/ops/solver.py::_mesh_packed_fn (:1162): the
 // reference's `lax.scan` over pod groups (solver.py:347-483) with the node
 // axis split over a mesh, whose per-step prefix GSPMD turns into
 // collectives. Shard s owns the contiguous node range [lo, lo + Ns),
-// lo = s * Ns, and keeps that range's node state in its device's global
-// memory for the whole scan: type, open flag, zone | captype << Z bits, cum
-// [Ns, Rk], hosted-group words [Ns, W], and the step's kf and in-block
-// prefix. The catalog rows, the per-group records of kernel B0
-// (csrc/solve_scan.cu, run once on every shard) and nused are replicated.
+// lo = s * Ns, and that range's node state: type, open flag, zone |
+// captype << Z bits, cum [Ns, Rk], hosted-group words [Ns, W]. The catalog
+// rows, the per-group records of kernel B0 (csrc/solve_scan.cu, run once on
+// every shard) and nused are replicated. Each shard's blocks own
+// contiguous pieces of its range, in node order: block j of the whole mesh
+// (shard * blocks a shard + b) holds the nodes before block j + 1's.
 //
-// One launch per shard per step g = 0..Gp, one thread per node, nb blocks:
-//   1. (g > 0) apply step g - 1. Warp 0 of each block sums the gathered
-//      block totals of step g - 1 (a [S * nb] vector, all-gathered between
-//      the launches by the host, outside the kernel): those of the blocks
-//      below this one are its carry, all of them `placed`, both saturated
-//      at count. Each thread's take is min(kf, count - min(carry + pre,
-//      count)), clamped at 0; a block whose carry reaches count takes
-//      nothing. Then the new nodes [nused, nused + n_new) that fall in the
-//      thread's node open at B0's t_star. nused lives in hdr[parity] (the
-//      launch reads slot (g-1)&1 and block 0 writes slot g&1), so no block
-//      reads a slot another writes in the same launch.
-//   2. (g < Gp) count step g: kf = min(k, count) for the thread's node (k
-//      from headroom, eligibility, max_per_node - prior, as kernel B), one
-//      block scan (64-bit, saturated at count) for the in-block exclusive
-//      prefix and the block total, which goes to tot[b] for the next
-//      gather.
-// A thread's node state needs no barrier: only that thread reads or
-// writes it. Nothing syncs across blocks or shards inside a launch.
+// Every step g = 0..Gp - 1 has two halves, the same code in both kernels:
+//   count: kf = min(k, count) for each node (k from headroom, eligibility,
+//     max_per_node - prior, as kernel B), one block scan (64-bit) for the
+//     in-block exclusive prefix and the block total, which is saturated at
+//     count and exchanged between the blocks of every shard;
+//   apply: the carry of block j is the saturated sum of the totals of the
+//     blocks below j, `placed` the saturated sum of all of them. A node's
+//     take is min(kf, count - min(carry + prefix, count)), clamped at 0.
+//     Then the new nodes [nused, nused + n_new) that fall in the block's
+//     range open at B0's t_star.
+// All terms are non-negative, so min(sum min(x_i, c), c) = min(sum x_i, c):
+// a take depends only on the count of pods that fit on the nodes before it,
+// not on how the node axis is cut into shards and blocks
+// (tests/test_torch_parallel.py holds the plain version, cut into 1 to 24
+// shards, equal to the reference's _solve_kernel).
 //
-// Bound: bytes. Per step it reads and writes each node's state once (a
-// few tens of bytes a node) and writes one take a node; counted as the
-// bytes the whole scan must move (inputs once, takes out once) it is far
-// under a millisecond at HBM rate. What limits it is the chain of Gp steps
-// times S shards of launches and the host's gather between steps: the
-// design is the simple, right form of the sharded scan (a CUDA graph of
-// the step loop is later work), and it makes no claim to speed on one
-// card.
+// Two routes, one per layout of the mesh (ops/mesh_scan.mesh_route):
+//
+// * Shards that share one card: mesh_persistent_kernel, ONE cooperative
+//   launch a solve for all shards and all steps. The grid is S * nbp blocks
+//   (nbp a shard), sized by the occupancy of the kernel so that every block
+//   is co-resident; each thread owns a run of npt consecutive nodes of its
+//   block's piece. A block keeps its nodes' type, open flag, bits, cum and
+//   kf in shared memory for the whole scan (one read before step 0, one
+//   write after the last). The block totals of step g go to the parity
+//   slot tot[g & 1]; one grid barrier (cooperative_groups grid sync) stands
+//   between a step's count and its apply. A block writing slot g & 1 at
+//   step g + 2 has passed step g + 1's barrier, which every block reaches
+//   only after reading step g's totals, so one barrier a step is enough.
+//   nused is computed by every block from the replicated records, so no
+//   block waits on another for it.
+//
+// * Shards on distinct cards: mesh_step_kernel, one launch a shard a step.
+//   Each launch applies step g - 1 with the block totals of every shard,
+//   which the host all-gathers between the launches (parallel/collectives),
+//   then counts step g. The node state lives in the shard's global memory
+//   between launches; nused lives in hdr[parity] (the launch reads slot
+//   (g - 1) & 1 and block 0 writes slot g & 1). This is the one form that
+//   crosses cards without a barrier in peer memory.
+//
+// Bound: bytes. The whole scan must read its inputs once and write its
+// takes once, far under a millisecond at HBM rate. What the per-step route
+// pays is (Gp + 1) x S launches and Gp gathers; the persistent route pays
+// one launch and Gp grid barriers, plus the per-step node work of its
+// busiest thread.
 //
 // Numerics are kernel B's (must match the reference's f32 expressions bit
 // for bit): __fdiv_rn / __fsub_rn, the EPS add as its own rounded add,
@@ -45,15 +64,21 @@
 // the prefix is integer and saturating where the reference's is f32 (exact
 // below 2^24, and moot once it passes count).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdlib.h>
+#include <string.h>
+
+namespace cg = cooperative_groups;
 
 #define MAX_RK 32
 #define BIG_F 1.0e9f
 #define EPS_F 1.0e-4f  // == np.float32(1e-4)
-#define NTM 256        // threads a block, one node each
+#define NTM 256        // threads a block
 #define NWM (NTM / 32)
+// shared bytes a node of the persistent kernel: cum, type, bits, kf, open
+#define NODE_SMEM(Rk) (4 * (Rk) + 13)
 
 // B0's per-group record (csrc/solve_scan.cu: the same layout)
 #define REC_COUNT 0
@@ -83,6 +108,8 @@ __device__ __forceinline__ float fit_ratio(float room, float q) {
   return q > 0.0f ? floorf(__fadd_rn(__fdiv_rn(room, q), EPS_F)) : BIG_F;
 }
 
+// One shard's arguments. The per-step route passes it by value; the
+// persistent route reads shard s's from a device array of S of them.
 struct MeshArgs {
   const float* alloc;                   // [T, Rk]
   const unsigned long long* availbits;  // [T] (B0)
@@ -95,15 +122,176 @@ struct MeshArgs {
   unsigned* bits;                       // [Ns] zone | captype << Z
   float* cum;                           // [Ns, Rk]
   unsigned* host;                       // [Ns, W] hosted-group words
-  int* kf;                              // [Ns] this step's kf
-  int* pre;                             // [Ns] in-block exclusive prefix
-  int* tot;                             // [nb] block totals of this step
+  int* kf;                              // [Ns] this step's kf (per-step)
+  int* pre;                             // [Ns] in-block prefix (per-step)
+  int* tot;                             // [nb] block totals (per-step)
   int* takes;                           // [Gp, Ns]
   int* unsched;                         // [Gp]
   int* hdr;                             // [4]: nused[2] by parity, overflow
   int RW, prior_sharded, banned_sharded;
   int T, Z, C, Rk, W, Gp, Ns, lo, n_max, shard, nshards, nb, track;
 };
+
+// --- the two halves of a step, shared by both kernels ----------------------
+
+// kf = min(k, count) of shard row i at step g (kernel B's count), 0 when the
+// node is closed or not eligible. t, open, bits, cp: the node's state.
+__device__ __forceinline__ int node_kf(const MeshArgs& a, const int* rec,
+                                       int g, int i, int t, bool open,
+                                       unsigned bits, const float* cp) {
+  const int count = rec[REC_COUNT];
+  if (!open || count <= 0) return 0;
+  const int Z = a.Z, C = a.C, Rk = a.Rk, W = a.W;
+  const int CW = (a.T + 31) / 32;
+  const unsigned gbits = (unsigned)rec[REC_GBITS];
+  const float* req = (const float*)(rec + REC_HDR);
+  const unsigned* ccompat = (const unsigned*)(rec + REC_HDR + Rk);
+  const unsigned* conf = ccompat + CW;
+  const unsigned b2 = bits & gbits;
+  const unsigned zm2 = b2 & ((1u << Z) - 1u), cm2 = b2 >> Z;
+  if (!((ccompat[t >> 5] >> (t & 31)) & 1u)) return 0;
+  const unsigned long long ab = a.availbits[t];
+  bool off = false;
+  for (int z = 0; z < Z && !off; ++z)
+    off = ((zm2 >> z) & 1u) &&
+          ((ab >> (z * C)) & (unsigned long long)cm2) != 0ull;
+  if (!off) return 0;
+  if (a.banned_sharded ? a.banned[(size_t)g * a.Ns + i] != 0
+                       : rec[REC_BANNED] != 0)
+    return 0;
+  if (a.track)
+    for (int w = 0; w < W; ++w)
+      if (a.host[(size_t)i * W + w] & conf[w]) return 0;
+  float kc = BIG_F;
+  for (int r = 0; r < Rk; ++r) {
+    float ta = a.alloc[(size_t)t * Rk + r];
+    if (a.zovh != nullptr)
+      ta = __fsub_rn(ta, zone_reserve(a.zovh, t, r, zm2, Z, Rk));
+    kc = fminf(kc, fit_ratio(__fsub_rn(ta, cp[r]), req[r]));
+  }
+  const int k_cap = (int)fmaxf(kc, 0.0f);  // kc <= BIG_F < 2^31
+  const int pn = a.prior_sharded ? a.prior[(size_t)g * a.Ns + i]
+                                 : rec[REC_PRIOR];
+  const int cap_per = rec[REC_CAP];
+  const int cap_eff = cap_per - pn > 0 ? cap_per - pn : 0;
+  return min(min(k_cap, cap_eff), count);
+}
+
+// Block-wide exclusive scan of one 64-bit term a thread (terms < 2^31, at
+// most NTM * 2^31 in all: no wrap). Returns the thread's exclusive prefix,
+// the block's total in *btot. Contains one __syncthreads.
+__device__ __forceinline__ long long block_scan(long long v0, int lane,
+                                                int wid, long long* s_warp,
+                                                long long* btot) {
+  long long v = v0;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long x = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += x;
+  }
+  if (lane == 31) s_warp[wid] = v;
+  __syncthreads();
+  long long woff = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < NWM; ++w) {
+    woff += w < wid ? s_warp[w] : 0;
+    all += s_warp[w];
+  }
+  *btot = all;
+  return woff + v - v0;
+}
+
+// Warp 0: the saturated sums of one step's ntot block totals: those of the
+// blocks below block j (its carry) and all of them (placed), each capped
+// at cnt. The totals were written by other blocks (or launches): read past
+// L1.
+__device__ __forceinline__ void saturated_sums(const int* tot, int ntot,
+                                               int j, unsigned cnt, int lane,
+                                               unsigned* carry,
+                                               unsigned* placed) {
+  unsigned long long below = 0, all = 0;  // < 2^31 terms: no wrap
+  for (int e = lane; e < ntot; e += 32) {
+    const unsigned long long v = (unsigned)__ldcg(tot + e);
+    all += v;
+    below += e < j ? v : 0ull;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    below += __shfl_xor_sync(0xffffffffu, below, o);
+    all += __shfl_xor_sync(0xffffffffu, all, o);
+  }
+  if (lane == 0) {
+    *carry = below < cnt ? (unsigned)below : cnt;
+    *placed = all < cnt ? (unsigned)all : cnt;
+  }
+}
+
+// What step g does with `placed` pods placed on open nodes: the pods left
+// (rem), whether the offer can take them, the nodes it wants and opens.
+struct StepPlan {
+  unsigned rem, s, want, n_new;
+  bool sched;
+};
+
+__device__ __forceinline__ StepPlan plan_step(const int* rec,
+                                              unsigned placed, int nused,
+                                              int n_max) {
+  StepPlan p;
+  p.rem = (unsigned)rec[REC_COUNT] - placed;
+  p.sched = rec[REC_OK] != 0 && p.rem > 0;
+  p.s = (unsigned)rec[REC_S];  // >= 1
+  p.want = p.sched ? (p.rem + p.s - 1u) / p.s : 0u;
+  const unsigned room = n_max > nused ? (unsigned)(n_max - nused) : 0u;
+  p.n_new = p.want < room ? p.want : room;
+  return p;
+}
+
+__device__ __forceinline__ int plan_unsched(const StepPlan& p) {
+  const unsigned long long put = (unsigned long long)p.n_new * p.s;
+  return (int)(p.sched ? (put < p.rem ? p.rem - put : 0ull) : p.rem);
+}
+
+// Apply step gp to shard row i: its take, given `prefix` (the pods that fit
+// on the nodes before it, saturated at count), then its opening if it is
+// one of the step's new nodes; its take goes to takes[gp].
+__device__ __forceinline__ void node_apply(const MeshArgs& a, const int* rec,
+                                           int gp, int i, int kf,
+                                           long long prefix,
+                                           const StepPlan& p, int nused,
+                                           int& t, uint8_t& open,
+                                           unsigned& bits, float* cp) {
+  const int count = rec[REC_COUNT], Rk = a.Rk;
+  const float* req = (const float*)(rec + REC_HDR);
+  const unsigned gbits = (unsigned)rec[REC_GBITS];
+  long long take = 0;
+  if (kf > 0) {
+    const long long left = (long long)count - prefix;
+    take = kf < left ? kf : left;
+    take = take > 0 ? take : 0;
+  }
+  if (take > 0) {
+    const float tf = (float)take;
+    for (int r = 0; r < Rk; ++r) cp[r] = __fadd_rn(cp[r], __fmul_rn(tf, req[r]));
+    bits &= gbits;
+  }
+  const long long pos = (long long)(a.lo + i) - nused;
+  long long on = 0;
+  if (pos >= 0 && pos < (long long)p.n_new) {
+    on = (long long)p.rem - pos * (long long)p.s;
+    on = on < (long long)p.s ? on : (long long)p.s;
+    on = on > 0 ? on : 0;
+    t = rec[REC_TSTAR];
+    open = 1;
+    const float tf = (float)on;
+    for (int r = 0; r < Rk; ++r) cp[r] = __fmul_rn(tf, req[r]);
+    bits = gbits & (unsigned)rec[REC_TBITS];
+  }
+  const long long gt = take + on;
+  if (a.track && gt > 0) a.host[(size_t)i * a.W + (gp >> 5)] |= 1u << (gp & 31);
+  a.takes[(size_t)gp * a.Ns + i] = (int)gt;
+}
+
+// --- the per-step route: one launch a shard a step --------------------------
 
 __global__ void __launch_bounds__(NTM) mesh_step_kernel(MeshArgs a, int g,
                                                          const int* gtot) {
@@ -113,150 +301,46 @@ __global__ void __launch_bounds__(NTM) mesh_step_kernel(MeshArgs a, int g,
   const int lane = tid & 31, wid = tid >> 5;
   const int i = b * NTM + tid;
   const bool valid = i < a.Ns;
-  const int n = a.lo + i;
-  const int Z = a.Z, C = a.C, Rk = a.Rk, W = a.W, RW = a.RW;
-  const int CW = (a.T + 31) / 32;
-  const bool zon = a.zovh != nullptr;
 
   // --- 1. apply step g - 1 with the gathered block totals ---
   if (g > 0) {
     const int gp = g - 1;
-    const int* rec = a.recs + (size_t)gp * RW;
+    const int* rec = a.recs + (size_t)gp * a.RW;
     const int count = rec[REC_COUNT];
-    const unsigned cnt = (unsigned)count;
-    if (wid == 0) {
-      const int j = a.shard * a.nb + b;  // this block's place in node order
-      const int ntot = a.nshards * a.nb;
-      unsigned long long below = 0, all = 0;  // < 2^31 terms: no wrap
-      for (int e = lane; e < ntot; e += 32) {
-        const unsigned long long v = (unsigned)gtot[e];
-        all += v;
-        below += e < j ? v : 0ull;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        below += __shfl_xor_sync(0xffffffffu, below, o);
-        all += __shfl_xor_sync(0xffffffffu, all, o);
-      }
-      if (lane == 0) {
-        s_carry = below < cnt ? (unsigned)below : cnt;
-        s_tot = all < cnt ? (unsigned)all : cnt;
-      }
-    }
+    if (wid == 0)
+      saturated_sums(gtot, a.nshards * a.nb, a.shard * a.nb + b,
+                     (unsigned)count, lane, &s_carry, &s_tot);
     __syncthreads();
-    const unsigned carry = s_carry, tot = s_tot;
-    const unsigned rem = cnt - tot;  // tot = placed
-    const bool sched = rec[REC_OK] != 0 && rem > 0;
-    const unsigned s = (unsigned)rec[REC_S];  // >= 1
-    const unsigned want = sched ? (rem + s - 1u) / s : 0u;
     const int nused = a.hdr[gp & 1];
-    const unsigned room = a.n_max > nused ? (unsigned)(a.n_max - nused) : 0u;
-    const unsigned n_new = want < room ? want : room;
+    const StepPlan p = plan_step(rec, s_tot, nused, a.n_max);
     if (b == 0 && tid == 0) {
-      a.hdr[g & 1] = nused + (int)n_new;
-      if (n_new < want) a.hdr[2] = 1;
-      const unsigned long long put = (unsigned long long)n_new * s;
-      a.unsched[gp] = (int)(sched ? (put < rem ? rem - put : 0ull) : rem);
+      a.hdr[g & 1] = nused + (int)p.n_new;
+      if (p.n_new < p.want) a.hdr[2] = 1;
+      a.unsched[gp] = plan_unsched(p);
     }
     if (valid) {
-      const float* req = (const float*)(rec + REC_HDR);
-      const unsigned gbits = (unsigned)rec[REC_GBITS];
-      const int kf = a.kf[i];
-      long long take = 0;
-      if (kf > 0) {
-        long long prefix = (long long)carry + a.pre[i];
-        prefix = prefix < count ? prefix : count;
-        const long long left = (long long)count - prefix;
-        take = kf < left ? kf : left;
-        take = take > 0 ? take : 0;
-      }
-      float* cp = a.cum + (size_t)i * Rk;
-      if (take > 0) {
-        const float tf = (float)take;
-        for (int r = 0; r < Rk; ++r) cp[r] = __fadd_rn(cp[r], __fmul_rn(tf, req[r]));
-        a.bits[i] &= gbits;
-      }
-      const long long pos = (long long)n - nused;
-      long long on = 0;
-      if (pos >= 0 && pos < (long long)n_new) {
-        on = (long long)rem - pos * (long long)s;
-        on = on < (long long)s ? on : (long long)s;
-        on = on > 0 ? on : 0;
-        a.type[i] = rec[REC_TSTAR];
-        a.open[i] = 1;
-        const float tf = (float)on;
-        for (int r = 0; r < Rk; ++r) cp[r] = __fmul_rn(tf, req[r]);
-        a.bits[i] = gbits & (unsigned)rec[REC_TBITS];
-      }
-      const long long gt = take + on;
-      if (a.track && gt > 0) a.host[(size_t)i * W + (gp >> 5)] |= 1u << (gp & 31);
-      a.takes[(size_t)gp * a.Ns + i] = (int)gt;
+      long long prefix = (long long)s_carry + a.pre[i];
+      prefix = prefix < count ? prefix : count;
+      int t = a.type[i];
+      uint8_t open = a.open[i];
+      unsigned bits = a.bits[i];
+      node_apply(a, rec, gp, i, a.kf[i], prefix, p, nused, t, open, bits,
+                 a.cum + (size_t)i * a.Rk);
+      a.type[i] = t;
+      a.open[i] = open;
+      a.bits[i] = bits;
     }
   }
 
   // --- 2. count step g: kf, the in-block prefix, the block total ---
   if (g < a.Gp) {
-    const int* rec = a.recs + (size_t)g * RW;
-    const int count = rec[REC_COUNT], cap_per = rec[REC_CAP];
-    const unsigned gbits = (unsigned)rec[REC_GBITS];
-    const float* req = (const float*)(rec + REC_HDR);
-    const unsigned* ccompat = (const unsigned*)(rec + REC_HDR + Rk);
-    const unsigned* conf = ccompat + CW;
-    const unsigned zlow = (1u << Z) - 1u;
-    int kf = 0;
-    if (valid && a.open[i] && count > 0) {
-      const int t = a.type[i];
-      const unsigned b2 = a.bits[i] & gbits;
-      const unsigned zm2 = b2 & zlow, cm2 = b2 >> Z;
-      bool elig = (ccompat[t >> 5] >> (t & 31)) & 1u;
-      if (elig) {
-        const unsigned long long ab = a.availbits[t];
-        bool off = false;
-        for (int z = 0; z < Z && !off; ++z)
-          off = ((zm2 >> z) & 1u) &&
-                ((ab >> (z * C)) & (unsigned long long)cm2) != 0ull;
-        elig = off;
-      }
-      if (elig)
-        elig = !(a.banned_sharded ? a.banned[(size_t)g * a.Ns + i] != 0
-                                  : rec[REC_BANNED] != 0);
-      if (elig && a.track)
-        for (int w = 0; w < W; ++w)
-          if (a.host[(size_t)i * W + w] & conf[w]) {
-            elig = false;
-            break;
-          }
-      if (elig) {
-        const float* cp = a.cum + (size_t)i * Rk;
-        float kc = BIG_F;
-        for (int r = 0; r < Rk; ++r) {
-          float ta = a.alloc[(size_t)t * Rk + r];
-          if (zon) ta = __fsub_rn(ta, zone_reserve(a.zovh, t, r, zm2, Z, Rk));
-          kc = fminf(kc, fit_ratio(__fsub_rn(ta, cp[r]), req[r]));
-        }
-        const int k_cap = (int)fmaxf(kc, 0.0f);  // kc <= BIG_F < 2^31
-        const int pn = a.prior_sharded ? a.prior[(size_t)g * a.Ns + i]
-                                       : rec[REC_PRIOR];
-        const int cap_eff = cap_per - pn > 0 ? cap_per - pn : 0;
-        kf = min(min(k_cap, cap_eff), count);
-      }
-    }
-    // block scan in 64 bits (256 terms < 2^31 each), saturated at count
-    long long v = kf;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long x = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += x;
-    }
-    if (lane == 31) s_warp[wid] = v;
-    __syncthreads();
-    long long woff = 0, btot = 0;
-#pragma unroll
-    for (int w = 0; w < NWM; ++w) {
-      woff += w < wid ? s_warp[w] : 0;
-      btot += s_warp[w];
-    }
-    const long long excl = woff + v - kf;
+    const int* rec = a.recs + (size_t)g * a.RW;
+    const int count = rec[REC_COUNT];
+    const int kf = valid ? node_kf(a, rec, g, i, a.type[i], a.open[i] != 0,
+                                   a.bits[i], a.cum + (size_t)i * a.Rk)
+                         : 0;
+    long long btot;
+    const long long excl = block_scan(kf, lane, wid, s_warp, &btot);
     if (valid) {
       a.kf[i] = kf;
       a.pre[i] = (int)(excl < count ? excl : count);
@@ -265,12 +349,119 @@ __global__ void __launch_bounds__(NTM) mesh_step_kernel(MeshArgs a, int g,
   }
 }
 
+// --- the persistent route: one cooperative launch a solve -------------------
+
+// Grid: S * nbp blocks of NTM threads, all co-resident. Block x serves
+// shard x / nbp; its piece of the shard is the rows [b * chunk, (b + 1) *
+// chunk) (b = x % nbp, chunk = npt * NTM), thread tid the rows b * chunk +
+// tid * npt + [0, npt). tot: [2, S * nbp] scratch (no initial value).
+// Dynamic shared memory: chunk * NODE_SMEM(Rk) bytes.
+__global__ void __launch_bounds__(NTM) mesh_persistent_kernel(
+    const MeshArgs* __restrict__ shards, int nbp, int npt, int* tot) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned s_carry, s_tot;
+  __shared__ long long s_warp[NWM];
+  cg::grid_group grid = cg::this_grid();
+  const int j = blockIdx.x, ntot = gridDim.x;
+  const int b = j % nbp, tid = threadIdx.x;
+  const int lane = tid & 31, wid = tid >> 5;
+  const MeshArgs a = shards[j / nbp];
+  const int Rk = a.Rk, Ns = a.Ns, chunk = npt * NTM;
+  float* s_cum = (float*)smem;                           // [chunk, Rk]
+  int* s_type = (int*)(s_cum + (size_t)chunk * Rk);      // [chunk]
+  unsigned* s_bits = (unsigned*)(s_type + chunk);        // [chunk]
+  int* s_kf = (int*)(s_bits + chunk);                    // [chunk]
+  uint8_t* s_open = (uint8_t*)(s_kf + chunk);            // [chunk]
+  const int l0 = tid * npt;      // the thread's first row in the piece
+  const int i0 = b * chunk + l0; // ... and in the shard
+
+  for (int k = 0; k < npt; ++k) {
+    const int l = l0 + k, i = i0 + k;
+    if (i >= Ns) break;
+    s_type[l] = a.type[i];
+    s_open[l] = a.open[i];
+    s_bits[l] = a.bits[i];
+    for (int r = 0; r < Rk; ++r) s_cum[l * Rk + r] = a.cum[(size_t)i * Rk + r];
+  }
+  int nused = a.hdr[0];  // every block keeps the same chain
+  bool clamped = false;
+
+  for (int g = 0; g < a.Gp; ++g) {
+    const int* rec = a.recs + (size_t)g * a.RW;
+    const int count = rec[REC_COUNT];
+    int* slot = tot + (size_t)(g & 1) * ntot;
+
+    // count step g over the thread's run, then the block scan of the runs
+    long long run = 0;
+    for (int k = 0; k < npt; ++k) {
+      const int l = l0 + k, i = i0 + k;
+      int kf = 0;
+      if (i < Ns)
+        kf = node_kf(a, rec, g, i, s_type[l], s_open[l] != 0, s_bits[l],
+                     s_cum + l * Rk);
+      s_kf[l] = kf;
+      run += kf;
+    }
+    long long btot;
+    const long long excl = block_scan(run, lane, wid, s_warp, &btot);
+    if (tid == 0) slot[j] = (int)(btot < count ? btot : (long long)count);
+    grid.sync();  // every block's total of step g is in its slot
+
+    // apply step g
+    if (wid == 0)
+      saturated_sums(slot, ntot, j, (unsigned)count, lane, &s_carry, &s_tot);
+    __syncthreads();
+    const StepPlan p = plan_step(rec, s_tot, nused, a.n_max);
+    if (b == 0 && tid == 0) a.unsched[g] = plan_unsched(p);
+    const long long carry = s_carry;
+    long long pre = excl;
+    for (int k = 0; k < npt; ++k) {
+      const int l = l0 + k, i = i0 + k;
+      if (i >= Ns) break;
+      long long prefix = carry + (pre < count ? pre : count);
+      prefix = prefix < count ? prefix : count;
+      const int kf = s_kf[l];
+      int t = s_type[l];
+      uint8_t open = s_open[l];
+      unsigned bits = s_bits[l];
+      node_apply(a, rec, g, i, kf, prefix, p, nused, t, open, bits,
+                 s_cum + l * Rk);
+      s_type[l] = t;
+      s_open[l] = open;
+      s_bits[l] = bits;
+      pre += kf;
+    }
+    clamped |= p.n_new < p.want;
+    nused += (int)p.n_new;
+  }
+
+  for (int k = 0; k < npt; ++k) {
+    const int l = l0 + k, i = i0 + k;
+    if (i >= Ns) break;
+    a.type[i] = s_type[l];
+    a.open[i] = s_open[l];
+    a.bits[i] = s_bits[l];
+    for (int r = 0; r < Rk; ++r) a.cum[(size_t)i * Rk + r] = s_cum[l * Rk + r];
+  }
+  // hdr[0] was read by every block of the shard before the first barrier
+  if (b == 0 && tid == 0) {
+    a.hdr[a.Gp & 1] = nused;
+    a.hdr[2] = clamped ? 1 : 0;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // C interface (bound with ctypes). mesh_scan_new keeps one shard's launch
 // arguments on the host and returns a handle (null for arguments the
-// kernel does not take); mesh_scan_step launches step g on `stream` (no
-// synchronisation) and returns its cudaError_t; mesh_scan_free drops the
-// handle. Pointers are device pointers of the shard's device.
+// kernel does not take); mesh_scan_free drops it. Pointers are device
+// pointers of the shard's device. Launches run on `stream` with no
+// synchronisation and return their cudaError_t (-1: refused arguments).
+//
+// Per-step route: mesh_scan_step launches step g of one shard.
+// Persistent route: mesh_scan_pack copies the S handles' arguments into
+// host memory of S * mesh_scan_args_bytes() bytes, which the caller puts
+// on the card; mesh_scan_coop_limits and mesh_scan_coop_occupancy give
+// what the grid's layout needs; mesh_scan_coop makes the one launch.
 // ---------------------------------------------------------------------------
 
 extern "C" void* mesh_scan_new(
@@ -326,10 +517,80 @@ extern "C" void* mesh_scan_new(
 
 extern "C" int mesh_scan_step(void* h, int g, const int* gtot, void* stream) {
   const MeshArgs* a = (const MeshArgs*)h;
-  if (a == nullptr || g < 0 || g > a->Gp || (g > 0 && gtot == nullptr))
+  if (a == nullptr || a->kf == nullptr || a->pre == nullptr ||
+      a->tot == nullptr || g < 0 || g > a->Gp || (g > 0 && gtot == nullptr))
     return -1;
   mesh_step_kernel<<<a->nb, NTM, 0, (cudaStream_t)stream>>>(*a, g, gtot);
   return (int)cudaGetLastError();
 }
 
 extern "C" void mesh_scan_free(void* h) { free(h); }
+
+extern "C" int mesh_scan_args_bytes(void) { return (int)sizeof(MeshArgs); }
+
+extern "C" int mesh_scan_pack(void* const* handles, int S, void* out) {
+  if (handles == nullptr || out == nullptr || S < 1) return -1;
+  const MeshArgs* a0 = (const MeshArgs*)handles[0];
+  for (int s = 0; s < S; ++s) {
+    const MeshArgs* a = (const MeshArgs*)handles[s];
+    if (a == nullptr || a0 == nullptr || a->shard != s || a->nshards != S ||
+        a->Gp != a0->Gp || a->Ns != a0->Ns || a->Rk != a0->Rk ||
+        a->n_max != a0->n_max)
+      return -1;
+    memcpy((char*)out + (size_t)s * sizeof(MeshArgs), a, sizeof(MeshArgs));
+  }
+  return 0;
+}
+
+static cudaError_t allow_smem(int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(mesh_persistent_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+}
+
+// out[0]: SMs of the current device; out[1]: the dynamic shared bytes a
+// block of the persistent kernel may ask for; out[2]: 1 when the device
+// takes cooperative launches.
+extern "C" int mesh_scan_coop_limits(int* out) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[2], cudaDevAttrCooperativeLaunch, dev);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, mesh_persistent_kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[1] = optin - (int)fa.sharedSizeBytes;
+  return 0;
+}
+
+// out[0]: blocks of the persistent kernel an SM holds at once with `smem`
+// dynamic shared bytes each.
+extern "C" int mesh_scan_coop_occupancy(int smem, int* out) {
+  cudaError_t e = allow_smem(smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, mesh_persistent_kernel, NTM, (size_t)smem);
+  return (int)e;
+}
+
+extern "C" int mesh_scan_coop(const void* args, int S, int nbp, int npt,
+                              int smem, int* tot, void* stream) {
+  if (args == nullptr || tot == nullptr || S < 1 || nbp < 1 || npt < 1 ||
+      smem < 1)
+    return -1;
+  cudaError_t e = allow_smem(smem);
+  if (e != cudaSuccess) return (int)e;
+  const MeshArgs* shards = (const MeshArgs*)args;
+  void* params[] = {(void*)&shards, (void*)&nbp, (void*)&npt, (void*)&tot};
+  e = cudaLaunchCooperativeKernel((const void*)mesh_persistent_kernel,
+                                  dim3(S * nbp), dim3(NTM), params,
+                                  (size_t)smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}

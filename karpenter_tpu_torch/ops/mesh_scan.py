@@ -15,16 +15,27 @@ kernel B0 (`ops/solve_scan`) runs once per shard on its replicated inputs
 and writes the per-group records that kernel M reads.
 
 Per group step g every shard computes, for its own nodes, kf = min(k,
-count) and its shard total saturated at count; the totals are
-all-gathered (`parallel/collectives.all_gather`, outside the kernel);
+count) and its shard total saturated at count; the totals are exchanged;
 then each shard takes the saturated sum of the LOWER shards' totals as its
 carry, writes its takes (a shard whose carry reaches count takes nothing)
 and opens the new nodes [nused, nused + n_new) that fall in its range.
-Kernel M does this as one launch per shard per step: apply step g - 1
-with the gathered totals, then count step g. That is (Gp + 1) x S
-launches and Gp gathers a solve. Inside a shard the kernel's blocks each
-write their own total, so what is gathered is the [S * nb] vector of block
-totals; a shard's total is the saturated sum of its blocks'.
+Inside a shard kernel M's blocks each write their own total, so what is
+exchanged is the vector of block totals; a shard's total is the saturated
+sum of its blocks'. The takes do not depend on how many blocks a shard
+has: all terms are non-negative, so min(sum min(x_i, c), c) =
+min(sum x_i, c).
+
+Kernel M has two routes, picked by `mesh_route` from the mesh's devices:
+- shards that share one device (a virtual mesh, or one shard): ONE
+  cooperative launch a solve (`mesh_scan_persistent_cuda`) for every shard
+  and step, the node state in shared memory, one grid barrier a step in
+  place of the host's gather;
+- shards on distinct cards: one launch a shard a step
+  (`mesh_scan_per_step_cuda`: apply step g - 1 with the gathered totals,
+  then count step g), the totals all-gathered between steps
+  (`parallel/collectives.all_gather`): (Gp + 1) x S launches and Gp
+  gathers a solve.
+Neither route falls back to the other, nor to the plain version.
 
 `mesh_scan` takes per-shard lists of tensors; the plain version runs for
 CPU shards, kernel M for CUDA shards, and nothing falls back between the
@@ -47,11 +58,12 @@ from ..parallel.mesh import Mesh
 from .binpack import BIG, EPS
 from . import solve_scan as ss
 
-# kernel M launches since import (chip_smoke resets and reads): one per
-# shard per step
+# kernel M launches since import (chip_smoke resets and reads), on either
+# route: one a solve (persistent), one a shard a step (per-step)
 launches = 0
 
-NTM = 256  # kernel M threads per block, one node each (csrc/mesh_scan.cu)
+NTM = 256  # kernel M threads a block (csrc/mesh_scan.cu)
+NODE_SMEM_FIXED = 13  # shared bytes a node beside its cum: NODE_SMEM(Rk)
 
 _EPS = float(np.float32(EPS))
 
@@ -233,46 +245,102 @@ def _lib():
     from ._build import load
     lib = load("mesh_scan")
     P, I = ctypes.c_void_p, ctypes.c_int
-    new = lib.mesh_scan_new
-    new.argtypes = ([P] * 4 + [I, P, I, P, I] + [P] * 11 + [I] * 12)
-    new.restype = ctypes.c_void_p
-    step = lib.mesh_scan_step
-    step.argtypes = [P, I, P, P]
-    step.restype = ctypes.c_int
-    free = lib.mesh_scan_free
-    free.argtypes = [P]
-    free.restype = None
-    _fns.update(new=new, step=step, free=free)
+    sig = dict(
+        new=([P] * 4 + [I, P, I, P, I] + [P] * 11 + [I] * 12, P),
+        step=([P, I, P, P], I), free=([P], None), args_bytes=([], I),
+        pack=([P, I, P], I), coop_limits=([P], I),
+        coop_occupancy=([I, P], I), coop=([P, I, I, I, I, P, P], I))
+    for name, (argtypes, restype) in sig.items():
+        fn = getattr(lib, f"mesh_scan_{name}")
+        fn.argtypes, fn.restype = argtypes, restype
+        _fns[name] = fn
     return _fns
 
 
-def mesh_scan_cuda(mesh: Mesh, alloc, price, avail, requests, counts,
-                   compat, allow_zone, allow_cap, max_per_node, prior, banned,
-                   conflict, zovh, node_type, node_cum, node_zmask,
-                   node_cmask, node_open, n_used, n_max: int,
-                   track_conflicts: bool = False, zone_ovh: bool = False):
-    """Kernels B0 (once a shard) and M ((Gp + 1) launches a shard) on the
-    shards' current streams, no synchronisation; arguments and results as
-    mesh_scan_plain."""
-    global launches
+def mesh_route(devices: Sequence[torch.device]) -> str:
+    """Kernel M's route for a mesh's shard devices: "persistent" (one
+    cooperative launch a solve) when every shard sits on one device,
+    "per_step" (a launch a shard a step, the block totals all-gathered on
+    the host between steps) when the shards span distinct devices."""
+    return "persistent" if len(set(devices)) == 1 else "per_step"
+
+
+def persistent_layout(S: int, Ns: int, Rk: int, sms: int, smem_max: int,
+                      blocks_per_sm) -> tuple:
+    """(nbp, npt, smem) of the persistent launch: blocks a shard, nodes a
+    thread, dynamic shared bytes a block. The fewest nodes a thread (the
+    most blocks) at which all S * nbp blocks are co-resident on `sms` SMs,
+    each holding `blocks_per_sm(smem)` blocks, and a block's nodes fit in
+    `smem_max` shared bytes. Raises RuntimeError where no npt fits."""
+    npt = 1
+    while True:
+        chunk = npt * NTM
+        smem = chunk * (4 * Rk + NODE_SMEM_FIXED)
+        if smem > smem_max:
+            raise RuntimeError(
+                f"mesh_scan: {S} shards of {Ns} nodes (Rk={Rk}) do not fit "
+                f"in one co-resident grid of {sms} SMs")
+        nbp = -(-Ns // chunk)
+        if S * nbp <= sms * blocks_per_sm(smem):
+            return nbp, npt, smem
+        npt += 1
+
+
+def _cuda_call(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"mesh_scan: {what} failed: cudaError {rc}")
+
+
+_occupancy_memo: dict = {}
+
+
+def _occupancy(lib, smem: int) -> int:
+    """Blocks of the persistent kernel one SM of the current device holds
+    with `smem` dynamic shared bytes each."""
+    key = (torch.cuda.current_device(), smem)
+    if key not in _occupancy_memo:
+        out = (ctypes.c_int * 1)()
+        _cuda_call(lib["coop_occupancy"](smem, out), "the occupancy query")
+        _occupancy_memo[key] = out[0]
+    return _occupancy_memo[key]
+
+
+def _stage(mesh: Mesh, alloc, price, avail, requests, counts, compat,
+           allow_zone, allow_cap, max_per_node, prior, banned, conflict,
+           zovh, node_type, node_cum, node_zmask, node_cmask, node_open,
+           n_used, n_max: int, track_conflicts: bool = False,
+           zone_ovh: bool = False, *, per_step: bool) -> list:
+    """Check every shard's arguments, then launch B0 once a shard and lay
+    out its node state and M's handle: one dict a shard. `per_step` adds
+    the scratch only the per-step kernel reads (kf, pre, block totals)."""
     S = mesh.size
     Ns = col.block(n_max, S)
-    nb = -(-Ns // NTM)  # blocks a shard
     Gp = requests[0].shape[0]
+    dims = []
+    for s in range(S):
+        T, Z, C, _, _, Rk = ss._check_shapes(alloc[s], price[s],
+                                             requests[s][None])
+        dims.append((T, Z, C, Rk))
+        if {prior[s].shape[1], banned[s].shape[1]} - {1, Ns}:
+            raise ValueError("mesh_scan: prior/banned must be [Gp, 1] or "
+                             "the shard's [Gp, Ns]")
+        if tuple(node_cum[s].shape) != (Ns, Rk):
+            raise ValueError(f"mesh_scan: node_cum shard "
+                             f"{tuple(node_cum[s].shape)} != {(Ns, Rk)}")
+        if alloc[s].device.type != "cuda":
+            raise ValueError("mesh_scan_cuda: every shard must be on a "
+                             "CUDA device")
     f32, i32, u8 = torch.float32, torch.int32, torch.uint8
     lib = _lib()
+    nb = -(-Ns // NTM)  # the per-step kernel's blocks a shard
     shards = []
     try:
         for s in range(S):
             dev = alloc[s].device
-            if dev.type != "cuda":
-                raise ValueError("mesh_scan_cuda: every shard must be on a "
-                                 "CUDA device")
             # the shard's device is current for its B0 launch and for
             # anything its staging allocates
+            T, Z, C, Rk = dims[s]
             with col.on_shard(dev):
-                T, Z, C, _, _, Rk = ss._check_shapes(alloc[s], price[s],
-                                                     requests[s][None])
                 recs, availbits, W = ss._offer_table(
                     alloc[s], price[s], avail[s], requests[s][None],
                     counts[s][None], compat[s][None], allow_zone[s][None],
@@ -281,15 +349,8 @@ def mesh_scan_cuda(mesh: Mesh, alloc, price, avail, requests, counts,
                     zovh[s], zone_ovh, track_conflicts)
                 prior_c = ss._on(prior[s], dev, i32)
                 banned_c = ss._on(banned[s], dev, torch.bool)
-                if {prior_c.shape[1], banned_c.shape[1]} - {1, Ns}:
-                    raise ValueError("mesh_scan: prior/banned must be "
-                                     "[Gp, 1] or the shard's [Gp, Ns]")
-                if tuple(node_cum[s].shape) != (Ns, Rk):
-                    raise ValueError(f"mesh_scan: node_cum shard "
-                                     f"{tuple(node_cum[s].shape)} != "
-                                     f"{(Ns, Rk)}")
                 st = dict(
-                    dev=dev, recs=recs, availbits=availbits,
+                    dev=dev, ZC=(Z, C), recs=recs, availbits=availbits,
                     alloc=ss._on(alloc[s], dev, f32),
                     zovh=ss._on(zovh[s], dev, f32) if zone_ovh else None,
                     prior=prior_c, banned=banned_c,
@@ -299,32 +360,30 @@ def mesh_scan_cuda(mesh: Mesh, alloc, price, avail, requests, counts,
                     cum=node_cum[s].to(dev, f32).contiguous().clone(),
                     host=torch.zeros((Ns, max(W, 1)), dtype=i32,
                                      device=dev),
-                    kf=torch.empty(Ns, dtype=i32, device=dev),
-                    pre=torch.empty(Ns, dtype=i32, device=dev),
-                    tot=torch.zeros(nb, dtype=i32, device=dev),
                     takes=torch.empty((Gp, Ns), dtype=i32, device=dev),
                     unsched=torch.empty(Gp, dtype=i32, device=dev),
                     hdr=torch.zeros(4, dtype=i32, device=dev))
+                if per_step:
+                    st.update(kf=torch.empty(Ns, dtype=i32, device=dev),
+                              pre=torch.empty(Ns, dtype=i32, device=dev),
+                              tot=torch.zeros(nb, dtype=i32, device=dev))
                 nu = (n_used[s] if isinstance(n_used, (list, tuple))
                       else n_used)
                 if isinstance(nu, torch.Tensor):
                     st["hdr"][0].copy_(nu.to(dev, i32).reshape(()))
                 else:
                     st["hdr"][0] = int(nu)
-                p = lambda t: None if t is None else t.data_ptr()  # noqa
+                p = lambda k: None if st.get(k) is None else st[k].data_ptr()  # noqa
                 # a [Gp, 1] prior or banned is read from B0's record, which
                 # this shard's B0 built from this shard's own column (a
                 # split [Gp, 1] slice at Ns == 1 reads the same value)
                 h = lib["new"](
-                    p(st["alloc"]), p(st["availbits"]), p(st["zovh"]),
-                    p(st["recs"]),
-                    int(recs.shape[-1]), p(prior_c),
-                    int(prior_c.shape[1] > 1),
-                    p(banned_c), int(banned_c.shape[1] > 1),
-                    p(st["type"]), p(st["open"]), p(st["bits"]),
-                    p(st["cum"]),
-                    p(st["host"]), p(st["kf"]), p(st["pre"]), p(st["tot"]),
-                    p(st["takes"]), p(st["unsched"]), p(st["hdr"]),
+                    p("alloc"), p("availbits"), p("zovh"), p("recs"),
+                    int(recs.shape[-1]), p("prior"),
+                    int(prior_c.shape[1] > 1), p("banned"),
+                    int(banned_c.shape[1] > 1), p("type"), p("open"),
+                    p("bits"), p("cum"), p("host"), p("kf"), p("pre"),
+                    p("tot"), p("takes"), p("unsched"), p("hdr"),
                     T, Z, C, Rk, W, Gp, Ns, s * Ns, n_max, s, S,
                     int(track_conflicts))
                 if not h:
@@ -333,7 +392,42 @@ def mesh_scan_cuda(mesh: Mesh, alloc, price, avail, requests, counts,
                                      f"Ns={Ns})")
                 st["handle"] = h
                 shards.append(st)
-        gathered = [None] * S
+    except BaseException:
+        _free(shards)
+        raise
+    return shards
+
+
+def _free(shards) -> None:
+    lib = _lib()
+    for st in shards:
+        lib["free"](st.pop("handle"))
+
+
+def _outputs(shards):
+    """The per-shard state after M -> mesh_scan_plain's outputs."""
+    Gp = shards[0]["takes"].shape[0]
+    masks = [_unbits(st["bits"], *st["ZC"]) for st in shards]
+    return _gather_out(
+        [st["type"] for st in shards], [st["cum"] for st in shards],
+        [m[0] for m in masks], [m[1] for m in masks],
+        [st["open"] != 0 for st in shards],
+        [st["hdr"][Gp & 1] for st in shards],
+        [st["takes"] for st in shards], [st["unsched"] for st in shards],
+        [st["hdr"][2] != 0 for st in shards])
+
+
+def mesh_scan_per_step_cuda(mesh: Mesh, *args, **kwargs):
+    """Kernels B0 (once a shard) and M's per-step route ((Gp + 1) launches
+    a shard, the block totals all-gathered between steps) on the shards'
+    current streams, no synchronisation; arguments and results as
+    mesh_scan_plain. The route for shards on distinct cards."""
+    global launches
+    shards = _stage(mesh, *args, **kwargs, per_step=True)
+    Gp = shards[0]["takes"].shape[0]
+    lib = _lib()
+    try:
+        gathered = [None] * mesh.size
         for g in range(Gp + 1):
             for s, st in enumerate(shards):
                 gt = gathered[s]
@@ -342,24 +436,65 @@ def mesh_scan_cuda(mesh: Mesh, alloc, price, avail, requests, counts,
                                      None if gt is None else gt.data_ptr(),
                                      torch.cuda.current_stream(st["dev"])
                                      .cuda_stream)
-                if rc != 0:
-                    raise RuntimeError(f"mesh_scan launch failed: cudaError "
-                                       f"{rc} (shard {s}, step {g})")
+                _cuda_call(rc, f"launch (shard {s}, step {g})")
                 launches += 1
             if g < Gp:
                 gathered = col.all_gather([st["tot"] for st in shards], mesh)
     finally:
-        for st in shards:
-            lib["free"](st["handle"])
-    Z, C = node_zmask[0].shape[1], node_cmask[0].shape[1]
-    masks = [_unbits(st["bits"], Z, C) for st in shards]
-    return _gather_out(
-        [st["type"] for st in shards], [st["cum"] for st in shards],
-        [m[0] for m in masks], [m[1] for m in masks],
-        [st["open"] != 0 for st in shards],
-        [st["hdr"][Gp & 1] for st in shards],
-        [st["takes"] for st in shards], [st["unsched"] for st in shards],
-        [st["hdr"][2] != 0 for st in shards])
+        _free(shards)
+    return _outputs(shards)
+
+
+def mesh_scan_persistent_cuda(mesh: Mesh, *args, **kwargs):
+    """Kernels B0 (once a shard) and M's persistent route (ONE cooperative
+    launch for every shard and step) on the device's current stream, no
+    synchronisation; arguments and results as mesh_scan_plain. Every shard
+    must sit on one device; a refused launch raises RuntimeError."""
+    global launches
+    dev = mesh.devices[0]
+    if mesh_route(mesh.devices) != "persistent":
+        raise ValueError(f"mesh_scan: the persistent route needs every "
+                         f"shard on one device, not {mesh.describe()}")
+    shards = _stage(mesh, *args, **kwargs, per_step=False)
+    S = mesh.size
+    Gp, Ns = shards[0]["takes"].shape
+    Rk = shards[0]["cum"].shape[1]
+    lib = _lib()
+    try:
+        with col.on_shard(dev):
+            lim = (ctypes.c_int * 3)()
+            _cuda_call(lib["coop_limits"](lim), "the device query")
+            sms, smem_max, coop = lim
+            if not coop:
+                raise RuntimeError(f"mesh_scan: {dev} takes no cooperative "
+                                   f"launch")
+            nbp, npt, smem = persistent_layout(
+                S, Ns, Rk, sms, smem_max, lambda b: _occupancy(lib, b))
+            size = lib["args_bytes"]()
+            host = torch.empty(S * size, dtype=torch.uint8, pin_memory=True)
+            handles = (ctypes.c_void_p * S)(*[st["handle"] for st in shards])
+            if lib["pack"](handles, S, host.data_ptr()) != 0:
+                raise ValueError("mesh_scan: the shards' arguments do not "
+                                 "form one mesh")
+            args_dev = host.to(dev, non_blocking=True)
+            tot = torch.empty((2, S * nbp), dtype=torch.int32, device=dev)
+            rc = lib["coop"](args_dev.data_ptr(), S, nbp, npt, smem,
+                             tot.data_ptr(),
+                             torch.cuda.current_stream(dev).cuda_stream)
+            _cuda_call(rc, f"the cooperative launch ({S} x {nbp} blocks, "
+                           f"{smem} shared bytes a block)")
+            launches += 1
+    finally:
+        _free(shards)
+    return _outputs(shards)
+
+
+def mesh_scan_cuda(mesh: Mesh, *args, **kwargs):
+    """Kernel M on CUDA shards, by the route of the mesh's layout
+    (`mesh_route`); arguments and results as mesh_scan_plain."""
+    if mesh_route(mesh.devices) == "persistent":
+        return mesh_scan_persistent_cuda(mesh, *args, **kwargs)
+    return mesh_scan_per_step_cuda(mesh, *args, **kwargs)
 
 
 def mesh_scan(mesh: Mesh, *args, **kwargs):

@@ -5,9 +5,11 @@ shared node state, so the group scan stays sequential, but each step's
 node-axis work — the part that grows with cluster size — splits across
 the mesh's shards: shard s owns the contiguous node range
 [s*n_max/S, (s+1)*n_max/S). The catalog and the group inputs are
-replicated; the per-shard totals of each step are all-gathered between
-steps (`parallel/collectives`), outside the kernel. The scan itself is
-kernel M (`csrc/mesh_scan.cu`, wrapper `ops/mesh_scan`).
+replicated. The scan itself is kernel M (`csrc/mesh_scan.cu`, wrapper
+`ops/mesh_scan`), and its per-shard totals of each step are exchanged
+inside the kernel where the shards share a card (one cooperative launch
+a solve, one grid barrier a step), and all-gathered between launches
+(`parallel/collectives`) where they sit on distinct cards.
 
 A `Mesh` is an ordered tuple of shard devices and one axis name
 ("nodes" from `make_mesh`, "batch" from `make_batch_mesh`, whose shards

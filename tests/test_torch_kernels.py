@@ -461,31 +461,40 @@ def test_tournament_tiers(cuda, shape, tier, cl, spb, k_smem):
     assert torch.equal(strided, want)
 
 
+@pytest.mark.parametrize("route", ["persistent", "per_step"])
 @pytest.mark.parametrize("size", [3, 8])
 @pytest.mark.parametrize("case", ["fresh", "resumed", "zone_overhead"])
-def test_mesh_scan_kernel_matches_plain(cuda, case, size, monkeypatch):
+def test_mesh_scan_kernel_matches_plain(cuda, case, size, route, monkeypatch):
     """Kernel M (csrc/mesh_scan.cu) on `size` virtual shards of the card
-    against its plain version on the same card (atol 0): the packed vector
-    of solve_device(mesh=) is the one mesh_scan_plain gives at the same
-    sharded inputs, and the solve equals mesh=None's."""
+    against its plain version on the same card (atol 0), on each route:
+    the packed vector of solve_device(mesh=) is the one mesh_scan_plain
+    gives at the same sharded inputs, and the solve equals mesh=None's.
+    The persistent route (the virtual mesh's own) is one launch a solve;
+    the per-step route, forced here as on distinct cards, (Gp + 1) a
+    shard."""
     from karpenter_tpu_torch import parallel
     from karpenter_tpu_torch.ops import mesh_scan as msc
     cat, enc, existing = _golden_case(case)
     with parallel.virtual_devices(size, "cuda:0"):
         mesh = parallel.make_mesh(size)
+    assert msc.mesh_route(mesh.devices) == "persistent"
+    if route == "per_step":
+        monkeypatch.setattr(msc, "mesh_route", lambda devices: "per_step")
+    name = f"mesh_scan_{route}_cuda"
     calls = []
-    real = msc.mesh_scan_cuda
+    real = getattr(msc, name)
 
     def rec(*a, **kw):
         calls.append((a, kw))
         return real(*a, **kw)
-    monkeypatch.setattr(msc, "mesh_scan_cuda", rec)
+    monkeypatch.setattr(msc, name, rec)
     n0 = msc.launches
     got = solve_device(cat, enc, existing, mesh=mesh)
     torch.cuda.synchronize()
     (a, kw), = calls[:1]
     Gp = a[4][0].shape[0]
-    assert msc.launches - n0 == len(calls) * (Gp + 1) * size
+    per_solve = 1 if route == "persistent" else (Gp + 1) * size
+    assert msc.launches - n0 == len(calls) * per_solve
     out_k = real(*a, **kw)
     out_p = msc.mesh_scan_plain(*a, **kw)
     torch.cuda.synchronize()
@@ -495,3 +504,50 @@ def test_mesh_scan_kernel_matches_plain(cuda, case, size, monkeypatch):
     assert [(n.type_idx, n.pods_by_group) for n in got.nodes] == \
         [(n.type_idx, n.pods_by_group) for n in one.nodes]
     assert got.unschedulable == one.unschedulable
+
+
+@pytest.mark.parametrize("npt", [1, 2, 3])
+@pytest.mark.parametrize("size", [1, 3])
+def test_mesh_scan_persistent_runs_of_nodes(cuda, size, npt, monkeypatch):
+    """Kernel M's persistent route with each thread owning a run of npt
+    consecutive nodes (its layout when a shard's nodes outnumber the
+    co-resident threads, forced here at 2,304 nodes over 1 or 3 shards):
+    one launch, equal to the plain version (atol 0), with ~1,600 nodes
+    opened over several blocks or shards."""
+    from karpenter_tpu_torch import parallel
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    from karpenter_tpu_torch.ops.encode import align_resources
+    cat = encode_catalog(catalog.small_catalog())
+    rng = np.random.default_rng(5)
+    cpus, mems = ["250m", "1", "2", "3"], ["512Mi", "2Gi", "4Gi"]
+    pods = [models.Pod(name=f"p{i}", requests=models.Resources.parse(
+        {"cpu": cpus[int(rng.integers(4))],
+         "memory": mems[int(rng.integers(3))]})) for i in range(16000)]
+    enc = encode_pods(pods, cat)
+    R = enc.requests.shape[1]
+    Gp = solver_mod._bucket(enc.G, 8)
+    n_max = 2304
+    args = (align_resources(cat.allocatable, R).astype(np.float32),
+            cat.price.astype(np.float32), cat.available.astype(bool),
+            *solver_mod._group_inputs(enc, Gp))
+    zeros = (np.zeros((Gp, n_max), np.int32), np.zeros((Gp, n_max), bool),
+             np.zeros((Gp, 1), bool), np.zeros((1, 1, R), np.float32),
+             np.zeros(n_max, np.int32), np.zeros((n_max, R), np.float32),
+             np.zeros((n_max, cat.Z), bool), np.zeros((n_max, cat.C), bool),
+             np.zeros(n_max, bool), np.asarray(0, np.int32))
+    with parallel.virtual_devices(size, "cuda:0"):
+        mesh = parallel.make_mesh(size)
+    parts = msc.shard_args(mesh, n_max, *args, *zeros)
+
+    def layout(S, Ns, Rk, sms, smem_max, blocks_per_sm):
+        chunk = npt * msc.NTM
+        return -(-Ns // chunk), npt, chunk * (4 * Rk + msc.NODE_SMEM_FIXED)
+    monkeypatch.setattr(msc, "persistent_layout", layout)
+    n0 = msc.launches
+    got = msc.mesh_scan_persistent_cuda(mesh, *parts, n_max)
+    torch.cuda.synchronize()
+    assert msc.launches == n0 + 1
+    want = msc.mesh_scan_plain(mesh, *parts, n_max)
+    assert 3 * msc.NTM < int(want[5]) < n_max  # nodes span blocks or shards
+    for x, y in zip(got, want):
+        assert torch.equal(x, y.to(x.dtype))

@@ -12,10 +12,13 @@ to the port's own mesh=None answer:
   two cases), the mesh screen at N=37 (uneven shards) and, marked slow as
   the reference's, at the bench shape;
 - kernel M's plain version against the reference's `_solve_kernel`,
-  element for element, at mesh sizes 1, 2, 3 and 8, where first fits and
+  element for element, at mesh sizes 1, 2, 3, 8, 12 and 24 (as fine as
+  the kernel's blocks cut a shard), where first fits and
   new nodes straddle shard boundaries, with priors and bans on existing
   nodes, conflicts, zone overhead and a node budget that overflows; and
   through `solve_device`, the regrow that doubles the budget;
+- kernel M's route by the mesh's devices, the persistent grid's layout,
+  and the arguments its wrappers refuse;
 - the batch mesh (`dispatch_batch`), the resident grouped patch of a
   sharded stack, and the mesh tournament.
 
@@ -307,7 +310,7 @@ def test_mesh_parity_bench_shape():
 # --- kernel M's plain version at its hard places -----------------------------
 
 CASES = ("straddle", "prior_banned", "conflicts", "zone_ovh", "overflow")
-N_MAX = 120  # divisible by 1, 2, 3 and 8
+N_MAX = 120  # divisible by 1, 2, 3, 8, 12 and 24 (as is the overflow's 72)
 
 
 def _hard_case(case: str, seed: int = 0):
@@ -397,7 +400,10 @@ def _ref_kernel(case):
     return _REF_OUT[case]
 
 
-@pytest.mark.parametrize("size", [1, 2, 3, 8])
+# 12 and 24 shards cut the node axis as finely as kernel M's blocks cut a
+# shard (5 nodes a shard at 24): the takes must not depend on the cut, the
+# invariance the persistent kernel's block carries rely on
+@pytest.mark.parametrize("size", [1, 2, 3, 8, 12, 24])
 @pytest.mark.parametrize("case", CASES)
 def test_mesh_scan_plain_equals_solve_kernel(case, size):
     args, n_max, kw = _hard_case(case)
@@ -430,6 +436,104 @@ def test_mesh_scan_plain_equals_solve_kernel(case, size):
             assert opened, "no group's new nodes straddle a shard boundary"
         else:
             assert size == 2
+
+
+def test_mesh_route_follows_the_shard_devices():
+    """Kernel M's route is a function of the mesh's devices alone: one
+    cooperative launch where every shard shares a device, the per-step
+    launches and host gathers where the shards span distinct cards."""
+    import torch
+    from karpenter_tpu_torch.ops.mesh_scan import mesh_route
+    card = [torch.device("cuda", k) for k in range(4)]
+    assert mesh_route((card[0],) * 8) == "persistent"
+    assert mesh_route((card[1],)) == "persistent"
+    assert mesh_route(tuple(card)) == "per_step"
+    assert mesh_route((card[0], card[0], card[1], card[1])) == "per_step"
+    with parallel.virtual_devices(8, "cuda:0"):
+        assert mesh_route(parallel.make_mesh(8).devices) == "persistent"
+
+
+def _mesh_scan_args(size, case="straddle"):
+    """mesh_scan's per-shard arguments of a hard case over `size` CPU
+    shards, and its keywords."""
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    args, n_max, kw = _hard_case(case)
+    mesh = _cpu_mesh(size)
+    return mesh, list(msc.shard_args(mesh, n_max, *args)), n_max, kw
+
+
+@pytest.mark.parametrize("bad", ["cpu_shards", "rk_above_32", "prior_width",
+                                 "node_cum_rows", "n_max_split",
+                                 "mixed_kinds", "persistent_on_two_cards"])
+def test_mesh_scan_cuda_refuses_what_the_kernel_does_not_take(bad):
+    """Kernel M's wrappers refuse, before any build or launch, arguments the
+    kernel does not take (ValueError): CPU shards, more than 32 resource
+    columns, a prior neither [Gp, 1] nor the shard's [Gp, Ns], node state
+    of the wrong size, a node budget that does not split, shards of two
+    kinds, the persistent route over distinct cards. Nothing falls back to
+    the plain version."""
+    import torch
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    from karpenter_tpu_torch.parallel.mesh import Mesh
+    mesh, parts, n_max, kw = _mesh_scan_args(3)
+    fn, match = msc.mesh_scan_cuda, None
+    if bad == "cpu_shards":
+        match = "every shard must be on a CUDA device"
+    elif bad == "rk_above_32":
+        parts[0] = [torch.zeros((a.shape[0], 33)) for a in parts[0]]
+        parts[3] = [torch.zeros((a.shape[0], 33)) for a in parts[3]]
+        match = "1..32 resource columns"
+    elif bad == "prior_width":
+        parts[9] = [torch.zeros((p.shape[0], 2), dtype=torch.int32)
+                    for p in parts[9]]
+        match = "prior/banned"
+    elif bad == "node_cum_rows":
+        parts[14] = [c[:-1] for c in parts[14]]
+        match = "node_cum shard"
+    elif bad == "n_max_split":
+        n_max += 1
+        match = "does not split"
+    elif bad == "mixed_kinds":
+        fn = msc.mesh_scan
+        mesh = Mesh((torch.device("cpu"), torch.device("cuda", 0),
+                     torch.device("cpu")))
+        match = "cpu or cuda shards"
+    else:
+        fn = msc.mesh_scan_persistent_cuda
+        mesh = Mesh(tuple(torch.device("cuda", k) for k in range(3)))
+        match = "every shard on one device"
+    with pytest.raises(ValueError, match=match):
+        fn(mesh, *parts, n_max, **kw)
+
+
+@pytest.mark.parametrize("S,Ns,Rk,occ,want", [
+    (8, 768, 8, 8, (3, 1, 256 * 45)),       # the grid mix: a node a thread
+    (8, 640, 8, 8, (3, 1, 256 * 45)),       # the bench shape
+    (24, 5, 8, 8, (1, 1, 256 * 45)),        # one block a shard
+    (8, 12500, 8, 1, (13, 4, 1024 * 45)),   # runs of 4 nodes a thread
+    (8, 12500, 32, 2, (25, 2, 512 * 141)),  # Rk = 32
+])
+def test_persistent_layout_is_co_resident(S, Ns, Rk, occ, want):
+    """The persistent grid: the fewest nodes a thread at which all S * nbp
+    blocks fit on the card at once (132 SMs, `occ` blocks an SM), every
+    node of a shard covered by its blocks' runs."""
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    nbp, npt, smem = msc.persistent_layout(S, Ns, Rk, 132, 232_000,
+                                           lambda b: occ)
+    assert (nbp, npt, smem) == want
+    assert S * nbp <= 132 * occ
+    assert (nbp - 1) * npt * msc.NTM < Ns <= nbp * npt * msc.NTM
+
+
+def test_persistent_layout_refuses_a_grid_that_cannot_be_co_resident():
+    """Where no run length puts every block on the card at once, the
+    persistent route raises before any launch (no fallback to the
+    per-step route)."""
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    with pytest.raises(RuntimeError, match="co-resident"):
+        msc.persistent_layout(8, 1_000_000, 32, 132, 232_000, lambda b: 1)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        msc.persistent_layout(400, 64, 8, 132, 232_000, lambda b: 2)
 
 
 @pytest.mark.parametrize("size", [3, 8])

@@ -102,8 +102,8 @@ Phases (any failure exits non-zero):
              drills sdc_storm and resident_rot run in 4h, where they must
              fire integrity_breach). Then a storm at cluster scale: the
              soak's rules over the
-             operator phase's grid pods, 5,000 (cut from 10,000) in waves of
-             2,500, 1,250 and 1,250 at 0, 120 and 300 s, on 810 types, device
+             operator phase's grid pods, 2,500 (cut from 10,000) in waves of
+             1,250, 625 and 625 at 0, 120 and 300 s, on 810 types, device
              then native
              rung: equal state hash, fault fingerprint, controller and
              solver stats; the only integrity flags allowed are the
@@ -258,6 +258,25 @@ Phases (any failure exits non-zero):
              python -m karpenter_tpu_torch.obs.device_report --pods 2000
              --rounds 4 on the card exits 0 with the resident breakdown of
              its --device cpu run.
+  4o. shapes  the shapes past kernel C's and kernel M's old limits: C at
+             S=64, N=382, G=5,000, Rk=8 (its stream tier: the group rows
+             in global memory, req streamed in chunks) and at G=1,024,
+             Rk=24 (its 32-column instantiation), each == tournament_plain
+             (atol 0, the plan equal) with its times and bound; the
+             production dispatch at 6,000 groups over 64 nodes,
+             plan_repack(use_device=True) with counts zeroed just before
+             it (one score_subsets_device: A once, C once on the stream
+             tier), its scores == score_subsets_host (feasible exact,
+             savings rtol 1e-5, residual and repl_lb rtol/atol 1e-3) and
+             its ranked verify queue == plan_repack on the host; the same
+             at 60 groups whose pods ask for cpu, memory and 18 extended
+             resources (C's 32-column instantiation, Rk >= 20);
+             run_sharded_solve on 8 virtual shards at Gp=96, Rk=32,
+             n_max=262,144 (~190k nodes opened), the route and layout
+             logged as chosen from sizes before the launch: M's persistent
+             route with its node state in global memory, one cooperative
+             launch beside 8 of B0, == mesh_scan_plain (atol 0) and ==
+             kernel B on one device at the same n_max, with its times.
   5. time    median wall times of the solve and the screen, stage by stage;
              per-kernel device time from torch.profiler and CUDA events
              beside its bound, its plain version's time and one torch
@@ -276,12 +295,14 @@ holds each phase's launches (the main path, the facade, the operator, the
 optimizer, the chaos phase, the fleet runner, the warm path, the soak,
 the operator shell, the federation phase and, for B0 and B, the fleet's
 batched rounds, the soak's launches in batched buckets and the federation
-server's launches, the mesh phase's, with their count per shard, and for
-A, B0 and B the measurement phase's, with its probe's times) and
-times (the fleet's at its wide bucket: 16 requests in one launch). Its
-mesh_scan row is kernel M: launches and times from phase 4m (times at
-the grid mix; `routes` both routes' launches, times and bound; by_phase
-also at the bench shape). Its resident_patch
+server's launches, the mesh phase's, with their count per shard, for
+A, B0 and B the measurement phase's, with its probe's times, and 4o's)
+and times (the fleet's at its wide bucket: 16 requests in one launch).
+Its tournament row's `layouts` hold kernel C at 4o's stream-tier and
+32-column shapes. Its mesh_scan row is kernel M: launches and times from
+phase 4m (times at the grid mix; `routes` both routes' launches, times
+and bound; by_phase also at the bench shape; `layouts` 4o's global-node
+layout). Its resident_patch
 row is the row scatter of ops/resident (the port of the reference's
 _jit_scatter, a library index_copy_): launches from phase 4h, times at the
 facade mix's gbuf with k = 1% of its rows, by_phase every phase's launches
@@ -487,7 +508,8 @@ def phase_build():
     from karpenter_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
-    log(f"[build] {len(logs)} kernel sources in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] {len(logs)} kernel libraries from "
+        f"{len(_build.SOURCES)} sources in {time.perf_counter() - t0:.1f} s "
         f"with {' '.join(_build.NVCC_FLAGS)}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -641,9 +663,10 @@ FACADE_RESUME = 10_000       # new pods of the resumed solve
 FACADE_REPS = 3             # runs of the median facade wall
 # the device/native crossover, cut to its 100k point to keep the script
 # inside its time limit with the chaos phase's storm (the sweep from 1k
-# pods is a finished measurement: PERF.md §5)
+# pods is a finished measurement: PERF.md §5), and to one run of each
+# rung (two in turns took 48.6 s in a slow run; PERF.md §4)
 CROSSOVER_SIZES = (100_000,)
-CROSSOVER_REPS = 2
+CROSSOVER_REPS = 1
 TOLERATE = ("dedicated", "batch")    # the pool's taint (key, value)
 
 
@@ -1408,10 +1431,11 @@ OP_SEARCH: list = []
 
 # --- the optimizer phase: bench c14's procedure on the card ---------------
 
-# the larger squeeze fleet: 64 nodes, cut from 24 tiles (192 nodes took
-# 253 s of the script's wall on one H100) and then from 12 (128 s for the
-# three runs) to leave room for the federation phase; PERF.md §4
-OPT_TILES = 8
+# the larger squeeze fleet: 32 nodes, cut from 24 tiles (192 nodes took
+# 253 s of the script's wall on one H100), then from 12 (128 s for the
+# three runs) to leave room for the federation phase, then from 8 (101.8 s)
+# to leave room for phase 4o and kernel C's larger build; PERF.md §4
+OPT_TILES = 4
 OPT_RUN_S = 900.0       # sim seconds a measurement runs (bench c14's)
 # c14 at 2 tiles at the reference's default, delta plane armed: the subsets
 # scored, savings and joint consolidations that
@@ -1899,10 +1923,12 @@ CRASH_AUDIT_SEEDS = 5    # `make crash-audit`: the restart group, seeds 0-4
 REF_FINDINGS = {"sdc_storm": {("integrity_breach", "critical"): 2},
                 "resident_rot": {("integrity_breach", "critical"): 2}}
 # the storm: the soak scenario's rules over the operator phase's grid pods
-# (seed 0) in three waves, (run-relative sim second, pods). Cut in half
-# from 10,000 pods, whose rungs took 222.9 and 366.4 s beside one NVIDIA
-# H100 80GB HBM3 (PERF.md §4)
-STORM_WAVES = ((0.0, 2_500), (120.0, 1_250), (300.0, 1_250))
+# (seed 0) in three waves, (run-relative sim second, pods). Cut from
+# 10,000 pods, whose rungs took 222.9 and 366.4 s beside one NVIDIA H100
+# 80GB HBM3, to 5,000, and to 2,500 (74.6 and 89.5 s at 5,000 in a slow
+# run), where the reference's CPU run (tools/ref_findings.py) fires the
+# same findings and ends where both of the port's rungs end (PERF.md §4)
+STORM_WAVES = ((0.0, 1_250), (120.0, 625), (300.0, 625))
 STORM_PROFILE_AT = 60.0  # profile the first disruption pass inside the ICE window
 # the storm's watchdog findings in the reference's CPU run on its native
 # rung (the port's native run ends in the same state; its device run, in
@@ -4561,6 +4587,333 @@ def phase_mesh(cat, enc, views, counts) -> tuple:
     return launches, m_grid
 
 
+# --- phase 4o: the shapes past kernels C's and M's old limits -------------
+
+STREAM_SHAPE = (64, 382, 5_000, 8)    # kernel C's stream tier (S, N, G, Rk)
+RK32_SHAPE = (64, 382, 1_024, 24)     # kernel C's 32-column instantiation
+# the wide subset search: a pool of 64 nodes, nearly full, ~8 pods a node
+# of 6,000 distinct pod groups (past every tier but the stream one at any
+# Rk): half its 20 subsets repack free, half leave a residue
+WIDE_POOL_NODES = 64
+WIDE_POOL_GROUPS = 6_000
+# 18 extended resources (MIG profiles, pod ENIs, EFA, Neuron, FPGAs, device
+# plugins): with cpu and memory, a search over 20 requested columns at
+# least, past 16 (kernel C's 32-column instantiation)
+WIDE_EXTENDED = ("nvidia.com/mig-1g.10gb", "nvidia.com/mig-2g.20gb",
+                 "nvidia.com/mig-3g.40gb", "nvidia.com/mig-7g.80gb",
+                 "vpc.amazonaws.com/pod-eni", "vpc.amazonaws.com/efa",
+                 "aws.amazon.com/neuron", "aws.amazon.com/neuroncore",
+                 "smarter-devices/fuse", "xilinx.com/fpga", "intel.com/qat",
+                 "intel.com/sriov_netdevice", "amd.com/gpu",
+                 "habana.ai/gaudi", "hugepages-2Mi", "hugepages-1Gi",
+                 "example.com/dongle", "squat.ai/video")
+MESH_WIDE = dict(T=128, Z=3, C=2, R=32, Gp=96, n_max=262_144)
+
+
+def wide_pool(seed: int, N: int, n_groups: int, extended=()) -> tuple:
+    """A pool for one subset search with `n_groups` distinct pod groups (as
+    the port's tests/test_torch_optimizer.py `_synthetic`): seeded nodes of
+    the small catalog's types, 70-100% full in cpu and memory, pods of
+    distinct (cpu, memory) pairs, random prices, pod counts and slack.
+    Each `extended` resource joins the port's resource axis, every type
+    gets 0-8 of it, and pod j asks for the j-th, each pod for each other
+    with probability 0.3 (tests/test_torch_tournament_wide.py's pods).
+    (cat, enc, views, counts, slack)."""
+    import numpy as np
+    from karpenter_tpu_torch import catalog, models
+    from karpenter_tpu_torch.models import resources
+    from karpenter_tpu_torch.ops.binpack import VirtualNode
+    from karpenter_tpu_torch.ops.encode import encode_catalog, encode_pods
+    from karpenter_tpu_torch.state.cluster import NodeView
+    rng = np.random.default_rng(seed)
+    types = catalog.small_catalog()
+    for name in extended:
+        resources.register_resource(name)
+        for it in types:
+            it.capacity[name] = float(rng.integers(0, 9))
+    cat = encode_catalog(types)
+    pairs = rng.choice(3999 * 8, size=n_groups, replace=False)
+    pods = []
+    for i, v in enumerate(pairs):
+        req = {"cpu": f"{1 + int(v) % 3999}m",
+               "memory": f"{1 + int(v) // 3999}Gi"}
+        for j, name in enumerate(extended):
+            if j == i or rng.random() < 0.3:
+                req[name] = int(rng.integers(1, 3))
+        pods.append(models.Pod(name=f"w{i}",
+                               requests=models.Resources.parse(req)))
+    enc = encode_pods(pods, cat)
+    R = enc.requests.shape[1]
+    views = []
+    for i in range(N):
+        t = int(rng.integers(0, cat.T))
+        cum = np.zeros(R, np.float32)
+        cum[:2] = cat.allocatable[t, :2] * rng.uniform(0.7, 1.0, 2)
+        node = VirtualNode(type_idx=t,
+                           zone_mask=rng.random(cat.Z) < 0.8,
+                           cap_mask=rng.random(cat.C) < 0.8, cum=cum)
+        views.append(NodeView(claim=models.NodeClaim(name=f"w{i}",
+                                                     nodepool="d"),
+                              node=None, pods=[], virtual=node,
+                              price=float(rng.uniform(0.05, 2.5))))
+    counts = (rng.random((N, enc.G)) < 8.0 / enc.G).astype(np.int32)
+    counts *= rng.integers(1, 3, (N, enc.G)).astype(np.int32)
+    slack = rng.normal(size=(N, enc.G)).astype(np.float32)
+    return cat, enc, views, counts, slack
+
+
+def mesh_wide_inputs(seed: int, T: int, Z: int, C: int, R: int, Gp: int):
+    """run_sharded_solve's group and catalog arguments at R resource columns:
+    T seeded types (every one with cpu and memory, a quarter of the other
+    columns absent), Gp groups each asking for cpu, memory and up to 5
+    other columns, 1,500 to 12,000 pods a group (~190k nodes at seed 16),
+    a tenth with a max-per-node cap."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    alloc = rng.uniform(8.0, 64.0, (T, R)).astype(np.float32)
+    alloc[rng.random((T, R)) < 0.25] = 0.0
+    alloc[:, :2] = rng.uniform(16.0, 64.0, (T, 2)).astype(np.float32)
+    price = rng.uniform(0.1, 5.0, (T, Z, C)).astype(np.float32)
+    avail = rng.random((T, Z, C)) < 0.9
+    requests = np.zeros((Gp, R), np.float32)
+    for g in range(Gp):
+        cols = [0, 1] + list(rng.choice(np.arange(2, R),
+                                        size=int(rng.integers(0, 6)),
+                                        replace=False))
+        requests[g, cols] = rng.uniform(2.0, 16.0, len(cols))
+    counts = rng.integers(1_500, 12_000, Gp).astype(np.int32)
+    compat = rng.random((Gp, T)) < 0.7
+    allow_zone = rng.random((Gp, Z)) < 0.8
+    allow_zone[:, 0] = True
+    allow_cap = rng.random((Gp, C)) < 0.8
+    allow_cap[:, 0] = True
+    max_per_node = np.where(rng.random(Gp) < 0.1, rng.integers(1, 4, Gp),
+                            0).astype(np.int32)
+    return (alloc, price, avail, requests, counts, compat, allow_zone,
+            allow_cap, max_per_node)
+
+
+def tournament_shape_case(tk, shape, name: str) -> dict:
+    """Kernel C at seeded inputs of one shape, uncounted: equal to its
+    plain version (atol 0, the plan equal), then its times and bound."""
+    import torch
+    with uncounted():
+        args = tk.seeded_inputs(11, *shape, torch.device("cuda"))
+        err = check_tournament(tk, args, f"{name} {shape}, "
+                               f"{layout_note(tk, *shape)}")
+        row = tournament_kernel_times(tk, args, f"{name} {shape}")
+    lay = tk.tournament_layout(*shape)
+    row.update(max_abs_err=err, shape=list(shape), gc=lay.gc,
+               instantiation_columns=tk._rkb(shape[3]))
+    return row
+
+
+def mesh_wide_case(parallel, msc, ss, solver) -> tuple:
+    """run_sharded_solve on MESH_SHARDS virtual shards at MESH_WIDE: the
+    route and layout chosen from sizes (logged), one cooperative launch of
+    M beside a B0 a shard, equal to its plain version (atol 0) and to
+    kernel B on one device at the same n_max. Returns (M's launches in the
+    path, its row)."""
+    import numpy as np
+    import torch
+    w = MESH_WIDE
+    T, Z, C, R, Gp, n_max = (w[k] for k in ("T", "Z", "C", "R", "Gp",
+                                            "n_max"))
+    with parallel.virtual_devices(MESH_SHARDS, MESH_DEVICE):
+        mesh = parallel.make_mesh(MESH_SHARDS)
+    args = mesh_wide_inputs(16, T, Z, C, R, Gp)
+    Ns = n_max // mesh.size
+    route, lay = msc._route_on_card(mesh, Ns, R)
+    log(f"[shapes] kernel M at {mesh.size} shards x {Ns} nodes, Rk={R}, "
+        f"Gp={Gp}: route {route} (from sizes, before any launch), layout "
+        f"{lay}")
+    check(route == "persistent" and lay is not None and not lay.nodes_smem
+          and lay.smem == 0,
+          f"mesh wide: route {route}, layout {lay}: not the persistent "
+          f"route with its node state in global memory")
+    msc.launches = 0
+    ss.offer_launches = 0
+    out = parallel.run_sharded_solve(mesh, *args, n_max=n_max)
+    torch.cuda.synchronize()
+    launches = {"mesh_scan": msc.launches, "offer_argmin": ss.offer_launches}
+    check(launches == {"mesh_scan": 1, "offer_argmin": MESH_SHARDS},
+          f"mesh wide: launches {launches}, not one of M beside a B0 a "
+          f"shard")
+    nused = int(out[5])
+    check(not bool(out[8]) and Ns < nused <= n_max,
+          f"mesh wide: {nused} nodes (overflow {bool(out[8])}): the nodes "
+          f"do not pass the first shard")
+    zeros = (np.zeros((Gp, n_max), np.int32), np.zeros((Gp, n_max), bool),
+             np.zeros((Gp, 1), bool), np.zeros((1, 1, R), np.float32),
+             np.zeros(n_max, np.int32), np.zeros((n_max, R), np.float32),
+             np.zeros((n_max, Z), bool), np.zeros((n_max, C), bool),
+             np.zeros(n_max, bool), np.asarray(0, np.int32))
+    parts = msc.shard_args(mesh, n_max, *args, *zeros)
+    names = ("ntype", "cum", "zmask", "cmask", "nopen", "nused", "takes",
+             "unsched", "overflow")
+    with uncounted():
+        plain = msc.mesh_scan_plain(mesh, *parts, n_max)
+        for a, b, what in zip(out, plain, names):
+            check(torch.equal(a, b.to(a.dtype)),
+                  f"mesh wide: kernel M != its plain version ({what})")
+        dev = torch.device(MESH_DEVICE)
+        t = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+             for a in args]
+        one = (*t, torch.zeros((Gp, 1), dtype=torch.int32, device=dev),
+               torch.zeros((Gp, 1), dtype=torch.bool, device=dev),
+               torch.zeros((Gp, 1), dtype=torch.bool, device=dev),
+               torch.zeros((1, 1, R), dtype=torch.float32, device=dev),
+               *solver._fresh_nodes(n_max, R, Z, C, dev), 0, n_max)
+        ref = ss.solve_scan_cuda(*one)
+        torch.cuda.synchronize()
+        for a, b, what in zip((out[0], out[6], out[7], out[5], out[8]), ref,
+                              ("ntype", "takes", "unsched", "nused",
+                               "overflow")):
+            check(torch.equal(a, b.to(a.dtype).reshape(a.shape)),
+                  f"mesh wide: the sharded scan != kernel B on one device "
+                  f"({what})")
+        m_ms = cuda_ms(lambda: msc.mesh_scan_cuda(mesh, *parts, n_max), 3)
+        k_ms, = profiled_ms(lambda: msc.mesh_scan_cuda(mesh, *parts, n_max),
+                            "mesh_persistent_kernel")
+        plain_ms = cuda_ms(lambda: msc.mesh_scan_plain(mesh, *parts, n_max),
+                           1)
+        one_ms = cuda_ms(lambda: ss.solve_scan_cuda(*one), 3)
+    nb, ops = mesh_scan_work(Gp, T, Z, C, R, n_max)
+    row = {"ms": m_ms, "plain_ms": plain_ms, **bound(nb, ops),
+           "library_ms": None, "kernel_ms": k_ms, "route": route,
+           "launches": launches["mesh_scan"], "max_abs_err": 0.0,
+           "layout": {"nbp": lay.nbp, "npt": lay.npt, "smem": lay.smem,
+                      "nodes_smem": lay.nodes_smem},
+           "mesh_none_ms": one_ms,
+           "shape": {"Gp": Gp, "n_max": n_max, "R": R, "shards": mesh.size,
+                     "nodes": nused}}
+    log(f"[shapes] mesh wide: run_sharded_solve over {mesh.describe()}, "
+        f"Gp={Gp} n_max={n_max} Rk={R}: {nused} nodes; kernel M (one "
+        f"cooperative launch, {mesh.size} x {lay.nbp} blocks, {lay.npt} "
+        f"node(s) a thread, node state in global memory) == plain (atol 0),"
+        f" == kernel B on one device. M: {m_ms:.3f} ms a solve with B0 and "
+        f"the staging, mesh_persistent_kernel {k_ms} ms (profiler), plain "
+        f"{plain_ms:.1f} ms, bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']}); B0 + B on one device {one_ms:.3f} ms")
+    return launches, row
+
+
+def wide_search(name: str, cat, enc, views, counts, slack, want) -> tuple:
+    """One production subset search on the card, counts zeroed just before
+    it: plan_repack(use_device=True) makes one score_subsets_device call
+    (one upload, A for k, C, one read), whose kernel C layout must satisfy
+    want(layout, Rk); its scores == score_subsets_host (feasible exact,
+    savings rtol 1e-5, residual and repl_lb rtol/atol 1e-3), its ranked
+    verify queue == plan_repack on the host, and C == its plain version
+    at the recorded inputs. Returns (its launches, its row)."""
+    import numpy as np
+    from karpenter_tpu_torch import optimizer as O
+    from karpenter_tpu_torch.ops import screen_k as sk
+    from karpenter_tpu_torch.optimizer import tournament as tmod
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    cand = list(range(len(views)))
+    sk.launches = tk.launches = 0
+    with Recorder(O, "score_subsets_device") as rec_s, \
+            Recorder(tk, "tournament") as rec_c:
+        plan_d = O.plan_repack(cat, enc, views, counts, slack, cand,
+                               use_device=True)
+    launches = {"screen_k": sk.launches, "tournament": tk.launches}
+    check(launches == {"screen_k": 1, "tournament": 1} and rec_s.n == 1,
+          f"{name}: launches {launches}, {rec_s.n} score_subsets_device "
+          f"calls")
+    (sargs, skw), = rec_s.calls
+    (cargs, _), = rec_c.calls
+    S, N = cargs[4].shape
+    G, Rk = cargs[1].shape
+    lay = tk.tournament_layout(S, N, G, Rk)
+    check(want(lay, Rk), f"{name}: kernel C took {lay} at Rk={Rk}")
+    with uncounted():
+        plan_h = O.plan_repack(cat, enc, views, counts, slack, cand,
+                               use_device=False)
+        dev_out = tmod.score_subsets_device(*sargs, **skw)
+        cat_, enc_, views_, counts_, prices, masks = sargs
+        headroom, group_req, _e, k, _a = tmod.repack_inputs(cat_, enc_,
+                                                            views_, counts_)
+        host_out = tmod.score_subsets_host(
+            headroom, group_req, k, counts_, prices, masks,
+            tmod.group_slot_prices(cat_, enc_))
+        err_c = check_tournament(tk, cargs, name)
+    check(np.array_equal(dev_out[0], host_out[0])
+          and np.allclose(dev_out[1], host_out[1], rtol=1e-5, atol=0)
+          and all(np.allclose(dev_out[i], host_out[i], rtol=1e-3, atol=1e-3)
+                  for i in (2, 3)),
+          f"{name}: score_subsets_device != score_subsets_host (feasible "
+          f"exact, savings rtol 1e-5, residual and repl_lb rtol/atol 1e-3)")
+    check(plan_d.subsets == plan_h.subsets
+          and np.allclose(plan_d.savings, plan_h.savings, rtol=1e-5, atol=0)
+          and np.allclose(plan_d.residuals, plan_h.residuals, rtol=1e-3,
+                          atol=1e-3)
+          and (plan_d.scored, plan_d.feasible) == (plan_h.scored,
+                                                   plan_h.feasible),
+          f"{name}: the device plan's ranked verify queue != the host "
+          f"plan's")
+    log(f"[shapes] {name}: plan_repack at {enc.G} groups over {N} nodes "
+        f"(S={S}, Rk={Rk}; {layout_note(tk, S, N, G, Rk)}, instantiation "
+        f"of {tk._rkb(Rk)} columns): one score_subsets_device (A "
+        f"{launches['screen_k']}, C {launches['tournament']}) == "
+        f"score_subsets_host, the ranked verify queue "
+        f"({len(plan_d.subsets)} subsets, {plan_d.feasible} repack-free) "
+        f"== the host plan's; C == plain (atol 0) at its inputs")
+    return launches, {"launches": launches["tournament"],
+                      "shape": [S, N, G, Rk], "tier": lay.tier,
+                      "gc": lay.gc, "instantiation_columns": tk._rkb(Rk),
+                      "max_abs_err": err_c}
+
+
+def phase_shapes() -> tuple:
+    """Phase 4o: the shapes past kernels C's and M's old limits on the card.
+    Kernel C at STREAM_SHAPE (its stream tier) and RK32_SHAPE (its
+    32-column instantiation) against tournament_plain (atol 0, the plan
+    equal); the production dispatch (wide_search) at WIDE_POOL_GROUPS
+    groups over WIDE_POOL_NODES nodes (C on its stream tier) and at 60
+    groups asking for cpu, memory and WIDE_EXTENDED (C's 32-column
+    instantiation); kernel M on 8 virtual shards at MESH_WIDE
+    (mesh_wide_case). Returns (launches of the phase's paths, C's rows,
+    M's row)."""
+    from karpenter_tpu_torch import parallel
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    from karpenter_tpu_torch.ops import solve_scan as ss
+    from karpenter_tpu_torch.ops import solver
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+
+    t_phase = time.perf_counter()
+    c_rows = {"stream": tournament_shape_case(tk, STREAM_SHAPE,
+                                              "stream tier"),
+              "rk32": tournament_shape_case(tk, RK32_SHAPE,
+                                            "32-column instantiation")}
+    check(c_rows["stream"]["tier"] == "stream"
+          and c_rows["rk32"]["instantiation_columns"] == 32,
+          f"kernel C's shapes took {c_rows['stream']['tier']} and "
+          f"{c_rows['rk32']['instantiation_columns']} columns")
+
+    # --- the production dispatch past C's old limits: thousands of
+    # groups (the stream tier), then pods asking for 20 columns (the
+    # 32-column instantiation; its extended resources join the port's
+    # axis, so this runs last) ---
+    launches = {}
+    for key, pool, want in (
+            ("dispatch", (17, WIDE_POOL_NODES, WIDE_POOL_GROUPS),
+             lambda lay, Rk: lay.tier == "stream"),
+            ("dispatch_rk32", (18, WIDE_POOL_NODES, 60, WIDE_EXTENDED),
+             lambda lay, Rk: tk._rkb(Rk) == 32)):
+        got, c_rows[key] = wide_search(key, *wide_pool(*pool), want)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    c_rows["rk32"]["launches"] = c_rows["dispatch_rk32"]["launches"]
+
+    # --- kernel M past one co-resident grid of shared-memory nodes ---
+    m_launches, m_row = mesh_wide_case(parallel, msc, ss, solver)
+    launches.update(m_launches)
+    log(f"[shapes] phase 4o launches {launches}; phase wall "
+        f"{(time.perf_counter() - t_phase):.1f} s")
+    return launches, c_rows, m_row
+
+
 MEASURE_ITERS = 40          # slope_time's N (the reference's default)
 MEASURE_EVENT_ITERS = 20    # CUDA-event loop of the probed kernels
 MEASURE_SLOPE_FLOOR = 0.8   # a call cannot take less than its kernels
@@ -5126,6 +5479,13 @@ def main() -> None:
         by_phase[k]["measure"] = {
             "launches": n, **measure["screen" if k == "screen_k"
                                      else "solve"]}
+
+    # --- 4o. the shapes past C's and M's old limits: counts zeroed just
+    # before each path (the wide subset search, the wide mesh solve) ---
+    shape_launches, c_shapes, m_wide = phase_shapes()
+    for k in ("screen_k", "tournament", "offer_argmin"):
+        by_phase[k]["shapes"] = {"launches": shape_launches[k]}
+    by_phase["tournament"]["shapes"].update(c_shapes)
     kernels = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": op_launches[name],
@@ -5140,7 +5500,15 @@ def main() -> None:
             ("solve_scan", "karpenter_tpu_torch/csrc/solve_scan.cu",
              "karpenter_tpu/ops/solver.py:348", 0.0),
             ("tournament", "karpenter_tpu_torch/csrc/tournament.cu",
-             "karpenter_tpu/optimizer/tournament.py:140", err_c))]
+             "karpenter_tpu/optimizer/tournament.py:140",
+             max([err_c] + [c_shapes[k]["max_abs_err"] for k in (
+                 "stream", "rk32", "dispatch", "dispatch_rk32")])))]
+    # kernel C's layouts past its old limits (phase 4o): the stream tier
+    # and the 32-column instantiation, each with its times and bound
+    kernels[-1]["layouts"] = {
+        "stream": {**c_shapes["stream"],
+                   "launches": c_shapes["dispatch"]["launches"]},
+        "rk32": c_shapes["rk32"]}
     # the resident patch: ops/resident._scatter_rows, the port of the
     # reference's _jit_scatter (a library index_copy_, ROADMAP §2 item 1);
     # its launches are phase 4h's, where the path drives it
@@ -5172,9 +5540,12 @@ def main() -> None:
                            **{k: m_row[k] for k in m_keys}},
             "per_step": {"kernel": "mesh_step_kernel",
                          **m_row["per_step"]}},
+        "layouts": {"global_nodes": m_wide},
         "by_phase": {"mesh": {"launches": mesh_launches["mesh_scan"],
                               "per_shard": mesh_launches["mesh_scan"]
-                              / MESH_SHARDS, **m_row["by_shape"]}}})
+                              / MESH_SHARDS, **m_row["by_shape"]},
+                     "shapes": {"launches": shape_launches["mesh_scan"],
+                                "global_nodes": m_wide}}})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

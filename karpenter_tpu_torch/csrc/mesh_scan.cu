@@ -36,13 +36,19 @@
 //   is co-resident; each thread owns a run of npt consecutive nodes of its
 //   block's piece. A block keeps its nodes' type, open flag, bits, cum and
 //   kf in shared memory for the whole scan (one read before step 0, one
-//   write after the last). The block totals of step g go to the parity
-//   slot tot[g & 1]; one grid barrier (cooperative_groups grid sync) stands
-//   between a step's count and its apply. A block writing slot g & 1 at
-//   step g + 2 has passed step g + 1's barrier, which every block reaches
-//   only after reading step g's totals, so one barrier a step is enough.
-//   nused is computed by every block from the replicated records, so no
-//   block waits on another for it.
+//   write after the last); where a block's piece would pass the card's
+//   shared memory (ops/mesh_scan.persistent_layout: past ~200k nodes a
+//   mesh at Rk=32), the instantiation with NSMEM false works on the shards'
+//   own arrays in global memory instead, with kf in a per-shard scratch,
+//   still one launch and one barrier a step. The block totals of step g go
+//   to the parity slot tot[g & 1]; one grid barrier (cooperative_groups
+//   grid sync) stands between a step's count and its apply. A block
+//   writing slot g & 1 at step g + 2 has passed step g + 1's barrier, which
+//   every block reaches only after reading step g's totals, so one barrier
+//   a step is enough. nused is computed by every block from the replicated
+//   records, so no block waits on another for it. Where S shards outnumber
+//   the blocks the card holds at once, the mesh takes the per-step route
+//   below (ops/mesh_scan.card_route, from sizes, before any launch).
 //
 // * Shards on distinct cards: mesh_step_kernel, one launch a shard a step.
 //   Each launch applies step g - 1 with the block totals of every shard,
@@ -355,7 +361,10 @@ __global__ void __launch_bounds__(NTM) mesh_step_kernel(MeshArgs a, int g,
 // shard x / nbp; its piece of the shard is the rows [b * chunk, (b + 1) *
 // chunk) (b = x % nbp, chunk = npt * NTM), thread tid the rows b * chunk +
 // tid * npt + [0, npt). tot: [2, S * nbp] scratch (no initial value).
-// Dynamic shared memory: chunk * NODE_SMEM(Rk) bytes.
+// NSMEM: the piece's node state in dynamic shared memory, chunk *
+// NODE_SMEM(Rk) bytes; else none, the piece's rows of the shard's arrays
+// (type, open, bits, cum and the kf scratch) read and written in place.
+template <bool NSMEM>
 __global__ void __launch_bounds__(NTM) mesh_persistent_kernel(
     const MeshArgs* __restrict__ shards, int nbp, int npt, int* tot) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -367,15 +376,19 @@ __global__ void __launch_bounds__(NTM) mesh_persistent_kernel(
   const int lane = tid & 31, wid = tid >> 5;
   const MeshArgs a = shards[j / nbp];
   const int Rk = a.Rk, Ns = a.Ns, chunk = npt * NTM;
-  float* s_cum = (float*)smem;                           // [chunk, Rk]
-  int* s_type = (int*)(s_cum + (size_t)chunk * Rk);      // [chunk]
-  unsigned* s_bits = (unsigned*)(s_type + chunk);        // [chunk]
-  int* s_kf = (int*)(s_bits + chunk);                    // [chunk]
-  uint8_t* s_open = (uint8_t*)(s_kf + chunk);            // [chunk]
+  const size_t p0 = (size_t)b * chunk;  // the piece's first row in the shard
+  float* s_cum = NSMEM ? (float*)smem : a.cum + p0 * Rk;  // [chunk, Rk]
+  int* s_type = NSMEM ? (int*)(s_cum + (size_t)chunk * Rk)
+                      : a.type + p0;                      // [chunk]
+  unsigned* s_bits = NSMEM ? (unsigned*)(s_type + chunk)
+                           : a.bits + p0;                 // [chunk]
+  int* s_kf = NSMEM ? (int*)(s_bits + chunk) : a.kf + p0;  // [chunk]
+  uint8_t* s_open = NSMEM ? (uint8_t*)(s_kf + chunk)
+                          : a.open + p0;                  // [chunk]
   const int l0 = tid * npt;      // the thread's first row in the piece
   const int i0 = b * chunk + l0; // ... and in the shard
 
-  for (int k = 0; k < npt; ++k) {
+  for (int k = 0; k < (NSMEM ? npt : 0); ++k) {
     const int l = l0 + k, i = i0 + k;
     if (i >= Ns) break;
     s_type[l] = a.type[i];
@@ -399,7 +412,7 @@ __global__ void __launch_bounds__(NTM) mesh_persistent_kernel(
       if (i < Ns)
         kf = node_kf(a, rec, g, i, s_type[l], s_open[l] != 0, s_bits[l],
                      s_cum + l * Rk);
-      s_kf[l] = kf;
+      if (NSMEM || i < Ns) s_kf[l] = kf;  // global kf holds Ns rows
       run += kf;
     }
     long long btot;
@@ -435,7 +448,7 @@ __global__ void __launch_bounds__(NTM) mesh_persistent_kernel(
     nused += (int)p.n_new;
   }
 
-  for (int k = 0; k < npt; ++k) {
+  for (int k = 0; k < (NSMEM ? npt : 0); ++k) {
     const int l = l0 + k, i = i0 + k;
     if (i >= Ns) break;
     a.type[i] = s_type[l];
@@ -461,7 +474,9 @@ __global__ void __launch_bounds__(NTM) mesh_persistent_kernel(
 // Persistent route: mesh_scan_pack copies the S handles' arguments into
 // host memory of S * mesh_scan_args_bytes() bytes, which the caller puts
 // on the card; mesh_scan_coop_limits and mesh_scan_coop_occupancy give
-// what the grid's layout needs; mesh_scan_coop makes the one launch.
+// what the grid's layout needs; mesh_scan_coop makes the one launch. A
+// dynamic shared size of 0 selects the instantiation whose node state
+// stays in global memory (every shard's kf scratch allocated).
 // ---------------------------------------------------------------------------
 
 extern "C" void* mesh_scan_new(
@@ -528,14 +543,15 @@ extern "C" void mesh_scan_free(void* h) { free(h); }
 
 extern "C" int mesh_scan_args_bytes(void) { return (int)sizeof(MeshArgs); }
 
-extern "C" int mesh_scan_pack(void* const* handles, int S, void* out) {
+extern "C" int mesh_scan_pack(void* const* handles, int S, void* out,
+                              int need_kf) {
   if (handles == nullptr || out == nullptr || S < 1) return -1;
   const MeshArgs* a0 = (const MeshArgs*)handles[0];
   for (int s = 0; s < S; ++s) {
     const MeshArgs* a = (const MeshArgs*)handles[s];
     if (a == nullptr || a0 == nullptr || a->shard != s || a->nshards != S ||
         a->Gp != a0->Gp || a->Ns != a0->Ns || a->Rk != a0->Rk ||
-        a->n_max != a0->n_max)
+        a->n_max != a0->n_max || (need_kf && a->kf == nullptr))
       return -1;
     memcpy((char*)out + (size_t)s * sizeof(MeshArgs), a, sizeof(MeshArgs));
   }
@@ -544,7 +560,7 @@ extern "C" int mesh_scan_pack(void* const* handles, int S, void* out) {
 
 static cudaError_t allow_smem(int smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(mesh_persistent_kernel,
+  return cudaFuncSetAttribute(mesh_persistent_kernel<true>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem);
 }
@@ -563,34 +579,41 @@ extern "C" int mesh_scan_coop_limits(int* out) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&out[2], cudaDevAttrCooperativeLaunch, dev);
   cudaFuncAttributes fa;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, mesh_persistent_kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&fa, mesh_persistent_kernel<true>);
   if (e != cudaSuccess) return (int)e;
   out[1] = optin - (int)fa.sharedSizeBytes;
   return 0;
 }
 
 // out[0]: blocks of the persistent kernel an SM holds at once with `smem`
-// dynamic shared bytes each.
+// dynamic shared bytes each (0: the instantiation with the node state in
+// global memory).
 extern "C" int mesh_scan_coop_occupancy(int smem, int* out) {
+  if (smem < 0) return -1;
   cudaError_t e = allow_smem(smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, mesh_persistent_kernel, NTM, (size_t)smem);
+        out,
+        smem > 0 ? (const void*)mesh_persistent_kernel<true>
+                 : (const void*)mesh_persistent_kernel<false>,
+        NTM, (size_t)smem);
   return (int)e;
 }
 
 extern "C" int mesh_scan_coop(const void* args, int S, int nbp, int npt,
                               int smem, int* tot, void* stream) {
   if (args == nullptr || tot == nullptr || S < 1 || nbp < 1 || npt < 1 ||
-      smem < 1)
+      smem < 0)
     return -1;
   cudaError_t e = allow_smem(smem);
   if (e != cudaSuccess) return (int)e;
   const MeshArgs* shards = (const MeshArgs*)args;
   void* params[] = {(void*)&shards, (void*)&nbp, (void*)&npt, (void*)&tot};
-  e = cudaLaunchCooperativeKernel((const void*)mesh_persistent_kernel,
-                                  dim3(S * nbp), dim3(NTM), params,
-                                  (size_t)smem, (cudaStream_t)stream);
+  e = cudaLaunchCooperativeKernel(
+      smem > 0 ? (const void*)mesh_persistent_kernel<true>
+               : (const void*)mesh_persistent_kernel<false>,
+      dim3(S * nbp), dim3(NTM), params, (size_t)smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -29,7 +29,7 @@
 // chains, its node pass and its cell passes one after another. A block
 // takes as long with 8 subsets on the card as with 232 (PERF.md).
 //
-// Design: three tiers, chosen from (S, N, G, Rk) alone
+// Design: four tiers, chosen from (S, N, G, Rk) alone
 // (optimizer/tournament_k.tournament_layout):
 //   block    one block a subset, its x [N, XS] in shared memory (several
 //            subsets a block where N is small and S fills the card);
@@ -38,7 +38,15 @@
 //            memory: the smallest cluster that holds the slices of x and
 //            k, else of x alone;
 //   global   CL = 16 with the slices in a global scratch, past 16 blocks'
-//            shared memory.
+//            shared memory;
+//   stream   CL = 16, the slices in global scratch, where not even the
+//            global tier's group rows fit (a few thousand groups): nothing
+//            of a group stays resident. The per-group rows (running sums,
+//            quotient, need) live in one global row a subset, which the
+//            cluster's ranks add into in turn; req streams through two
+//            shared buffers of GC groups (cp.async, zero-filled past Rk and
+//            G) in the node pass; the chains and the update read k's rows
+//            from global memory (L2).
 // Beside x, a subset's region holds each node's survival 1 - m, m and
 // capacity scale, and per group the running sums, the pass's quotient and
 // need. x rows are XS floats (G rounded up to 4, to an odd number of
@@ -91,7 +99,7 @@ namespace cg = cooperative_groups;
 #define R_BIG 1.0e9f   // relax _BIG
 #define NT 384         // threads per block (168 registers a thread)
 #define NWARP (NT / 32)
-#define RMAX 16        // resource columns carried in registers
+#define RMAX 32        // resource columns carried in registers (RKB <= 32)
 #define CL_MAX 16      // the largest (non-portable) cluster on Hopper
 #define SPB_MAX 32     // subsets one block may hold
 #define MAX_DEVICES 64  // devices a per-device memo keeps (others: no memo)
@@ -124,19 +132,27 @@ struct TournamentArgs {
   const float* masks;   // [S, N], rows masks_stride floats apart
   const float* prices;  // [N]
   const float* pslot;   // [G]
-  float* xg;            // global tier: x scratch [S, CL*SL, XS]; else null
+  float* xg;            // global, stream tiers: x scratch [S, CL*SL, XS]
+  float* rows_g;        // stream tier: group rows [S, 6 G4 + 4]; else null
   float* out;           // [S, 4]
   int req_stride, counts_stride, masks_stride;
   int S, N, G, Rk, iters;
   int SL, SPB, XS, CH;
+  int GC;            // stream tier: groups of a req chunk (else 0)
   int ksmem;         // the slice's k rows resident in shared memory
   int G4;            // G rounded up to a multiple of 4
   int SL4;           // SL rounded up to a multiple of 4
-  int block_floats;  // req [G4, RKB] and the ring [NBUF, CH, G4]
+  int block_floats;  // req [G4, RKB] and the ring [NBUF, CH, G4]; stream
+                     // tier: two req chunks [2, GC, RKB]
   int lane_floats;   // one subset's region
 };
 
 __host__ __device__ inline int round4(int f) { return (f + 3) & ~3; }
+
+// Where a subset's x and group rows live: x in shared memory (block and
+// cluster tiers), x in global scratch (global tier), or x and the group
+// rows in global memory (stream tier).
+enum { T_SHARED = 0, T_GLOBAL = 1, T_STREAM = 2 };
 
 // Row stride of x: G rounded up to a multiple of 4 whose quarter is odd, so
 // that 8 threads reading 16-byte pieces of 8 node rows hit distinct banks.
@@ -154,18 +170,22 @@ __host__ __device__ inline int block_floats(int G, int RKB, int CH,
 }
 
 // Floats of one subset's shared region: x [SL, XS] (shared tiers); surv, m
-// and scale [SL4] each; running sums [4 G4 + 4]; quotient and need [G4].
-__host__ __device__ inline int lane_floats(int SL, int XS, int G, bool xs) {
-  return (xs ? SL * XS : 0) + 3 * round4(SL) + 6 * round4(G) + 4;
+// and scale [SL4] each; running sums [4 G4 + 4]; quotient and need [G4]
+// (the group rows: in global memory on the stream tier).
+__host__ __device__ inline int lane_floats(int SL, int XS, int G, bool xs,
+                                           bool stream) {
+  return (xs ? SL * XS : 0) + 3 * round4(SL) +
+         (stream ? 0 : 6 * round4(G) + 4);
 }
 
 struct Lane {  // one subset's pieces of shared (and global) memory
   float *x, *surv, *m, *sc, *run, *q, *need;
 };
 
-template <bool XSMEM>
+template <int TIER>
 __device__ __forceinline__ Lane lane_at(const TournamentArgs& a, float* smem,
                                         int j, int s, int CL, int n0) {
+  constexpr bool XSMEM = TIER == T_SHARED;
   Lane L;
   float* b = smem + a.block_floats + (size_t)j * a.lane_floats;
   const size_t xsz = XSMEM ? (size_t)a.SL * a.XS : 0;
@@ -173,10 +193,34 @@ __device__ __forceinline__ Lane lane_at(const TournamentArgs& a, float* smem,
   L.surv = b + xsz;
   L.m = L.surv + a.SL4;
   L.sc = L.m + a.SL4;
-  L.run = L.sc + a.SL4;
+  // the stream tier's group rows: one global row a subset, shared by the
+  // ranks of its cluster
+  L.run = TIER == T_STREAM ? a.rows_g + (size_t)s * (6 * a.G4 + 4)
+                           : L.sc + a.SL4;
   L.q = L.run + 4 * a.G4 + 4;
   L.need = L.q + a.G4;
   return L;
+}
+
+// Reads of the group rows (run, q, need). On the stream tier other blocks
+// of the cluster wrote them in global memory: read at L2 (ld.global.cg),
+// never from an L1 line this SM cached before.
+template <int TIER>
+__device__ __forceinline__ float gr1(const float* p) {
+  if constexpr (TIER == T_STREAM) return __ldcg(p);
+  return *p;
+}
+template <int TIER>
+__device__ __forceinline__ float4 gr4(const float* p) {
+  if constexpr (TIER == T_STREAM)
+    return __ldcg(reinterpret_cast<const float4*>(p));
+  return *reinterpret_cast<const float4*>(p);
+}
+template <int TIER>
+__device__ __forceinline__ float2 gr2(const float* p) {
+  if constexpr (TIER == T_STREAM)
+    return __ldcg(reinterpret_cast<const float2*>(p));
+  return *reinterpret_cast<const float2*>(p);
 }
 
 // Item t of a pass over SPB subsets of `per` items each: (subset, item).
@@ -322,54 +366,127 @@ __device__ __forceinline__ Cells cells(int Q, int tid, int nthreads) {
   return c;
 }
 
+// A node's capacity scale from its load: clip(min_r max(head, 0) / load,
+// 0, 1) over the columns below Rk, BIG for an unloaded column.
+template <int RKB>
+__device__ __forceinline__ float node_scale(const TournamentArgs& a,
+                                            const float* load, int n) {
+  float mn = INFINITY;
+  const float* hr = a.head + (size_t)n * a.Rk;
+#pragma unroll
+  for (int r = 0; r < RKB; ++r) {
+    if (r < a.Rk) {
+      const float h = fmaxf(__ldg(hr + r), 0.0f);
+      const float ratio =
+          load[r] > R_EPS ? __fdiv_rn(h, fmaxf(load[r], R_EPS)) : R_BIG;
+      mn = fminf(mn, ratio);
+    }
+  }
+  return fminf(fmaxf(mn, 0.0f), 1.0f);
+}
+
+// The stream tier's req chunk c (groups [c GC, (c + 1) GC)) into shared
+// buffer c & 1 as [GC, RKB]: one 4-byte cp.async an element, zero-filled
+// past Rk and G; every thread issues its share and commits one group.
+template <int RKB>
+__device__ __forceinline__ void req_chunk_issue(const TournamentArgs& a,
+                                                float* smem, int c) {
+  float* dst = smem + (size_t)(c & 1) * a.GC * RKB;
+  const int g0 = c * a.GC;
+  for (int i = threadIdx.x; i < a.GC * RKB; i += NT) {
+    const int g = g0 + i / RKB, r = i % RKB;
+    const bool in = g < a.G && r < a.Rk;
+    const float* src = in ? a.req + (size_t)g * a.req_stride + r : a.req;
+    asm volatile(
+        "cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+            smem_u32(dst + i)),
+        "l"(src), "r"(in ? 4 : 0)
+        : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// The stream tier's node pass: one thread a node keeps its load over groups
+// in registers while req streams through two shared buffers of GC groups,
+// chunk c + 1 landing while the block works on chunk c (groups in group
+// order, as on the other tiers). Every thread takes part in every chunk's
+// copies and barriers, so the nodes go in rounds of NT.
+template <int RKB>
+__device__ void stream_scales(const TournamentArgs& a, float* smem, int s0,
+                              int CL, int n0, int nloc) {
+  const Lane L = lane_at<T_STREAM>(a, smem, 0, s0, CL, n0);
+  const int nchunk = (a.G + a.GC - 1) / a.GC;
+  for (int nb = 0; nb < nloc; nb += NT) {
+    const int n = nb + threadIdx.x;
+    const bool act = n < nloc;
+    float load[RKB];
+#pragma unroll
+    for (int r = 0; r < RKB; ++r) load[r] = 0.0f;
+    if (nchunk > 0) req_chunk_issue<RKB>(a, smem, 0);
+    for (int c = 0; c < nchunk; ++c) {
+      asm volatile("cp.async.wait_all;" ::: "memory");
+      __syncthreads();  // chunk c landed; chunk c - 1's buffer read out
+      if (c + 1 < nchunk) req_chunk_issue<RKB>(a, smem, c + 1);
+      if (!act) continue;
+      const int g0 = c * a.GC, g1 = min(g0 + a.GC, a.G4);
+      const float* xp = L.x + (size_t)n * a.XS + g0;
+      const float* qp = smem + (size_t)(c & 1) * a.GC * RKB;
+      for (int g = g0; g < g1; g += 4, xp += 4, qp += 4 * RKB) {
+        const float4 x4 = ld4(xp);
+        const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+#pragma unroll
+          for (int r = 0; r < RKB; ++r)
+            load[r] = __fadd_rn(load[r], __fmul_rn(xv[b], qp[b * RKB + r]));
+      }
+    }
+    if (act) L.sc[n] = node_scale<RKB>(a, load, n0 + n);
+    __syncthreads();  // the last chunk read out before the next round's
+  }
+}
+
 // The capacity projection over the block's nodes: (a) one thread a node
 // forms load[r] = sum_g x[n, g] req[g, r] in group order (x four groups a
 // load; req from shared memory, zero past Rk and G, as x is past G) and the
 // scale clip(min_r max(head, 0) / load, 0, 1); (b) every thread scales
 // (node, 4-group) cells.
-template <bool XSMEM, int RKB>
+template <int TIER, int RKB>
 __device__ void capacity_pass(const TournamentArgs& a, float* smem, int s0,
                               int CL, int n0, int nloc) {
   const int SL = a.SL, XS = a.XS, SPB = a.SPB, rows = SPB * SL;
   const int Q = a.G4 / 4;
-  const float* sreq = smem;
-  for (int t = threadIdx.x; t < rows; t += NT) {
-    const int j = lane_of(t, SL, SPB), n = t - j * SL;
-    if (s0 + j >= a.S || n >= nloc) continue;
-    const Lane L = lane_at<XSMEM>(a, smem, j, s0 + j, CL, n0);
-    const float* xp = L.x + (size_t)n * XS;
-    const float* qp = sreq;
-    float load[RKB];
+  if constexpr (TIER == T_STREAM) {
+    stream_scales<RKB>(a, smem, s0, CL, n0, nloc);
+  } else {
+    const float* sreq = smem;
+    for (int t = threadIdx.x; t < rows; t += NT) {
+      const int j = lane_of(t, SL, SPB), n = t - j * SL;
+      if (s0 + j >= a.S || n >= nloc) continue;
+      const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
+      const float* xp = L.x + (size_t)n * XS;
+      const float* qp = sreq;
+      float load[RKB];
 #pragma unroll
-    for (int r = 0; r < RKB; ++r) load[r] = 0.0f;
-    for (int u = 0; u < Q; ++u, xp += 4, qp += 4 * RKB) {
-      const float4 x4 = ld4(xp);
-      const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+      for (int r = 0; r < RKB; ++r) load[r] = 0.0f;
+      for (int u = 0; u < Q; ++u, xp += 4, qp += 4 * RKB) {
+        const float4 x4 = ld4(xp);
+        const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
 #pragma unroll
-      for (int b = 0; b < 4; ++b)
+        for (int b = 0; b < 4; ++b)
 #pragma unroll
-        for (int r = 0; r < RKB; ++r)
-          load[r] = __fadd_rn(load[r], __fmul_rn(xv[b], qp[b * RKB + r]));
-    }
-    float mn = INFINITY;
-    const float* hr = a.head + (size_t)(n0 + n) * a.Rk;
-#pragma unroll
-    for (int r = 0; r < RKB; ++r) {
-      if (r < a.Rk) {
-        const float h = fmaxf(__ldg(hr + r), 0.0f);
-        const float ratio =
-            load[r] > R_EPS ? __fdiv_rn(h, fmaxf(load[r], R_EPS)) : R_BIG;
-        mn = fminf(mn, ratio);
+          for (int r = 0; r < RKB; ++r)
+            load[r] = __fadd_rn(load[r], __fmul_rn(xv[b], qp[b * RKB + r]));
       }
+      L.sc[n] = node_scale<RKB>(a, load, n0 + n);
     }
-    L.sc[n] = fminf(fmaxf(mn, 0.0f), 1.0f);
   }
   __syncthreads();
   const Cells e = cells(Q, threadIdx.x, NT);
   for (int row = e.r0; row < rows; row += e.rstep) {
     const int j = lane_of(row, SL, SPB), n = row - j * SL;
     if (s0 + j >= a.S || n >= nloc) continue;
-    const Lane L = lane_at<XSMEM>(a, smem, j, s0 + j, CL, n0);
+    const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
     float* xr = L.x + (size_t)n * XS;
     const float sc = L.sc[n];
     for (int u = e.u0; u < Q; u += e.ustep)
@@ -380,7 +497,8 @@ __device__ void capacity_pass(const TournamentArgs& a, float* smem, int s0,
 
 // Passes over the rank's node slice in chunks of CH node rows, k's rows
 // streaming through a ring of NBUF buffers (TMA bulk copies), or in one
-// chunk with k resident:
+// chunk with k resident (on the stream tier: in one chunk, k's rows read
+// from global memory):
 //   K_SEED   chains: cap's sum (and x = cap, with k streamed), colsum(k)
 //            (four groups a thread),
 //            need and the victims' k (a group a thread, over the victim
@@ -390,21 +508,23 @@ __device__ void capacity_pass(const TournamentArgs& a, float* smem, int s0,
 //   K_LAST   chains: sum x (no k, one chunk);
 //   K_UPDATE elementwise: x += max(cap - x, 0) * q, four groups a thread.
 // A chain adds the slice in node order into its slot of `run`, which starts
-// from rank-1's running sums (0 on rank 0) and ends as this rank's; it
-// loads NB nodes before it adds them. Chunk c's step: the issuing thread
+// from rank-1's running sums (0 on rank 0) and ends as this rank's (on the
+// stream tier the ranks add into one global row in turn); it loads NB
+// nodes before it adds them. Chunk c's step: the issuing thread
 // waits for chunk c+1, one block barrier, it issues chunk c+3 into the
 // buffer chunk c-1 left, and the block works on chunk c.
 enum { K_SEED = 0, K_ITER = 1, K_LAST = 2, K_UPDATE = 3 };
 
-template <bool XSMEM, int KIND>
+template <int TIER, int KIND>
 __device__ void slice_pass(const TournamentArgs& a, float* smem, Ring& R,
                            int s0, int CL, int rank, int n0, int nloc,
                            cg::cluster_group& cluster, const int* nvic) {
+  constexpr bool STREAM = TIER == T_STREAM;
   // nodes a chain loads before it adds: enough in flight to cover the
   // shared memory's latency
   constexpr int NB = KIND == K_SEED ? 8 : 16;
   const int G = a.G, G4 = a.G4, Q = G4 / 4, XS = a.XS, SPB = a.SPB;
-  const int CH = KIND == K_LAST || a.ksmem ? max(nloc, 1) : a.CH;
+  const int CH = KIND == K_LAST || a.ksmem || STREAM ? max(nloc, 1) : a.CH;
   // items a subset, each chain kind on whole warps (QP = Q rounded up to
   // 32, HP = 2Q rounded up, the items past Q or 2Q idle) so that no warp
   // runs two kinds: K_SEED 2 QP + G + 1 (x = cap and its sum, colsum(k),
@@ -417,17 +537,21 @@ __device__ void slice_pass(const TournamentArgs& a, float* smem, Ring& R,
   const int items = KIND == K_UPDATE ? 0 : SPB * per;
   const float* kc = a.k + (size_t)n0 * G4;
   const int tid = threadIdx.x;
-  const bool RING = KIND != K_LAST && !a.ksmem;  // else k is resident
+  // else k is resident, or (stream tier) read from global memory
+  const bool RING = !STREAM && KIND != K_LAST && !a.ksmem;
   // past the seed, a resident k of the block's one subset holds cap
   const bool capres = KIND != K_SEED && a.ksmem && SPB == 1;
 
-  // running sums from rank-1's (each thread keeps to its own slots)
-  for (int t = tid; t < items; t += NT) {
+  // running sums from rank-1's (each thread keeps to its own slots); on
+  // the stream tier rank 0 starts the subset's one row from 0 and the
+  // other ranks go on from where rank-1 left it
+  for (int t = tid; t < (STREAM && rank > 0 ? 0 : items); t += NT) {
     const int j = lane_of(t, per, SPB), u = t - j * per;
     if (s0 + j >= a.S) continue;
-    const Lane L = lane_at<XSMEM>(a, smem, j, s0 + j, CL, n0);
-    const float* prev =
-        rank > 0 ? cluster.map_shared_rank(L.run, rank - 1) : nullptr;
+    const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
+    const float* prev = !STREAM && rank > 0
+                            ? cluster.map_shared_rank(L.run, rank - 1)
+                            : nullptr;
     if (KIND == K_ITER && u >= QP) {  // a pair of the slack's row
       const int pi = u - QP;
       if (pi >= 2 * Q) continue;
@@ -462,19 +586,20 @@ __device__ void slice_pass(const TournamentArgs& a, float* smem, Ring& R,
       __syncthreads();  // chunk c+1 landed, chunk c-1 done with
     }
     if (RING) ring_issue(R, kc, c + 3, nch, CH, G4, nloc);
-    const float* rk = R.buf + (size_t)(c % NBUF) * CH * G4;
+    const float* rk =
+        STREAM ? kc + (size_t)nb * G4 : R.buf + (size_t)(c % NBUF) * CH * G4;
     if (KIND == K_UPDATE) {
       for (int row = ue.r0; row < SPB * cn; row += ue.rstep) {
         const int j = lane_of(row, cn, SPB), i = row - j * cn;
         if (s0 + j >= a.S) continue;
-        const Lane L = lane_at<XSMEM>(a, smem, j, s0 + j, CL, n0);
+        const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
         float* xr = L.x + (size_t)(nb + i) * XS;
         const float sv = L.surv[nb + i];
         const float* kr = rk + (size_t)i * G4;
         for (int u = ue.u0; u < Q; u += ue.ustep) {
           const float4 x4 = ld4(xr + 4 * u), k4 = ld4(kr + 4 * u);
           const float4 sl = capres ? slack4c(k4, x4) : slack4(sv, k4, x4);
-          st4(xr + 4 * u, add4(x4, mul4(sl, ld4(L.q + 4 * u))));
+          st4(xr + 4 * u, add4(x4, mul4(sl, gr4<TIER>(L.q + 4 * u))));
         }
       }
       continue;
@@ -482,15 +607,15 @@ __device__ void slice_pass(const TournamentArgs& a, float* smem, Ring& R,
     for (int t = tid; t < items; t += NT) {
       const int j = lane_of(t, per, SPB), u = t - j * per;
       if (s0 + j >= a.S) continue;
-      const Lane L = lane_at<XSMEM>(a, smem, j, s0 + j, CL, n0);
+      const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
       if (KIND == K_SEED && u >= 2 * QP) {  // need and victims' k; savings
         // over the slice's victims, ascending (csrc: the mask phase lists
         // them in the subset's scale row), once, beside chunk 0's chains
         if (c > 0) continue;
         const bool sav = u == 2 * QP + G;
         const int g = sav ? 0 : u - 2 * QP;
-        float v0 = sav ? L.run[4 * G4] : L.run[2 * G4 + g];
-        float v1 = sav ? 0.0f : L.run[3 * G4 + g];
+        float v0 = gr1<TIER>(L.run + (sav ? 4 * G4 : 2 * G4 + g));
+        float v1 = sav ? 0.0f : gr1<TIER>(L.run + 3 * G4 + g);
         const int* vic = reinterpret_cast<const int*>(L.sc);
         for (int v = 0; v < nvic[j]; ++v) {
           const int n = n0 + vic[v];
@@ -518,7 +643,7 @@ __device__ void slice_pass(const TournamentArgs& a, float* smem, Ring& R,
         const float* kp = rk + 2 * pi;
         const float* sp = L.surv + nb;
         float* rp = L.run + G4 + 2 * pi;
-        float2 acc = ld2(rp);
+        float2 acc = gr2<TIER>(rp);
         int i = 0;
         if (capres) {  // the resident rows hold cap itself
           for (; i + NB <= cn; i += NB, xp += NB * XS, kp += NB * G4) {
@@ -555,7 +680,7 @@ __device__ void slice_pass(const TournamentArgs& a, float* smem, Ring& R,
       const float* kp = rk + o;
       const float* sp = L.surv + nb;
       float* rp = L.run + (second ? G4 : 0) + o;
-      float4 acc = ld4(rp);
+      float4 acc = gr4<TIER>(rp);
       int i = 0;
       if (KIND == K_SEED && !second && a.ksmem) {  // cap's sum (x later)
         for (; i + NB <= cn; i += NB, kp += NB * G4, sp += NB) {
@@ -657,18 +782,18 @@ __device__ __forceinline__ void hand_take(Hand& H, int i) {
 
 // A pass's chains over the cluster: rank r takes its turn once rank r-1
 // hands it its running sums, and hands them on.
-template <bool XSMEM, int KIND>
+template <int TIER, int KIND>
 __device__ void chains(const TournamentArgs& a, float* smem, Ring& R, int s0,
                        int CL, int rank, int n0, int nloc,
                        cg::cluster_group& cluster, const int* nvic, Hand& H) {
   if (rank > 0) hand_take(H, 0);
-  slice_pass<XSMEM, KIND>(a, smem, R, s0, CL, rank, n0, nloc, cluster, nvic);
+  slice_pass<TIER, KIND>(a, smem, R, s0, CL, rank, n0, nloc, cluster, nvic);
   if (rank + 1 < CL && threadIdx.x == 0) hand_give(H, 0, rank + 1);
 }
 
 // The last rank, its quotient in place: hand it to every other rank, which
-// copies it.
-template <bool XSMEM>
+// copies it (on the stream tier reads it from the subset's global row).
+template <int TIER>
 __device__ void share_q(const TournamentArgs& a, float* smem, int s0, int CL,
                         int rank, int n0, cg::cluster_group& cluster,
                         Hand& H) {
@@ -680,18 +805,20 @@ __device__ void share_q(const TournamentArgs& a, float* smem, int s0, int CL,
     return;
   }
   hand_take(H, 1);
+  if constexpr (TIER == T_STREAM) return;
   const int Q = a.G4 / 4;
   for (int t = threadIdx.x; t < a.SPB * Q; t += NT) {
     const int j = lane_of(t, Q, a.SPB), u = t - j * Q;
     if (s0 + j >= a.S) continue;
-    const Lane L = lane_at<XSMEM>(a, smem, j, s0 + j, CL, n0);
+    const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
     st4(L.q + 4 * u, ld4(cluster.map_shared_rank(L.q, CL - 1) + 4 * u));
   }
   __syncthreads();
 }
 
-template <bool XSMEM, int RKB>
+template <int TIER, int RKB>
 __global__ void __launch_bounds__(NT, 1) tournament_kernel(TournamentArgs a) {
+  constexpr bool XSMEM = TIER == T_SHARED;
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_ok[SPB_MAX];
   __shared__ int s_nv[SPB_MAX];  // victims in each subset's slice
@@ -726,7 +853,8 @@ __global__ void __launch_bounds__(NT, 1) tournament_kernel(TournamentArgs a) {
   STAMP(stamp++);
 
   // 1. shared memory zeroed (the pads of req, the ring, x and the group
-  // rows stay zero), then req (zero past Rk), survival and mask
+  // rows stay zero), then req (zero past Rk; the stream tier streams it in
+  // each node pass), survival and mask
   if (threadIdx.x < SPB_MAX) s_ok[threadIdx.x] = 1;
   {
     const int total = a.block_floats + SPB * a.lane_floats;
@@ -737,20 +865,20 @@ __global__ void __launch_bounds__(NT, 1) tournament_kernel(TournamentArgs a) {
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * RKB; i += NT) {
+  for (int i = threadIdx.x; i < (TIER == T_STREAM ? 0 : G * RKB); i += NT) {
     const int g = i / RKB, r = i - g * RKB;
     if (r < a.Rk) smem[i] = __ldg(a.req + (size_t)g * a.req_stride + r);
   }
   if (!XSMEM) {  // the global slices' pads
     for (int t = threadIdx.x; t < nloc * (XS - G); t += NT) {
       const int n = t / (XS - G), g = G + t - n * (XS - G);
-      lane_at<XSMEM>(a, smem, 0, s0, CL, n0).x[(size_t)n * XS + g] = 0.0f;
+      lane_at<TIER>(a, smem, 0, s0, CL, n0).x[(size_t)n * XS + g] = 0.0f;
     }
   }
   for (int t = threadIdx.x; t < SPB * SL; t += NT) {
     const int j = lane_of(t, SL, SPB), n = t - j * SL;
     if (s0 + j >= a.S || n >= nloc) continue;
-    const Lane L = lane_at<XSMEM>(a, smem, j, s0 + j, CL, n0);
+    const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
     const float mv = a.masks[(size_t)(s0 + j) * a.masks_stride + n0 + n];
     L.m[n] = mv;
     L.surv[n] = __fsub_rn(1.0f, mv);
@@ -760,7 +888,7 @@ __global__ void __launch_bounds__(NT, 1) tournament_kernel(TournamentArgs a) {
   __syncthreads();
   for (int j = threadIdx.x >> 5; j < SPB; j += NWARP) {
     if (s0 + j >= a.S) continue;
-    const Lane L = lane_at<XSMEM>(a, smem, j, s0 + j, CL, n0);
+    const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
     int* vic = reinterpret_cast<int*>(L.sc);
     const unsigned lanebit = threadIdx.x & 31;
     int base = 0;
@@ -782,32 +910,33 @@ __global__ void __launch_bounds__(NT, 1) tournament_kernel(TournamentArgs a) {
 
   // 2. the seed's chains; on the last rank need, supply, feasibility and
   // the seed's quotient q = need / (sum cap + EPS); then x = cap * q
-  chains<XSMEM, K_SEED>(a, smem, R, s0, CL, rank, n0, nloc, cluster, s_nv,
+  chains<TIER, K_SEED>(a, smem, R, s0, CL, rank, n0, nloc, cluster, s_nv,
                         H);
   STAMP(stamp++);
   if (last) {
     for (int t = threadIdx.x; t < SPB * G; t += NT) {
       const int j = lane_of(t, G, SPB), g = t - j * G;
       if (s0 + j >= a.S) continue;
-      const Lane L = lane_at<XSMEM>(a, smem, j, s0 + j, CL, n0);
-      const float nd = L.run[2 * G4 + g];
-      const float supply = __fsub_rn(L.run[G4 + g], L.run[3 * G4 + g]);
+      const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
+      const float nd = gr1<TIER>(L.run + 2 * G4 + g);
+      const float supply = __fsub_rn(gr1<TIER>(L.run + G4 + g),
+                                     gr1<TIER>(L.run + 3 * G4 + g));
       if (!(nd <= __fadd_rn(supply, T_EPS) || nd == 0.0f)) s_ok[j] = 0;
       L.need[g] = nd;
-      L.q[g] = __fdiv_rn(nd, __fadd_rn(L.run[g], R_EPS));
+      L.q[g] = __fdiv_rn(nd, __fadd_rn(gr1<TIER>(L.run + g), R_EPS));
     }
   }
-  share_q<XSMEM>(a, smem, s0, CL, rank, n0, cluster, H);
+  share_q<TIER>(a, smem, s0, CL, rank, n0, cluster, H);
   {
     const Cells e = cells(Q, threadIdx.x, NT);
     for (int row = e.r0; row < SPB * SL; row += e.rstep) {
       const int j = lane_of(row, SL, SPB), n = row - j * SL;
       if (s0 + j >= a.S || n >= nloc) continue;
-      const Lane L = lane_at<XSMEM>(a, smem, j, s0 + j, CL, n0);
+      const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
       float* xr = L.x + (size_t)n * XS;
       if (!a.ksmem) {  // x holds cap since the seed's chains
         for (int u = e.u0; u < Q; u += e.ustep)
-          st4(xr + 4 * u, mul4(ld4(xr + 4 * u), ld4(L.q + 4 * u)));
+          st4(xr + 4 * u, mul4(ld4(xr + 4 * u), gr4<TIER>(L.q + 4 * u)));
         continue;
       }
       // cap from the resident k; with one subset a block the resident
@@ -826,53 +955,75 @@ __global__ void __launch_bounds__(NT, 1) tournament_kernel(TournamentArgs a) {
 
   // 3. iters x (capacity pass, demand pass)
   for (int it = 0; it < a.iters; ++it) {
-    capacity_pass<XSMEM, RKB>(a, smem, s0, CL, n0, nloc);
+    capacity_pass<TIER, RKB>(a, smem, s0, CL, n0, nloc);
     STAMP(stamp++);
-    chains<XSMEM, K_ITER>(a, smem, R, s0, CL, rank, n0, nloc, cluster, s_nv,
+    chains<TIER, K_ITER>(a, smem, R, s0, CL, rank, n0, nloc, cluster, s_nv,
                         H);
     STAMP(stamp++);
     if (last) {
       for (int t = threadIdx.x; t < SPB * G; t += NT) {
         const int j = lane_of(t, G, SPB), g = t - j * G;
         if (s0 + j >= a.S) continue;
-        const Lane L = lane_at<XSMEM>(a, smem, j, s0 + j, CL, n0);
-        const float def = fmaxf(__fsub_rn(L.need[g], L.run[g]), 0.0f);
-        L.q[g] = __fdiv_rn(def, __fadd_rn(L.run[G4 + g], R_EPS));
+        const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
+        const float def = fmaxf(
+            __fsub_rn(gr1<TIER>(L.need + g), gr1<TIER>(L.run + g)), 0.0f);
+        L.q[g] = __fdiv_rn(def, __fadd_rn(gr1<TIER>(L.run + G4 + g), R_EPS));
       }
     }
-    share_q<XSMEM>(a, smem, s0, CL, rank, n0, cluster, H);
+    share_q<TIER>(a, smem, s0, CL, rank, n0, cluster, H);
     STAMP(stamp++);
-    slice_pass<XSMEM, K_UPDATE>(a, smem, R, s0, CL, rank, n0, nloc, cluster,
+    slice_pass<TIER, K_UPDATE>(a, smem, R, s0, CL, rank, n0, nloc, cluster,
                                 s_nv);
     STAMP(stamp++);
   }
 
   // 4. the last capacity pass and sum of x; the residual and its sums over
   // groups (last rank)
-  capacity_pass<XSMEM, RKB>(a, smem, s0, CL, n0, nloc);
+  capacity_pass<TIER, RKB>(a, smem, s0, CL, n0, nloc);
   STAMP(stamp++);
-  chains<XSMEM, K_LAST>(a, smem, R, s0, CL, rank, n0, nloc, cluster, s_nv,
+  chains<TIER, K_LAST>(a, smem, R, s0, CL, rank, n0, nloc, cluster, s_nv,
                         H);
   STAMP(stamp++);
   if (last) {
     for (int t = threadIdx.x; t < SPB * G; t += NT) {
       const int j = lane_of(t, G, SPB), g = t - j * G;
       if (s0 + j >= a.S) continue;
-      const Lane L = lane_at<XSMEM>(a, smem, j, s0 + j, CL, n0);
-      L.need[g] = fmaxf(__fsub_rn(L.need[g], L.run[g]), 0.0f);
+      const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
+      L.need[g] = fmaxf(
+          __fsub_rn(gr1<TIER>(L.need + g), gr1<TIER>(L.run + g)), 0.0f);
     }
     __syncthreads();
     for (int j = threadIdx.x; j < SPB; j += NT) {
       if (s0 + j >= a.S) continue;
-      const Lane L = lane_at<XSMEM>(a, smem, j, s0 + j, CL, n0);
+      const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
       float rs = 0.0f, rl = 0.0f;
-      for (int g = 0; g < G; ++g) {
-        rs = __fadd_rn(rs, L.need[g]);
-        rl = __fadd_rn(rl, __fmul_rn(L.need[g], __ldg(a.pslot + g)));
+      if constexpr (TIER == T_STREAM) {
+        // the residual from global memory: 16 groups loaded before they
+        // are added, in group order
+        for (int g0 = 0; g0 < G; g0 += 16) {
+          float nv[16], pv[16];
+#pragma unroll
+          for (int b = 0; b < 16; ++b) {
+            nv[b] = g0 + b < G ? gr1<TIER>(L.need + g0 + b) : 0.0f;
+            pv[b] = g0 + b < G ? __ldg(a.pslot + g0 + b) : 0.0f;
+          }
+#pragma unroll
+          for (int b = 0; b < 16; ++b) {
+            if (g0 + b < G) {
+              rs = __fadd_rn(rs, nv[b]);
+              rl = __fadd_rn(rl, __fmul_rn(nv[b], pv[b]));
+            }
+          }
+        }
+      } else {
+        for (int g = 0; g < G; ++g) {
+          rs = __fadd_rn(rs, L.need[g]);
+          rl = __fadd_rn(rl, __fmul_rn(L.need[g], __ldg(a.pslot + g)));
+        }
       }
       float* o = a.out + (size_t)(s0 + j) * 4;
       o[0] = s_ok[j] ? 1.0f : 0.0f;
-      o[1] = L.run[4 * G4];
+      o[1] = gr1<TIER>(L.run + 4 * G4);
       o[2] = rs;
       o[3] = rl;
     }
@@ -907,7 +1058,7 @@ struct ClusterMemo {
   bool nonportable = false;
 };
 
-template <bool XS, int RKB>
+template <int TIER, int RKB>
 static int active_clusters(int CL, int smem_bytes) {
   // a function attribute belongs to one device, so the memo is per device
   int dev = 0;
@@ -918,14 +1069,14 @@ static int active_clusters(int CL, int smem_bytes) {
   ClusterMemo& m = dev < MAX_DEVICES ? memos[dev] : unmemoed;
   if (CL == m.cl && smem_bytes == m.smem) return m.n;
   if (smem_bytes != m.set_smem) {
-    e = cudaFuncSetAttribute(tournament_kernel<XS, RKB>,
+    e = cudaFuncSetAttribute(tournament_kernel<TIER, RKB>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
     if (e != cudaSuccess) return -(int)e;
     m.set_smem = smem_bytes;
   }
   if (CL > 8 && !m.nonportable) {
-    e = cudaFuncSetAttribute(tournament_kernel<XS, RKB>,
+    e = cudaFuncSetAttribute(tournament_kernel<TIER, RKB>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
     if (e != cudaSuccess) return -(int)e;
@@ -935,7 +1086,7 @@ static int active_clusters(int CL, int smem_bytes) {
   const cudaLaunchConfig_t cfg = cluster_cfg(CL, CL, smem_bytes, nullptr, attr);
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(
-      &n, (const void*)tournament_kernel<XS, RKB>, &cfg);
+      &n, (const void*)tournament_kernel<TIER, RKB>, &cfg);
   if (e != cudaSuccess) return -(int)e;
   m.cl = CL;
   m.smem = smem_bytes;
@@ -943,35 +1094,49 @@ static int active_clusters(int CL, int smem_bytes) {
   return n;
 }
 
-template <bool XS, int RKB>
+template <int TIER, int RKB>
 static int launch(const TournamentArgs& a, int blocks, int CL, int smem_bytes,
                   void* stream) {
-  const int n = active_clusters<XS, RKB>(CL, smem_bytes);
+  const int n = active_clusters<TIER, RKB>(CL, smem_bytes);
   if (n < 0) return -n;
   if (n < 1) return -2;  // refused here, never run partly
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       cluster_cfg(blocks, CL, smem_bytes, stream, attr);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, tournament_kernel<XS, RKB>, a);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, tournament_kernel<TIER, RKB>, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <bool XS>
-static int launch_rk(const TournamentArgs& a, int blocks, int CL,
-                     int smem_bytes, void* stream) {
-  if (a.Rk <= 2) return launch<XS, 2>(a, blocks, CL, smem_bytes, stream);
-  if (a.Rk <= 4) return launch<XS, 4>(a, blocks, CL, smem_bytes, stream);
-  if (a.Rk <= 8) return launch<XS, 8>(a, blocks, CL, smem_bytes, stream);
-  return launch<XS, 16>(a, blocks, CL, smem_bytes, stream);
+// The instantiation carrying Rk columns in registers: Rk rounded up to a
+// power of two, 2 to 32 (17..32 take the 32-column one).
+__host__ __device__ inline int rk_bucket(int Rk) {
+  return Rk <= 2 ? 2 : Rk <= 4 ? 4 : Rk <= 8 ? 8 : Rk <= 16 ? 16 : 32;
 }
 
-// C interface (bound with ctypes). Pointers are device pointers; req,
+template <int TIER>
+static int launch_rk(const TournamentArgs& a, int blocks, int CL,
+                     int smem_bytes, void* stream) {
+  if (a.Rk <= 2) return launch<TIER, 2>(a, blocks, CL, smem_bytes, stream);
+  if (a.Rk <= 4) return launch<TIER, 4>(a, blocks, CL, smem_bytes, stream);
+  if (a.Rk <= 8) return launch<TIER, 8>(a, blocks, CL, smem_bytes, stream);
+  if (a.Rk <= 16) return launch<TIER, 16>(a, blocks, CL, smem_bytes, stream);
+  return launch<TIER, 32>(a, blocks, CL, smem_bytes, stream);
+}
+
+// C interface (bound with ctypes). The source builds two libraries
+// (ops/_build.BUILDS), compiled in parallel: as it is, with the block,
+// cluster and global tiers, and with -DTOURNAMENT_STREAM_TIER, with the
+// stream tier alone; each refuses (-1) a layout of the other's tiers.
+// Pointers are device pointers; req,
 // counts and masks rows are *_stride floats apart, k is [N, G4] (G rounded
 // up to 4, zero past G, 16-byte aligned), everything else is contiguous.
-// The layout (CL, SL, SPB, XS, CH, x_smem, k_smem, smem_bytes) comes from
-// optimizer/tournament_k.tournament_layout; xg is the global tier's x
-// scratch of S*CL*SL*XS floats (null on the shared tiers). One launch on
+// The layout (CL, SL, SPB, XS, CH, GC, x_smem, k_smem, smem_bytes) comes
+// from optimizer/tournament_k.tournament_layout; xg is the x scratch of
+// S*CL*SL*XS floats of the global and stream tiers (null on the shared
+// tiers); GC > 0 selects the stream tier, whose group rows rows_g (S * (6
+// G4 + 4) floats, zero past G) the caller allocates. One launch on
 // `stream`; nothing synchronises. Returns the cudaError_t of the launch (0
 // = launched), -1 for arguments it refuses, -2 when the card cannot
 // co-schedule the cluster.
@@ -980,20 +1145,25 @@ extern "C" int tournament_launch(const float* head, const float* req,
                                  const float* counts, int counts_stride,
                                  const float* masks, int masks_stride,
                                  const float* prices, const float* pslot,
-                                 float* xg, float* out, int S, int N, int G,
-                                 int Rk, int iters, int CL, int SL, int SPB,
-                                 int XS, int CH, int x_smem, int k_smem,
-                                 int smem_bytes, void* stream) {
+                                 float* xg, float* rows_g, float* out, int S,
+                                 int N, int G, int Rk, int iters, int CL,
+                                 int SL, int SPB, int XS, int CH, int GC,
+                                 int x_smem, int k_smem, int smem_bytes,
+                                 void* stream) {
   if (S <= 0) return 0;
+  const bool stream_tier = GC > 0;
   if (N < 0 || G < 0 || Rk < 1 || Rk > RMAX || iters < 0 || CL < 1 ||
       CL > CL_MAX || SL < 1 || (long long)CL * SL < N || SPB < 1 ||
-      SPB > SPB_MAX || (SPB > 1 && CL > 1) || XS < G || CH < 1 ||
-      (x_smem != 0) != (xg == nullptr))
+      SPB > SPB_MAX || (SPB > 1 && CL > 1) || XS < G || CH < 1 || GC < 0 ||
+      (x_smem != 0) != (xg == nullptr) || stream_tier != (rows_g != nullptr))
     return -1;
-  const int RKB = Rk <= 2 ? 2 : Rk <= 4 ? 4 : Rk <= 8 ? 8 : 16;
+  if (stream_tier && (x_smem || k_smem || SPB != 1 || GC % 4 != 0))
+    return -1;
+  const int RKB = rk_bucket(Rk);
   if (k_smem && CH != SL) return -1;
-  const int bf = block_floats(G, RKB, CH, k_smem != 0);
-  const int lf = lane_floats(SL, XS, G, x_smem != 0);
+  const int bf =
+      stream_tier ? 2 * GC * RKB : block_floats(G, RKB, CH, k_smem != 0);
+  const int lf = lane_floats(SL, XS, G, x_smem != 0, stream_tier);
   if (XS != x_stride(G) || 4LL * (bf + (long long)SPB * lf) > smem_bytes)
     return -1;
   TournamentArgs a;
@@ -1005,6 +1175,7 @@ extern "C" int tournament_launch(const float* head, const float* req,
   a.prices = prices;
   a.pslot = pslot;
   a.xg = xg;
+  a.rows_g = rows_g;
   a.out = out;
   a.req_stride = req_stride;
   a.counts_stride = counts_stride;
@@ -1018,23 +1189,42 @@ extern "C" int tournament_launch(const float* head, const float* req,
   a.SPB = SPB;
   a.XS = XS;
   a.CH = CH;
+  a.GC = GC;
   a.ksmem = k_smem;
   a.G4 = round4(G);
   a.SL4 = round4(SL);
   a.block_floats = bf;
   a.lane_floats = lf;
   const int blocks = (S + SPB - 1) / SPB * CL;
-  return x_smem ? launch_rk<true>(a, blocks, CL, smem_bytes, stream)
-                : launch_rk<false>(a, blocks, CL, smem_bytes, stream);
+#ifdef TOURNAMENT_STREAM_TIER
+  if (!stream_tier) return -1;
+  return launch_rk<T_STREAM>(a, blocks, CL, smem_bytes, stream);
+#else
+  if (stream_tier) return -1;
+  if (x_smem) return launch_rk<T_SHARED>(a, blocks, CL, smem_bytes, stream);
+  return launch_rk<T_GLOBAL>(a, blocks, CL, smem_bytes, stream);
+#endif
 }
 
 // The largest cluster (a power of two <= 16) of kernel C the card can
-// co-schedule at smem_bytes of dynamic shared memory a block; 0 if none.
-extern "C" int tournament_max_cluster(int smem_bytes, int x_smem) {
+// co-schedule at smem_bytes of dynamic shared memory a block, on `tier`
+// (T_SHARED, T_GLOBAL or T_STREAM); 0 if none, -1 for a tier this
+// library does not hold.
+extern "C" int tournament_max_cluster(int smem_bytes, int tier) {
+#ifdef TOURNAMENT_STREAM_TIER
+  if (tier != T_STREAM) return -1;
+#else
+  if (tier != T_SHARED && tier != T_GLOBAL) return -1;
+#endif
   int best = 0;
   for (int cl = 1; cl <= CL_MAX; cl *= 2) {
-    const int n = x_smem ? active_clusters<true, 2>(cl, smem_bytes)
-                         : active_clusters<false, 2>(cl, smem_bytes);
+#ifdef TOURNAMENT_STREAM_TIER
+    const int n = active_clusters<T_STREAM, 2>(cl, smem_bytes);
+#else
+    const int n = tier == T_SHARED
+                      ? active_clusters<T_SHARED, 2>(cl, smem_bytes)
+                      : active_clusters<T_GLOBAL, 2>(cl, smem_bytes);
+#endif
     if (n >= 1) best = cl;
   }
   return best;

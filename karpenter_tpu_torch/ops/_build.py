@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` compiles on its own into a shared library with a
 plain C interface under `build/karpenter_tpu_torch/` at the repository
 root (listed in .gitignore), named by a digest of its source, so an edited
 source rebuilds and an unchanged one loads the library already built. A
-debug build (`load(name, defines)` with -D macros, such as the phase
-stamps of -DTOURNAMENT_PROFILE) gets a library of its own. The
+build with -D macros (`load(name, defines)`: the phase stamps of
+-DTOURNAMENT_PROFILE, or kernel C's stream tier, which `build_all` builds
+beside the rest) gets a library of its own. The
 target is Hopper (`sm_90a`); the build never uses --use_fast_math and
 forbids FMA contraction (`-fmad=false`), because the solve must agree bit
 for bit with the reference's f32 expressions.
@@ -34,6 +35,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "karpenter_tpu_torch
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("screen_k", "solve_scan", "tournament", "mesh_scan")
+# the libraries `build_all` starts at once: every source, and tournament.cu
+# a second time holding its stream tier's instantiations alone
+# (TOURNAMENT_STREAM_TIER), so that kernel C's 15 instantiations compile
+# in two processes
+TOURNAMENT_STREAM = ("-DTOURNAMENT_STREAM_TIER",)
+BUILDS = tuple((n, ()) for n in SOURCES) + (("tournament", TOURNAMENT_STREAM),)
 NATIVE_SRC = Path(__file__).resolve().parents[2] / "native" / "ffd.cpp"
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 
@@ -94,17 +101,17 @@ def _finish(proc: Optional[subprocess.Popen]) -> None:
     os.replace(proc.tmp, proc.out)
 
 
-def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
-    """Compile every source at once (one nvcc each, all started together)
-    and return {name: nvcc log}, which holds the -Xptxas -v resource
-    report of each kernel."""
-    procs = [_start(n) for n in names]
+def build_all(builds: Sequence = BUILDS) -> Dict[str, str]:
+    """Compile every library of `builds` ((source, -D macros) pairs) at
+    once (one nvcc each, all started together) and return {its tag: nvcc
+    log}, which holds the -Xptxas -v resource report of each kernel."""
+    procs = [_start(n, d) for n, d in builds]
     for p in procs:
         _finish(p)
     logs = {}
-    for n in names:
-        log = BUILD_DIR / f"{n}.log"
-        logs[n] = log.read_text() if log.exists() else ""
+    for n, d in builds:
+        log = BUILD_DIR / f"{_tag(n, d)}.log"
+        logs[_tag(n, d)] = log.read_text() if log.exists() else ""
     return logs
 
 

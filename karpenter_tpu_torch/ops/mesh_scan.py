@@ -25,16 +25,20 @@ sum of its blocks'. The takes do not depend on how many blocks a shard
 has: all terms are non-negative, so min(sum min(x_i, c), c) =
 min(sum x_i, c).
 
-Kernel M has two routes, picked by `mesh_route` from the mesh's devices:
+Kernel M has two routes, picked before any launch by `mesh_route` from
+the mesh's devices and, where the shards share a card, by `card_route`
+from the sizes:
 - shards that share one device (a virtual mesh, or one shard): ONE
   cooperative launch a solve (`mesh_scan_persistent_cuda`) for every shard
-  and step, the node state in shared memory, one grid barrier a step in
-  place of the host's gather;
-- shards on distinct cards: one launch a shard a step
-  (`mesh_scan_per_step_cuda`: apply step g - 1 with the gathered totals,
-  then count step g), the totals all-gathered between steps
-  (`parallel/collectives.all_gather`): (Gp + 1) x S launches and Gp
-  gathers a solve.
+  and step, one grid barrier a step in place of the host's gather; the
+  node state in shared memory, or, where a block's nodes would pass the
+  card's shared memory, in the shards' arrays in global memory
+  (`persistent_layout`);
+- shards on distinct cards, or more shards than the card holds blocks at
+  once: one launch a shard a step (`mesh_scan_per_step_cuda`: apply step
+  g - 1 with the gathered totals, then count step g), the totals
+  all-gathered between steps (`parallel/collectives.all_gather`):
+  (Gp + 1) x S launches and Gp gathers a solve.
 Neither route falls back to the other, nor to the plain version.
 
 `mesh_scan` takes per-shard lists of tensors; the plain version runs for
@@ -48,7 +52,9 @@ agree element for element.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+import inspect
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -248,7 +254,7 @@ def _lib():
     sig = dict(
         new=([P] * 4 + [I, P, I, P, I] + [P] * 11 + [I] * 12, P),
         step=([P, I, P, P], I), free=([P], None), args_bytes=([], I),
-        pack=([P, I, P], I), coop_limits=([P], I),
+        pack=([P, I, P, I], I), coop_limits=([P], I),
         coop_occupancy=([I, P], I), coop=([P, I, I, I, I, P, P], I))
     for name, (argtypes, restype) in sig.items():
         fn = getattr(lib, f"mesh_scan_{name}")
@@ -259,31 +265,61 @@ def _lib():
 
 def mesh_route(devices: Sequence[torch.device]) -> str:
     """Kernel M's route for a mesh's shard devices: "persistent" (one
-    cooperative launch a solve) when every shard sits on one device,
+    cooperative launch a solve) when every shard sits on one device, as
+    far as the card holds the shards' blocks at once (`card_route`),
     "per_step" (a launch a shard a step, the block totals all-gathered on
     the host between steps) when the shards span distinct devices."""
     return "persistent" if len(set(devices)) == 1 else "per_step"
 
 
+@dataclass(frozen=True)
+class PersistentLayout:
+    """The grid of the persistent launch."""
+
+    nbp: int           # blocks a shard
+    npt: int           # nodes a thread (a run of consecutive nodes)
+    smem: int          # dynamic shared bytes a block (0: nodes in global)
+    nodes_smem: bool   # the node state in shared memory, else the shards'
+                       # arrays in global memory
+
+
 def persistent_layout(S: int, Ns: int, Rk: int, sms: int, smem_max: int,
-                      blocks_per_sm) -> tuple:
-    """(nbp, npt, smem) of the persistent launch: blocks a shard, nodes a
-    thread, dynamic shared bytes a block. The fewest nodes a thread (the
-    most blocks) at which all S * nbp blocks are co-resident on `sms` SMs,
-    each holding `blocks_per_sm(smem)` blocks, and a block's nodes fit in
-    `smem_max` shared bytes. Raises RuntimeError where no npt fits."""
+                      blocks_per_sm) -> Optional[PersistentLayout]:
+    """The persistent launch's grid, from sizes alone: all S * nbp blocks
+    co-resident on `sms` SMs, each SM holding `blocks_per_sm(smem)` blocks
+    of `smem` dynamic shared bytes. The fewest nodes a thread (the most
+    blocks) at which a block's nodes fit in `smem_max` shared bytes with
+    the grid co-resident; else the node state stays in global memory
+    (smem 0), at the fewest nodes a thread that keeps the grid co-resident.
+    None where S shards outnumber the blocks the card holds at once even
+    then (the per-step route's case, `card_route`)."""
     npt = 1
     while True:
         chunk = npt * NTM
         smem = chunk * (4 * Rk + NODE_SMEM_FIXED)
         if smem > smem_max:
-            raise RuntimeError(
-                f"mesh_scan: {S} shards of {Ns} nodes (Rk={Rk}) do not fit "
-                f"in one co-resident grid of {sms} SMs")
+            break
         nbp = -(-Ns // chunk)
         if S * nbp <= sms * blocks_per_sm(smem):
-            return nbp, npt, smem
+            return PersistentLayout(nbp, npt, smem, True)
+        if nbp == 1:
+            break  # longer runs only take shared memory, never blocks
         npt += 1
+    nbp = min((sms * blocks_per_sm(0)) // S, -(-Ns // NTM))
+    if nbp < 1:
+        return None
+    npt = -(-Ns // (nbp * NTM))
+    return PersistentLayout(-(-Ns // (npt * NTM)), npt, 0, False)
+
+
+def card_route(S: int, Ns: int, Rk: int, sms: int, smem_max: int,
+               blocks_per_sm) -> Tuple[str, Optional[PersistentLayout]]:
+    """(route, layout) of S shards of Ns nodes that share one card, from
+    sizes alone, before any launch: ("persistent", its layout) where the
+    card holds at least one block a shard at once, else ("per_step",
+    None)."""
+    lay = persistent_layout(S, Ns, Rk, sms, smem_max, blocks_per_sm)
+    return ("per_step", None) if lay is None else ("persistent", lay)
 
 
 def _cuda_call(rc: int, what: str) -> None:
@@ -305,17 +341,15 @@ def _occupancy(lib, smem: int) -> int:
     return _occupancy_memo[key]
 
 
-def _stage(mesh: Mesh, alloc, price, avail, requests, counts, compat,
+def _check(mesh: Mesh, alloc, price, avail, requests, counts, compat,
            allow_zone, allow_cap, max_per_node, prior, banned, conflict,
            zovh, node_type, node_cum, node_zmask, node_cmask, node_open,
            n_used, n_max: int, track_conflicts: bool = False,
-           zone_ovh: bool = False, *, per_step: bool) -> list:
-    """Check every shard's arguments, then launch B0 once a shard and lay
-    out its node state and M's handle: one dict a shard. `per_step` adds
-    the scratch only the per-step kernel reads (kf, pre, block totals)."""
+           zone_ovh: bool = False) -> list:
+    """Refuse, before any build or launch, the arguments kernel M does not
+    take (ValueError); (T, Z, C, Rk) of each shard."""
     S = mesh.size
     Ns = col.block(n_max, S)
-    Gp = requests[0].shape[0]
     dims = []
     for s in range(S):
         T, Z, C, _, _, Rk = ss._check_shapes(alloc[s], price[s],
@@ -330,6 +364,53 @@ def _stage(mesh: Mesh, alloc, price, avail, requests, counts, compat,
         if alloc[s].device.type != "cuda":
             raise ValueError("mesh_scan_cuda: every shard must be on a "
                              "CUDA device")
+    return dims
+
+
+def _sizes(mesh: Mesh, args, kwargs) -> tuple:
+    """(Ns, Rk) of a call's arguments (those of mesh_scan_plain), once
+    they pass `_check`."""
+    dims = _check(mesh, *args, **kwargs)
+    a = inspect.signature(mesh_scan_plain).bind(mesh, *args,
+                                                **kwargs).arguments
+    return col.block(a["n_max"], mesh.size), dims[0][3]
+
+
+def _route_on_card(mesh: Mesh, Ns: int, Rk: int):
+    """`card_route` at the card the shards share: its SMs, opt-in shared
+    memory and the kernel's occupancy. Raises where the card takes no
+    cooperative launch."""
+    dev = mesh.devices[0]
+    lib = _lib()
+    with col.on_shard(dev):
+        lim = (ctypes.c_int * 3)()
+        _cuda_call(lib["coop_limits"](lim), "the device query")
+        sms, smem_max, coop = lim
+        if not coop:
+            raise RuntimeError(f"mesh_scan: {dev} takes no cooperative "
+                               f"launch")
+        return card_route(mesh.size, Ns, Rk, sms, smem_max,
+                          lambda b: _occupancy(lib, b))
+
+
+def _stage(mesh: Mesh, alloc, price, avail, requests, counts, compat,
+           allow_zone, allow_cap, max_per_node, prior, banned, conflict,
+           zovh, node_type, node_cum, node_zmask, node_cmask, node_open,
+           n_used, n_max: int, track_conflicts: bool = False,
+           zone_ovh: bool = False, *, per_step: bool,
+           kf: bool = False) -> list:
+    """Check every shard's arguments (`_check`), then launch B0 once a
+    shard and lay out its node state and M's handle: one dict a shard.
+    `per_step` adds the scratch only the per-step kernel reads (kf, pre,
+    block totals); `kf` the kf scratch alone (the persistent kernel with
+    its node state in global memory)."""
+    S = mesh.size
+    Ns = col.block(n_max, S)
+    Gp = requests[0].shape[0]
+    dims = _check(mesh, alloc, price, avail, requests, counts, compat,
+                  allow_zone, allow_cap, max_per_node, prior, banned,
+                  conflict, zovh, node_type, node_cum, node_zmask,
+                  node_cmask, node_open, n_used, n_max)
     f32, i32, u8 = torch.float32, torch.int32, torch.uint8
     lib = _lib()
     nb = -(-Ns // NTM)  # the per-step kernel's blocks a shard
@@ -363,9 +444,10 @@ def _stage(mesh: Mesh, alloc, price, avail, requests, counts, compat,
                     takes=torch.empty((Gp, Ns), dtype=i32, device=dev),
                     unsched=torch.empty(Gp, dtype=i32, device=dev),
                     hdr=torch.zeros(4, dtype=i32, device=dev))
+                if per_step or kf:
+                    st["kf"] = torch.empty(Ns, dtype=i32, device=dev)
                 if per_step:
-                    st.update(kf=torch.empty(Ns, dtype=i32, device=dev),
-                              pre=torch.empty(Ns, dtype=i32, device=dev),
+                    st.update(pre=torch.empty(Ns, dtype=i32, device=dev),
                               tot=torch.zeros(nb, dtype=i32, device=dev))
                 nu = (n_used[s] if isinstance(n_used, (list, tuple))
                       else n_used)
@@ -421,7 +503,8 @@ def mesh_scan_per_step_cuda(mesh: Mesh, *args, **kwargs):
     """Kernels B0 (once a shard) and M's per-step route ((Gp + 1) launches
     a shard, the block totals all-gathered between steps) on the shards'
     current streams, no synchronisation; arguments and results as
-    mesh_scan_plain. The route for shards on distinct cards."""
+    mesh_scan_plain. The route for shards on distinct cards, and for more
+    shards on one card than it holds blocks at once."""
     global launches
     shards = _stage(mesh, *args, **kwargs, per_step=True)
     Gp = shards[0]["takes"].shape[0]
@@ -449,40 +532,39 @@ def mesh_scan_persistent_cuda(mesh: Mesh, *args, **kwargs):
     """Kernels B0 (once a shard) and M's persistent route (ONE cooperative
     launch for every shard and step) on the device's current stream, no
     synchronisation; arguments and results as mesh_scan_plain. Every shard
-    must sit on one device; a refused launch raises RuntimeError."""
+    must sit on one device that holds a block of each at once
+    (`card_route`); the grid's layout, and where the node state lives,
+    come from `persistent_layout`. A refused launch raises RuntimeError."""
     global launches
     dev = mesh.devices[0]
     if mesh_route(mesh.devices) != "persistent":
         raise ValueError(f"mesh_scan: the persistent route needs every "
                          f"shard on one device, not {mesh.describe()}")
-    shards = _stage(mesh, *args, **kwargs, per_step=False)
     S = mesh.size
-    Gp, Ns = shards[0]["takes"].shape
-    Rk = shards[0]["cum"].shape[1]
+    route, lay = _route_on_card(mesh, *_sizes(mesh, args, kwargs))
+    if lay is None:
+        raise ValueError(f"mesh_scan: {S} shards outnumber the blocks {dev} "
+                         f"holds at once: the per-step route serves them")
+    shards = _stage(mesh, *args, **kwargs, per_step=False,
+                    kf=not lay.nodes_smem)
     lib = _lib()
     try:
         with col.on_shard(dev):
-            lim = (ctypes.c_int * 3)()
-            _cuda_call(lib["coop_limits"](lim), "the device query")
-            sms, smem_max, coop = lim
-            if not coop:
-                raise RuntimeError(f"mesh_scan: {dev} takes no cooperative "
-                                   f"launch")
-            nbp, npt, smem = persistent_layout(
-                S, Ns, Rk, sms, smem_max, lambda b: _occupancy(lib, b))
             size = lib["args_bytes"]()
             host = torch.empty(S * size, dtype=torch.uint8, pin_memory=True)
             handles = (ctypes.c_void_p * S)(*[st["handle"] for st in shards])
-            if lib["pack"](handles, S, host.data_ptr()) != 0:
+            if lib["pack"](handles, S, host.data_ptr(),
+                           int(not lay.nodes_smem)) != 0:
                 raise ValueError("mesh_scan: the shards' arguments do not "
                                  "form one mesh")
             args_dev = host.to(dev, non_blocking=True)
-            tot = torch.empty((2, S * nbp), dtype=torch.int32, device=dev)
-            rc = lib["coop"](args_dev.data_ptr(), S, nbp, npt, smem,
-                             tot.data_ptr(),
+            tot = torch.empty((2, S * lay.nbp), dtype=torch.int32,
+                              device=dev)
+            rc = lib["coop"](args_dev.data_ptr(), S, lay.nbp, lay.npt,
+                             lay.smem, tot.data_ptr(),
                              torch.cuda.current_stream(dev).cuda_stream)
-            _cuda_call(rc, f"the cooperative launch ({S} x {nbp} blocks, "
-                           f"{smem} shared bytes a block)")
+            _cuda_call(rc, f"the cooperative launch ({S} x {lay.nbp} "
+                           f"blocks, {lay.smem} shared bytes a block)")
             launches += 1
     finally:
         _free(shards)
@@ -490,9 +572,13 @@ def mesh_scan_persistent_cuda(mesh: Mesh, *args, **kwargs):
 
 
 def mesh_scan_cuda(mesh: Mesh, *args, **kwargs):
-    """Kernel M on CUDA shards, by the route of the mesh's layout
-    (`mesh_route`); arguments and results as mesh_scan_plain."""
-    if mesh_route(mesh.devices) == "persistent":
+    """Kernel M on CUDA shards, by the route chosen from the mesh's devices
+    (`mesh_route`) and, where they share a card, from the sizes
+    (`card_route`), before any launch; arguments and results as
+    mesh_scan_plain."""
+    if (mesh_route(mesh.devices) == "persistent"
+            and _route_on_card(mesh, *_sizes(mesh, args, kwargs))[0]
+            == "persistent"):
         return mesh_scan_persistent_cuda(mesh, *args, **kwargs)
     return mesh_scan_per_step_cuda(mesh, *args, **kwargs)
 

@@ -34,16 +34,22 @@ each sum over nodes is a chain of N dependent adds in node order, 8
 passes a subset.
 
 Design (`csrc/tournament.cu` says more): a subset's x [N, G] lives in
-shared memory beside its per-node and per-group rows, in one of three
+shared memory beside its per-node and per-group rows, in one of four
 tiers that `tournament_layout` picks from (S, N, G, Rk) alone: one block
 a subset (several subsets a block when N is small and S fills the card),
 one thread-block cluster of 2-16 blocks a subset, each block owning a
 contiguous node slice, or, past 16 blocks' shared memory, the same
-cluster with the slices in a global scratch the wrapper allocates. k
-streams through a ring of chunks in each block's shared memory by TMA
-bulk copies (the wrapper hands it over as [N, G4] rows, G rounded up to
-4 and zero past G). Every pass moves four groups a 16-byte access: the
-node pass (a thread a node: the load over groups in group order), the
+cluster with the slices in a global scratch the wrapper allocates
+("global"). Past what the global tier's group rows take (a few thousand
+groups), the "stream" tier keeps nothing of a group resident: the
+per-group rows go to a global row a subset, req streams through two
+shared chunks of groups by cp.async in each node pass, and the chains
+read k's rows from global memory (its instantiations are a second build
+of the source, compiled beside the first). Elsewhere k streams through a
+ring of chunks in each block's shared memory by TMA bulk copies (the
+wrapper hands it over as [N, G4] rows, G rounded up to 4 and zero past
+G). Every pass moves four groups a 16-byte access: the node pass (a
+thread a node: the load over groups in group order), the
 cell passes (every thread on (node, 4-group) cells) and the chains (a
 thread a (4 groups, chain), each chain kind on whole warps, adding the
 block's slice in node order and starting, in a cluster, from the
@@ -79,7 +85,7 @@ from .relax import RELAX_ITERS, relax_residuals_plain
 
 launches = 0  # kernel launches since import (chip_smoke resets and reads it)
 
-RMAX = 16  # resource columns kernel C carries in registers (csrc RMAX)
+RMAX = 32  # resource columns kernel C carries in registers (csrc RMAX)
 SMEM_LIMIT = 232_448   # shared memory one block may use on an H100
 STATIC_SMEM = 1_024    # kernel C's static shared arrays, rounded up
 CL_MAX = 16            # the largest (non-portable) cluster on Hopper
@@ -96,18 +102,20 @@ RING_BYTES = 65_536    # the ring's bytes, at most (one row a chunk, at least)
 class TournamentLayout:
     """How kernel C is launched for one problem size."""
 
-    tier: str          # "block", "cluster" or "global"
+    tier: str          # "block", "cluster", "global" or "stream"
     cl: int            # blocks in a subset's cluster (1, 2, 4, 8 or 16)
     slice: int         # nodes each block owns (the last block may own fewer)
     spb: int           # subsets a block holds (block tier only, else 1)
     xs: int            # row stride of x in floats (_x_stride)
-    ch: int            # node rows of a chunk of k's ring (the slice's, k_smem)
+    ch: int            # node rows of a chunk of k's ring (the slice's, k_smem
+                       # or stream: one pass a slice)
     k_smem: bool       # the slice's k rows resident beside x (else a ring)
     smem_bytes: int    # dynamic shared memory a block
+    gc: int = 0        # stream tier: groups of a req chunk (else 0)
 
     @property
     def x_smem(self) -> bool:
-        return self.tier != "global"
+        return self.tier in ("block", "cluster")
 
     def blocks(self, S: int) -> int:
         return -(-S // self.spb) * self.cl
@@ -130,19 +138,28 @@ def _x_stride(G: int) -> int:
     return g4 if (g4 // 4) % 2 == 1 else g4 + 4
 
 
-def _lane_floats(sl: int, xs: int, G: int, x_smem: bool) -> int:
+def _lane_floats(sl: int, xs: int, G: int, x_smem: bool,
+                 stream: bool = False) -> int:
     """Floats of one subset's shared region (csrc lane_floats): x on the
     shared tiers; survival, mask and scale a node; running sums, quotient
-    and need a group (rows padded to 16 bytes). The block's rows (req, the
-    ring of k chunks) come before the subsets' regions."""
-    return ((sl * xs if x_smem else 0) + 3 * _round4(sl) + 6 * _round4(G)
-            + 4)
+    and need a group (rows padded to 16 bytes; in global memory on the
+    stream tier). The block's rows (req, the ring of k chunks) come before
+    the subsets' regions."""
+    return ((sl * xs if x_smem else 0) + 3 * _round4(sl)
+            + (0 if stream else 6 * _round4(G) + 4))
 
 
 def _rkb(Rk: int) -> int:
     """Rk rounded up to a power of two (>= 2): req's row in shared memory
-    and the kernel's instantiation."""
-    return 2 if Rk <= 2 else 4 if Rk <= 4 else 8 if Rk <= 8 else 16
+    and the kernel's instantiation (csrc rk_bucket; 17..32 take 32)."""
+    return (2 if Rk <= 2 else 4 if Rk <= 4 else 8 if Rk <= 8 else 16
+            if Rk <= 16 else 32)
+
+
+def _group_row_floats(G: int) -> int:
+    """Floats of one subset's group rows on the stream tier (its global
+    row): running sums [4 G4 + 4], quotient and need [G4]."""
+    return 6 * _round4(G) + 4
 
 
 def _block_floats(G: int, rkb: int, ch: int, k_smem: bool = False) -> int:
@@ -164,12 +181,18 @@ def tournament_layout(S: int, N: int, G: int, Rk: int) -> TournamentLayout:
     most of the block's threads without a node and S still fills the
     card. Else the smallest power-of-two cluster, up to CL_MAX, whose
     blocks hold the node slices of x and of k, else of x alone; past that,
-    CL_MAX blocks with the slices of x in global scratch. On every tier
+    CL_MAX blocks with the slices of x in global scratch. On those tiers
     k's rows stay resident beside the rest where they fit, else stream
-    through a ring of chunks. The cluster only grows with N and with G.
-    Raises where not even the global tier's rows fit."""
+    through a ring of chunks. Where not even the global tier's group rows
+    fit, the stream tier: CL_MAX blocks, x and the group rows in global
+    memory, req through two shared chunks of `gc` groups (as many as fit
+    beside the slice's node rows), k read from global memory. The cluster
+    only grows with N and with G. Every G takes a layout at 1 <= Rk <=
+    RMAX (nodes past ~300,000, whose slice's node rows alone pass a
+    block's shared memory, raise); Rk past RMAX raises, as kernel B
+    does."""
     if not 1 <= Rk <= RMAX:
-        raise ValueError(f"tournament carries 1..{RMAX} resource columns, "
+        raise ValueError(f"tournament supports 1..{RMAX} resource columns, "
                          f"got {Rk}")
     budget = SMEM_LIMIT - STATIC_SMEM
     N, G = max(N, 1), max(G, 0)
@@ -219,8 +242,14 @@ def tournament_layout(S: int, N: int, G: int, Rk: int) -> TournamentLayout:
     for k_smem in (True, False):
         if fits(lanes, sl if k_smem else ch0, k_smem):
             return layout("global", CL_MAX, sl, 1, lanes, k_smem)
-    raise ValueError(f"tournament: the rows of a node slice of {sl} "
-                     f"nodes and {G} groups do not fit in shared memory")
+    # the stream tier: two req chunks beside the slice's node rows
+    lanes = _lane_floats(sl, xs, G, False, stream=True)
+    gc = min(_round4(G), (budget // 4 - lanes) // (2 * rkb) // 4 * 4)
+    if gc < 4:
+        raise ValueError(f"tournament: the node rows of a slice of {sl} "
+                         f"nodes do not fit in shared memory")
+    return TournamentLayout("stream", CL_MAX, sl, 1, xs, sl, False,
+                            4 * (2 * gc * rkb + lanes), gc)
 
 
 def _node_order_sums(masks: torch.Tensor, counts: torch.Tensor,
@@ -270,24 +299,34 @@ _fns: dict = {}  # the configured ctypes entry points, once loaded
 
 
 def _lib():
+    """The entry points of both builds of csrc/tournament.cu: the block,
+    cluster and global tiers' ("launch", "max_cluster") and the stream
+    tier's ("launch_stream", "max_cluster_stream")."""
     if _fns:
         return _fns
-    from ..ops._build import load
-    lib = load("tournament")
+    from ..ops._build import TOURNAMENT_STREAM, load
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = lib.tournament_launch
-    fn.argtypes = [P, P, I, P, P, I, P, I, P, P, P, P] + [I] * 13 + [P]
-    fn.restype = ctypes.c_int
-    mc = lib.tournament_max_cluster
-    mc.argtypes, mc.restype = [I, I], ctypes.c_int
-    _fns.update(launch=fn, max_cluster=mc)
+    for suffix, lib in (("", load("tournament")),
+                        ("_stream", load("tournament", TOURNAMENT_STREAM))):
+        fn = lib.tournament_launch
+        fn.argtypes = [P, P, I, P, P, I, P, I, P, P, P, P, P] + [I] * 14 + [P]
+        fn.restype = ctypes.c_int
+        mc = lib.tournament_max_cluster
+        mc.argtypes, mc.restype = [I, I], ctypes.c_int
+        _fns.update({"launch" + suffix: fn, "max_cluster" + suffix: mc})
     return _fns
 
 
-def max_cluster(smem_bytes: int, x_smem: bool = True) -> int:
+# the kernel's instantiation of each tier (csrc T_SHARED, T_GLOBAL, T_STREAM)
+_TIER_CODE = {"block": 0, "cluster": 0, "global": 1, "stream": 2}
+
+
+def max_cluster(smem_bytes: int, tier: str = "cluster") -> int:
     """The largest cluster of kernel C (a power of two <= CL_MAX) the card
-    can co-schedule at `smem_bytes` of shared memory a block; 0 if none."""
-    return int(_lib()["max_cluster"](int(smem_bytes), int(x_smem)))
+    can co-schedule at `smem_bytes` of shared memory a block on `tier`; 0
+    if none."""
+    fn = _lib()["max_cluster_stream" if tier == "stream" else "max_cluster"]
+    return int(fn(int(smem_bytes), _TIER_CODE[tier]))
 
 
 def tournament_cuda(head: torch.Tensor, req: torch.Tensor, k: torch.Tensor,
@@ -328,8 +367,9 @@ def tournament_cuda(head: torch.Tensor, req: torch.Tensor, k: torch.Tensor,
     if S == 0:
         return out
     fns = _lib()
-    if lay.cl > 1 and fns["max_cluster"](lay.smem_bytes,
-                                         int(lay.x_smem)) < lay.cl:
+    stream = "_stream" if lay.tier == "stream" else ""
+    if lay.cl > 1 and fns["max_cluster" + stream](
+            lay.smem_bytes, _TIER_CODE[lay.tier]) < lay.cl:
         raise RuntimeError(f"tournament: the card cannot co-schedule a "
                            f"cluster of {lay.cl} blocks at {lay.smem_bytes} "
                            f"bytes of shared memory a block ({lay})")
@@ -343,12 +383,16 @@ def tournament_cuda(head: torch.Tensor, req: torch.Tensor, k: torch.Tensor,
     xg = (None if lay.x_smem else
           torch.empty(S * lay.cl * lay.slice * lay.xs, dtype=torch.float32,
                       device=dev))
-    rc = fns["launch"](
+    # the stream tier's group rows, zero past G (the kernel writes the rest)
+    rows = (torch.zeros(S * _group_row_floats(G), dtype=torch.float32,
+                        device=dev) if lay.tier == "stream" else None)
+    rc = fns["launch" + stream](
         head.data_ptr(), req.data_ptr(), req.stride(0), k.data_ptr(),
         counts.data_ptr(), counts.stride(0), masks.data_ptr(),
         masks.stride(0), prices.data_ptr(), pslot.data_ptr(),
-        None if xg is None else xg.data_ptr(), out.data_ptr(), S, N, G, Rk,
-        int(iters), lay.cl, lay.slice, lay.spb, lay.xs, lay.ch,
+        None if xg is None else xg.data_ptr(),
+        None if rows is None else rows.data_ptr(), out.data_ptr(), S, N, G,
+        Rk, int(iters), lay.cl, lay.slice, lay.spb, lay.xs, lay.ch, lay.gc,
         int(lay.x_smem), int(lay.k_smem),
         lay.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     if rc == -2:

@@ -461,6 +461,36 @@ def test_tournament_tiers(cuda, shape, tier, cl, spb, k_smem):
     assert torch.equal(strided, want)
 
 
+@pytest.mark.parametrize("shape,tier,cl,gc", [
+    ((16, 24, 4500, 8), "stream", 16, 3612),     # past the global tier's rows
+    ((8, 382, 5000, 8), "stream", 16, 3608),     # the chip's shape, S cut
+    ((6, 40, 20000, 3), "stream", 16, 7228),     # ranks with no node
+    ((3, 700, 4500, 20), "stream", 16, 900),     # 5 req chunks, 32 columns
+    ((2, 7000, 4300, 4), "stream", 16, 4300),    # 2 rounds of NT nodes
+    ((64, 382, 1024, 24), "global", 16, 0),      # 32 columns, the chip's
+    ((40, 500, 30, 32), "block", 1, 0),          # Rk = 32, one block
+    ((10, 1500, 90, 17), "cluster", 8, 0),       # Rk = 17 in a cluster
+])
+def test_tournament_stream_tier_and_32_columns(cuda, shape, tier, cl, gc):
+    """Kernel C past its shared-memory rows (the stream tier: group rows in
+    global memory, req streamed in chunks of gc groups) and past 16
+    resource columns (the 32-column instantiation): every packed output
+    equal to tournament_plain (atol 0), contiguous and on row-strided
+    packed views, one launch a call."""
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    lay = tk.tournament_layout(*shape)
+    assert (lay.tier, lay.cl, lay.gc) == (tier, cl, gc)
+    args = tk.seeded_inputs(9, *shape, cuda)
+    n0 = tk.launches
+    got = tk.tournament_cuda(*args)
+    strided = tk.tournament_cuda(*tk.packed_views(args))
+    torch.cuda.synchronize()
+    assert tk.launches == n0 + 2
+    want = tk.tournament_plain(*args)
+    assert torch.equal(got, want)
+    assert torch.equal(strided, want)
+
+
 @pytest.mark.parametrize("route", ["persistent", "per_step"])
 @pytest.mark.parametrize("size", [3, 8])
 @pytest.mark.parametrize("case", ["fresh", "resumed", "zone_overhead"])
@@ -541,7 +571,9 @@ def test_mesh_scan_persistent_runs_of_nodes(cuda, size, npt, monkeypatch):
 
     def layout(S, Ns, Rk, sms, smem_max, blocks_per_sm):
         chunk = npt * msc.NTM
-        return -(-Ns // chunk), npt, chunk * (4 * Rk + msc.NODE_SMEM_FIXED)
+        return msc.PersistentLayout(
+            -(-Ns // chunk), npt, chunk * (4 * Rk + msc.NODE_SMEM_FIXED),
+            True)
     monkeypatch.setattr(msc, "persistent_layout", layout)
     n0 = msc.launches
     got = msc.mesh_scan_persistent_cuda(mesh, *parts, n_max)
@@ -549,5 +581,79 @@ def test_mesh_scan_persistent_runs_of_nodes(cuda, size, npt, monkeypatch):
     assert msc.launches == n0 + 1
     want = msc.mesh_scan_plain(mesh, *parts, n_max)
     assert 3 * msc.NTM < int(want[5]) < n_max  # nodes span blocks or shards
+    for x, y in zip(got, want):
+        assert torch.equal(x, y.to(x.dtype))
+
+
+def _mesh_wide_case(size, n_max):
+    """Seeded run_sharded_solve arguments over the small catalog (9
+    columns) whose pods open ~1,600 nodes; mesh_scan's per-shard parts."""
+    from karpenter_tpu_torch import parallel
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    from karpenter_tpu_torch.ops.encode import align_resources
+    cat = encode_catalog(catalog.small_catalog())
+    rng = np.random.default_rng(5)
+    cpus, mems = ["250m", "1", "2", "3"], ["512Mi", "2Gi", "4Gi"]
+    pods = [models.Pod(name=f"p{i}", requests=models.Resources.parse(
+        {"cpu": cpus[int(rng.integers(4))],
+         "memory": mems[int(rng.integers(3))]})) for i in range(16000)]
+    enc = encode_pods(pods, cat)
+    R = enc.requests.shape[1]
+    Gp = solver_mod._bucket(enc.G, 8)
+    args = (align_resources(cat.allocatable, R).astype(np.float32),
+            cat.price.astype(np.float32), cat.available.astype(bool),
+            *solver_mod._group_inputs(enc, Gp))
+    zeros = (np.zeros((Gp, n_max), np.int32), np.zeros((Gp, n_max), bool),
+             np.zeros((Gp, 1), bool), np.zeros((1, 1, R), np.float32),
+             np.zeros(n_max, np.int32), np.zeros((n_max, R), np.float32),
+             np.zeros((n_max, cat.Z), bool), np.zeros((n_max, cat.C), bool),
+             np.zeros(n_max, bool), np.asarray(0, np.int32))
+    with parallel.virtual_devices(size, "cuda:0"):
+        mesh = parallel.make_mesh(size)
+    return mesh, msc.shard_args(mesh, n_max, *args, *zeros), Gp
+
+
+@pytest.mark.parametrize("npt", [1, 3])
+@pytest.mark.parametrize("size", [1, 3])
+def test_mesh_scan_persistent_nodes_in_global_memory(cuda, size, npt,
+                                                     monkeypatch):
+    """Kernel M's persistent route with the node state in the shards'
+    global arrays (its layout where a block's nodes pass the card's shared
+    memory, forced here at 2,304 nodes): one launch, no dynamic shared
+    memory, equal to the plain version (atol 0)."""
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    n_max = 2304
+    mesh, parts, _ = _mesh_wide_case(size, n_max)
+
+    def layout(S, Ns, Rk, sms, smem_max, blocks_per_sm):
+        return msc.PersistentLayout(-(-Ns // (npt * msc.NTM)), npt, 0, False)
+    monkeypatch.setattr(msc, "persistent_layout", layout)
+    n0 = msc.launches
+    got = msc.mesh_scan_cuda(mesh, *parts, n_max)
+    torch.cuda.synchronize()
+    assert msc.launches == n0 + 1
+    want = msc.mesh_scan_plain(mesh, *parts, n_max)
+    assert 3 * msc.NTM < int(want[5]) < n_max
+    for x, y in zip(got, want):
+        assert torch.equal(x, y.to(x.dtype))
+
+
+def test_mesh_scan_takes_the_per_step_route_past_the_co_resident_blocks(
+        cuda, monkeypatch):
+    """Where the card holds fewer blocks at once than the mesh has shards
+    (forced here: an occupancy of 0), mesh_scan_cuda takes the per-step
+    route from sizes before any launch: (Gp + 1) launches a shard, equal
+    to the plain version (atol 0); the persistent route refuses."""
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    n_max = 2304
+    mesh, parts, Gp = _mesh_wide_case(3, n_max)
+    monkeypatch.setattr(msc, "_occupancy", lambda lib, smem: 0)
+    with pytest.raises(ValueError, match="per-step route"):
+        msc.mesh_scan_persistent_cuda(mesh, *parts, n_max)
+    n0 = msc.launches
+    got = msc.mesh_scan_cuda(mesh, *parts, n_max)
+    torch.cuda.synchronize()
+    assert msc.launches == n0 + (Gp + 1) * 3
+    want = msc.mesh_scan_plain(mesh, *parts, n_max)
     for x, y in zip(got, want):
         assert torch.equal(x, y.to(x.dtype))

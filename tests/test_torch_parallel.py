@@ -518,22 +518,55 @@ def test_persistent_layout_is_co_resident(S, Ns, Rk, occ, want):
     blocks fit on the card at once (132 SMs, `occ` blocks an SM), every
     node of a shard covered by its blocks' runs."""
     from karpenter_tpu_torch.ops import mesh_scan as msc
-    nbp, npt, smem = msc.persistent_layout(S, Ns, Rk, 132, 232_000,
-                                           lambda b: occ)
-    assert (nbp, npt, smem) == want
+    lay = msc.persistent_layout(S, Ns, Rk, 132, 232_000, lambda b: occ)
+    nbp, npt, smem = lay.nbp, lay.npt, lay.smem
+    assert (nbp, npt, smem) == want and lay.nodes_smem
     assert S * nbp <= 132 * occ
     assert (nbp - 1) * npt * msc.NTM < Ns <= nbp * npt * msc.NTM
+    assert msc.card_route(S, Ns, Rk, 132, 232_000,
+                          lambda b: occ) == ("persistent", lay)
+
+
+def _h100_occupancy(smem):
+    """Blocks of the persistent kernel an SM of an H100 holds, as its
+    dynamic shared bytes allow (232,448 B a block at most, 2,048 threads
+    an SM: 8 blocks of 256 threads); with no dynamic shared memory (the
+    node state in global memory), 8."""
+    return min(8, 232_448 // smem) if smem else 8
 
 
 def test_persistent_layout_refuses_a_grid_that_cannot_be_co_resident():
-    """Where no run length puts every block on the card at once, the
-    persistent route raises before any launch (no fallback to the
-    per-step route)."""
+    """Past what a block's shared memory holds, the persistent route keeps
+    one launch with the node state in global memory; past the blocks the
+    card holds at once, the route is the per-step one. Both are chosen
+    from sizes before any launch, never after a refused one: 8 shards of
+    32,768 nodes at Rk=32 (no shared run length fits 1,024 blocks in the
+    card at once) and of 1,000,000 nodes take global memory, each thread a
+    run of nodes; 400 shards at 2 blocks an SM (264 at once) go per step."""
     from karpenter_tpu_torch.ops import mesh_scan as msc
-    with pytest.raises(RuntimeError, match="co-resident"):
-        msc.persistent_layout(8, 1_000_000, 32, 132, 232_000, lambda b: 1)
-    with pytest.raises(RuntimeError, match="co-resident"):
-        msc.persistent_layout(400, 64, 8, 132, 232_000, lambda b: 2)
+    for Ns, occ, nbp, npt in ((32_768, _h100_occupancy, 128, 1),
+                              (1_000_000, lambda b: 1, 16, 245),
+                              (1_000_000, _h100_occupancy, 131, 30)):
+        route, lay = msc.card_route(8, Ns, 32, 132, 232_448, occ)
+        assert route == "persistent" and not lay.nodes_smem, (Ns, lay)
+        assert (lay.nbp, lay.npt, lay.smem) == (nbp, npt, 0)
+        assert 8 * lay.nbp <= 132 * occ(0)
+        assert (lay.nbp - 1) * npt * msc.NTM < Ns <= lay.nbp * npt * msc.NTM
+        assert lay == msc.persistent_layout(8, Ns, 32, 132, 232_448, occ)
+    # every shared run length of 32,768 nodes a shard is refused first: at
+    # 7 nodes a thread a block's nodes pass the card's shared memory
+    assert 7 * msc.NTM * (4 * 32 + msc.NODE_SMEM_FIXED) > 232_448
+    for npt in range(1, 7):
+        smem = npt * msc.NTM * (4 * 32 + msc.NODE_SMEM_FIXED)
+        assert 8 * -(-32_768 // (npt * msc.NTM)) > 132 * _h100_occupancy(
+            smem)
+    assert msc.card_route(400, 64, 8, 132, 232_448, lambda b: 2) == (
+        "per_step", None)
+    assert msc.persistent_layout(400, 64, 8, 132, 232_448,
+                                 lambda b: 2) is None
+    # one block a shard fits: the persistent route, in shared memory
+    route, lay = msc.card_route(264, 64, 8, 132, 232_448, lambda b: 2)
+    assert route == "persistent" and lay.nodes_smem and lay.nbp == 1
 
 
 @pytest.mark.parametrize("size", [3, 8])

@@ -148,7 +148,66 @@ def test_blocks_hold_every_subset(S):
 
 
 def test_layout_refuses_what_it_cannot_carry():
-    with pytest.raises(ValueError, match="resource columns"):
-        tk.tournament_layout(4, 10, 5, 17)
-    with pytest.raises(ValueError, match="do not fit"):
-        tk.tournament_layout(4, 100, 20_000, 2)
+    """Past 32 resource columns C refuses, as kernel B does; 20,000 groups,
+    whose rows no earlier tier holds, take the stream tier."""
+    with pytest.raises(ValueError, match="1..32 resource columns"):
+        tk.tournament_layout(4, 10, 5, 33)
+    lay = tk.tournament_layout(4, 100, 20_000, 2)
+    assert (lay.tier, lay.cl, lay.x_smem, lay.k_smem) == ("stream", 16,
+                                                          False, False)
+    assert lay.smem_bytes + tk.STATIC_SMEM <= SMEM
+
+
+def _global_rows_fit(N, G, Rk):
+    """Whether the global tier's shared rows (x's slice in global memory,
+    the group rows, req and the smallest ring chunk) fit one block."""
+    sl = -(-N // tk.CL_MAX)
+    lanes = tk._lane_floats(sl, tk._x_stride(G), G, False)
+    return (4 * (tk._block_floats(G, tk._rkb(Rk), 1) + lanes)
+            <= SMEM - tk.STATIC_SMEM)
+
+
+@pytest.mark.parametrize("Rk", [4, 8, 16])
+@pytest.mark.parametrize("G", [4_200, 20_000])
+@pytest.mark.parametrize("N", [382, 5_000])
+def test_past_the_global_rows_the_stream_tier(N, G, Rk):
+    """Where not even the global tier's group rows fit (4,200 groups at
+    S=64 is past every earlier tier from Rk=4 on), the stream tier: 16
+    blocks, x and the group rows in global memory, req streamed in two
+    chunks of `gc` groups (a multiple of 4, as many as fit beside the
+    slice's node rows, at most G rounded up), k read from global memory."""
+    assert not _global_rows_fit(N, G, Rk)
+    lay = tk.tournament_layout(64, N, G, Rk)
+    assert (lay.tier, lay.cl, lay.spb, lay.k_smem, lay.x_smem) == (
+        "stream", 16, 1, False, False)
+    assert lay.slice == -(-N // 16) and lay.ch == lay.slice
+    rkb = tk._rkb(Rk)
+    lanes = tk._lane_floats(lay.slice, lay.xs, G, False, stream=True)
+    assert lanes == 3 * tk._round4(lay.slice)
+    assert lay.smem_bytes == 4 * (2 * lay.gc * rkb + lanes)
+    assert lay.smem_bytes + tk.STATIC_SMEM <= SMEM
+    assert lay.gc % 4 == 0 and 4 <= lay.gc <= tk._round4(G)
+    # one more chunk of 4 groups would not fit, unless gc holds every group
+    assert (lay.gc == tk._round4(G)
+            or 4 * (2 * (lay.gc + 4) * rkb + lanes) + tk.STATIC_SMEM > SMEM)
+
+
+@pytest.mark.parametrize("Rk", [17, 24, 32])
+def test_past_sixteen_columns_the_32_column_instantiation(Rk):
+    """17..32 resource columns take the instantiation that carries 32 in
+    registers (req's shared rows 32 wide); 1..16 keep theirs. Each tier
+    still fits one block."""
+    assert tk._rkb(Rk) == 32
+    assert [tk._rkb(r) for r in (1, 2, 3, 5, 9, 16)] == [2, 2, 4, 8, 16, 16]
+    for S, N, G in [(64, 382, 1_024), (232, 382, 90), (20, 4_250, 90),
+                    (64, 382, 5_000), (4, 600, 1_536), (600, 40, 7)]:
+        lay = tk.tournament_layout(S, N, G, Rk)
+        assert lay.smem_bytes + tk.STATIC_SMEM <= SMEM, (S, N, G, lay)
+        if lay.tier == "stream":
+            continue
+        assert lay.smem_bytes == 4 * (
+            tk._block_floats(G, 32, lay.ch, lay.k_smem)
+            + lay.spb * _lanes(lay, N, G))
+    # the chip's check of the 32-column instantiation: the global tier
+    lay = tk.tournament_layout(64, 382, 1_024, 24)
+    assert (lay.tier, lay.cl, lay.k_smem) == ("global", 16, False)

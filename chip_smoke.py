@@ -258,11 +258,22 @@ Phases (any failure exits non-zero):
              python -m karpenter_tpu_torch.obs.device_report --pods 2000
              --rounds 4 on the card exits 0 with the resident breakdown of
              its --device cpu run.
-  4o. shapes  the shapes past kernel C's and kernel M's old limits: C at
-             S=64, N=382, G=5,000, Rk=8 (its stream tier: the group rows
-             in global memory, req streamed in chunks) and at G=1,024,
-             Rk=24 (its 32-column instantiation), each == tournament_plain
-             (atol 0, the plan equal) with its times and bound; the
+  4o. shapes  every shape the reference's scan and search take, past the
+             kernels' old limits: C at S=64, N=382, G=5,000, Rk=8 (its
+             stream tier: the group rows in global memory, req streamed
+             in chunks), at G=1,024, Rk=24 (its 32-column instantiation)
+             and at G=90, Rk=40 and 72 (tiles of 32 columns), each ==
+             tournament_plain (atol 0, the plan equal) with its times and
+             bound; B0 and B at T=810, Z=40, C=3, Rk=40, Gp=256 (two bit
+             words a node, two availability words a type), serial and as a
+             bucket of 4 in one launch each, and at T=60,000, Rk=72 (past
+             B0's old 58,112 types and 64 columns), counts zeroed just
+             before each, one launch of each, ntype, takes, unsched and
+             the header == the plain version's and B0's records read back
+             == offer_argmin_plain (atol 0), with their times and bound;
+             M on 8 virtual shards at the same 40-zone shape (two bit
+             words a node), one cooperative launch beside 8 of B0, ==
+             mesh_scan_plain and == B's plain scan (atol 0); the
              production dispatch at 6,000 groups over 64 nodes,
              plan_repack(use_device=True) with counts zeroed just before
              it (one score_subsets_device: A once, C once on the stream
@@ -270,13 +281,20 @@ Phases (any failure exits non-zero):
              savings rtol 1e-5, residual and repl_lb rtol/atol 1e-3) and
              its ranked verify queue == plan_repack on the host; the same
              at 60 groups whose pods ask for cpu, memory and 18 extended
-             resources (C's 32-column instantiation, Rk >= 20);
+             resources (C's 32-column instantiation, Rk >= 20), and for
+             38 (Rk >= 40);
              run_sharded_solve on 8 virtual shards at Gp=96, Rk=32,
              n_max=262,144 (~190k nodes opened), the route and layout
              logged as chosen from sizes before the launch: M's persistent
              route with its node state in global memory, one cooperative
              launch beside 8 of B0, == mesh_scan_plain (atol 0) and ==
-             kernel B on one device at the same n_max, with its times.
+             kernel B on one device at the same n_max, with its times;
+             last (its 38 extended resources join the process's axis for
+             good), Solver.solve on the device rung over a 24-zone catalog
+             (catalog.GeneratorConfig(zones=...)) with 3,000 pods asking
+             for 40 columns, counts zeroed just before, == the native
+             rung's SolveOutput, B0 and B (two availability words a
+             type) == plain at its inputs.
   5. time    median wall times of the solve and the screen, stage by stage;
              per-kernel device time from torch.profiler and CUDA events
              beside its bound, its plain version's time and one torch
@@ -298,11 +316,13 @@ batched rounds, the soak's launches in batched buckets and the federation
 server's launches, the mesh phase's, with their count per shard, for
 A, B0 and B the measurement phase's, with its probe's times, and 4o's)
 and times (the fleet's at its wide bucket: 16 requests in one launch).
-Its tournament row's `layouts` hold kernel C at 4o's stream-tier and
-32-column shapes. Its mesh_scan row is kernel M: launches and times from
-phase 4m (times at the grid mix; `routes` both routes' launches, times
-and bound; by_phase also at the bench shape; `layouts` 4o's global-node
-layout). Its resident_patch
+Its tournament row's `layouts` hold kernel C at 4o's stream-tier,
+32-column and 40- and 72-column shapes; its offer_argmin and solve_scan
+rows' `layouts` 4o's 40-zone (serial and bucket), 60,000-type and
+24-zone facade cases. Its mesh_scan row is kernel M: launches and times
+from phase 4m (times at the grid mix; `routes` both routes' launches,
+times and bound; by_phase also at the bench shape; `layouts` 4o's
+global-node and 40-zone layouts). Its resident_patch
 row is the row scatter of ops/resident (the port of the reference's
 _jit_scatter, a library index_copy_): launches from phase 4h, times at the
 facade mix's gbuf with k = 1% of its rows, by_phase every phase's launches
@@ -4124,18 +4144,20 @@ def scan_kernel_times(ss, sargs, skw, where: str):
         "offer_argmin_kernel", "solve_scan_kernel")
     b0_bytes = (4 * T * ZC + T * ZC + 4 * T * Rk + Gp * (4 * Rk + T + Z + C
                                                           + 8)
-                + 4 * Gp * lay.rec_words + 8 * T)
+                + 4 * Gp * lay.rec_words + 8 * T * ss._avail_words(Z, C))
     b0_ops = Gp * (T * (4 * Rk) + T * ZC * 2)
     b0 = {"ms": cuda_ms(offer_table, 100),
           "plain_ms": cuda_ms(lambda: ss.offer_argmin_plain(**oa), 10),
           **bound(b0_bytes, b0_ops),
           "library_ms": cuda_ms(lambda: library_cps(oa), 10),
           "kernel_ms": b0_kernel}
+    out_k = ss.solve_scan_cuda(*sargs, **skw)
     b_bytes = (4 * T * Rk + 4 * T * ZC + T * ZC
                + Gp * (4 * Rk + 4 + T + Z + C + 4)
                + n_max * (4 + 4 * Rk + Z + C + 1)
                + 4 * Gp * n_max + 4 * Gp + 8)
-    b_ops = Gp * (n_max * (4 * Rk + ZC + 6) + T * (4 * Rk + 2 * ZC))
+    b_ops = (node_steps(out_k[1], int(sa["n_used"])) * (4 * Rk + ZC + 6)
+             + Gp * T * (4 * Rk + 2 * ZC))
     bk = {"ms": cuda_ms(lambda: ss.solve_scan_cuda(*sargs, **skw), 20),
           "plain_ms": cuda_ms(lambda: ss.solve_scan_plain(*sargs, **skw), 2),
           **bound(b_bytes, b_ops), "library_ms": None,
@@ -4149,12 +4171,12 @@ def scan_kernel_times(ss, sargs, skw, where: str):
         f"(bound {bk['bound_ms']:.5f} ms), plain {bk['plain_ms']:.3f} ms")
 
     # kernel B at every cluster size the node state fits, same inputs
-    out_k = ss.solve_scan_cuda(*sargs, **skw)
     W = -(-Gp // 32) if sa["track_conflicts"] else 0
     per_cl = {}
     for cl in (1, 2, 4, 8, 16) if lay.nodes_smem else ():
         S = ss._round_up(-(-n_max // cl), 4)
-        slab = ss._round_up(S * (12 + 4 * Rk + 4 * W), 16)
+        slab = ss._round_up(S * (8 + 4 * ss._node_words(Z, C) + 4 * Rk
+                                 + 4 * W), 16)
         forced = ss.ScanLayout(cl=cl, slice=S, nodes_smem=True,
                                cat_smem=lay.cat_smem,
                                smem_bytes=lay.smem_bytes - lay.slab_bytes + slab,
@@ -4205,16 +4227,31 @@ class uncounted:
             setattr(m, f, v)
 
 
-def mesh_scan_work(Gp: int, T: int, Z: int, C: int, R: int, n_max: int):
+def node_steps(takes, n_open: int) -> int:
+    """The node-steps a scan's data needs, from its takes ([Gp, n_max] or
+    [B, Gp, n_max]): each of the n_open starting nodes every step, a new
+    node from the step that opens it (with its first pods) on."""
+    t = takes.reshape(-1, takes.shape[-2], takes.shape[-1])
+    B, Gp = t.shape[:2]
+    pos = (t > 0)[:, :, n_open:]
+    first = pos.int().argmax(dim=1)
+    return int(((Gp - first) * pos.any(dim=1)).sum()) + B * n_open * Gp
+
+
+def mesh_scan_work(Gp: int, T: int, Z: int, C: int, R: int, n_max: int,
+                   takes, n_open: int = 0):
     """(bytes, operations) the sharded scan must move and do at least:
     kernel B's count (each input read once, takes written once) at R
-    columns; the mesh adds no work, only launches and gathers."""
+    columns, its node work over the node-steps this run's data opens
+    (node_steps of its takes) and B0's over every type a group; the mesh
+    adds no work, only launches and gathers."""
     ZC = Z * C
     nbytes = (4 * T * R + 4 * T * ZC + T * ZC
               + Gp * (4 * R + 4 + T + Z + C + 4)
               + n_max * (4 + 4 * R + Z + C + 1)
               + 4 * Gp * n_max + 4 * Gp + 8)
-    ops = Gp * (n_max * (4 * R + ZC + 6) + T * (4 * R + 2 * ZC))
+    ops = (node_steps(takes, n_open) * (4 * R + ZC + 6)
+           + Gp * T * (4 * R + 2 * ZC))
     return nbytes, ops
 
 
@@ -4308,7 +4345,7 @@ def mesh_sharded_case(name, parallel, msc, ss, solver, cat, enc, mesh,
         wall = wall_ms(lambda: msc.mesh_scan_cuda(mesh, *parts,
                                                   n_max)[5].item(), 3)
         wall_one = wall_ms(lambda: ss.solve_scan_cuda(*one)[3].item(), 3)
-    nb, ops = mesh_scan_work(Gp, cat.T, cat.Z, cat.C, R, n_max)
+    nb, ops = mesh_scan_work(Gp, cat.T, cat.Z, cat.C, R, n_max, out[6])
     row = {"ms": m_ms, "plain_ms": plain_ms, **bound(nb, ops),
            "library_ms": None, "kernel_ms": k_ms, "route": route,
            "launches_a_solve": per_solve,
@@ -4587,7 +4624,7 @@ def phase_mesh(cat, enc, views, counts) -> tuple:
     return launches, m_grid
 
 
-# --- phase 4o: the shapes past kernels C's and M's old limits -------------
+# --- phase 4o: every shape the reference takes, past the kernels' old limits
 
 STREAM_SHAPE = (64, 382, 5_000, 8)    # kernel C's stream tier (S, N, G, Rk)
 RK32_SHAPE = (64, 382, 1_024, 24)     # kernel C's 32-column instantiation
@@ -4778,7 +4815,7 @@ def mesh_wide_case(parallel, msc, ss, solver) -> tuple:
         plain_ms = cuda_ms(lambda: msc.mesh_scan_plain(mesh, *parts, n_max),
                            1)
         one_ms = cuda_ms(lambda: ss.solve_scan_cuda(*one), 3)
-    nb, ops = mesh_scan_work(Gp, T, Z, C, R, n_max)
+    nb, ops = mesh_scan_work(Gp, T, Z, C, R, n_max, out[6])
     row = {"ms": m_ms, "plain_ms": plain_ms, **bound(nb, ops),
            "library_ms": None, "kernel_ms": k_ms, "route": route,
            "launches": launches["mesh_scan"], "max_abs_err": 0.0,
@@ -4865,16 +4902,387 @@ def wide_search(name: str, cat, enc, views, counts, slack, want) -> tuple:
                       "max_abs_err": err_c}
 
 
+# the shapes past kernels B0's, B's and M's old limits (and C's 32
+# columns): (T, Z, C, Rk, Gp, n_max, open nodes, zone overhead, conflicts).
+# 40 zones x 3 captypes pass both Z*C <= 64 and Z + C <= 32 (two bit words
+# a node, two availability words a type) at 40 columns; 60,000 types pass
+# B0's old shared slots (58,112) at 72 columns, past 64
+SCAN_ZONES = (810, 40, 3, 40, 256, 8_192, 64, True, True)
+SCAN_TYPES = (60_000, 3, 3, 72, 64, 4_096, 0, False, False)
+SCAN_BUCKET = 4        # the batched bucket at the zones-and-columns shape
+C_WIDE_SHAPES = {"rk40": (64, 382, 90, 40), "rk72": (64, 382, 90, 72)}
+# the end-to-end cases: a catalog over 24 zones (a large region's zones
+# with its Local and Wavelength Zones) and pods asking for 40 columns
+E2E_ZONES = 24
+E2E_PODS = 3_000
+WIDE_EXTENDED_40 = WIDE_EXTENDED + tuple(
+    f"devices.example.com/d{i:02d}" for i in range(20))
+
+
+def scan_inputs(seed: int, T: int, Z: int, C: int, Rk: int, Gp: int,
+                  n_max: int, device, Bp: int = 0, n_open: int = 0,
+                  zone_ovh: bool = False, track: bool = False,
+                  counts=(1, 60)) -> Tuple[tuple, dict]:
+    """Seeded arguments of `solve_scan_plain` (Bp = 0) or
+    `solve_scan_batched_plain` (group inputs [Bp, Gp, ...]) on `device`,
+    for the kernels' checks at any shape: T types over Z zones and C
+    captypes (a quarter of the columns past cpu and memory absent, 60% of
+    the offerings available), Gp groups asking for cpu, memory and up to 6
+    other columns, `counts` pods a group, compat, zone and captype masks
+    (the highest zone allowed everywhere), a max-per-node cap on 15%;
+    n_open open nodes with random state, prior counts and banned rows;
+    with zone_ovh a zone-varying reservation, with track a conflict
+    matrix. (args, keywords)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    alloc = rng.uniform(8.0, 64.0, (T, Rk)).astype(f32)
+    alloc[rng.random((T, Rk)) < 0.25] = 0.0
+    alloc[:, :min(2, Rk)] = rng.uniform(16.0, 64.0, (T, min(2, Rk)))
+    price = rng.uniform(0.1, 5.0, (T, Z, C)).astype(f32)
+    avail = rng.random((T, Z, C)) < 0.6
+
+    def groups(r):
+        req = np.zeros((Gp, Rk), f32)
+        for g in range(Gp):
+            cols = list(range(min(2, Rk))) + list(r.choice(
+                np.arange(2, max(Rk, 3)), size=min(max(Rk - 2, 0),
+                                                   int(r.integers(0, 7))),
+                replace=False))
+            req[g, cols] = r.uniform(1.0, 8.0, len(cols))
+        zone = r.random((Gp, Z)) < 0.5
+        zone[:, Z - 1] = True
+        cap = r.random((Gp, C)) < 0.8
+        cap[:, 0] = True
+        mpn = np.where(r.random(Gp) < 0.15, r.integers(1, 5, Gp), 0)
+        width = n_max if n_open else 1
+        prior = np.zeros((Gp, width), np.int32)
+        banned = np.zeros((Gp, width), bool)
+        if n_open:
+            prior[:, :n_open] = r.integers(0, 3, (Gp, n_open))
+            banned[:, :n_open] = r.random((Gp, n_open)) < 0.1
+        conflict = (r.random((Gp, Gp)) < 0.05 if track
+                    else np.zeros((Gp, 1), bool))
+        return (req, r.integers(counts[0], counts[1] + 1, Gp).astype(
+            np.int32), r.random((Gp, T)) < 0.7, zone, cap,
+            mpn.astype(np.int32), prior, banned, conflict)
+
+    if Bp:
+        rows = [groups(np.random.default_rng((seed, b))) for b in range(Bp)]
+        grp = tuple(np.stack(x) for x in zip(*rows))
+    else:
+        grp = groups(rng)
+    zovh = np.zeros((1, 1, Rk), f32)
+    if zone_ovh:
+        zovh = np.zeros((T, Z, Rk), f32)
+        zovh[:, 0, 0] = 0.5
+        zovh[:, Z - 1, min(1, Rk - 1)] = rng.choice([1.0, 2.0], T)
+    ntype = np.zeros(n_max, np.int32)
+    cum = np.zeros((n_max, Rk), f32)
+    zmask = np.zeros((n_max, Z), bool)
+    cmask = np.zeros((n_max, C), bool)
+    nopen = np.zeros(n_max, bool)
+    ntype[:n_open] = rng.integers(0, T, n_open)
+    cum[:n_open] = alloc[ntype[:n_open]] * rng.uniform(
+        0.0, 0.8, (n_open, Rk)).astype(f32)
+    zmask[:n_open] = rng.random((n_open, Z)) < 0.7
+    cmask[:n_open] = rng.random((n_open, C)) < 0.8
+    nopen[:n_open] = True
+    dev = torch.device(device)
+    t = [torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in
+         (alloc, price, avail, *grp, zovh, ntype, cum, zmask, cmask, nopen)]
+    return (*t, n_open, n_max), dict(track_conflicts=track,
+                                     zone_ovh=zone_ovh)
+
+
+def scan_wide_bound(ss, shape, Bp: int, takes) -> tuple:
+    """((B0's bytes, ops), (B's bytes, ops)) the two kernels must move and
+    do at one seeded wide case: inputs read once (B0 reads a group's
+    scalars, its req, compat, zone, captype and conflict rows), outputs
+    written once; B's operations over the node-steps this run's data
+    opens (node_steps)."""
+    T, Z, C, Rk, Gp, n_max, n_open, zovh, track = shape
+    B = max(Bp, 1)
+    W = -(-Gp // 32) if track else 0
+    RW = ss._rec_words(Rk, T, W, Z, C)
+    ZC, AW = Z * C, ss._avail_words(Z, C)
+    cat = 4 * T * Rk + 5 * T * ZC + (4 * T * Z * Rk if zovh else 0)
+    grp = Gp * (4 * Rk + 13 + T + Z + C + (Gp if track else 0))
+    b0 = (cat + B * grp + B * 4 * Gp * RW + 8 * T * AW,
+          B * Gp * T * (4 * Rk + 2 * ZC))
+    steps = node_steps(takes, n_open)
+    b = (4 * T * Rk + 8 * T * AW
+         + B * (4 * Gp * RW + n_max * (4 + 4 * Rk + Z + C + 1)
+                + 5 * Gp * n_open
+                + 4 * Gp * n_max + 4 * Gp + 4 * n_max + 8),
+         steps * (4 * Rk + ZC + 6))
+    return b0, b
+
+
+def scan_shape_case(ss, name: str, shape, Bp: int = 0) -> tuple:
+    """Kernels B0 and B at one seeded wide shape (a bucket of Bp requests
+    in one launch of each where Bp > 0), counts zeroed just before: one
+    launch each; ntype, takes, unsched and the header equal to the plain
+    version's and B0's records, read back, equal to offer_argmin_plain's
+    (atol 0); then their times, bound and plain times. Returns (launches,
+    B0's row, B's row)."""
+    import torch
+    T, Z, C, Rk, Gp, n_max, n_open, zovh, track = shape
+    args, kw = scan_inputs(23, T, Z, C, Rk, Gp, n_max,
+                                torch.device("cuda"), Bp=Bp, n_open=n_open,
+                                zone_ovh=zovh, track=track)
+    W = -(-Gp // 32) if track else 0
+    lay = ss._scan_layout(n_max, Rk, W, Z, C, T, zovh)
+    plain = ss.solve_scan_batched_plain if Bp else ss.solve_scan_plain
+    kern = ss.solve_scan_batched_cuda if Bp else ss.solve_scan_cuda
+    ss.launches = 0
+    ss.offer_launches = 0
+    got = (ss.solve_scan_batched if Bp else ss.solve_scan)(*args, **kw)
+    torch.cuda.synchronize()
+    launches = {"offer_argmin": ss.offer_launches, "solve_scan": ss.launches}
+    check(launches == {"offer_argmin": 1, "solve_scan": 1},
+          f"{name}: launches {launches}, not one of B0 and one of B")
+    with uncounted():
+        want = plain(*args, **kw)
+        for x, y, what in zip(got, want, ("ntype", "takes", "unsched",
+                                          "nused", "overflow")):
+            check(torch.equal(x, y.to(x.dtype)),
+                  f"{name}: kernels B0 + B != plain ({what})")
+        b = inspect.signature(plain).bind(*args, **kw)
+        b.apply_defaults()
+        a = b.arguments
+        oa = {k: a[k] for k in inspect.signature(
+            ss.offer_argmin_plain).parameters}
+        if Bp:
+            got0 = ss.offer_argmin_batched_cuda(**oa)
+            rows = [ss.offer_argmin_plain(**{
+                k: (v[i] if k in ("requests", "compat", "allow_zone",
+                                  "allow_cap", "max_per_node") else v)
+                for k, v in oa.items()}) for i in range(Bp)]
+            want0 = tuple(torch.stack(x) for x in zip(*rows))
+        else:
+            got0 = ss.offer_argmin_cuda(**oa)
+            want0 = ss.offer_argmin_plain(**oa)
+        torch.cuda.synchronize()
+        for x, y in zip(got0, want0):
+            check(torch.equal(x.to(y.dtype), y),
+                  f"{name}: kernel B0's records != offer_argmin_plain")
+        lead = (lambda x: x) if Bp else (lambda x: x[None])
+        b0_in = (a["alloc"], a["price"], a["avail"],
+                 *(lead(a[k]) for k in ("requests", "counts", "compat",
+                                        "allow_zone", "allow_cap",
+                                        "max_per_node", "prior", "banned",
+                                        "conflict")),
+                 a["zovh"], zovh, track)
+        k0, kb = profiled_ms(lambda: [kern(*args, **kw) for _ in range(3)],
+                             "offer_argmin_kernel", "solve_scan_kernel")
+        ms = cuda_ms(lambda: kern(*args, **kw), 5)
+        b0_ms = cuda_ms(lambda: ss._offer_table(*b0_in), 5)
+        b0_plain = cuda_ms(lambda: (
+            [ss.offer_argmin_plain(**{
+                k: (v[i] if k in ("requests", "compat", "allow_zone",
+                                  "allow_cap", "max_per_node") else v)
+                for k, v in oa.items()}) for i in range(Bp)] if Bp
+            else ss.offer_argmin_plain(**oa)), 1)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), 1)
+    (b0_bytes, b0_ops), (b_bytes, b_ops) = scan_wide_bound(ss, shape, Bp,
+                                                           got[1])
+    nused = got[3].reshape(-1).tolist()
+    common = {"shape": {"T": T, "Z": Z, "C": C, "Rk": Rk, "Gp": Gp,
+                        "n_max": n_max, "Bp": Bp or 1, "open": n_open,
+                        "zone_ovh": zovh, "conflicts": track,
+                        "nodes": nused},
+              "layout": {"bit_words": ss._node_words(Z, C),
+                         "avail_words": ss._avail_words(Z, C),
+                         "rec_smem": lay.rec_smem,
+                         "rec_words": lay.rec_words, "cl": lay.cl,
+                         "slice": lay.slice, "nodes_smem": lay.nodes_smem,
+                         "cat_smem": lay.cat_smem,
+                         "smem_bytes": lay.smem_bytes},
+              "max_abs_err": 0.0}
+    r0 = {"launches": launches["offer_argmin"], "ms": b0_ms,
+          "kernel_ms": k0, "plain_ms": b0_plain,
+          **bound(b0_bytes, b0_ops), "library_ms": None, **common}
+    rb = {"launches": launches["solve_scan"], "ms": ms, "kernel_ms": kb,
+          "plain_ms": plain_ms, **bound(b_bytes, b_ops),
+          "library_ms": None, **common}
+    log(f"[shapes] {name}: B0 + B at T={T} Z={Z} C={C} Rk={Rk} Gp={Gp} "
+        f"n_max={n_max} Bp={Bp or 1} ({ss._node_words(Z, C)} bit words a "
+        f"node, {ss._avail_words(Z, C)} availability words a type, records {'in shared memory' if lay.rec_smem else 'read in place'}"
+        f", cluster {lay.cl}, nodes in "
+        f"{'shared' if lay.nodes_smem else 'global'} memory): {nused} nodes;"
+        f" == plain (atol 0), B0's records == offer_argmin_plain. B0 kernel "
+        f"{k0} ms, call {b0_ms:.4f} ms, bound {r0['bound_ms']:.5f} ms "
+        f"({r0['bound_by']}), plain {b0_plain:.3f} ms; B kernel {kb} ms, B0 + "
+        f"B call {ms:.4f} ms, bound {rb['bound_ms']:.5f} ms "
+        f"({rb['bound_by']}), plain {plain_ms:.1f} ms")
+    return launches, r0, rb
+
+
+def mesh_zones_case(parallel, msc, ss) -> tuple:
+    """Kernel M on MESH_SHARDS virtual shards of the card at SCAN_ZONES
+    (two bit words a node): the route and layout
+    from sizes, one cooperative launch beside a B0 a shard, equal to its
+    plain version and to kernel B's plain scan on one device (atol 0).
+    Returns (launches, its row)."""
+    import torch
+    T, Z, C, Rk, Gp, n_max, n_open, zovh, track = SCAN_ZONES
+    args, kw = scan_inputs(23, T, Z, C, Rk, Gp, n_max,
+                                torch.device(MESH_DEVICE), n_open=n_open,
+                                zone_ovh=zovh, track=track)
+    with parallel.virtual_devices(MESH_SHARDS, MESH_DEVICE):
+        mesh = parallel.make_mesh(MESH_SHARDS)
+    parts = msc.shard_args(mesh, n_max, *args[:18],
+                           torch.tensor(n_open, dtype=torch.int32))
+    Ns, Rk_, nb = msc._sizes(mesh, (*parts, n_max), kw)
+    route, lay = msc._route_on_card(mesh, Ns, Rk_, nb)
+    check(route == "persistent" and nb == 2,
+          f"mesh zones: route {route}, {nb} bit words")
+    msc.launches = 0
+    ss.offer_launches = 0
+    out = msc.mesh_scan(mesh, *parts, n_max, **kw)
+    torch.cuda.synchronize()
+    launches = {"mesh_scan": msc.launches, "offer_argmin": ss.offer_launches}
+    check(launches == {"mesh_scan": 1, "offer_argmin": MESH_SHARDS},
+          f"mesh zones: launches {launches}, not one of M beside a B0 a "
+          f"shard")
+    names = ("ntype", "cum", "zmask", "cmask", "nopen", "nused", "takes",
+             "unsched", "overflow")
+    with uncounted():
+        plain = msc.mesh_scan_plain(mesh, *parts, n_max, **kw)
+        for a, b, what in zip(out, plain, names):
+            check(torch.equal(a, b.to(a.dtype)),
+                  f"mesh zones: kernel M != its plain version ({what})")
+        one = ss.solve_scan_plain(*args, **kw)
+        for i, j in ((0, 0), (6, 1), (7, 2), (5, 3), (8, 4)):
+            check(torch.equal(out[i], one[j].to(out[i].dtype).reshape(
+                out[i].shape)), f"mesh zones: the sharded scan != kernel B's "
+                                f"plain scan on one device ({names[i]})")
+        m_ms = cuda_ms(lambda: msc.mesh_scan_cuda(mesh, *parts, n_max, **kw),
+                       3)
+        k_ms, = profiled_ms(lambda: msc.mesh_scan_cuda(mesh, *parts, n_max,
+                                                       **kw),
+                            "mesh_persistent_kernel")
+        plain_ms = cuda_ms(lambda: msc.mesh_scan_plain(mesh, *parts, n_max,
+                                                       **kw), 1)
+    nbytes, ops = mesh_scan_work(Gp, T, Z, C, Rk, n_max, out[6], n_open)
+    nused = int(out[5])
+    row = {"ms": m_ms, "plain_ms": plain_ms, **bound(nbytes, ops),
+           "library_ms": None, "kernel_ms": k_ms, "route": route,
+           "launches": launches["mesh_scan"], "max_abs_err": 0.0,
+           "layout": {"nbp": lay.nbp, "npt": lay.npt, "smem": lay.smem,
+                      "nodes_smem": lay.nodes_smem, "bit_words": nb},
+           "shape": {"T": T, "Z": Z, "C": C, "Rk": Rk, "Gp": Gp,
+                     "n_max": n_max, "shards": mesh.size, "nodes": nused}}
+    log(f"[shapes] mesh zones: {mesh.describe()} at T={T} Z={Z} C={C} "
+        f"Rk={Rk} Gp={Gp} n_max={n_max}: {nused} nodes; kernel M (one "
+        f"cooperative launch, {mesh.size} x {lay.nbp} blocks, {nb} bit words "
+        f"a node, node state in {'shared' if lay.nodes_smem else 'global'} "
+        f"memory) == plain (atol 0), == B's plain scan. M {m_ms:.3f} ms a "
+        f"solve with B0 and the staging, mesh_persistent_kernel {k_ms} ms, "
+        f"plain {plain_ms:.1f} ms, bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']})")
+    return launches, row
+
+
+def wide_facade_case(ss, solver) -> tuple:
+    """Solver.solve on the device rung over a catalog of E2E_ZONES zones
+    (catalog.GeneratorConfig(zones=...)) with E2E_PODS pods asking for 40
+    resource columns (cpu, memory and WIDE_EXTENDED_40, which join the
+    process's resource axis for good), counts zeroed just before: its
+    SolveOutput == the native rung's, B0 and B launched on their wide
+    layout and == plain at the recorded inputs. Returns (launches, row)."""
+    import numpy as np
+    import torch
+    from karpenter_tpu_torch import catalog, models
+    from karpenter_tpu_torch.models import labels as L
+    from karpenter_tpu_torch.models import resources
+    from karpenter_tpu_torch.ops import facade as F
+    rng = np.random.default_rng(29)
+    zones = [f"zone-{i:02d}" for i in range(E2E_ZONES)]
+    types = catalog.generate_catalog(catalog.GeneratorConfig(
+        zones=zones, families=["m5", "c5", "r5", "m6", "c6", "r6"]))
+    for name in WIDE_EXTENDED_40:
+        resources.register_resource(name)
+    for it in types:
+        for name in WIDE_EXTENDED_40:
+            it.capacity[name] = float(rng.integers(2, 17))
+    cpus, mems = ("250m", "500m", "1", "2"), ("512Mi", "1Gi", "2Gi", "4Gi")
+    pods = []
+    for i in range(E2E_PODS):
+        g = i % 60  # 60 pod shapes
+        req = {"cpu": cpus[g % 4], "memory": mems[(g // 4) % 4]}
+        for j, name in enumerate(WIDE_EXTENDED_40):
+            if j % 60 == g or (j * 7 + g) % 11 == 0:
+                req[name] = 1 + (j + g) % 2
+        sel = ({L.ZONE: zones[E2E_ZONES - 1 - g % 5]} if g % 6 == 1 else {})
+        pods.append(models.Pod(name=f"e{i}", node_selector=sel,
+                               requests=models.Resources.parse(req)))
+    pool = models.NodePool(name="default")
+    dev_f = F.Solver(catalog.CatalogProvider(lambda: types), backend="device")
+    nat_f = F.Solver(catalog.CatalogProvider(lambda: types), backend="native")
+    watch = FacadeWatch(dev_f)
+    ss.launches = 0
+    ss.offer_launches = 0
+    t0 = time.perf_counter()
+    with Recorder(solver, "solve_scan") as rec:
+        got = dev_f.solve(pods, pool)
+    torch.cuda.synchronize()
+    dev_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"offer_argmin": ss.offer_launches, "solve_scan": ss.launches}
+    t0 = time.perf_counter()
+    want = nat_f.solve(pods, pool)
+    nat_ms = (time.perf_counter() - t0) * 1e3
+    watch.check("wide facade solve")
+    check(out_tuple(got) == out_tuple(want),
+          "wide facade: the device rung's SolveOutput != the native rung's")
+    check(all(n > 0 for n in launches.values()),
+          f"wide facade: B0/B did not launch: {launches}")
+    (sargs, skw) = rec.calls[-1]
+    lay = scan_layout_of(ss, sargs, skw)
+    b = inspect.signature(ss.solve_scan_plain).bind(*sargs, **skw)
+    T, Z, C = b.arguments["price"].shape
+    Gp, Rk = b.arguments["requests"].shape
+    check(Z == E2E_ZONES and ss._avail_words(Z, C) == 2 and Rk >= 40,
+          f"wide facade: the scan took Z={Z}, Rk={Rk}, layout {lay}")
+    with uncounted():
+        check_offer(ss, sargs, skw, "wide facade")
+        out_k = ss.solve_scan_cuda(*sargs, **skw)
+        out_p = ss.solve_scan_plain(*sargs, **skw)
+        torch.cuda.synchronize()
+        for a, p, what in zip(out_k, out_p, ("ntype", "takes", "unsched",
+                                             "nused", "overflow")):
+            check(torch.equal(a.to(p.dtype).reshape(p.shape), p),
+                  f"wide facade: B0 + B != plain ({what})")
+    log(f"[shapes] wide facade: Solver.solve({len(pods)} pods over "
+        f"{E2E_ZONES} zones, T={T}, Rk={Rk}, Gp={Gp}; two availability words "
+        f"a type, records "
+        f"{'in shared memory' if lay.rec_smem else 'read in place'}) on the "
+        f"device rung == the native rung ({len(got.launches)} launches, "
+        f"{len(got.unschedulable)} unschedulable); kernel launches "
+        f"{launches}; first call {dev_ms:.1f} ms, native {nat_ms:.1f} ms; "
+        f"B0 + B == plain at its inputs")
+    return launches, {"launches": launches, "shape": {
+        "pods": len(pods), "T": T, "Z": Z, "C": C, "Rk": Rk, "Gp": Gp},
+        "device_first_ms": dev_ms, "native_ms": nat_ms}
+
+
 def phase_shapes() -> tuple:
-    """Phase 4o: the shapes past kernels C's and M's old limits on the card.
-    Kernel C at STREAM_SHAPE (its stream tier) and RK32_SHAPE (its
-    32-column instantiation) against tournament_plain (atol 0, the plan
-    equal); the production dispatch (wide_search) at WIDE_POOL_GROUPS
-    groups over WIDE_POOL_NODES nodes (C on its stream tier) and at 60
-    groups asking for cpu, memory and WIDE_EXTENDED (C's 32-column
-    instantiation); kernel M on 8 virtual shards at MESH_WIDE
-    (mesh_wide_case). Returns (launches of the phase's paths, C's rows,
-    M's row)."""
+    """Phase 4o: the shapes past the kernels' old limits on the card.
+    Kernel C at STREAM_SHAPE (its stream tier), RK32_SHAPE (its 32-column
+    instantiation) and C_WIDE_SHAPES (past 32 columns) against
+    tournament_plain (atol 0, the plan equal); kernels B0 and B at
+    SCAN_ZONES (serial and a bucket of SCAN_BUCKET) and SCAN_TYPES
+    (scan_shape_case); kernel M on 8 virtual shards at MESH_WIDE
+    (mesh_wide_case) and SCAN_ZONES (mesh_zones_case); then, since their
+    extended resources join the process's axis for good, the production
+    dispatch (wide_search) at WIDE_POOL_GROUPS groups over WIDE_POOL_NODES
+    nodes (C on its stream tier), at 60 groups asking for cpu, memory and
+    WIDE_EXTENDED (C's 32-column instantiation) and for WIDE_EXTENDED_40
+    (40 columns), and last Solver.solve over E2E_ZONES zones at 40 columns
+    (wide_facade_case). Returns (launches of the phase's paths, C's rows,
+    M's rows, B0's and B's rows)."""
     from karpenter_tpu_torch import parallel
     from karpenter_tpu_torch.ops import mesh_scan as msc
     from karpenter_tpu_torch.ops import solve_scan as ss
@@ -4890,28 +5298,54 @@ def phase_shapes() -> tuple:
           and c_rows["rk32"]["instantiation_columns"] == 32,
           f"kernel C's shapes took {c_rows['stream']['tier']} and "
           f"{c_rows['rk32']['instantiation_columns']} columns")
+    for key, shape in C_WIDE_SHAPES.items():
+        c_rows[key] = tournament_shape_case(tk, shape, f"{shape[3]} columns")
 
-    # --- the production dispatch past C's old limits: thousands of
-    # groups (the stream tier), then pods asking for 20 columns (the
-    # 32-column instantiation; its extended resources join the port's
-    # axis, so this runs last) ---
+    # --- kernels B0, B and M past 32 columns, the one-word bit sets and
+    # B0's old 58,112 types ---
     launches = {}
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    b0_rows, b_rows = {}, {}
+    for key, shape, Bp in (("zones", SCAN_ZONES, 0),
+                           ("zones_bucket", SCAN_ZONES, SCAN_BUCKET),
+                           ("types", SCAN_TYPES, 0)):
+        got, b0_rows[key], b_rows[key] = scan_shape_case(ss, key, shape, Bp)
+        add(got)
+
+    # --- kernel M past one co-resident grid of shared-memory nodes, and
+    # past one bit word a node ---
+    m_rows = {}
+    got, m_rows["global_nodes"] = mesh_wide_case(parallel, msc, ss, solver)
+    add(got)
+    got, m_rows["zones"] = mesh_zones_case(parallel, msc, ss)
+    add(got)
+
+    # --- the production paths past the old limits: thousands of groups
+    # (C's stream tier), pods asking for 20 and 40 columns (C's 32-column
+    # instantiation, over two tiles at 40), then Solver.solve over 24
+    # zones at 40 columns; their extended resources join the port's axis,
+    # so these run last ---
     for key, pool, want in (
             ("dispatch", (17, WIDE_POOL_NODES, WIDE_POOL_GROUPS),
              lambda lay, Rk: lay.tier == "stream"),
             ("dispatch_rk32", (18, WIDE_POOL_NODES, 60, WIDE_EXTENDED),
-             lambda lay, Rk: tk._rkb(Rk) == 32)):
+             lambda lay, Rk: tk._rkb(Rk) == 32),
+            ("dispatch_rk40", (19, WIDE_POOL_NODES, 60, WIDE_EXTENDED_40),
+             lambda lay, Rk: Rk > 32)):
         got, c_rows[key] = wide_search(key, *wide_pool(*pool), want)
-        for k, n in got.items():
-            launches[k] = launches.get(k, 0) + n
+        add(got)
     c_rows["rk32"]["launches"] = c_rows["dispatch_rk32"]["launches"]
-
-    # --- kernel M past one co-resident grid of shared-memory nodes ---
-    m_launches, m_row = mesh_wide_case(parallel, msc, ss, solver)
-    launches.update(m_launches)
+    c_rows["rk40"]["launches"] = c_rows["dispatch_rk40"]["launches"]
+    got, e2e = wide_facade_case(ss, solver)
+    add(got)
+    for rows in (b0_rows, b_rows):
+        rows["facade"] = e2e
     log(f"[shapes] phase 4o launches {launches}; phase wall "
         f"{(time.perf_counter() - t_phase):.1f} s")
-    return launches, c_rows, m_row
+    return launches, c_rows, m_rows, (b0_rows, b_rows)
 
 
 MEASURE_ITERS = 40          # slope_time's N (the reference's default)
@@ -5480,10 +5914,11 @@ def main() -> None:
             "launches": n, **measure["screen" if k == "screen_k"
                                      else "solve"]}
 
-    # --- 4o. the shapes past C's and M's old limits: counts zeroed just
-    # before each path (the wide subset search, the wide mesh solve) ---
-    shape_launches, c_shapes, m_wide = phase_shapes()
-    for k in ("screen_k", "tournament", "offer_argmin"):
+    # --- 4o. every shape the reference takes, past the kernels' old
+    # limits: counts zeroed just before each path ---
+    shape_launches, c_shapes, m_shapes, (b0_shapes, b_shapes) = \
+        phase_shapes()
+    for k in ("screen_k", "tournament", "offer_argmin", "solve_scan"):
         by_phase[k]["shapes"] = {"launches": shape_launches[k]}
     by_phase["tournament"]["shapes"].update(c_shapes)
     kernels = [
@@ -5502,13 +5937,21 @@ def main() -> None:
             ("tournament", "karpenter_tpu_torch/csrc/tournament.cu",
              "karpenter_tpu/optimizer/tournament.py:140",
              max([err_c] + [c_shapes[k]["max_abs_err"] for k in (
-                 "stream", "rk32", "dispatch", "dispatch_rk32")])))]
-    # kernel C's layouts past its old limits (phase 4o): the stream tier
-    # and the 32-column instantiation, each with its times and bound
+                 "stream", "rk32", "rk40", "rk72", "dispatch",
+                 "dispatch_rk32", "dispatch_rk40")])))]
+    # kernel C's layouts past its old limits (phase 4o): the stream tier,
+    # the 32-column instantiation and past 32 columns (tiles of 32), each
+    # with its times and bound
     kernels[-1]["layouts"] = {
         "stream": {**c_shapes["stream"],
                    "launches": c_shapes["dispatch"]["launches"]},
-        "rk32": c_shapes["rk32"]}
+        "rk32": c_shapes["rk32"], "rk40": c_shapes["rk40"],
+        "rk72": c_shapes["rk72"]}
+    # kernels B0 and B past their old limits (phase 4o): 40 zones at 40
+    # columns (serial and a bucket), 60,000 types at 72, each with its
+    # launches, times and bound; the 24-zone facade solve's launches
+    for row, shapes in ((kernels[1], b0_shapes), (kernels[2], b_shapes)):
+        row["layouts"] = shapes
     # the resident patch: ops/resident._scatter_rows, the port of the
     # reference's _jit_scatter (a library index_copy_, ROADMAP §2 item 1);
     # its launches are phase 4h's, where the path drives it
@@ -5540,12 +5983,12 @@ def main() -> None:
                            **{k: m_row[k] for k in m_keys}},
             "per_step": {"kernel": "mesh_step_kernel",
                          **m_row["per_step"]}},
-        "layouts": {"global_nodes": m_wide},
+        "layouts": m_shapes,
         "by_phase": {"mesh": {"launches": mesh_launches["mesh_scan"],
                               "per_shard": mesh_launches["mesh_scan"]
                               / MESH_SHARDS, **m_row["by_shape"]},
                      "shapes": {"launches": shape_launches["mesh_scan"],
-                                "global_nodes": m_wide}}})
+                                **m_shapes}}})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@
 // reference's `lax.scan` over pod groups (solver.py:347-483) with the node
 // axis split over a mesh, whose per-step prefix GSPMD turns into
 // collectives. Shard s owns the contiguous node range [lo, lo + Ns),
-// lo = s * Ns, and that range's node state: type, open flag, zone |
-// captype << Z bits, cum [Ns, Rk], hosted-group words [Ns, W]. The catalog
+// lo = s * Ns, and that range's node state: type, open flag, zone and
+// captype bits (NB words a node, the bit strings of csrc/scan_common.cuh),
+// cum [Ns, Rk], hosted-group words [Ns, W]. The catalog
 // rows, the per-group records of kernel B0 (csrc/solve_scan.cu, run once on
 // every shard) and nused are replicated. Each shard's blocks own
 // contiguous pieces of its range, in node order: block j of the whole mesh
@@ -78,54 +79,25 @@
 
 namespace cg = cooperative_groups;
 
-#define MAX_RK 32
-#define BIG_F 1.0e9f
-#define EPS_F 1.0e-4f  // == np.float32(1e-4)
 #define NTM 256        // threads a block
 #define NWM (NTM / 32)
 // shared bytes a node of the persistent kernel: cum, type, bits, kf, open
-#define NODE_SMEM(Rk) (4 * (Rk) + 13)
+#define NODE_SMEM(Rk, NB) (4 * (Rk) + 4 * (NB) + 9)
 
-// B0's per-group record (csrc/solve_scan.cu: the same layout)
-#define REC_COUNT 0
-#define REC_CAP 1
-#define REC_GBITS 2
-#define REC_TSTAR 3
-#define REC_S 4
-#define REC_OK 5
-#define REC_TBITS 6
-#define REC_PRIOR 7
-#define REC_BANNED 8
-#define REC_HDR 12
-
-// kernel B's helpers, repeated here (each source builds on its own)
-__device__ __forceinline__ float zone_reserve(const float* zovh, int t, int r,
-                                              unsigned zm, int Z, int Rk) {
-  float o = 0.0f;
-  for (int z = 0; z < Z; ++z) {
-    const float v = ((zm >> z) & 1u) ? zovh[((size_t)t * Z + z) * Rk + r]
-                                     : 0.0f;
-    o = z == 0 ? v : fmaxf(o, v);
-  }
-  return o;
-}
-
-__device__ __forceinline__ float fit_ratio(float room, float q) {
-  return q > 0.0f ? floorf(__fadd_rn(__fdiv_rn(room, q), EPS_F)) : BIG_F;
-}
+#include "scan_common.cuh"  // B0's record, the bit strings, kernel B's f32
 
 // One shard's arguments. The per-step route passes it by value; the
 // persistent route reads shard s's from a device array of S of them.
 struct MeshArgs {
   const float* alloc;                   // [T, Rk]
-  const unsigned long long* availbits;  // [T] (B0)
+  const unsigned long long* availbits;  // [T, AW] (B0)
   const float* zovh;                    // [T, Z, Rk] or null
   const int* recs;                      // [Gp, RW] (B0)
   const int* prior;                     // [Gp, Ns] when prior_sharded
   const uint8_t* banned;                // [Gp, Ns] when banned_sharded
   int* type;                            // [Ns] node type (closed: kept)
   uint8_t* open;                        // [Ns]
-  unsigned* bits;                       // [Ns] zone | captype << Z
+  unsigned* bits;                       // [Ns, NB] zone and captype bits
   float* cum;                           // [Ns, Rk]
   unsigned* host;                       // [Ns, W] hosted-group words
   int* kf;                              // [Ns] this step's kf (per-step)
@@ -136,32 +108,30 @@ struct MeshArgs {
   int* hdr;                             // [4]: nused[2] by parity, overflow
   int RW, prior_sharded, banned_sharded;
   int T, Z, C, Rk, W, Gp, Ns, lo, n_max, shard, nshards, nb, track;
+  int NB, AW, HW;  // bit words a node, availability words a type, the
+                   // record's req offset
 };
 
 // --- the two halves of a step, shared by both kernels ----------------------
 
 // kf = min(k, count) of shard row i at step g (kernel B's count), 0 when the
-// node is closed or not eligible. t, open, bits, cp: the node's state.
+// node is closed or not eligible. t, open, bits (NB words), cp: the node's
+// state.
 __device__ __forceinline__ int node_kf(const MeshArgs& a, const int* rec,
                                        int g, int i, int t, bool open,
-                                       unsigned bits, const float* cp) {
+                                       const unsigned* bits, const float* cp) {
   const int count = rec[REC_COUNT];
   if (!open || count <= 0) return 0;
   const int Z = a.Z, C = a.C, Rk = a.Rk, W = a.W;
   const int CW = (a.T + 31) / 32;
-  const unsigned gbits = (unsigned)rec[REC_GBITS];
-  const float* req = (const float*)(rec + REC_HDR);
-  const unsigned* ccompat = (const unsigned*)(rec + REC_HDR + Rk);
+  const unsigned* gb = (const unsigned*)(rec + REC_HDR);  // [NB]
+  const float* req = (const float*)(rec + a.HW);
+  const unsigned* ccompat = (const unsigned*)(rec + a.HW + Rk);
   const unsigned* conf = ccompat + CW;
-  const unsigned b2 = bits & gbits;
-  const unsigned zm2 = b2 & ((1u << Z) - 1u), cm2 = b2 >> Z;
   if (!((ccompat[t >> 5] >> (t & 31)) & 1u)) return 0;
-  const unsigned long long ab = a.availbits[t];
-  bool off = false;
-  for (int z = 0; z < Z && !off; ++z)
-    off = ((zm2 >> z) & 1u) &&
-          ((ab >> (z * C)) & (unsigned long long)cm2) != 0ull;
-  if (!off) return 0;
+  if (!offer_in((const unsigned*)(a.availbits + (size_t)t * a.AW), bits, gb,
+                Z, C))
+    return 0;
   if (a.banned_sharded ? a.banned[(size_t)g * a.Ns + i] != 0
                        : rec[REC_BANNED] != 0)
     return 0;
@@ -172,7 +142,9 @@ __device__ __forceinline__ int node_kf(const MeshArgs& a, const int* rec,
   for (int r = 0; r < Rk; ++r) {
     float ta = a.alloc[(size_t)t * Rk + r];
     if (a.zovh != nullptr)
-      ta = __fsub_rn(ta, zone_reserve(a.zovh, t, r, zm2, Z, Rk));
+      ta = __fsub_rn(ta, zone_reserve(a.zovh, t, r, Z, Rk, [&](int w) {
+                       return bits[w] & gb[w];
+                     }));
     kc = fminf(kc, fit_ratio(__fsub_rn(ta, cp[r]), req[r]));
   }
   const int k_cap = (int)fmaxf(kc, 0.0f);  // kc <= BIG_F < 2^31
@@ -259,16 +231,17 @@ __device__ __forceinline__ int plan_unsched(const StepPlan& p) {
 
 // Apply step gp to shard row i: its take, given `prefix` (the pods that fit
 // on the nodes before it, saturated at count), then its opening if it is
-// one of the step's new nodes; its take goes to takes[gp].
+// one of the step's new nodes; its take goes to takes[gp]. bits: the
+// node's NB words, updated in place.
 __device__ __forceinline__ void node_apply(const MeshArgs& a, const int* rec,
                                            int gp, int i, int kf,
                                            long long prefix,
                                            const StepPlan& p, int nused,
                                            int& t, uint8_t& open,
-                                           unsigned& bits, float* cp) {
+                                           unsigned* bits, float* cp) {
   const int count = rec[REC_COUNT], Rk = a.Rk;
-  const float* req = (const float*)(rec + REC_HDR);
-  const unsigned gbits = (unsigned)rec[REC_GBITS];
+  const float* req = (const float*)(rec + a.HW);
+  const unsigned* gb = (const unsigned*)(rec + REC_HDR);  // [NB], then t_star's
   long long take = 0;
   if (kf > 0) {
     const long long left = (long long)count - prefix;
@@ -278,7 +251,7 @@ __device__ __forceinline__ void node_apply(const MeshArgs& a, const int* rec,
   if (take > 0) {
     const float tf = (float)take;
     for (int r = 0; r < Rk; ++r) cp[r] = __fadd_rn(cp[r], __fmul_rn(tf, req[r]));
-    bits &= gbits;
+    for (int w = 0; w < a.NB; ++w) bits[w] &= gb[w];
   }
   const long long pos = (long long)(a.lo + i) - nused;
   long long on = 0;
@@ -290,7 +263,7 @@ __device__ __forceinline__ void node_apply(const MeshArgs& a, const int* rec,
     open = 1;
     const float tf = (float)on;
     for (int r = 0; r < Rk; ++r) cp[r] = __fmul_rn(tf, req[r]);
-    bits = gbits & (unsigned)rec[REC_TBITS];
+    for (int w = 0; w < a.NB; ++w) bits[w] = gb[w] & gb[a.NB + w];
   }
   const long long gt = take + on;
   if (a.track && gt > 0) a.host[(size_t)i * a.W + (gp >> 5)] |= 1u << (gp & 31);
@@ -329,12 +302,10 @@ __global__ void __launch_bounds__(NTM) mesh_step_kernel(MeshArgs a, int g,
       prefix = prefix < count ? prefix : count;
       int t = a.type[i];
       uint8_t open = a.open[i];
-      unsigned bits = a.bits[i];
-      node_apply(a, rec, gp, i, a.kf[i], prefix, p, nused, t, open, bits,
-                 a.cum + (size_t)i * a.Rk);
+      node_apply(a, rec, gp, i, a.kf[i], prefix, p, nused, t, open,
+                       a.bits + (size_t)i * a.NB, a.cum + (size_t)i * a.Rk);
       a.type[i] = t;
       a.open[i] = open;
-      a.bits[i] = bits;
     }
   }
 
@@ -342,8 +313,10 @@ __global__ void __launch_bounds__(NTM) mesh_step_kernel(MeshArgs a, int g,
   if (g < a.Gp) {
     const int* rec = a.recs + (size_t)g * a.RW;
     const int count = rec[REC_COUNT];
-    const int kf = valid ? node_kf(a, rec, g, i, a.type[i], a.open[i] != 0,
-                                   a.bits[i], a.cum + (size_t)i * a.Rk)
+    const int kf = valid ? node_kf(a, rec, g, i, a.type[i],
+                                         a.open[i] != 0,
+                                         a.bits + (size_t)i * a.NB,
+                                         a.cum + (size_t)i * a.Rk)
                          : 0;
     long long btot;
     const long long excl = block_scan(kf, lane, wid, s_warp, &btot);
@@ -362,10 +335,13 @@ __global__ void __launch_bounds__(NTM) mesh_step_kernel(MeshArgs a, int g,
 // chunk) (b = x % nbp, chunk = npt * NTM), thread tid the rows b * chunk +
 // tid * npt + [0, npt). tot: [2, S * nbp] scratch (no initial value).
 // NSMEM: the piece's node state in dynamic shared memory, chunk *
-// NODE_SMEM(Rk) bytes; else none, the piece's rows of the shard's arrays
-// (type, open, bits, cum and the kf scratch) read and written in place.
+// NODE_SMEM(Rk, NB) bytes; else none, the piece's rows of the shard's
+// arrays (type, open, bits, cum and the kf scratch) read and written in
+// place. Without NSMEM, at most 64 registers a thread: an SM then holds
+// four blocks, not three, and the grid is as wide as the node state in
+// global memory needs (PERF.md has the times on an H100).
 template <bool NSMEM>
-__global__ void __launch_bounds__(NTM) mesh_persistent_kernel(
+__global__ void __launch_bounds__(NTM, NSMEM ? 1 : 4) mesh_persistent_kernel(
     const MeshArgs* __restrict__ shards, int nbp, int npt, int* tot) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned s_carry, s_tot;
@@ -376,13 +352,15 @@ __global__ void __launch_bounds__(NTM) mesh_persistent_kernel(
   const int lane = tid & 31, wid = tid >> 5;
   const MeshArgs a = shards[j / nbp];
   const int Rk = a.Rk, Ns = a.Ns, chunk = npt * NTM;
+  const int NB = a.NB;
   const size_t p0 = (size_t)b * chunk;  // the piece's first row in the shard
   float* s_cum = NSMEM ? (float*)smem : a.cum + p0 * Rk;  // [chunk, Rk]
   int* s_type = NSMEM ? (int*)(s_cum + (size_t)chunk * Rk)
                       : a.type + p0;                      // [chunk]
   unsigned* s_bits = NSMEM ? (unsigned*)(s_type + chunk)
-                           : a.bits + p0;                 // [chunk]
-  int* s_kf = NSMEM ? (int*)(s_bits + chunk) : a.kf + p0;  // [chunk]
+                           : a.bits + p0 * NB;            // [chunk, NB]
+  int* s_kf = NSMEM ? (int*)(s_bits + (size_t)chunk * NB)
+                    : a.kf + p0;                          // [chunk]
   uint8_t* s_open = NSMEM ? (uint8_t*)(s_kf + chunk)
                           : a.open + p0;                  // [chunk]
   const int l0 = tid * npt;      // the thread's first row in the piece
@@ -393,7 +371,8 @@ __global__ void __launch_bounds__(NTM) mesh_persistent_kernel(
     if (i >= Ns) break;
     s_type[l] = a.type[i];
     s_open[l] = a.open[i];
-    s_bits[l] = a.bits[i];
+    for (int w = 0; w < NB; ++w)
+      s_bits[(size_t)l * NB + w] = a.bits[(size_t)i * NB + w];
     for (int r = 0; r < Rk; ++r) s_cum[l * Rk + r] = a.cum[(size_t)i * Rk + r];
   }
   int nused = a.hdr[0];  // every block keeps the same chain
@@ -410,8 +389,8 @@ __global__ void __launch_bounds__(NTM) mesh_persistent_kernel(
       const int l = l0 + k, i = i0 + k;
       int kf = 0;
       if (i < Ns)
-        kf = node_kf(a, rec, g, i, s_type[l], s_open[l] != 0, s_bits[l],
-                     s_cum + l * Rk);
+        kf = node_kf(a, rec, g, i, s_type[l], s_open[l] != 0,
+                           s_bits + (size_t)l * NB, s_cum + l * Rk);
       if (NSMEM || i < Ns) s_kf[l] = kf;  // global kf holds Ns rows
       run += kf;
     }
@@ -436,12 +415,10 @@ __global__ void __launch_bounds__(NTM) mesh_persistent_kernel(
       const int kf = s_kf[l];
       int t = s_type[l];
       uint8_t open = s_open[l];
-      unsigned bits = s_bits[l];
-      node_apply(a, rec, g, i, kf, prefix, p, nused, t, open, bits,
-                 s_cum + l * Rk);
+      node_apply(a, rec, g, i, kf, prefix, p, nused, t, open,
+                       s_bits + (size_t)l * NB, s_cum + l * Rk);
       s_type[l] = t;
       s_open[l] = open;
-      s_bits[l] = bits;
       pre += kf;
     }
     clamped |= p.n_new < p.want;
@@ -453,7 +430,8 @@ __global__ void __launch_bounds__(NTM) mesh_persistent_kernel(
     if (i >= Ns) break;
     a.type[i] = s_type[l];
     a.open[i] = s_open[l];
-    a.bits[i] = s_bits[l];
+    for (int w = 0; w < NB; ++w)
+      a.bits[(size_t)i * NB + w] = s_bits[(size_t)l * NB + w];
     for (int r = 0; r < Rk; ++r) a.cum[(size_t)i * Rk + r] = s_cum[l * Rk + r];
   }
   // hdr[0] was read by every block of the shard before the first barrier
@@ -465,9 +443,9 @@ __global__ void __launch_bounds__(NTM) mesh_persistent_kernel(
 
 // ---------------------------------------------------------------------------
 // C interface (bound with ctypes). mesh_scan_new keeps one shard's launch
-// arguments on the host and returns a handle (null for arguments the
-// kernel does not take); mesh_scan_free drops it. Pointers are device
-// pointers of the shard's device. Launches run on `stream` with no
+// arguments on the host and returns a handle (null for malformed
+// arguments); mesh_scan_free drops it. Pointers are device pointers of the
+// shard's device. Launches run on `stream` with no
 // synchronisation and return their cudaError_t (-1: refused arguments).
 //
 // Per-step route: mesh_scan_step launches step g of one shard.
@@ -487,10 +465,11 @@ extern "C" void* mesh_scan_new(
     int* pre, int* tot, int* takes, int* unsched, int* hdr, int T, int Z,
     int C, int Rk, int W, int Gp, int Ns, int lo, int n_max, int shard,
     int nshards, int track) {
-  if (T < 1 || Gp < 1 || Rk < 1 || Rk > MAX_RK || Z < 1 || C < 1 || Z > 31 ||
-      C > 31 || Z * C > 64 || Z + C > 32 || Ns < 1 || nshards < 1 ||
-      shard < 0 || shard >= nshards || (long long)Ns * nshards != n_max ||
-      lo != shard * Ns || RW % 4 != 0 || (track && W < (Gp + 31) / 32))
+  if (T < 1 || Gp < 1 || Rk < 1 || Z < 1 || C < 1 || Ns < 1 ||
+      nshards < 1 || shard < 0 || shard >= nshards ||
+      (long long)Ns * nshards != n_max || lo != shard * Ns || RW % 4 != 0 ||
+      RW < rec_req(node_words(Z, C)) + Rk + (T + 31) / 32 ||
+      (track && W < (Gp + 31) / 32))
     return nullptr;
   MeshArgs* a = (MeshArgs*)calloc(1, sizeof(MeshArgs));
   if (a == nullptr) return nullptr;
@@ -527,6 +506,9 @@ extern "C" void* mesh_scan_new(
   a->nshards = nshards;
   a->nb = (Ns + NTM - 1) / NTM;
   a->track = track;
+  a->NB = node_words(Z, C);
+  a->AW = avail_words(Z, C);
+  a->HW = rec_req(a->NB);
   return a;
 }
 
@@ -551,16 +533,24 @@ extern "C" int mesh_scan_pack(void* const* handles, int S, void* out,
     const MeshArgs* a = (const MeshArgs*)handles[s];
     if (a == nullptr || a0 == nullptr || a->shard != s || a->nshards != S ||
         a->Gp != a0->Gp || a->Ns != a0->Ns || a->Rk != a0->Rk ||
-        a->n_max != a0->n_max || (need_kf && a->kf == nullptr))
+        a->n_max != a0->n_max || a->NB != a0->NB ||
+        (need_kf && a->kf == nullptr))
       return -1;
     memcpy((char*)out + (size_t)s * sizeof(MeshArgs), a, sizeof(MeshArgs));
   }
   return 0;
 }
 
+// The persistent kernel's instantiation: node state in shared memory
+// (smem > 0) or global.
+static const void* persistent_fn(int smem) {
+  return smem > 0 ? (const void*)mesh_persistent_kernel<true>
+                  : (const void*)mesh_persistent_kernel<false>;
+}
+
 static cudaError_t allow_smem(int smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(mesh_persistent_kernel<true>,
+  return cudaFuncSetAttribute(persistent_fn(smem),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem);
 }
@@ -594,10 +584,7 @@ extern "C" int mesh_scan_coop_occupancy(int smem, int* out) {
   cudaError_t e = allow_smem(smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out,
-        smem > 0 ? (const void*)mesh_persistent_kernel<true>
-                 : (const void*)mesh_persistent_kernel<false>,
-        NTM, (size_t)smem);
+        out, persistent_fn(smem), NTM, (size_t)smem);
   return (int)e;
 }
 
@@ -611,9 +598,8 @@ extern "C" int mesh_scan_coop(const void* args, int S, int nbp, int npt,
   const MeshArgs* shards = (const MeshArgs*)args;
   void* params[] = {(void*)&shards, (void*)&nbp, (void*)&npt, (void*)&tot};
   e = cudaLaunchCooperativeKernel(
-      smem > 0 ? (const void*)mesh_persistent_kernel<true>
-               : (const void*)mesh_persistent_kernel<false>,
-      dim3(S * nbp), dim3(NTM), params, (size_t)smem, (cudaStream_t)stream);
+      persistent_fn(smem), dim3(S * nbp), dim3(NTM), params,
+      (size_t)smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

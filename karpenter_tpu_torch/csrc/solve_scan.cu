@@ -20,42 +20,24 @@
 //   per type (alloc_eff with the zone-overhead branch, the max_per_node
 //   clamp), the first-index argmin of price / max(slots, 1) over the T*Z*C
 //   offerings, t_star, s = max(slots[t_star], 1), the `best < FLT_MAX` flag
-//   and t_star's available zone and captype bits. It also packs what the
-//   scan reads per group as bit sets (zone | captype << Z, the compat row,
-//   the conflict row) into one record of RW int32 words per group, and
-//   each type's available offerings into availbits[T].
+//   and t_star's available zone and captype bits. Each thread computes its
+//   types' slots and their cost-per-slot in one pass and carries (value,
+//   index) through the argmin (exact in any grouping); once t_star is
+//   decided one thread recomputes its slots (type 0's when nothing is
+//   feasible, as the reference reads slots[0]). Nothing of a type is kept
+//   in shared memory, so T has no limit; with the zone overhead a thread
+//   builds its type's open zones once a type, in ceil(Z / 32) words of its
+//   own in shared memory (rebuilt a column where they do not fit, past
+//   ~7,000 zones). It also packs what the scan reads
+//   per group as bit sets (the zone and captype bits, the compat row, the
+//   conflict row) into one record of RW int32 words per group, and each
+//   type's available offerings into availbits[T, AW].
 //
-// Kernel B, solve_scan_kernel: the scan, as ONE thread-block cluster of CL
-//   blocks (cudaLaunchKernelEx). Block b owns the contiguous node slice
-//   [b*S, (b+1)*S), so rank order is node order and first-fit order holds.
-//   For the whole scan each block keeps in dynamic shared memory its slice's
-//   node state (type with -1 = closed, zone | captype << Z bits, a kf
-//   scratch, cum [Rk][S], hosted-group words) and the catalog rows it reads
-//   per node (alloc, availbits, zovh). Where no cluster of <= 16 blocks
-//   holds the node state, the slices live in global scratch: the same code
-//   through a pointer, chosen by size (ops/solve_scan._scan_layout). Each
-//   thread owns a few contiguous nodes of its block's slice for the whole
-//   scan, so node state needs no barrier of its own. Per group step:
-//     1. wait for the group's record (cp.async into a shared double buffer
-//        while the previous step ran) and prefetch the next one;
-//     2. each thread computes kf = min(k, count) for its nodes and sums them
-//        (k = min_r floor(headroom / req + EPS) capped by max_per_node -
-//        prior; 0 where the node is closed or not eligible);
-//     3. one block scan of the thread sums: warp shuffles + one shared array;
-//     4. warp 0 pushes the block total into slot [parity][rank] of every
-//        rank's shared memory with st.async, each store completing 4 bytes
-//        of that rank's mbarrier for the parity (a slot is rewritten two
-//        steps later, after its readers are past the step between);
-//     5. each block waits on its own mbarrier for the CL totals;
-//     6. each thread sums them locally: the lower ranks' sum is the block's
-//        carry, all of them `placed` (sums saturate at count, which keeps
-//        them in 32 bits and leaves the takes exact);
-//     7. each thread writes its nodes' takes, updates their state, and opens
-//        the new nodes [nused, nused + n_new) that fall in its range, from
-//        B0's record (nused is replicated in every thread).
-//   cluster.sync() runs twice: after the prologue (every block started, its
-//   mbarriers initialised) and at the end (no block leaves while a peer may
-//   still store to it).
+// Bit sets and the record are csrc/scan_common.cuh's: NB = ceil((Z + C) /
+// 32) zone and captype words a node and a group, AW = ceil(Z * C / 64)
+// availability words a type, for every Z and C. B reads the records from
+// shared memory where two fit beside the rest (ops/solve_scan._scan_layout),
+// else in place from global memory (L2).
 //
 // Bound: counted as the bytes it must move (inputs once, takes out once:
 // ~2.6 MB at the main path, under a microsecond at HBM rate) the scan is
@@ -84,10 +66,7 @@
 
 namespace cg = cooperative_groups;
 
-#define MAX_RK 32
 #define BIG_I 1000000000
-#define BIG_F 1.0e9f
-#define EPS_F 1.0e-4f  // == np.float32(1e-4)
 
 #define NT0 256  // B0 threads per block
 #define NWARP0 (NT0 / 32)
@@ -96,38 +75,11 @@ namespace cg = cooperative_groups;
 #define CL_MAX 16
 #define MAX_DEVICES 64  // devices a per-device memo keeps (others: no memo)
 
-// the per-group record (int32 words) B0 writes and B reads
-#define REC_COUNT 0
-#define REC_CAP 1     // max_per_node, BIG_I for 0
-#define REC_GBITS 2   // allow_zone | allow_cap << Z
-#define REC_TSTAR 3
-#define REC_S 4       // max(slots[t_star], 1)
-#define REC_OK 5      // best cost-per-slot < FLT_MAX
-#define REC_TBITS 6   // t_star's available zones | captypes << Z
-#define REC_PRIOR 7   // prior[g, 0] (prior_w == 1)
-#define REC_BANNED 8  // banned[g, 0] (banned_w == 1)
-#define REC_HDR 12    // then req[Rk] (f32 bits), compat bits, conflict words
+#include "scan_common.cuh"
 
 // (value, index) order of the argmin: smaller value, then lower index.
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v < bv || (v == bv && i < bi);
-}
-
-// max over z of (zone bit set ? zovh[t, z, r] : 0), the reference's
-// where(mask, zovh, 0).max(axis=z)
-__device__ __forceinline__ float zone_reserve(const float* zovh, int t, int r,
-                                              unsigned zm, int Z, int Rk) {
-  float o = 0.0f;
-  for (int z = 0; z < Z; ++z) {
-    const float v = ((zm >> z) & 1u) ? zovh[((size_t)t * Z + z) * Rk + r]
-                                     : 0.0f;
-    o = z == 0 ? v : fmaxf(o, v);
-  }
-  return o;
-}
-
-__device__ __forceinline__ float fit_ratio(float room, float q) {
-  return q > 0.0f ? floorf(__fadd_rn(__fdiv_rn(room, q), EPS_F)) : BIG_F;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -161,10 +113,12 @@ struct OfferArgs {
   const uint8_t* banned;  // [Bp, Gp, banned_w]
   const uint8_t* conflict;  // [Bp, Gp, conf_w] or null
   int* recs;              // out [Bp, Gp, RW]
-  unsigned long long* availbits;  // out [T], bit z*C+c
+  unsigned long long* availbits;  // out [T, AW], bit z*C+c
   long long req_bstride;
   int req_stride, prior_w, banned_w, conf_w, RW;
   int T, Z, C, Rk, W, Gp;
+  int open_smem;  // each thread's open-zone words in shared memory
+  int req_smem;   // the group's req in shared memory (else read in place)
 };
 
 #ifdef SOLVE_SCAN_COUNT_WRITES
@@ -173,88 +127,146 @@ struct OfferArgs {
 __device__ unsigned long long availbits_writes = 0;
 #endif
 
-__global__ void __launch_bounds__(NT0) offer_argmin_kernel(OfferArgs a) {
-  extern __shared__ int s_slots[];  // [T]
-  __shared__ float s_req[MAX_RK];
+// Zone word w of the reference's zm_open for type t: the zones the group
+// allows (gb) that the type offers in some captype (av: its [Z, C] row).
+__device__ __forceinline__ unsigned open_word(const uint8_t* av,
+                                              const unsigned* gb, int w,
+                                              int Z, int C) {
+  unsigned m = 0;
+  const int z1 = min(Z, 32 * w + 32);
+  for (int z = 32 * w; z < z1; ++z) {
+    if (!bit_at(gb, z)) continue;
+    for (int c = 0; c < C; ++c)
+      if (av[z * C + c]) {
+        m |= 1u << (z - 32 * w);
+        break;
+      }
+  }
+  return m;
+}
+
+// Slots of type t for the block's group: min over r of floor(alloc_eff /
+// req + EPS) (BIG_F where req is 0), at least 0, capped at cap_per;
+// alloc_eff subtracts the zone overhead of the type's open zones. gb: the
+// group's bit string. The open zones are built once a type: the first 32
+// in a register, the rest in this thread's words so[NT0 * (w - 1)] of
+// shared memory, or, where so is null (they do not fit), rebuilt for each
+// column. ONE: Z + C <= 32 (one word), fixed at compile time.
+template <bool ONE>
+__device__ __forceinline__ int type_slots(const OfferArgs& a, int t,
+                                          const float* sreq,
+                                          const unsigned* gb, unsigned* so,
+                                          int cap_per) {
+  const int Z = a.Z, C = a.C, Rk = a.Rk;
+  const uint8_t* av = a.avail + (size_t)t * Z * C;
+  const bool zon = a.zovh != nullptr;
+  unsigned o0 = 0;
+  if (zon) {
+    o0 = open_word(av, gb, 0, Z, C);
+    if (!ONE && so != nullptr)
+      for (int w = 1; w * 32 < Z; ++w)
+        so[(w - 1) * NT0] = open_word(av, gb, w, Z, C);
+  }
+  float st = BIG_F;
+  for (int r = 0; r < Rk; ++r) {
+    float al = a.alloc[(size_t)t * Rk + r];
+    if (zon)
+      al = __fsub_rn(al, zone_reserve(a.zovh, t, r, Z, Rk, [&](int w) {
+                       return ONE || w == 0    ? o0
+                              : so != nullptr ? so[(w - 1) * NT0]
+                                              : open_word(av, gb, w, Z, C);
+                     }));
+    st = fminf(st, fit_ratio(al, sreq[r]));
+  }
+  const int si = (int)fmaxf(st, 0.0f);
+  return si < cap_per ? si : cap_per;
+}
+
+// Dynamic shared memory: the group's bit string [NB] padded to 16 bytes,
+// then (open_smem) the threads' open-zone words past the first
+// [ceil(Z / 32) - 1][NT0], then (req_smem) req [Rk].
+// Six blocks an SM (at most 40 registers a thread): the main path's 1,536
+// groups run in two waves. ONE: one bit word (Z + C <= 32) and req in
+// shared memory, fixed at compile time so that today's catalogs keep the
+// group's and the type's zone words in registers and address req as
+// shared (the instantiation that the main path's B0 needs to hold its
+// speed; PERF.md).
+template <bool ONE>
+__global__ void __launch_bounds__(NT0, 6) offer_argmin_kernel(OfferArgs a) {
+  extern __shared__ __align__(16) unsigned char dsm[];
   __shared__ float s_bv[NWARP0];
   __shared__ int s_bi[NWARP0];
   const int g = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, wid = tid >> 5;
   const int T = a.T, Z = a.Z, C = a.C, Rk = a.Rk, ZC = Z * C;
+  const int NB = ONE ? 1 : node_words(Z, C), AW = avail_words(Z, C);
+  const int HW = rec_req(NB);
   const size_t row = (size_t)b * a.Gp + g;  // [Bp, Gp] row of this block
-  // the group's scalars, loaded up front so their latency overlaps the work
-  const int count = a.counts[row], mp = a.maxpn[row];
-  const int prior0 = a.prior[row * a.prior_w];
-  const bool banned0 = a.banned[row * a.banned_w] != 0;
-  const unsigned gz = __ballot_sync(
-      0xffffffffu, lane < Z && a.gzone[row * Z + lane] != 0);
-  const unsigned gc = __ballot_sync(
-      0xffffffffu, lane < C && a.gcap[row * C + lane] != 0);
+  const int mp = a.maxpn[row];
+  const float* greq =
+      a.req + (size_t)b * a.req_bstride + (size_t)g * a.req_stride;
+  unsigned* s_gb = (unsigned*)dsm;  // [NB]
+  unsigned* s_open = s_gb + 4 * ((NB + 3) >> 2);
+  float* s_req =
+      (float*)(s_open + (a.open_smem ? (((Z + 31) >> 5) - 1) * NT0 : 0));
+  unsigned* so = a.open_smem ? s_open + tid : nullptr;
+  const bool rsm = ONE || a.req_smem;  // req in shared memory
+  const float* sreq = rsm ? s_req : greq;
+  for (int w = wid; w < NB; w += NWARP0) {
+    const int p = w * 32 + lane;
+    const bool on = p < Z ? a.gzone[row * Z + p] != 0
+                          : p < Z + C && a.gcap[row * C + (p - Z)] != 0;
+    const unsigned word = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) s_gb[w] = word;
+  }
   const int cap_per = mp == 0 ? BIG_I : mp;
-  if (tid < Rk)
-    s_req[tid] = a.req[(size_t)b * a.req_bstride + (size_t)g * a.req_stride +
-                       tid];
+  if (rsm)
+    for (int i = tid; i < Rk; i += NT0) s_req[i] = greq[i];
 
-  // each type's available offerings as one word (catalog-only: the first
+  // each type's available offerings as AW words (catalog-only: the first
   // request's blocks write it, striding over the types)
   if (b == 0)
-    for (int t = g * NT0 + tid; t < T; t += gridDim.x * NT0) {
-      unsigned long long ab = 0;
-      for (int f = 0; f < ZC; ++f)
-        if (a.avail[(size_t)t * ZC + f]) ab |= 1ull << f;
-      a.availbits[t] = ab;
+    for (int t = g * NT0 + tid; t < T; t += gridDim.x * NT0)
+      for (int w = 0; w < AW; ++w) {
+        unsigned long long ab = 0;
+        const int f1 = min(ZC, 64 * (w + 1));
+        for (int f = 64 * w; f < f1; ++f)
+          if (a.avail[(size_t)t * ZC + f]) ab |= 1ull << (f - 64 * w);
+        a.availbits[(size_t)t * AW + w] = ab;
 #ifdef SOLVE_SCAN_COUNT_WRITES
-      atomicAdd(&availbits_writes, 1ull);
+        atomicAdd(&availbits_writes, 1ull);
 #endif
-    }
-  __syncthreads();  // s_req
-
-  // slots per type, for every type (s reads slots[t_star] even when no
-  // offering is feasible, as the reference does)
-  const uint8_t* gcompat = a.compat + row * T;
-  for (int t = tid; t < T; t += NT0) {
-    unsigned zm_open = 0;
-    if (a.zovh != nullptr)
-      for (int z = 0; z < Z; ++z) {
-        if (!((gz >> z) & 1u)) continue;
-        for (int c = 0; c < C; ++c)
-          if (a.avail[(size_t)t * ZC + z * C + c]) {
-            zm_open |= 1u << z;
-            break;
-          }
       }
-    float st = BIG_F;
-    for (int r = 0; r < Rk; ++r) {
-      float al = a.alloc[(size_t)t * Rk + r];
-      if (a.zovh != nullptr)
-        al = __fsub_rn(al, zone_reserve(a.zovh, t, r, zm_open, Z, Rk));
-      st = fminf(st, fit_ratio(al, s_req[r]));
-    }
-    const int si = (int)fmaxf(st, 0.0f);
-    s_slots[t] = si < cap_per ? si : cap_per;
-  }
-  __syncthreads();
+  __syncthreads();  // s_req, s_gb
 
-  // first-index argmin of price / max(slots, 1) over the feasible offerings;
-  // each thread walks its types' offerings in index order
+  // one pass over the types: each thread its types' slots (s reads
+  // slots[t_star] even when no offering is feasible, as the reference
+  // does: recomputed below), then the first-index argmin of price /
+  // max(slots, 1) over their feasible offerings, in index order; the
+  // group's first 32 captypes and each 32 zones' word in registers
+  const uint8_t* gcompat = a.compat + row * T;
+  const unsigned gcap = bits_at(s_gb, Z, min(C, 32)), gzw = s_gb[0];
   float bv = FLT_MAX;
   int bi = INT_MAX;
   for (int t = tid; t < T; t += NT0) {
-    const int si = s_slots[t];
+    const int si = type_slots<ONE>(a, t, sreq, s_gb, so, cap_per);
     const bool tok = gcompat[t] && si >= 1;
     const float sf = (float)(si > 1 ? si : 1);
     const uint8_t* av = a.avail + (size_t)t * ZC;
     const float* pr = a.price + (size_t)t * ZC;
-    for (int zc = 0, z = 0, c = 0; zc < ZC; ++zc) {
-      const bool feas = tok && ((gz >> z) & 1u) && ((gc >> c) & 1u) && av[zc];
-      const float v = feas ? __fdiv_rn(pr[zc], sf) : FLT_MAX;
-      if (better(v, t * ZC + zc, bv, bi)) {
-        bv = v;
-        bi = t * ZC + zc;
-      }
-      if (++c == C) {
-        c = 0;
-        ++z;
+    unsigned zw = gzw;
+    for (int z = 0, zc = 0; z < Z; ++z) {
+      if (!ONE && (z & 31) == 0) zw = s_gb[z >> 5];
+      const bool zok = tok && ((zw >> (z & 31)) & 1u);
+      for (int c = 0; c < C; ++c, ++zc) {
+        const bool cok =
+            ONE || c < 32 ? (gcap >> c) & 1u : bit_at(s_gb, Z + c);
+        const bool feas = zok && cok && av[zc];
+        const float v = feas ? __fdiv_rn(pr[zc], sf) : FLT_MAX;
+        if (better(v, t * ZC + zc, bv, bi)) {
+          bv = v;
+          bi = t * ZC + zc;
+        }
       }
     }
   }
@@ -273,8 +285,8 @@ __global__ void __launch_bounds__(NT0) offer_argmin_kernel(OfferArgs a) {
   }
   __syncthreads();
 
-  // warp 0 reduces the warps' candidates; every lane then knows t_star,
-  // and lane zc reads t_star's offering zc
+  // warp 0 reduces the warps' candidates; every lane then knows t_star
+  // and reads t_star's offerings for its bits
   int* rec = a.recs + row * a.RW;
   if (wid == 0) {
     bv = lane < NWARP0 ? s_bv[lane] : FLT_MAX;
@@ -289,49 +301,50 @@ __global__ void __launch_bounds__(NT0) offer_argmin_kernel(OfferArgs a) {
       }
     }
     const int t_star = bi == INT_MAX ? 0 : bi / ZC;
-    const unsigned long long ab =
-        (unsigned long long)__ballot_sync(
-            0xffffffffu, lane < ZC && a.avail[(size_t)t_star * ZC + lane]) |
-        ((unsigned long long)__ballot_sync(
-             0xffffffffu,
-             lane + 32 < ZC && a.avail[(size_t)t_star * ZC + lane + 32])
-         << 32);
+    const uint8_t* tav = a.avail + (size_t)t_star * ZC;
+    // bit p of t_star's string: zone p offered in some captype, or
+    // captype p - Z in some zone; then the group's and t_star's words
+    for (int w = 0; w < NB; ++w) {
+      const int p = w * 32 + lane;
+      bool on = false;
+      if (p < Z) {
+        for (int c = 0; c < C && !on; ++c) on = tav[p * C + c] != 0;
+      } else if (p < Z + C) {
+        for (int z = 0; z < Z && !on; ++z) on = tav[z * C + (p - Z)] != 0;
+      }
+      const unsigned word = __ballot_sync(0xffffffffu, on);
+      if (lane == 0) {
+        rec[REC_HDR + w] = (int)s_gb[w];
+        rec[REC_HDR + NB + w] = (int)word;
+      }
+    }
     if (lane == 0) {
-      unsigned tz = 0, tc = 0;
-      for (int z = 0; z < Z; ++z)
-        for (int c = 0; c < C; ++c)
-          if ((ab >> (z * C + c)) & 1ull) {
-            tz |= 1u << z;
-            tc |= 1u << c;
-          }
-      rec[REC_COUNT] = count;
+      const int st = type_slots<ONE>(a, t_star, sreq, s_gb, so, cap_per);
+      rec[REC_COUNT] = a.counts[row];
       rec[REC_CAP] = cap_per;
-      rec[REC_GBITS] = (int)(gz | (gc << Z));
       rec[REC_TSTAR] = t_star;
-      rec[REC_S] = s_slots[t_star] > 1 ? s_slots[t_star] : 1;
+      rec[REC_S] = st > 1 ? st : 1;
       rec[REC_OK] = bv < FLT_MAX ? 1 : 0;
-      rec[REC_TBITS] = (int)(tz | (tc << Z));
-      rec[REC_PRIOR] = prior0;
-      rec[REC_BANNED] = banned0 ? 1 : 0;
-      for (int i = REC_BANNED + 1; i < REC_HDR; ++i) rec[i] = 0;
+      rec[REC_PRIOR] = a.prior[row * a.prior_w];
+      rec[REC_BANNED] = a.banned[row * a.banned_w] != 0 ? 1 : 0;
     }
   }
-  if (tid < Rk) rec[REC_HDR + tid] = __float_as_int(s_req[tid]);
+  for (int i = tid; i < Rk; i += NT0) rec[HW + i] = __float_as_int(sreq[i]);
   // bit sets, one warp per word: compat row, then conflict row
   const int CW = (T + 31) / 32;
   for (int w = wid; w < CW; w += NWARP0) {
     const int t = w * 32 + lane;
     const unsigned word = __ballot_sync(0xffffffffu, t < T && gcompat[t]);
-    if (lane == 0) rec[REC_HDR + Rk + w] = (int)word;
+    if (lane == 0) rec[HW + Rk + w] = (int)word;
   }
   for (int w = wid; w < a.W; w += NWARP0) {
     const int j = w * 32 + lane;
     const bool bit =
         j < a.conf_w && a.conflict[row * a.conf_w + j] != 0;
     const unsigned word = __ballot_sync(0xffffffffu, bit);
-    if (lane == 0) rec[REC_HDR + Rk + CW + w] = (int)word;
+    if (lane == 0) rec[HW + Rk + CW + w] = (int)word;
   }
-  for (int i = REC_HDR + Rk + CW + a.W + tid; i < a.RW; i += NT0) rec[i] = 0;
+  for (int i = HW + Rk + CW + a.W + tid; i < a.RW; i += NT0) rec[i] = 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -340,7 +353,7 @@ __global__ void __launch_bounds__(NT0) offer_argmin_kernel(OfferArgs a) {
 
 struct ScanArgs {
   const float* alloc;                   // [T, Rk]
-  const unsigned long long* availbits;  // [T] (B0)
+  const unsigned long long* availbits;  // [T, AW] (B0)
   const float* zovh;                    // [T, Z, Rk] or null
   const int* recs;                      // [Bp, Gp, RW] (B0)
   const int* prior;                     // [Bp, Gp, prior_w]
@@ -358,6 +371,7 @@ struct ScanArgs {
   long long slab_bytes;
   int RW, prior_w, banned_w, cum_stride;
   int T, Z, C, Rk, W, Gp, n_max, n_used0, S, track;
+  int rec_smem;  // the records in shared memory (else read in place)
 };
 
 __device__ __forceinline__ unsigned sat_add(unsigned x, unsigned y,
@@ -431,6 +445,10 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
   const int RW = a.RW, n_max = a.n_max, Gp = a.Gp;
   const bool zon = a.zovh != nullptr;
   const int CW = (T + 31) / 32;
+  const int NB = node_words(Z, C);   // bit-string words a node
+  const int AW = avail_words(Z, C);  // availability words a type
+  const int HW = rec_req(NB);        // the record's req offset
+  const bool rsm = a.rec_smem != 0;  // records in shared memory
   // this cluster's request: its rows of the per-request arrays
   const size_t b = blockIdx.y;
   const int* recs = a.recs + b * Gp * RW;
@@ -442,23 +460,23 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
   int* hdr = a.hdr + 2 * b;
 
   // --- carve shared memory: records, catalog, node slice ---
-  int* rec_buf = (int*)smem;  // [2][RW]
-  unsigned char* p = smem + (size_t)2 * RW * 4;
+  int* rec_buf = (int*)smem;  // [2][RW] where rsm
+  unsigned char* p = smem + (rsm ? (size_t)2 * RW * 4 : 0);
   const unsigned long long* c_avail;
   const float* c_alloc;
   const float* c_zovh;
   if constexpr (CAT_SMEM) {
     unsigned long long* sa = (unsigned long long*)p;
-    float* sl = (float*)(p + (size_t)T * 8);
+    float* sl = (float*)(p + (size_t)T * AW * 8);
     float* sz = sl + (size_t)T * Rk;
-    for (int i = tid; i < T; i += NT) sa[i] = a.availbits[i];
+    for (int i = tid; i < T * AW; i += NT) sa[i] = a.availbits[i];
     for (int i = tid; i < T * Rk; i += NT) sl[i] = a.alloc[i];
     if (zon)
       for (int i = tid; i < T * Z * Rk; i += NT) sz[i] = a.zovh[i];
     c_avail = sa;
     c_alloc = sl;
     c_zovh = sz;
-    const size_t cat = (size_t)T * 8 + (size_t)T * Rk * 4 +
+    const size_t cat = (size_t)T * AW * 8 + (size_t)T * Rk * 4 +
                        (zon ? (size_t)T * Z * Rk * 4 : 0);
     p += (cat + 15) & ~(size_t)15;
   } else {
@@ -473,8 +491,8 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
     slab = a.scratch + (b * CL + rank) * (size_t)a.slab_bytes;
   }
   int* s_type = (int*)slab;                   // [S], -1 = closed
-  unsigned* s_bits = (unsigned*)(s_type + S);  // [S], zone | captype << Z
-  int* s_kf = (int*)(s_bits + S);              // [S]
+  unsigned* s_bits = (unsigned*)(s_type + S);  // [S][NB] zone, captype bits
+  int* s_kf = (int*)(s_bits + (size_t)S * NB);  // [S]
   float* s_cum = (float*)(s_kf + S);           // [Rk][S]
   unsigned* s_host = (unsigned*)(s_cum + (size_t)Rk * S);  // [S][W]
 
@@ -484,16 +502,19 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
   for (int i = tid; i < S; i += NT) {
     const int n = lo + i;
     int t = -1;
-    unsigned bits = 0;
-    if (i < Sb) {
-      if (a.node_open[n]) t = a.node_type[n];
-      for (int z = 0; z < Z; ++z)
-        bits |= (unsigned)(a.node_zmask[(size_t)n * Z + z] != 0) << z;
-      for (int c = 0; c < C; ++c)
-        bits |= (unsigned)(a.node_cmask[(size_t)n * C + c] != 0) << (Z + c);
+    if (i < Sb && a.node_open[n]) t = a.node_type[n];
+    for (int w = 0; w < NB; ++w) {
+      unsigned bits = 0;
+      for (int j = 0; j < 32 && i < Sb; ++j) {
+        const int q = w * 32 + j;
+        const bool on =
+            q < Z ? a.node_zmask[(size_t)n * Z + q] != 0
+                  : q < Z + C && a.node_cmask[(size_t)n * C + (q - Z)] != 0;
+        bits |= (unsigned)on << j;
+      }
+      s_bits[(size_t)i * NB + w] = bits;
     }
     s_type[i] = t;
-    s_bits[i] = bits;
     s_kf[i] = 0;
     for (int r = 0; r < Rk; ++r)
       s_cum[(size_t)r * S + i] =
@@ -511,8 +532,8 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   // record prefetches are issued by the highest threads, which own the
-  // fewest nodes
-  const int nchunk = RW / 4;  // 16-byte chunks of a record
+  // fewest nodes (none where the records are read in place)
+  const int nchunk = rsm ? RW / 4 : 0;  // 16-byte chunks of a record
   for (int i = NT - 1 - tid; i < nchunk; i += NT)
     cp_async16(rec_buf + 4 * i, recs + 4 * i);
   cp_async_commit();
@@ -521,15 +542,14 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
   const int P = (S + NT - 1) / NT;  // nodes a thread owns
   const int i0 = tid * P;
   const int i1 = min(i0 + P, Sb);
-  const unsigned zlow = (1u << Z) - 1u;
   int nused = a.n_used0, overflow = 0;
 
   for (int g = 0; g < Gp; ++g) {
     // --- 1. this group's record; prefetch the next ---
     cp_async_wait_all();
     __syncthreads();  // record g visible; every thread is done with g - 1
-    const int* rec = rec_buf + (g & 1) * RW;
-    if (g + 1 < Gp) {
+    const int* rec = rsm ? rec_buf + (g & 1) * RW : recs + (size_t)g * RW;
+    if (rsm && g + 1 < Gp) {
       int* nxt = rec_buf + ((g + 1) & 1) * RW;
       const int* src = recs + (size_t)(g + 1) * RW;
       for (int i = NT - 1 - tid; i < nchunk; i += NT)
@@ -538,9 +558,10 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
     cp_async_commit();
     const int count = rec[REC_COUNT], cap_per = rec[REC_CAP];
     const unsigned cnt = (unsigned)count;
-    const unsigned gbits = (unsigned)rec[REC_GBITS];
-    const float* req = (const float*)(rec + REC_HDR);
-    const unsigned* ccompat = (const unsigned*)(rec + REC_HDR + Rk);
+    const unsigned* gb = (const unsigned*)(rec + REC_HDR);  // [NB]
+    const unsigned* tb = gb + NB;  // t_star's [NB]
+    const float* req = (const float*)(rec + HW);
+    const unsigned* ccompat = (const unsigned*)(rec + HW + Rk);
     const unsigned* conf = ccompat + CW;
 
     // --- 2. kf for this thread's nodes; sums saturate at count (a prefix
@@ -551,17 +572,11 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
       int kf = 0;
       if (t >= 0 && count > 0) {
         const int n = lo + i;
-        const unsigned b2 = s_bits[i] & gbits;
-        const unsigned zm2 = b2 & zlow, cm2 = b2 >> Z;
+        const unsigned* nb = s_bits + (size_t)i * NB;
         bool elig = (ccompat[t >> 5] >> (t & 31)) & 1u;
-        if (elig) {
-          const unsigned long long ab = c_avail[t];
-          bool off = false;
-          for (int z = 0; z < Z && !off; ++z)
-            off = ((zm2 >> z) & 1u) &&
-                  ((ab >> (z * C)) & (unsigned long long)cm2) != 0ull;
-          elig = off;
-        }
+        if (elig)
+          elig = offer_in((const unsigned*)(c_avail + (size_t)t * AW), nb, gb,
+                          Z, C);
         if (elig)
           elig = !(a.banned_w > 1 ? banned[(size_t)g * a.banned_w + n] != 0
                                   : rec[REC_BANNED] != 0);
@@ -575,7 +590,10 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
           float kc = BIG_F;
           for (int r = 0; r < Rk; ++r) {
             float ta = c_alloc[(size_t)t * Rk + r];
-            if (zon) ta = __fsub_rn(ta, zone_reserve(c_zovh, t, r, zm2, Z, Rk));
+            if (zon)
+              ta = __fsub_rn(ta, zone_reserve(c_zovh, t, r, Z, Rk, [&](int w) {
+                               return nb[w] & gb[w];
+                             }));
             const float room = __fsub_rn(ta, s_cum[(size_t)r * S + i]);
             kc = fminf(kc, fit_ratio(room, req[r]));
           }
@@ -636,7 +654,6 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
       unsched[g] = (int)(sched ? (put < rem ? rem - put : 0ull) : rem);
     }
     const int t_star = rec[REC_TSTAR];
-    const unsigned nbits = gbits & (unsigned)rec[REC_TBITS];
     // exclusive prefix at node i0 (each term <= count: no overflow)
     long long run = (long long)low + sat_add(woff, excl, cnt);
     for (int i = i0; i < i1; ++i) {
@@ -655,7 +672,7 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
           float* cp = s_cum + (size_t)r * S + i;
           *cp = __fadd_rn(*cp, __fmul_rn(tf, req[r]));
         }
-        s_bits[i] &= gbits;
+        for (int w = 0; w < NB; ++w) s_bits[(size_t)i * NB + w] &= gb[w];
       }
       const int pos = n - nused;
       long long on = 0;
@@ -667,7 +684,8 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
         const float tf = (float)on;
         for (int r = 0; r < Rk; ++r)
           s_cum[(size_t)r * S + i] = __fmul_rn(tf, req[r]);
-        s_bits[i] = nbits;
+        for (int w = 0; w < NB; ++w)
+          s_bits[(size_t)i * NB + w] = gb[w] & tb[w];
       }
       const long long gt = take + on;
       if (a.track && gt > 0) s_host[(size_t)i * W + (g >> 5)] |= 1u << (g & 31);
@@ -692,16 +710,38 @@ __global__ void __launch_bounds__(NT, 1) solve_scan_kernel(ScanArgs a) {
 // ---------------------------------------------------------------------------
 // C interface (bound with ctypes). Pointers are device pointers; kernels run
 // on `stream` and do not synchronise. Each returns the cudaError_t of its
-// launch (0 = launched), -1 for arguments the kernel does not take, or -2
-// (kernel B) when the card cannot co-schedule a cluster of CL blocks.
+// launch (0 = launched), -1 for malformed arguments, or -2 (kernel B) when
+// the card cannot co-schedule a cluster of CL blocks.
 // ---------------------------------------------------------------------------
 
-static bool shapes_ok(int T, int Z, int C, int Rk, int Gp, int Bp) {
-  return T >= 1 && Gp >= 1 && Rk >= 1 && Rk <= MAX_RK && Z >= 1 && C >= 1 &&
-         Z <= 31 && C <= 31 && Z * C <= 64 && Z + C <= 32 && Bp >= 1 &&
-         Bp <= 65535;
+static bool shapes_ok(int T, int Z, int C, int Rk, int Gp, int Bp, int RW) {
+  return T >= 1 && Gp >= 1 && Rk >= 1 && Z >= 1 && C >= 1 && Bp >= 1 &&
+         Bp <= 65535 && RW % 4 == 0 &&
+         RW >= rec_req(node_words(Z, C)) + Rk + (T + 31) / 32;
 }
 
+// The largest dynamic shared size set on each device for an instantiation
+// of kernel B0 (a function attribute belongs to one device; 0: the default
+// 48 KiB).
+template <bool ONE>
+static cudaError_t offer_smem(size_t smem) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  static size_t smem_set[MAX_DEVICES];
+  size_t* set = dev < MAX_DEVICES ? &smem_set[dev] : nullptr;
+  if (smem > 48 * 1024 && (set == nullptr || smem > *set)) {
+    e = cudaFuncSetAttribute(offer_argmin_kernel<ONE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    if (set != nullptr) *set = smem;
+  }
+  return cudaSuccess;
+}
+
+// open_smem / req_smem: the threads' open-zone words / the group's req in
+// shared memory (ops/solve_scan._offer_smem decides from sizes).
 extern "C" int offer_argmin_launch(
     const float* alloc, const float* price, const uint8_t* avail,
     const float* zovh, const float* req, long long req_bstride,
@@ -710,8 +750,8 @@ extern "C" int offer_argmin_launch(
     const int* maxpn, const int* prior, int prior_w, const uint8_t* banned,
     int banned_w, const uint8_t* conflict, int conf_w, int* recs, int RW,
     unsigned long long* availbits, int T, int Z, int C, int Rk, int Gp, int W,
-    int Bp, void* stream) {
-  if (!shapes_ok(T, Z, C, Rk, Gp, Bp) || RW % 4 != 0) return -1;
+    int Bp, int open_smem, int req_smem, void* stream) {
+  if (!shapes_ok(T, Z, C, Rk, Gp, Bp, RW)) return -1;
   OfferArgs a;
   a.alloc = alloc;
   a.price = price;
@@ -740,22 +780,22 @@ extern "C" int offer_argmin_launch(
   a.Rk = Rk;
   a.W = W;
   a.Gp = Gp;
-  const size_t smem = sizeof(int) * (size_t)T;
-  // a function attribute belongs to one device, so the memo of the largest
-  // size set is kept per device (0: the default 48 KiB)
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  a.open_smem = zovh != nullptr && open_smem;
+  a.req_smem = req_smem;
+  const size_t smem =
+      16 * (size_t)((node_words(Z, C) + 3) / 4) +
+      (a.open_smem ? sizeof(unsigned) * (size_t)((Z + 31) / 32 - 1) * NT0
+                   : 0) +
+      (a.req_smem ? sizeof(float) * (size_t)Rk : 0);
+  const bool one = node_words(Z, C) == 1 && a.req_smem;
+  const cudaError_t e = one ? offer_smem<true>(smem) : offer_smem<false>(smem);
   if (e != cudaSuccess) return (int)e;
-  static size_t smem_set[MAX_DEVICES];
-  size_t* set = dev < MAX_DEVICES ? &smem_set[dev] : nullptr;
-  if (smem > 48 * 1024 && (set == nullptr || smem > *set)) {
-    e = cudaFuncSetAttribute(
-        offer_argmin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    if (set != nullptr) *set = smem;
-  }
-  offer_argmin_kernel<<<dim3(Gp, Bp), NT0, smem, (cudaStream_t)stream>>>(a);
+  if (one)
+    offer_argmin_kernel<true>
+        <<<dim3(Gp, Bp), NT0, smem, (cudaStream_t)stream>>>(a);
+  else
+    offer_argmin_kernel<false>
+        <<<dim3(Gp, Bp), NT0, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -780,8 +820,8 @@ static cudaLaunchConfig_t cluster_cfg(int CL, int Bp, int smem_bytes,
 template <bool NS, bool CS>
 static cudaError_t scan_attributes(int CL, int smem_bytes) {
   cudaError_t e = cudaFuncSetAttribute(
-      solve_scan_kernel<NS, CS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      solve_scan_kernel<NS, CS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e == cudaSuccess && CL > 8)
     e = cudaFuncSetAttribute(solve_scan_kernel<NS, CS>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -817,9 +857,10 @@ extern "C" int solve_scan_launch(
     int* takes, int* unsched, int* hdr, unsigned char* scratch,
     long long slab_bytes, int T, int Z, int C, int Rk, int W, int Gp,
     int n_max, int n_used0, int S, int cat_smem, int track, int CL,
-    int smem_bytes, int nodes_smem, int Bp, void* stream) {
-  if (!shapes_ok(T, Z, C, Rk, Gp, Bp) || RW % 4 != 0 || CL < 1 || CL > CL_MAX ||
-      S < 1 || (long long)S * CL < n_max || (nodes_smem != 0) != (scratch == nullptr))
+    int smem_bytes, int nodes_smem, int Bp, int rec_smem, void* stream) {
+  if (!shapes_ok(T, Z, C, Rk, Gp, Bp, RW) || CL < 1 || CL > CL_MAX ||
+      S < 1 || (long long)S * CL < n_max ||
+      (nodes_smem != 0) != (scratch == nullptr))
     return -1;
   ScanArgs a;
   a.alloc = alloc;
@@ -853,6 +894,7 @@ extern "C" int solve_scan_launch(
   a.n_used0 = n_used0;
   a.S = S;
   a.track = track;
+  a.rec_smem = rec_smem;
 
   if (nodes_smem)
     return cat_smem ? launch_scan<true, true>(a, CL, Bp, smem_bytes, stream)
@@ -865,7 +907,8 @@ extern "C" int solve_scan_launch(
 // co-schedule with `smem_bytes` of dynamic shared memory per block; 0 when
 // none can. chip_smoke.py logs it beside the chosen layout.
 extern "C" int solve_scan_max_cluster(int smem_bytes) {
-  if (scan_attributes<true, true>(CL_MAX, smem_bytes) != cudaSuccess) return 0;
+  if (scan_attributes<true, true>(CL_MAX, smem_bytes) != cudaSuccess)
+    return 0;
   int best = 0;
   for (int cl = 1; cl <= CL_MAX; cl *= 2) {
     cudaLaunchAttribute attr[1];

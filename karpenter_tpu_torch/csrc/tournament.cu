@@ -16,6 +16,14 @@
 //   then one more capacity pass; residual[g] = max(need - sum_n x, 0)
 //   out[s] = {feasible, savings, sum_g residual, sum_g residual * pslot}
 //
+// Resource columns: each instantiation carries RKB = 2, 4, 8, 16 or 32
+// columns of a node's load in registers (rk_bucket). Past 32 the 32-column
+// instantiation walks the columns in tiles of 32 (a runtime loop, no
+// instantiation of its own): each tile's loads over groups in group order,
+// exactly as a narrower Rk's, and the node's scale the minimum over every
+// tile's ratios (a minimum is exact in any grouping). req's shared row
+// holds RKW = Rk rounded up to 32 floats there (req_width).
+//
 // Bound: operations. The inputs are read once (k and counts [N, G], masks
 // [S, N]: ~0.6 MB at the operator loop's first search, S=232, N=382,
 // G=90). The function needs 75 operations a (subset, node, group) cell at
@@ -99,7 +107,8 @@ namespace cg = cooperative_groups;
 #define R_BIG 1.0e9f   // relax _BIG
 #define NT 384         // threads per block (168 registers a thread)
 #define NWARP (NT / 32)
-#define RMAX 32        // resource columns carried in registers (RKB <= 32)
+#define RMAX 32        // resource columns carried in registers (RKB <= 32;
+                       // past 32, tiles of 32)
 #define CL_MAX 16      // the largest (non-portable) cluster on Hopper
 #define SPB_MAX 32     // subsets one block may hold
 #define MAX_DEVICES 64  // devices a per-device memo keeps (others: no memo)
@@ -139,10 +148,11 @@ struct TournamentArgs {
   int S, N, G, Rk, iters;
   int SL, SPB, XS, CH;
   int GC;            // stream tier: groups of a req chunk (else 0)
+  int RKW;           // floats of a req row in shared memory (req_width)
   int ksmem;         // the slice's k rows resident in shared memory
   int G4;            // G rounded up to a multiple of 4
   int SL4;           // SL rounded up to a multiple of 4
-  int block_floats;  // req [G4, RKB] and the ring [NBUF, CH, G4]; stream
+  int block_floats;  // req [G4, RKW] and the ring [NBUF, CH, G4]; stream
                      // tier: two req chunks [2, GC, RKB]
   int lane_floats;   // one subset's region
 };
@@ -161,12 +171,12 @@ __host__ __device__ inline int x_stride(int G) {
   return (g4 / 4) % 2 == 1 ? g4 : g4 + 4;
 }
 
-// Floats of the block's shared rows: req [G4, RKB] (RKB = Rk rounded up to
-// a power of two, zero past Rk and G) and the ring of k chunks [NBUF, CH,
-// G4] (rows zero past G), or with ksmem the slice's k rows [CH = SL, G4].
-__host__ __device__ inline int block_floats(int G, int RKB, int CH,
+// Floats of the block's shared rows: req [G4, RKW] (RKW = req_width(Rk),
+// zero past Rk and G) and the ring of k chunks [NBUF, CH, G4] (rows zero
+// past G), or with ksmem the slice's k rows [CH = SL, G4].
+__host__ __device__ inline int block_floats(int G, int RKW, int CH,
                                             bool ksmem) {
-  return round4(G) * RKB + (ksmem ? 1 : NBUF) * CH * round4(G);
+  return round4(G) * RKW + (ksmem ? 1 : NBUF) * CH * round4(G);
 }
 
 // Floats of one subset's shared region: x [SL, XS] (shared tiers); surv, m
@@ -366,35 +376,49 @@ __device__ __forceinline__ Cells cells(int Q, int tid, int nthreads) {
   return c;
 }
 
-// A node's capacity scale from its load: clip(min_r max(head, 0) / load,
-// 0, 1) over the columns below Rk, BIG for an unloaded column.
+// The minimum of mn and the capacity ratios max(head, 0) / load of the
+// columns [r0, r0 + RKB) below Rk (BIG for an unloaded column); load
+// holds those columns' loads.
 template <int RKB>
-__device__ __forceinline__ float node_scale(const TournamentArgs& a,
-                                            const float* load, int n) {
-  float mn = INFINITY;
-  const float* hr = a.head + (size_t)n * a.Rk;
+__device__ __forceinline__ float node_min(const TournamentArgs& a,
+                                          const float* load, int n, int r0,
+                                          float mn) {
+  const float* hr = a.head + (size_t)n * a.Rk + r0;
 #pragma unroll
   for (int r = 0; r < RKB; ++r) {
-    if (r < a.Rk) {
+    if (r0 + r < a.Rk) {
       const float h = fmaxf(__ldg(hr + r), 0.0f);
       const float ratio =
           load[r] > R_EPS ? __fdiv_rn(h, fmaxf(load[r], R_EPS)) : R_BIG;
       mn = fminf(mn, ratio);
     }
   }
+  return mn;
+}
+
+// A node's capacity scale from its minimum ratio: clip(mn, 0, 1).
+__device__ __forceinline__ float clip01(float mn) {
   return fminf(fmaxf(mn, 0.0f), 1.0f);
 }
 
-// The stream tier's req chunk c (groups [c GC, (c + 1) GC)) into shared
-// buffer c & 1 as [GC, RKB]: one 4-byte cp.async an element, zero-filled
-// past Rk and G; every thread issues its share and commits one group.
+// Tiles of RKB columns an instantiation walks: one, but past RMAX columns
+// (the 32-column instantiation) ceil(Rk / 32).
+template <int RKB>
+__device__ __forceinline__ int col_end(const TournamentArgs& a) {
+  return RKB == RMAX ? a.Rk : 1;
+}
+
+// The stream tier's req chunk c (groups [c GC, (c + 1) GC)) of the columns
+// [r0, r0 + RKB) into shared buffer c & 1 as [GC, RKB]: one 4-byte
+// cp.async an element, zero-filled past Rk and G; every thread issues its
+// share and commits one group.
 template <int RKB>
 __device__ __forceinline__ void req_chunk_issue(const TournamentArgs& a,
-                                                float* smem, int c) {
+                                                float* smem, int c, int r0) {
   float* dst = smem + (size_t)(c & 1) * a.GC * RKB;
   const int g0 = c * a.GC;
   for (int i = threadIdx.x; i < a.GC * RKB; i += NT) {
-    const int g = g0 + i / RKB, r = i % RKB;
+    const int g = g0 + i / RKB, r = r0 + i % RKB;
     const bool in = g < a.G && r < a.Rk;
     const float* src = in ? a.req + (size_t)g * a.req_stride + r : a.req;
     asm volatile(
@@ -409,8 +433,9 @@ __device__ __forceinline__ void req_chunk_issue(const TournamentArgs& a,
 // The stream tier's node pass: one thread a node keeps its load over groups
 // in registers while req streams through two shared buffers of GC groups,
 // chunk c + 1 landing while the block works on chunk c (groups in group
-// order, as on the other tiers). Every thread takes part in every chunk's
-// copies and barriers, so the nodes go in rounds of NT.
+// order, as on the other tiers); past RMAX columns, once a tile of
+// columns. Every thread takes part in every chunk's copies and barriers,
+// so the nodes go in rounds of NT.
 template <int RKB>
 __device__ void stream_scales(const TournamentArgs& a, float* smem, int s0,
                               int CL, int n0, int nloc) {
@@ -419,38 +444,43 @@ __device__ void stream_scales(const TournamentArgs& a, float* smem, int s0,
   for (int nb = 0; nb < nloc; nb += NT) {
     const int n = nb + threadIdx.x;
     const bool act = n < nloc;
-    float load[RKB];
+    float mn = INFINITY;
+    for (int r0 = 0; r0 < col_end<RKB>(a); r0 += RKB) {
+      if (r0 > 0) __syncthreads();  // the last tile's chunks read out
+      float load[RKB];
 #pragma unroll
-    for (int r = 0; r < RKB; ++r) load[r] = 0.0f;
-    if (nchunk > 0) req_chunk_issue<RKB>(a, smem, 0);
-    for (int c = 0; c < nchunk; ++c) {
-      asm volatile("cp.async.wait_all;" ::: "memory");
-      __syncthreads();  // chunk c landed; chunk c - 1's buffer read out
-      if (c + 1 < nchunk) req_chunk_issue<RKB>(a, smem, c + 1);
-      if (!act) continue;
-      const int g0 = c * a.GC, g1 = min(g0 + a.GC, a.G4);
-      const float* xp = L.x + (size_t)n * a.XS + g0;
-      const float* qp = smem + (size_t)(c & 1) * a.GC * RKB;
-      for (int g = g0; g < g1; g += 4, xp += 4, qp += 4 * RKB) {
-        const float4 x4 = ld4(xp);
-        const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+      for (int r = 0; r < RKB; ++r) load[r] = 0.0f;
+      if (nchunk > 0) req_chunk_issue<RKB>(a, smem, 0, r0);
+      for (int c = 0; c < nchunk; ++c) {
+        asm volatile("cp.async.wait_all;" ::: "memory");
+        __syncthreads();  // chunk c landed; chunk c - 1's buffer read out
+        if (c + 1 < nchunk) req_chunk_issue<RKB>(a, smem, c + 1, r0);
+        if (!act) continue;
+        const int g0 = c * a.GC, g1 = min(g0 + a.GC, a.G4);
+        const float* xp = L.x + (size_t)n * a.XS + g0;
+        const float* qp = smem + (size_t)(c & 1) * a.GC * RKB;
+        for (int g = g0; g < g1; g += 4, xp += 4, qp += 4 * RKB) {
+          const float4 x4 = ld4(xp);
+          const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
 #pragma unroll
-        for (int b = 0; b < 4; ++b)
+          for (int b = 0; b < 4; ++b)
 #pragma unroll
-          for (int r = 0; r < RKB; ++r)
-            load[r] = __fadd_rn(load[r], __fmul_rn(xv[b], qp[b * RKB + r]));
+            for (int r = 0; r < RKB; ++r)
+              load[r] = __fadd_rn(load[r], __fmul_rn(xv[b], qp[b * RKB + r]));
+        }
       }
+      if (act) mn = node_min<RKB>(a, load, n0 + n, r0, mn);
     }
-    if (act) L.sc[n] = node_scale<RKB>(a, load, n0 + n);
+    if (act) L.sc[n] = clip01(mn);
     __syncthreads();  // the last chunk read out before the next round's
   }
 }
 
 // The capacity projection over the block's nodes: (a) one thread a node
 // forms load[r] = sum_g x[n, g] req[g, r] in group order (x four groups a
-// load; req from shared memory, zero past Rk and G, as x is past G) and the
-// scale clip(min_r max(head, 0) / load, 0, 1); (b) every thread scales
-// (node, 4-group) cells.
+// load; req from shared memory, zero past Rk and G, as x is past G; past
+// RMAX columns a tile of 32 at a time) and the scale clip(min_r max(head,
+// 0) / load, 0, 1); (b) every thread scales (node, 4-group) cells.
 template <int TIER, int RKB>
 __device__ void capacity_pass(const TournamentArgs& a, float* smem, int s0,
                               int CL, int n0, int nloc) {
@@ -460,25 +490,31 @@ __device__ void capacity_pass(const TournamentArgs& a, float* smem, int s0,
     stream_scales<RKB>(a, smem, s0, CL, n0, nloc);
   } else {
     const float* sreq = smem;
+    // req's row: RKB floats, or RKW (tiles of RKB) past RMAX columns
+    const int RKW = RKB == RMAX ? a.RKW : RKB;
     for (int t = threadIdx.x; t < rows; t += NT) {
       const int j = lane_of(t, SL, SPB), n = t - j * SL;
       if (s0 + j >= a.S || n >= nloc) continue;
       const Lane L = lane_at<TIER>(a, smem, j, s0 + j, CL, n0);
-      const float* xp = L.x + (size_t)n * XS;
-      const float* qp = sreq;
-      float load[RKB];
+      float mn = INFINITY;
+      for (int r0 = 0; r0 < col_end<RKB>(a); r0 += RKB) {
+        const float* xp = L.x + (size_t)n * XS;
+        const float* qp = sreq + r0;
+        float load[RKB];
 #pragma unroll
-      for (int r = 0; r < RKB; ++r) load[r] = 0.0f;
-      for (int u = 0; u < Q; ++u, xp += 4, qp += 4 * RKB) {
-        const float4 x4 = ld4(xp);
-        const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+        for (int r = 0; r < RKB; ++r) load[r] = 0.0f;
+        for (int u = 0; u < Q; ++u, xp += 4, qp += 4 * RKW) {
+          const float4 x4 = ld4(xp);
+          const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
 #pragma unroll
-        for (int b = 0; b < 4; ++b)
+          for (int b = 0; b < 4; ++b)
 #pragma unroll
-          for (int r = 0; r < RKB; ++r)
-            load[r] = __fadd_rn(load[r], __fmul_rn(xv[b], qp[b * RKB + r]));
+            for (int r = 0; r < RKB; ++r)
+              load[r] = __fadd_rn(load[r], __fmul_rn(xv[b], qp[b * RKW + r]));
+        }
+        mn = node_min<RKB>(a, load, n0 + n, r0, mn);
       }
-      L.sc[n] = node_scale<RKB>(a, load, n0 + n);
+      L.sc[n] = clip01(mn);
     }
   }
   __syncthreads();
@@ -837,7 +873,7 @@ __global__ void __launch_bounds__(NT, 1) tournament_kernel(TournamentArgs a) {
   H.bar = s_hand;
   H.ph = 0;
   Ring R;
-  R.buf = smem + G4 * RKB;
+  R.buf = smem + (size_t)G4 * a.RKW;
   R.bar = s_bar;
   R.ph = 0;
   if (threadIdx.x == 0) {
@@ -865,8 +901,9 @@ __global__ void __launch_bounds__(NT, 1) tournament_kernel(TournamentArgs a) {
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < (TIER == T_STREAM ? 0 : G * RKB); i += NT) {
-    const int g = i / RKB, r = i - g * RKB;
+  for (int i = threadIdx.x; i < (TIER == T_STREAM ? 0 : G * a.RKW);
+       i += NT) {
+    const int g = i / a.RKW, r = i - g * a.RKW;
     if (r < a.Rk) smem[i] = __ldg(a.req + (size_t)g * a.req_stride + r);
   }
   if (!XSMEM) {  // the global slices' pads
@@ -1110,9 +1147,16 @@ static int launch(const TournamentArgs& a, int blocks, int CL, int smem_bytes,
 }
 
 // The instantiation carrying Rk columns in registers: Rk rounded up to a
-// power of two, 2 to 32 (17..32 take the 32-column one).
+// power of two, 2 to 32 (17 and more take the 32-column one, past 32 in
+// tiles of 32).
 __host__ __device__ inline int rk_bucket(int Rk) {
   return Rk <= 2 ? 2 : Rk <= 4 ? 4 : Rk <= 8 ? 8 : Rk <= 16 ? 16 : 32;
+}
+
+// Floats of req's row in shared memory: the instantiation's columns, or
+// Rk rounded up to a whole tile of 32 past RMAX.
+__host__ __device__ inline int req_width(int Rk) {
+  return Rk <= RMAX ? rk_bucket(Rk) : (Rk + RMAX - 1) / RMAX * RMAX;
 }
 
 template <int TIER>
@@ -1152,17 +1196,17 @@ extern "C" int tournament_launch(const float* head, const float* req,
                                  void* stream) {
   if (S <= 0) return 0;
   const bool stream_tier = GC > 0;
-  if (N < 0 || G < 0 || Rk < 1 || Rk > RMAX || iters < 0 || CL < 1 ||
+  if (N < 0 || G < 0 || Rk < 1 || iters < 0 || CL < 1 ||
       CL > CL_MAX || SL < 1 || (long long)CL * SL < N || SPB < 1 ||
       SPB > SPB_MAX || (SPB > 1 && CL > 1) || XS < G || CH < 1 || GC < 0 ||
       (x_smem != 0) != (xg == nullptr) || stream_tier != (rows_g != nullptr))
     return -1;
   if (stream_tier && (x_smem || k_smem || SPB != 1 || GC % 4 != 0))
     return -1;
-  const int RKB = rk_bucket(Rk);
+  const int RKB = rk_bucket(Rk), RKW = req_width(Rk);
   if (k_smem && CH != SL) return -1;
   const int bf =
-      stream_tier ? 2 * GC * RKB : block_floats(G, RKB, CH, k_smem != 0);
+      stream_tier ? 2 * GC * RKB : block_floats(G, RKW, CH, k_smem != 0);
   const int lf = lane_floats(SL, XS, G, x_smem != 0, stream_tier);
   if (XS != x_stride(G) || 4LL * (bf + (long long)SPB * lf) > smem_bytes)
     return -1;
@@ -1190,6 +1234,7 @@ extern "C" int tournament_launch(const float* head, const float* req,
   a.XS = XS;
   a.CH = CH;
   a.GC = GC;
+  a.RKW = RKW;
   a.ksmem = k_smem;
   a.G4 = round4(G);
   a.SL4 = round4(SL);

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` compiles on its own into a shared library with a
 plain C interface under `build/karpenter_tpu_torch/` at the repository
-root (listed in .gitignore), named by a digest of its source, so an edited
-source rebuilds and an unchanged one loads the library already built. A
+root (listed in .gitignore), named by a digest of its source and of the
+headers beside it (`csrc/*.cuh`), so an edited source rebuilds and an
+unchanged one loads the library already built. A
 build with -D macros (`load(name, defines)`: the phase stamps of
 -DTOURNAMENT_PROFILE, or kernel C's stream tier, which `build_all` builds
 beside the rest) gets a library of its own. The
@@ -64,8 +65,9 @@ def _tag(name: str, defines: Sequence[str]) -> str:
 
 def _target(name: str, defines: Sequence[str] = ()) -> Path:
     flags = " ".join([*NVCC_FLAGS, *defines])
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + flags.encode()).hexdigest()[:12]
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + flags.encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{_tag(name, defines)}-{digest}.so"
 
 

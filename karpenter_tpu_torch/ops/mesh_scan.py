@@ -39,7 +39,10 @@ from the sizes:
   g - 1 with the gathered totals, then count step g), the totals
   all-gathered between steps (`parallel/collectives.all_gather`):
   (Gp + 1) x S launches and Gp gathers a solve.
-Neither route falls back to the other, nor to the plain version.
+Neither route falls back to the other, nor to the plain version. Both
+take every shape the reference's scan takes: the node's zone and captype
+bits are B0's bit strings, NB = ceil((Z + C) / 32) words a node
+(`csrc/scan_common.cuh`).
 
 `mesh_scan` takes per-shard lists of tensors; the plain version runs for
 CPU shards, kernel M for CUDA shards, and nothing falls back between the
@@ -69,26 +72,37 @@ from . import solve_scan as ss
 launches = 0
 
 NTM = 256  # kernel M threads a block (csrc/mesh_scan.cu)
-NODE_SMEM_FIXED = 13  # shared bytes a node beside its cum: NODE_SMEM(Rk)
+NODE_SMEM_FIXED = 13  # shared bytes a node beside its cum, one bit word
+
+
+def node_smem(Rk: int, nb: int = 1) -> int:
+    """Shared bytes a node of the persistent kernel (csrc NODE_SMEM): cum,
+    type, nb bit words, kf, open."""
+    return 4 * Rk + NODE_SMEM_FIXED + 4 * (nb - 1)
 
 _EPS = float(np.float32(EPS))
 
 
 def _bits(zmask: torch.Tensor, cmask: torch.Tensor) -> torch.Tensor:
-    """int32 [N]: zone bits | captype bits << Z (kernel M's node word)."""
-    Z, C = zmask.shape[1], cmask.shape[1]
+    """int32 [N, NB]: kernel M's node words, the bit string of zone z at
+    bit z and captype c at bit Z + c (word w holding bits 32w..32w+31)."""
+    N, Z, C = zmask.shape[0], zmask.shape[1], cmask.shape[1]
+    nb = ss._node_words(Z, C)
     dev = zmask.device
-    zw = (zmask.to(torch.int64) << torch.arange(Z, device=dev)).sum(1)
-    cw = (cmask.to(torch.int64) << (Z + torch.arange(C, device=dev))).sum(1)
-    return (zw | cw).to(torch.int32)
+    flat = torch.zeros((N, 32 * nb), dtype=torch.int64, device=dev)
+    flat[:, :Z] = zmask.to(torch.int64)
+    flat[:, Z:Z + C] = cmask.to(torch.int64)
+    words = (flat.reshape(N, nb, 32)
+             << torch.arange(32, device=dev)).sum(2)
+    # values up to 2^32 - 1: the int32 of the same 32 bits
+    return torch.where(words >= 2 ** 31, words - 2 ** 32,
+                       words).to(torch.int32)
 
 
 def _unbits(bits: torch.Tensor, Z: int, C: int):
-    b = bits.to(torch.int64)[:, None]
-    dev = bits.device
-    zm = ((b >> torch.arange(Z, device=dev)) & 1) != 0
-    cm = ((b >> (Z + torch.arange(C, device=dev))) & 1) != 0
-    return zm, cm
+    """(zmask [N, Z], cmask [N, C]) of node words [N, NB] (or [N])."""
+    b = ss._unpack_words(bits.reshape(bits.shape[0], -1))
+    return b[:, :Z], b[:, Z:Z + C]
 
 
 def _gather_out(ntype, cum, zmask, cmask, nopen, nused, takes, unsched,
@@ -284,7 +298,8 @@ class PersistentLayout:
 
 
 def persistent_layout(S: int, Ns: int, Rk: int, sms: int, smem_max: int,
-                      blocks_per_sm) -> Optional[PersistentLayout]:
+                      blocks_per_sm, nb: int = 1
+                      ) -> Optional[PersistentLayout]:
     """The persistent launch's grid, from sizes alone: all S * nbp blocks
     co-resident on `sms` SMs, each SM holding `blocks_per_sm(smem)` blocks
     of `smem` dynamic shared bytes. The fewest nodes a thread (the most
@@ -292,11 +307,12 @@ def persistent_layout(S: int, Ns: int, Rk: int, sms: int, smem_max: int,
     the grid co-resident; else the node state stays in global memory
     (smem 0), at the fewest nodes a thread that keeps the grid co-resident.
     None where S shards outnumber the blocks the card holds at once even
-    then (the per-step route's case, `card_route`)."""
+    then (the per-step route's case, `card_route`). A node takes
+    `node_smem(Rk, nb)` shared bytes (nb bit words a node)."""
     npt = 1
     while True:
         chunk = npt * NTM
-        smem = chunk * (4 * Rk + NODE_SMEM_FIXED)
+        smem = chunk * node_smem(Rk, nb)
         if smem > smem_max:
             break
         nbp = -(-Ns // chunk)
@@ -313,12 +329,13 @@ def persistent_layout(S: int, Ns: int, Rk: int, sms: int, smem_max: int,
 
 
 def card_route(S: int, Ns: int, Rk: int, sms: int, smem_max: int,
-               blocks_per_sm) -> Tuple[str, Optional[PersistentLayout]]:
+               blocks_per_sm, nb: int = 1
+               ) -> Tuple[str, Optional[PersistentLayout]]:
     """(route, layout) of S shards of Ns nodes that share one card, from
     sizes alone, before any launch: ("persistent", its layout) where the
     card holds at least one block a shard at once, else ("per_step",
     None)."""
-    lay = persistent_layout(S, Ns, Rk, sms, smem_max, blocks_per_sm)
+    lay = persistent_layout(S, Ns, Rk, sms, smem_max, blocks_per_sm, nb)
     return ("per_step", None) if lay is None else ("persistent", lay)
 
 
@@ -336,7 +353,8 @@ def _occupancy(lib, smem: int) -> int:
     key = (torch.cuda.current_device(), smem)
     if key not in _occupancy_memo:
         out = (ctypes.c_int * 1)()
-        _cuda_call(lib["coop_occupancy"](smem, out), "the occupancy query")
+        _cuda_call(lib["coop_occupancy"](smem, out),
+                   "the occupancy query")
         _occupancy_memo[key] = out[0]
     return _occupancy_memo[key]
 
@@ -346,8 +364,9 @@ def _check(mesh: Mesh, alloc, price, avail, requests, counts, compat,
            zovh, node_type, node_cum, node_zmask, node_cmask, node_open,
            n_used, n_max: int, track_conflicts: bool = False,
            zone_ovh: bool = False) -> list:
-    """Refuse, before any build or launch, the arguments kernel M does not
-    take (ValueError); (T, Z, C, Rk) of each shard."""
+    """Refuse, before any build or launch, malformed arguments
+    (ValueError); (T, Z, C, Rk) of each shard. Every width, zone and
+    captype count and catalog size is taken."""
     S = mesh.size
     Ns = col.block(n_max, S)
     dims = []
@@ -368,18 +387,20 @@ def _check(mesh: Mesh, alloc, price, avail, requests, counts, compat,
 
 
 def _sizes(mesh: Mesh, args, kwargs) -> tuple:
-    """(Ns, Rk) of a call's arguments (those of mesh_scan_plain), once
-    they pass `_check`."""
+    """(Ns, Rk, nb) of a call's arguments (those of mesh_scan_plain), once
+    they pass `_check`: the shard's nodes, the columns and the bit words a
+    node."""
     dims = _check(mesh, *args, **kwargs)
     a = inspect.signature(mesh_scan_plain).bind(mesh, *args,
                                                 **kwargs).arguments
-    return col.block(a["n_max"], mesh.size), dims[0][3]
+    T, Z, C, Rk = dims[0]
+    return col.block(a["n_max"], mesh.size), Rk, ss._node_words(Z, C)
 
 
-def _route_on_card(mesh: Mesh, Ns: int, Rk: int):
+def _route_on_card(mesh: Mesh, Ns: int, Rk: int, nb: int = 1):
     """`card_route` at the card the shards share: its SMs, opt-in shared
-    memory and the kernel's occupancy. Raises where the card takes no
-    cooperative launch."""
+    memory and the kernel's occupancy (nb bit words a node). Raises where
+    the card takes no cooperative launch."""
     dev = mesh.devices[0]
     lib = _lib()
     with col.on_shard(dev):
@@ -390,7 +411,7 @@ def _route_on_card(mesh: Mesh, Ns: int, Rk: int):
             raise RuntimeError(f"mesh_scan: {dev} takes no cooperative "
                                f"launch")
         return card_route(mesh.size, Ns, Rk, sms, smem_max,
-                          lambda b: _occupancy(lib, b))
+                          lambda b: _occupancy(lib, b), nb)
 
 
 def _stage(mesh: Mesh, alloc, price, avail, requests, counts, compat,
@@ -431,7 +452,8 @@ def _stage(mesh: Mesh, alloc, price, avail, requests, counts, compat,
                 prior_c = ss._on(prior[s], dev, i32)
                 banned_c = ss._on(banned[s], dev, torch.bool)
                 st = dict(
-                    dev=dev, ZC=(Z, C), recs=recs, availbits=availbits,
+                    dev=dev, ZC=(Z, C), recs=recs,
+                    availbits=availbits,
                     alloc=ss._on(alloc[s], dev, f32),
                     zovh=ss._on(zovh[s], dev, f32) if zone_ovh else None,
                     prior=prior_c, banned=banned_c,
@@ -469,7 +491,7 @@ def _stage(mesh: Mesh, alloc, price, avail, requests, counts, compat,
                     T, Z, C, Rk, W, Gp, Ns, s * Ns, n_max, s, S,
                     int(track_conflicts))
                 if not h:
-                    raise ValueError(f"mesh_scan: arguments refused (T={T} "
+                    raise ValueError(f"mesh_scan: malformed arguments (T={T} "
                                      f"Z={Z} C={C} Rk={Rk} Gp={Gp} "
                                      f"Ns={Ns})")
                 st["handle"] = h

@@ -20,6 +20,14 @@ of Bp requests that share one catalog as ONE launch of B0 and ONE of B,
 one cluster per request, and `pack_solution_batched` packs its rows. The
 serial `solve_scan` is the same launch at Bp = 1.
 
+Both kernels take every shape the reference's scan takes: any number of
+resource columns, zones, capacity types and types. The zone and captype
+bits are strings of NB = ceil((Z + C) / 32) words a node and a group, and
+a type's offerings AW = ceil(Z * C / 64) u64 words (`csrc/scan_common.cuh`);
+kernel B reads the group records from global memory where two do not fit
+in a block's shared memory (`_scan_layout`, from sizes, before any
+launch).
+
 `solve_scan`, `solve_scan_batched` and `offer_argmin` take the plain
 version for CPU tensors and launch the kernels for CUDA tensors; there is
 no fallback between the two.
@@ -206,7 +214,8 @@ SMEM_LIMIT = 232_448     # shared memory one block may use on an H100
 STATIC_SMEM = 1_024      # kernel B's static shared arrays, rounded up
 CL_MAX = 16              # the largest (non-portable) cluster on Hopper
 NODES_PER_BLOCK = 512    # one node for each of kernel B's 512 threads
-REC_HDR = 12             # int32 header words of B0's per-group record
+REC_HDR = 7              # int32 header words of B0's per-group record
+NT0 = 256                # kernel B0's threads a block
 
 
 def _round_up(x: int, q: int) -> int:
@@ -224,37 +233,52 @@ class ScanLayout:
     smem_bytes: int    # dynamic shared memory per block
     slab_bytes: int    # bytes of one block's node slice
     rec_words: int     # int32 words of one group record (a multiple of 4)
+    rec_smem: bool = True   # the records in shared memory (else in place)
 
 
-def _rec_words(Rk: int, T: int, W: int) -> int:
-    """Words of B0's record: header, req[Rk], compat bits, conflict words,
-    padded to whole 16-byte chunks (the scan prefetches it with cp.async)."""
-    return _round_up(REC_HDR + Rk + -(-T // 32) + W, 4)
+def _node_words(Z: int, C: int) -> int:
+    """Words of a node's (and a group's) zone and captype bit string: zone
+    z is bit z, captype c bit Z + c."""
+    return -(-(Z + C) // 32)
+
+
+def _avail_words(Z: int, C: int) -> int:
+    """u64 words of a type's availability bits (offering (z, c) at bit
+    z * C + c)."""
+    return -(-(Z * C) // 64)
+
+
+def _rec_words(Rk: int, T: int, W: int, Z: int = 1, C: int = 1) -> int:
+    """Words of B0's record: header, the group's and t_star's bit strings,
+    req[Rk], compat bits, conflict words, padded to whole 16-byte chunks
+    (the scan prefetches it with cp.async)."""
+    return _round_up(REC_HDR + 2 * _node_words(Z, C) + Rk + -(-T // 32) + W,
+                     4)
 
 
 def _scan_layout(n_max: int, Rk: int, W: int, Z: int, C: int, T: int,
                  zone_ovh: bool = False) -> ScanLayout:
     """Kernel B's cluster size and node slice, from sizes alone.
 
-    Per block: two group records (the cp.async double buffer), the catalog
-    rows (alloc, availability bits, zone overhead) when they take at most
-    half the block's shared memory, and the node slice at 12 + 4*Rk + 4*W
-    bytes a node (type, zone|captype bits, kf scratch, cum, hosted words).
-    The cluster is the smallest power of two that both holds the node state
-    and gives each block at most NODES_PER_BLOCK nodes, up to CL_MAX. Past
-    CL_MAX blocks' capacity the slices live in global scratch (CL_MAX
-    blocks). The cluster only grows with n_max."""
+    Per block: two group records (the cp.async double buffer; past what a
+    block holds, the scan reads them in place from global memory),
+    the catalog rows (alloc, availability bits, zone overhead) when they
+    take at most half the block's shared memory, and the node slice at
+    8 + 4*NB + 4*Rk + 4*W bytes a node (type, NB zone and captype words,
+    kf scratch, cum, hosted words). The cluster is the smallest power of
+    two that both holds the node state and gives each block at most
+    NODES_PER_BLOCK nodes, up to CL_MAX. Past CL_MAX blocks' capacity the
+    slices live in global scratch (CL_MAX blocks). The cluster only grows
+    with n_max. Every size takes a layout."""
     budget = SMEM_LIMIT - STATIC_SMEM
-    rec = _rec_words(Rk, T, W)
-    fixed = 2 * rec * 4
-    cat = _round_up(T * 8 + T * Rk * 4 + (T * Z * Rk * 4 if zone_ovh else 0),
-                    16)
-    if fixed > budget:
-        raise ValueError(f"solve_scan: a group record of {rec} words does not "
-                         f"fit in shared memory (T={T})")
+    rec = _rec_words(Rk, T, W, Z, C)
+    rec_smem = 2 * rec * 4 <= budget
+    fixed = 2 * rec * 4 if rec_smem else 0
+    cat = _round_up(T * 8 * _avail_words(Z, C) + T * Rk * 4
+                    + (T * Z * Rk * 4 if zone_ovh else 0), 16)
     cat_smem = fixed + cat <= budget // 2
     base = fixed + (cat if cat_smem else 0)
-    node_bytes = 12 + 4 * Rk + 4 * W
+    node_bytes = 8 + 4 * _node_words(Z, C) + 4 * Rk + 4 * W
     cap = (budget - base) // node_bytes           # nodes one block can hold
     cl_par = 1
     while cl_par < CL_MAX and cl_par * NODES_PER_BLOCK < n_max:
@@ -269,7 +293,7 @@ def _scan_layout(n_max: int, Rk: int, W: int, Z: int, C: int, T: int,
     smem = base + (slab if nodes_smem else 0)
     return ScanLayout(cl=cl, slice=S, nodes_smem=nodes_smem,
                       cat_smem=cat_smem, smem_bytes=smem, slab_bytes=slab,
-                      rec_words=rec)
+                      rec_words=rec, rec_smem=rec_smem)
 
 
 # ---------------------------------------------------------------------------
@@ -287,11 +311,11 @@ def _lib():
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     b0 = lib.offer_argmin_launch
     b0.argtypes = ([P] * 5 + [L, I] + [P] * 6 + [I, P, I, P, I, P, I, P]
-                   + [I] * 7 + [P])
+                   + [I] * 9 + [P])
     b0.restype = ctypes.c_int
     b = lib.solve_scan_launch
     b.argtypes = ([P] * 4 + [I, P, I, P, I, P, P, I] + [P] * 8 + [L]
-                  + [I] * 15 + [P])
+                  + [I] * 16 + [P])
     b.restype = ctypes.c_int
     mc = lib.solve_scan_max_cluster
     mc.argtypes, mc.restype = [I], ctypes.c_int
@@ -310,17 +334,14 @@ def _ptr(x: Optional[torch.Tensor]):
 
 
 def _check_shapes(alloc, price, requests):
-    """Sizes of a bucket: requests is [Bp, Gp, Rk]."""
+    """Sizes of a bucket: requests is [Bp, Gp, Rk]. Every width, zone and
+    captype count and catalog size is taken; only malformed arguments
+    raise."""
     T, Z, C = price.shape
     Bp, Gp, Rk = requests.shape
-    if Rk < 1 or Rk > 32:
-        raise ValueError(f"solve_scan supports 1..32 resource columns, got {Rk}")
-    if Z > 31 or C > 31 or Z * C > 64 or Z + C > 32:
-        raise ValueError(f"solve_scan supports Z*C <= 64 offerings per type "
-                         f"and Z + C <= 32, got Z={Z}, C={C}")
-    if T < 1 or Gp < 1 or Bp < 1 or Bp > 65535:
-        raise ValueError(f"solve_scan needs T >= 1, Gp >= 1 and 1 <= Bp <= "
-                         f"65535, got {T}, {Gp}, {Bp}")
+    if min(T, Z, C, Rk, Gp) < 1 or not 1 <= Bp <= 65535:
+        raise ValueError(f"solve_scan needs T, Z, C, Rk, Gp >= 1 and 1 <= Bp "
+                         f"<= 65535, got {T}, {Z}, {C}, {Rk}, {Gp}, {Bp}")
     if tuple(alloc.shape) != (T, Rk):
         raise ValueError(f"solve_scan shapes: alloc {tuple(alloc.shape)}, "
                          f"Rk {Rk}")
@@ -340,13 +361,27 @@ def _on(x: torch.Tensor, dev: torch.device, dtype,
     return x.contiguous()
 
 
+def _offer_smem(Z: int, C: int, Rk: int, zone_ovh: bool) -> Tuple[bool, bool]:
+    """(open_smem, req_smem) of kernel B0: beside the group's bit string,
+    each thread's open-zone words past its first (ceil(Z / 32) - 1 a
+    thread, with the zone overhead) and then the group's req stay in
+    shared memory where they fit; past that they are rebuilt a column /
+    read in place."""
+    budget = SMEM_LIMIT - STATIC_SMEM - 16 * -(-_node_words(Z, C) // 4)
+    open_bytes = 4 * NT0 * (-(-Z // 32) - 1) if zone_ovh else 0
+    open_smem = zone_ovh and open_bytes <= budget
+    req_smem = (open_bytes if open_smem else 0) + 4 * Rk <= budget
+    return open_smem, req_smem
+
+
 def _offer_table(alloc, price, avail, requests, counts, compat, allow_zone,
                  allow_cap, max_per_node, prior, banned, conflict, zovh,
                  zone_ovh: bool, track: bool):
     """Launch kernel B0 once over a bucket (group inputs [Bp, Gp, ...]):
-    ([Bp, Gp, rec_words] int32 records, [T] int64 availability bits, W).
-    Inputs are taken as they come where their type and layout already fit
-    (no copies, no bit-packing on the host side)."""
+    ([Bp, Gp, rec_words] int32 records, int64 availability bits [T, AW],
+    W). Inputs are taken as they come where
+    their type and layout already fit (no copies, no bit-packing on the
+    host side)."""
     global offer_launches
     dev = alloc.device
     T, Z, C, Bp, Gp, Rk = _check_shapes(alloc, price, requests)
@@ -366,11 +401,11 @@ def _offer_table(alloc, price, avail, requests, counts, compat, allow_zone,
         raise ValueError(f"conflict shape {tuple(conf_c.shape)} != "
                          f"{(Bp, Gp, Gp)}")
     W = -(-Gp // 32) if track else 0
-    RW = _rec_words(Rk, T, W)
-    if T * 4 > SMEM_LIMIT:
-        raise ValueError(f"offer_argmin supports T <= {SMEM_LIMIT // 4}")
+    RW = _rec_words(Rk, T, W, Z, C)
+    open_smem, req_smem = _offer_smem(Z, C, Rk, zone_ovh)
     recs = torch.empty((Bp, Gp, RW), dtype=i32, device=dev)
-    availbits = torch.empty(T, dtype=torch.int64, device=dev)
+    availbits = torch.empty((T, _avail_words(Z, C)), dtype=torch.int64,
+                            device=dev)
     rc = _lib()["offer"](
         _ptr(alloc_c), _ptr(price_c), _ptr(avail_c), _ptr(zovh_c),
         _ptr(req_c), req_c.stride(0), req_c.stride(1), _ptr(c(counts, i32)),
@@ -378,6 +413,7 @@ def _offer_table(alloc, price, avail, requests, counts, compat, allow_zone,
         _ptr(c(max_per_node, i32)), _ptr(prior_c), prior_c.shape[2],
         _ptr(banned_c), banned_c.shape[2], _ptr(conf_c), Gp if track else 0,
         _ptr(recs), RW, _ptr(availbits), T, Z, C, Rk, Gp, W, Bp,
+        int(open_smem), int(req_smem),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"offer_argmin launch failed: cudaError {rc}")
@@ -403,12 +439,18 @@ def offer_argmin_batched_cuda(alloc, price, avail, requests, compat,
         allow_zone, allow_cap, max_per_node, zeros_i, zeros_b, zeros_b, zovh,
         zone_ovh, False)
     recs = recs.to(torch.int64)
-    tbits = recs[..., 6]
-    zs = torch.arange(Z, device=dev)
-    cs = torch.arange(C, device=dev)
-    return (recs[..., 3], recs[..., 4], recs[..., 5] != 0,
-            ((tbits[..., None] >> zs) & 1) != 0,
-            ((tbits[..., None] >> (Z + cs)) & 1) != 0)
+    NB = _node_words(Z, C)
+    tb = _unpack_words(recs[..., REC_HDR + NB:REC_HDR + 2 * NB])
+    return (recs[..., 2], recs[..., 3], recs[..., 4] != 0, tb[..., :Z],
+            tb[..., Z:Z + C])
+
+
+def _unpack_words(words: torch.Tensor) -> torch.Tensor:
+    """bool [..., 32 * n] of the bit strings in words [..., n] (int32
+    values, each word's bit j at 32 * word + j)."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    j = torch.arange(32, device=words.device)
+    return (((w[..., None] >> j) & 1) != 0).reshape(*words.shape[:-1], -1)
 
 
 def offer_argmin_cuda(alloc, price, avail, requests, compat, allow_zone,
@@ -480,7 +522,8 @@ def solve_scan_batched_cuda(alloc, price, avail, requests, counts, compat,
         _ptr(unsched), _ptr(hdr), _ptr(scratch), lay.slab_bytes,
         T, Z, C, Rk, W, Gp, n_max, int(n_used), lay.slice,
         int(lay.cat_smem), int(track_conflicts), lay.cl, lay.smem_bytes,
-        int(lay.nodes_smem), Bp, torch.cuda.current_stream(dev).cuda_stream)
+        int(lay.nodes_smem), Bp, int(lay.rec_smem),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc == -2:
         raise RuntimeError(f"solve_scan: the card cannot co-schedule a "
                            f"cluster of {lay.cl} blocks at {lay.smem_bytes} "

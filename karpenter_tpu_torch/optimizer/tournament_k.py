@@ -55,7 +55,11 @@ thread a (4 groups, chain), each chain kind on whole warps, adding the
 block's slice in node order and starting, in a cluster, from the
 previous rank's running sums read through distributed shared memory).
 colsum(k) rides the seed's chains in node order: k is integral, but BIG
-for a group with no request column, so its sums pass 2^24.
+for a group with no request column, so its sums pass 2^24. Every Rk is
+taken: instantiations carry 2, 4, 8, 16 or 32 columns of a node's load in
+registers, and past 32 the 32-column one walks tiles of 32 in a runtime
+loop (each column's load in group order as before, the scale the minimum
+over every tile).
 `tournament_phases` (run on the card) splits the kernel's time by phase.
 
 Numerics: f32 throughout, built with -fmad=false and explicit
@@ -85,7 +89,8 @@ from .relax import RELAX_ITERS, relax_residuals_plain
 
 launches = 0  # kernel launches since import (chip_smoke resets and reads it)
 
-RMAX = 32  # resource columns kernel C carries in registers (csrc RMAX)
+RMAX = 32  # resource columns kernel C carries in registers (csrc RMAX);
+           # past it, tiles of RMAX columns
 SMEM_LIMIT = 232_448   # shared memory one block may use on an H100
 STATIC_SMEM = 1_024    # kernel C's static shared arrays, rounded up
 CL_MAX = 16            # the largest (non-portable) cluster on Hopper
@@ -150,10 +155,17 @@ def _lane_floats(sl: int, xs: int, G: int, x_smem: bool,
 
 
 def _rkb(Rk: int) -> int:
-    """Rk rounded up to a power of two (>= 2): req's row in shared memory
-    and the kernel's instantiation (csrc rk_bucket; 17..32 take 32)."""
+    """Rk rounded up to a power of two (>= 2), at most RMAX: the kernel's
+    instantiation (csrc rk_bucket; 17 columns and more take 32, past 32
+    in tiles of 32) and the row of the stream tier's req chunks."""
     return (2 if Rk <= 2 else 4 if Rk <= 4 else 8 if Rk <= 8 else 16
             if Rk <= 16 else 32)
+
+
+def _req_width(Rk: int) -> int:
+    """Floats of req's row in shared memory (csrc req_width): `_rkb(Rk)`,
+    or past RMAX columns Rk rounded up to a whole tile of RMAX."""
+    return _rkb(Rk) if Rk <= RMAX else -(-Rk // RMAX) * RMAX
 
 
 def _group_row_floats(G: int) -> int:
@@ -162,11 +174,12 @@ def _group_row_floats(G: int) -> int:
     return 6 * _round4(G) + 4
 
 
-def _block_floats(G: int, rkb: int, ch: int, k_smem: bool = False) -> int:
-    """Floats of the block's shared rows (csrc block_floats): req [G4, rkb]
-    and the ring of k chunks [NBUF, ch, G4], or with k_smem the slice's k
-    rows [ch = slice, G4]; G4 = G rounded up to 4."""
-    return _round4(G) * rkb + (1 if k_smem else NBUF) * ch * _round4(G)
+def _block_floats(G: int, rkw: int, ch: int, k_smem: bool = False) -> int:
+    """Floats of the block's shared rows (csrc block_floats): req [G4, rkw]
+    (rkw = `_req_width(Rk)`) and the ring of k chunks [NBUF, ch, G4], or
+    with k_smem the slice's k rows [ch = slice, G4]; G4 = G rounded up to
+    4."""
+    return _round4(G) * rkw + (1 if k_smem else NBUF) * ch * _round4(G)
 
 
 def _ring_fits(ch: int, G: int) -> bool:
@@ -187,16 +200,15 @@ def tournament_layout(S: int, N: int, G: int, Rk: int) -> TournamentLayout:
     fit, the stream tier: CL_MAX blocks, x and the group rows in global
     memory, req through two shared chunks of `gc` groups (as many as fit
     beside the slice's node rows), k read from global memory. The cluster
-    only grows with N and with G. Every G takes a layout at 1 <= Rk <=
-    RMAX (nodes past ~300,000, whose slice's node rows alone pass a
-    block's shared memory, raise); Rk past RMAX raises, as kernel B
-    does."""
-    if not 1 <= Rk <= RMAX:
-        raise ValueError(f"tournament supports 1..{RMAX} resource columns, "
-                         f"got {Rk}")
+    only grows with N and with G. Every G and every Rk >= 1 takes a layout
+    (past RMAX columns req's row holds whole tiles of RMAX; nodes past
+    ~300,000, whose slice's node rows alone pass a block's shared memory,
+    raise)."""
+    if Rk < 1:
+        raise ValueError(f"tournament needs Rk >= 1, got {Rk}")
     budget = SMEM_LIMIT - STATIC_SMEM
     N, G = max(N, 1), max(G, 0)
-    xs, rkb = _x_stride(G), _rkb(Rk)
+    xs, rkb, rkw = _x_stride(G), _rkb(Rk), _req_width(Rk)
     ch0 = CH_MIN
     while ch0 > 1 and not _ring_fits(ch0, G):
         ch0 //= 2
@@ -206,17 +218,17 @@ def tournament_layout(S: int, N: int, G: int, Rk: int) -> TournamentLayout:
         ch0, that fits beside `lanes` floats of subsets' regions."""
         ch = ch0
         while (ch + 4 <= CH_MAX and _ring_fits(ch + 4, G)
-               and 4 * (_block_floats(G, rkb, ch + 4) + lanes) <= budget):
+               and 4 * (_block_floats(G, rkw, ch + 4) + lanes) <= budget):
             ch += 4
         return ch
 
     def fits(lanes: int, ch: int, k_smem: bool) -> bool:
-        return 4 * (_block_floats(G, rkb, ch, k_smem) + lanes) <= budget
+        return 4 * (_block_floats(G, rkw, ch, k_smem) + lanes) <= budget
 
     def layout(tier, cl, sl, spb, lanes, k_smem):
         ch = sl if k_smem else chunk(lanes)
         return TournamentLayout(tier, cl, sl, spb, xs, ch, k_smem,
-                                4 * (_block_floats(G, rkb, ch, k_smem)
+                                4 * (_block_floats(G, rkw, ch, k_smem)
                                      + lanes))
 
     one = _lane_floats(N, xs, G, True)

@@ -223,10 +223,11 @@ def test_batched_scan_matches_plain(cuda, Bp, case, n_max, cl, in_shared):
 
 @pytest.mark.parametrize("Bp", [1, 3, 16])
 def test_batched_offer_table_writes_availbits_once(cuda, Bp, monkeypatch):
-    """B0 over a bucket writes ONE catalog-only availability table [T]:
-    a debug build that counts the stores (-DSOLVE_SCAN_COUNT_WRITES) sees
-    T of them a launch, not Bp * T; the table is right and the
-    per-request records equal each row's serial launch."""
+    """B0 over a bucket writes ONE catalog-only availability table [T, AW]
+    (AW = 1 here: 3 zones x 3 captypes): a debug build that counts the
+    stores (-DSOLVE_SCAN_COUNT_WRITES) sees T of them a launch, not
+    Bp * T; the table is right and the per-request records equal each
+    row's serial launch."""
     from karpenter_tpu_torch.ops import _build
     dbg = _build.load("solve_scan", ("-DSOLVE_SCAN_COUNT_WRITES",))
     offer = dbg.offer_argmin_launch
@@ -244,15 +245,16 @@ def test_batched_offer_table_writes_availbits_once(cuda, Bp, monkeypatch):
     ZC = avail[0].numel()
     want = (avail.reshape(T, ZC).to(torch.int64)
             << torch.arange(ZC, device=cuda)).sum(dim=1)
-    assert tuple(bits.shape) == (T,)
-    assert torch.equal(bits, want)
+    assert tuple(bits.shape) == (T, 1)
+    assert torch.equal(bits[:, 0], want)
     for b in range(Bp):
         r_b, bits_b, _ = ss._offer_table(
             *[x[None] if 3 <= i <= 11 else x
               for i, x in enumerate(_row(args, b)[:13])],
             kw["zone_ovh"], kw["track_conflicts"])
         assert writes() == T
-        assert torch.equal(recs[b], r_b[0]) and torch.equal(bits_b, want)
+        assert torch.equal(recs[b], r_b[0]) and torch.equal(bits_b[:, 0],
+                                                            want)
 
 
 def test_batched_dispatch_does_not_wait_for_the_card(cuda):
@@ -569,7 +571,7 @@ def test_mesh_scan_persistent_runs_of_nodes(cuda, size, npt, monkeypatch):
         mesh = parallel.make_mesh(size)
     parts = msc.shard_args(mesh, n_max, *args, *zeros)
 
-    def layout(S, Ns, Rk, sms, smem_max, blocks_per_sm):
+    def layout(S, Ns, Rk, sms, smem_max, blocks_per_sm, nb=1):
         chunk = npt * msc.NTM
         return msc.PersistentLayout(
             -(-Ns // chunk), npt, chunk * (4 * Rk + msc.NODE_SMEM_FIXED),
@@ -625,7 +627,7 @@ def test_mesh_scan_persistent_nodes_in_global_memory(cuda, size, npt,
     n_max = 2304
     mesh, parts, _ = _mesh_wide_case(size, n_max)
 
-    def layout(S, Ns, Rk, sms, smem_max, blocks_per_sm):
+    def layout(S, Ns, Rk, sms, smem_max, blocks_per_sm, nb=1):
         return msc.PersistentLayout(-(-Ns // (npt * msc.NTM)), npt, 0, False)
     monkeypatch.setattr(msc, "persistent_layout", layout)
     n0 = msc.launches
@@ -657,3 +659,124 @@ def test_mesh_scan_takes_the_per_step_route_past_the_co_resident_blocks(
     want = msc.mesh_scan_plain(mesh, *parts, n_max)
     for x, y in zip(got, want):
         assert torch.equal(x, y.to(x.dtype))
+
+
+# --- every shape the reference's scan takes: B0, B and M past 32 columns,
+# one word of zone and captype bits and 58,112 types; C past 32 columns ---
+
+# (T, Z, C, Rk, Gp, n_max, open nodes, zone overhead, conflicts,
+#  (bit words a node, availability words a type, records in shared memory))
+WIDE_SCANS = {
+    "today": (810, 3, 3, 8, 64, 2048, 0, True, False, (1, 1, True)),
+    "rk40": (810, 3, 3, 40, 64, 2048, 30, False, True, (1, 1, True)),
+    "z24": (810, 24, 3, 40, 64, 2048, 0, False, False, (1, 2, True)),
+    "z40": (810, 40, 3, 40, 256, 4096, 40, True, True, (2, 2, True)),
+    "t60000": (60_000, 3, 3, 72, 64, 2048, 0, False, False, (1, 1, True)),
+    "records_in_place": (1_000_000, 3, 3, 2, 8, 512, 0, False, False,
+                         (1, 1, False)),
+}
+
+
+def _wide_scan(case, dev, Bp=0, seed=21):
+    from chip_smoke import scan_inputs
+    T, Z, C, Rk, Gp, n_max, n_open, zovh, track, fmt = WIDE_SCANS[case]
+    args, kw = scan_inputs(seed, T, Z, C, Rk, Gp, n_max, dev, Bp=Bp,
+                           n_open=n_open, zone_ovh=zovh, track=track)
+    W = -(-Gp // 32) if track else 0
+    lay = ss._scan_layout(n_max, Rk, W, Z, C, T, zovh)
+    assert (ss._node_words(Z, C), ss._avail_words(Z, C),
+            lay.rec_smem) == fmt, lay
+    return args, kw, lay
+
+
+@pytest.mark.parametrize("case", list(WIDE_SCANS))
+def test_wide_scan_kernels_match_plain(cuda, case):
+    """Kernels B0 and B at the shapes they once refused (40 zones, 40 and
+    72 columns, 60,000 and 1,000,000 types), and at a shape of today's
+    catalogs (one bit word, one availability word): one launch each, every output equal to the plain
+    version's (atol 0), B0's records read back equal to
+    offer_argmin_plain's."""
+    args, kw, lay = _wide_scan(case, cuda)
+    n0, b0 = ss.launches, ss.offer_launches
+    got = ss.solve_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert (ss.launches, ss.offer_launches) == (n0 + 1, b0 + 1)
+    want = ss.solve_scan_plain(*args, **kw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y.to(x.dtype))
+    assert int(want[3]) > WIDE_SCANS[case][6]  # new nodes opened
+    bound = inspect.signature(ss.solve_scan_plain).bind(*args, **kw)
+    bound.apply_defaults()
+    oa = {k: bound.arguments[k]
+          for k in inspect.signature(ss.offer_argmin_plain).parameters}
+    for x, y in zip(ss.offer_argmin_cuda(**oa), ss.offer_argmin_plain(**oa)):
+        assert torch.equal(x.to(y.dtype), y)
+
+
+@pytest.mark.parametrize("case", ["today", "z40", "t60000"])
+def test_wide_batched_scan_matches_plain(cuda, case):
+    """A bucket of 4 requests at the wide shapes: ONE launch each of B0
+    and B, every row equal to the plain batched version (atol 0)."""
+    args, kw, _ = _wide_scan(case, cuda, Bp=4)
+    n0, b0 = ss.launches, ss.offer_launches
+    got = ss.solve_scan_batched(*args, **kw)
+    torch.cuda.synchronize()
+    assert (ss.launches, ss.offer_launches) == (n0 + 1, b0 + 1)
+    want = ss.solve_scan_batched_plain(*args, **kw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y.to(x.dtype))
+
+
+@pytest.mark.parametrize("route", ["persistent", "per_step"])
+@pytest.mark.parametrize("case", ["today", "z40", "rk40"])
+def test_wide_mesh_scan_matches_plain(cuda, case, route, monkeypatch):
+    """Kernel M on 8 virtual shards of the card at the wide shapes, on each
+    route: equal to its plain version and to kernel B's plain scan on one
+    device (atol 0)."""
+    from karpenter_tpu_torch import parallel
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    args, kw, _ = _wide_scan(case, cuda)
+    n_max = args[-1]
+    with parallel.virtual_devices(8, "cuda:0"):
+        mesh = parallel.make_mesh(8)
+    parts = msc.shard_args(mesh, n_max, *args[:18],
+                           torch.tensor(args[18], dtype=torch.int32))
+    if route == "per_step":
+        monkeypatch.setattr(msc, "mesh_route", lambda devices: "per_step")
+    n0 = msc.launches
+    got = msc.mesh_scan_cuda(mesh, *parts, n_max, **kw)
+    torch.cuda.synchronize()
+    Gp = args[3].shape[0]
+    assert msc.launches == n0 + (1 if route == "persistent" else 8 * (Gp + 1))
+    want = msc.mesh_scan_plain(mesh, *parts, n_max, **kw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y.to(x.dtype))
+    one = ss.solve_scan_plain(*args, **kw)
+    for i, j in ((0, 0), (6, 1), (7, 2), (5, 3), (8, 4)):
+        assert torch.equal(got[i], one[j].to(got[i].dtype).reshape(
+            got[i].shape))
+
+
+@pytest.mark.parametrize("shape,tier,spb", [
+    ((64, 382, 90, 40), "block", 1),      # the chip's search at 40 columns
+    ((64, 382, 90, 72), "block", 1),      # 72: three tiles of 32
+    ((232, 382, 90, 33), "block", 1),     # one column past 32
+    ((600, 40, 7, 40), "block", 4),       # several subsets a block
+    ((20, 4250, 90, 40), "cluster", 1),   # a cluster of 16
+    ((8, 382, 5000, 40), "stream", 1),    # the stream tier, 2 tiles
+    ((4, 600, 1536, 72), "stream", 1),    # 3 tiles of req chunks
+])
+def test_tournament_past_32_columns(cuda, shape, tier, spb):
+    """Kernel C past 32 resource columns (its 32-column instantiation over
+    tiles of 32): every packed output equal to tournament_plain (atol 0),
+    contiguous and on row-strided packed views."""
+    from karpenter_tpu_torch.optimizer import tournament_k as tk
+    lay = tk.tournament_layout(*shape)
+    assert (lay.tier, lay.spb) == (tier, spb)
+    args = tk.seeded_inputs(13, *shape, cuda)
+    got = tk.tournament_cuda(*args)
+    strided = tk.tournament_cuda(*tk.packed_views(args))
+    torch.cuda.synchronize()
+    want = tk.tournament_plain(*args)
+    assert torch.equal(got, want)
+    assert torch.equal(strided, want)

@@ -131,11 +131,18 @@ SHAPES = [  # (Rk, W, Z, C, T, zone_ovh)
     (9, 4, 3, 3, 810, True),     # every column, conflicts, zone overhead
     (1, 0, 1, 1, 6, False),
     (32, 8, 6, 4, 4096, True),   # a catalog too large for shared memory
+    # the wide layouts: 40 zones and 40 columns (two bit words a node),
+    # 60,000 types at 72 columns, 250,000 types over 24 zones
+    (40, 8, 40, 3, 810, True),
+    (72, 2, 3, 3, 60_000, False),
+    (40, 0, 24, 3, 250_000, True),
 ]
 
 
-def _node_bytes(Rk, W):
-    return 12 + 4 * Rk + 4 * W
+def _node_bytes(Rk, W, Z=1, C=1):
+    """A node's bytes: type, kf, its zone and captype words, cum, hosted
+    words."""
+    return 8 + 4 * ss._node_words(Z, C) + 4 * Rk + 4 * W
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -147,7 +154,7 @@ def test_scan_layout_fits_and_grows(shape):
         assert lay.smem_bytes + ss.STATIC_SMEM <= 232_448, (n_max, lay)
         assert lay.cl in (1, 2, 4, 8, 16), (n_max, lay)
         assert lay.cl * lay.slice >= n_max
-        assert lay.slab_bytes >= lay.slice * _node_bytes(Rk, W)
+        assert lay.slab_bytes >= lay.slice * _node_bytes(Rk, W, Z, C)
         assert lay.cl >= prev, (n_max, lay)
         prev = lay.cl
         if lay.nodes_smem:
@@ -167,7 +174,7 @@ def test_scan_layout_global_only_past_capacity(shape):
         lay = ss._scan_layout(n_max, Rk, W, Z, C, T, zovh)
         base = lay.smem_bytes - (lay.slab_bytes if lay.nodes_smem else 0)
         slice16 = -(-n_max // ss.CL_MAX)
-        fits16 = base + slice16 * _node_bytes(Rk, W) <= budget
+        fits16 = base + slice16 * _node_bytes(Rk, W, Z, C) <= budget
         assert lay.nodes_smem == fits16, (n_max, lay)
         switched |= not lay.nodes_smem
         if switched:
@@ -183,5 +190,35 @@ def test_scan_layout_main_path():
 
 
 def test_scan_layout_refuses_a_record_too_large():
-    with pytest.raises(ValueError, match="does not fit"):
-        ss._scan_layout(64, 2, 0, 3, 3, 4_000_000)
+    """4,000,000 types: two group records (125,012 words each) no longer
+    fit a block, and kernel B reads them in place from global memory
+    where it used to refuse."""
+    lay = ss._scan_layout(64, 2, 0, 3, 3, 4_000_000)
+    assert ss._rec_words(2, 4_000_000, 0, 3, 3) == lay.rec_words
+    assert lay.rec_words == 7 + 2 + 2 + 125_000 + 1
+    assert not lay.rec_smem and not lay.cat_smem
+    assert lay.nodes_smem and lay.smem_bytes == lay.slab_bytes
+    assert lay.smem_bytes + ss.STATIC_SMEM <= 232_448
+
+
+@pytest.mark.parametrize("Z,C,Rk,T,nb,aw,rec_smem", [
+    (3, 3, 2, 810, 1, 1, True),         # the main path
+    (21, 3, 8, 810, 1, 1, True),        # Z*C = 63, Z + C = 24: one word each
+    (22, 3, 8, 810, 1, 2, True),        # Z*C = 66: two availability words
+    (30, 2, 8, 810, 1, 1, True),        # Z + C = 32
+    (31, 2, 8, 810, 2, 1, True),        # Z + C = 33: two bit words
+    (24, 3, 40, 810, 1, 2, True),       # the 24-zone catalog at 40 columns
+    (3, 3, 72, 60_000, 1, 1, True),     # past 58,112 types and 64 columns
+    (3, 3, 2, 1_000_000, 1, 1, False),  # two records past a block
+])
+def test_record_format_from_sizes(Z, C, Rk, T, nb, aw, rec_smem):
+    """The record's size and where kernel B reads it, from sizes alone:
+    the header, the group's and t_star's NB = ceil((Z + C) / 32) bit words,
+    req, the compat bits; in shared memory where two records fit a block,
+    else in place from global memory."""
+    words = ss._rec_words(Rk, T, 0, Z, C)
+    assert (ss._node_words(Z, C), ss._avail_words(Z, C)) == (nb, aw)
+    assert words == -(-(ss.REC_HDR + 2 * nb + Rk + -(-T // 32)) // 4) * 4
+    lay = ss._scan_layout(4096, Rk, 0, Z, C, T)
+    assert (lay.rec_words, lay.rec_smem) == (words, rec_smem)
+    assert lay.smem_bytes + ss.STATIC_SMEM <= 232_448

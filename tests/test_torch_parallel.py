@@ -467,11 +467,12 @@ def _mesh_scan_args(size, case="straddle"):
                                  "mixed_kinds", "persistent_on_two_cards"])
 def test_mesh_scan_cuda_refuses_what_the_kernel_does_not_take(bad):
     """Kernel M's wrappers refuse, before any build or launch, arguments the
-    kernel does not take (ValueError): CPU shards, more than 32 resource
-    columns, a prior neither [Gp, 1] nor the shard's [Gp, Ns], node state
-    of the wrong size, a node budget that does not split, shards of two
-    kinds, the persistent route over distinct cards. Nothing falls back to
-    the plain version."""
+    kernel does not take (ValueError): CPU shards, a prior neither [Gp, 1]
+    nor the shard's [Gp, Ns], node state of the wrong size, a node budget
+    that does not split, shards of two kinds, the persistent route over
+    distinct cards. Nothing falls back to the plain version. 33 resource
+    columns, once refused, pass the shape checks (here on CPU shards, they
+    reach the device check)."""
     import torch
     from karpenter_tpu_torch.ops import mesh_scan as msc
     from karpenter_tpu_torch.parallel.mesh import Mesh
@@ -482,7 +483,13 @@ def test_mesh_scan_cuda_refuses_what_the_kernel_does_not_take(bad):
     elif bad == "rk_above_32":
         parts[0] = [torch.zeros((a.shape[0], 33)) for a in parts[0]]
         parts[3] = [torch.zeros((a.shape[0], 33)) for a in parts[3]]
-        match = "1..32 resource columns"
+        parts[14] = [torch.zeros((c.shape[0], 33)) for c in parts[14]]
+        from karpenter_tpu_torch.ops import solve_scan as ss
+        for s in range(3):
+            assert ss._check_shapes(parts[0][s], parts[1][s],
+                                    parts[3][s][None])[-1] == 33
+        # past every shape check, the first refusal is the CPU shard
+        match = "every shard must be on a CUDA device"
     elif bad == "prior_width":
         parts[9] = [torch.zeros((p.shape[0], 2), dtype=torch.int32)
                     for p in parts[9]]
@@ -567,6 +574,52 @@ def test_persistent_layout_refuses_a_grid_that_cannot_be_co_resident():
     # one block a shard fits: the persistent route, in shared memory
     route, lay = msc.card_route(264, 64, 8, 132, 232_448, lambda b: 2)
     assert route == "persistent" and lay.nodes_smem and lay.nbp == 1
+
+
+@pytest.mark.parametrize("Z,C", [(3, 3), (24, 3), (40, 3), (31, 2),
+                                 (3, 40), (70, 40)])
+def test_node_words_round_trip(Z, C):
+    """Kernel M's node words (`_bits`, NB = ceil((Z + C) / 32) a node) hold
+    each node's zone and captype masks, and `_unbits` reads them back, at
+    40 zones as at 3."""
+    import torch
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    from karpenter_tpu_torch.ops import solve_scan as ss
+    rng = np.random.default_rng(Z * 100 + C)
+    zm = torch.as_tensor(rng.random((37, Z)) < 0.5)
+    cm = torch.as_tensor(rng.random((37, C)) < 0.5)
+    zm[0], cm[0] = True, True     # every bit, the sign bit of word 0 too
+    bits = msc._bits(zm, cm)
+    assert bits.dtype == torch.int32
+    assert tuple(bits.shape) == (37, ss._node_words(Z, C))
+    z2, c2 = msc._unbits(bits, Z, C)
+    assert torch.equal(z2, zm) and torch.equal(c2, cm)
+    if Z + C <= 32:  # one word: zone | captype << Z
+        want = sum(int(b) << z for z, b in enumerate(zm[1].tolist())) | sum(
+            int(b) << (Z + c) for c, b in enumerate(cm[1].tolist()))
+        assert int(bits[1, 0]) & 0xFFFFFFFF == want
+
+
+@pytest.mark.parametrize("Rk,nb", [(40, 2), (72, 1), (40, 3)])
+def test_persistent_layout_at_the_wide_shapes(Rk, nb):
+    """The persistent grid at the wide shapes, from sizes alone: a node's
+    shared bytes grow by 4 a bit word (node_smem), the grid stays
+    co-resident, and the layout still fits the card's shared memory, from
+    the 4o mesh case (8 x 1,024 nodes) to 8 x 250,000."""
+    from karpenter_tpu_torch.ops import mesh_scan as msc
+    assert msc.node_smem(Rk, nb) == 4 * Rk + 4 * nb + 9
+    for Ns in (64, 1_024, 32_768, 250_000):
+        route, lay = msc.card_route(8, Ns, Rk, 132, 232_448,
+                                    _h100_occupancy, nb)
+        assert route == "persistent", (Ns, lay)
+        assert lay == msc.persistent_layout(8, Ns, Rk, 132, 232_448,
+                                            _h100_occupancy, nb)
+        assert lay.smem <= 232_448
+        assert 8 * lay.nbp <= 132 * _h100_occupancy(lay.smem)
+        assert (lay.nbp - 1) * lay.npt * msc.NTM < Ns <= (
+            lay.nbp * lay.npt * msc.NTM)
+        if lay.nodes_smem:
+            assert lay.smem == lay.npt * msc.NTM * msc.node_smem(Rk, nb)
 
 
 @pytest.mark.parametrize("size", [3, 8])

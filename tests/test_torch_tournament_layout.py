@@ -148,10 +148,14 @@ def test_blocks_hold_every_subset(S):
 
 
 def test_layout_refuses_what_it_cannot_carry():
-    """Past 32 resource columns C refuses, as kernel B does; 20,000 groups,
+    """33 resource columns, once refused, take a layout: the 32-column
+    instantiation over two tiles, req's shared row 64 wide; 20,000 groups,
     whose rows no earlier tier holds, take the stream tier."""
-    with pytest.raises(ValueError, match="1..32 resource columns"):
-        tk.tournament_layout(4, 10, 5, 33)
+    lay = tk.tournament_layout(4, 10, 5, 33)
+    assert (tk._rkb(33), tk._req_width(33)) == (32, 64)
+    assert lay.smem_bytes == 4 * (tk._block_floats(5, 64, lay.ch, lay.k_smem)
+                                  + lay.spb * _lanes(lay, 10, 5))
+    assert lay.smem_bytes + tk.STATIC_SMEM <= SMEM
     lay = tk.tournament_layout(4, 100, 20_000, 2)
     assert (lay.tier, lay.cl, lay.x_smem, lay.k_smem) == ("stream", 16,
                                                           False, False)
@@ -211,3 +215,24 @@ def test_past_sixteen_columns_the_32_column_instantiation(Rk):
     # the chip's check of the 32-column instantiation: the global tier
     lay = tk.tournament_layout(64, 382, 1_024, 24)
     assert (lay.tier, lay.cl, lay.k_smem) == ("global", 16, False)
+
+
+@pytest.mark.parametrize("Rk", [33, 40, 64, 72, 200])
+def test_past_32_columns_tiles_of_32(Rk):
+    """Past 32 resource columns the 32-column instantiation walks tiles of
+    32: req's shared row is Rk rounded up to 32 (the stream tier's chunks
+    stay 32 wide). Every tier fits one block, at the chip's wide searches
+    (S=64, N=382, G=90) and at the shapes of every earlier tier."""
+    assert tk._rkb(Rk) == 32 and tk._req_width(Rk) == -(-Rk // 32) * 32
+    for S, N, G in [(64, 382, 90), (232, 382, 90), (20, 4_250, 90),
+                    (64, 382, 1_024), (64, 382, 5_000), (600, 40, 7),
+                    (4, 100, 20_000)]:
+        lay = tk.tournament_layout(S, N, G, Rk)
+        assert lay.smem_bytes + tk.STATIC_SMEM <= SMEM, (S, N, G, lay)
+        if lay.tier == "stream":
+            lanes = tk._lane_floats(lay.slice, lay.xs, G, False, stream=True)
+            assert lay.smem_bytes == 4 * (2 * lay.gc * 32 + lanes)
+            continue
+        assert lay.smem_bytes == 4 * (
+            tk._block_floats(G, tk._req_width(Rk), lay.ch, lay.k_smem)
+            + lay.spb * _lanes(lay, N, G))

@@ -1,8 +1,9 @@
 """The subset search past kernel C's old limits, held against the JAX
 reference on the CPU: a pool of 4,500 distinct pod groups over 8 requested
 resource columns (past the global tier's shared-memory rows: the stream
-tier) and one whose pods request 20 columns (past 16: the 32-column
-instantiation).
+tier), one whose pods request 20 columns (past 16: the 32-column
+instantiation) and one whose pods request 40 (past 32: that
+instantiation over two tiles of columns).
 
 The same seeded inputs, made with numpy, go through both packages'
 `score_subsets_host`, `score_subsets_device` and `plan_repack`: the
@@ -14,7 +15,7 @@ reference's XLA dot adds in its own order), residuals and repl_lb within
 the reference's own rtol / atol 1e-3. The kernels themselves run at these
 tiers on the card (tests/test_torch_kernels.py, chip_smoke.py).
 
-Both packages' resource axes get 12 extended resources for the module,
+Both packages' resource axes get 32 extended resources for the module,
 and their monotone unions of requested columns start empty for each case
 (so Rk is the case's own, whatever ran before in the process); the axes,
 the unions and the reference's signature intern table are left as found.
@@ -62,6 +63,8 @@ EXTENDED = ("nvidia.com/mig-1g.10gb", "nvidia.com/mig-2g.20gb",
             "aws.amazon.com/neuron", "aws.amazon.com/neuroncore",
             "smarter-devices/fuse", "xilinx.com/fpga", "intel.com/qat",
             "intel.com/sriov_netdevice")
+# 20 more device plugins' resources: with the 20 above, 40 columns
+MORE = tuple(f"devices.example.com/p{i:02d}" for i in range(20))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -73,7 +76,7 @@ def _extended_axes():
              for m in (ref_res, port_res)]
     unions = [(m, set(m._cols_union)) for m in (ref_solver, port_solver)]
     encode_catalog(ref_small_catalog())
-    for name in ref_res.resource_axis() + EXTENDED:
+    for name in ref_res.resource_axis() + EXTENDED + MORE:
         ref_res.register_resource(name)
         port_res.register_resource(name)
     assert port_res.resource_axis() == ref_res.resource_axis()
@@ -196,3 +199,18 @@ def test_scoring_and_plan_at_twenty_requested_columns():
     assert (N, G, Rk) == (40, 60, 20) and S == 3_333
     assert tk._rkb(Rk) == 32
     tk.tournament_layout(S, N, G, Rk)  # a layout: no refusal
+
+
+def test_scoring_and_plan_at_forty_requested_columns():
+    """Pods requesting 40 resource columns (the 8 of the small catalog's
+    axis and 32 extended resources), 40 nodes and 60 groups: a search
+    kernel C takes in its 32-column instantiation over two tiles of
+    columns, where it used to raise past 32."""
+    ref, port, exclude = _wide(5, N=40, n_groups=60,
+                               cols=BUILTIN + EXTENDED + MORE)
+    assert exclude.any()
+    S, N, G, Rk = _search(ref, port, exclude)
+    assert (N, G, Rk) == (40, 60, 40) and S == 3_333
+    assert tk._rkb(Rk) == 32 and tk._req_width(Rk) == 64
+    lay = tk.tournament_layout(S, N, G, Rk)
+    assert lay.smem_bytes + tk.STATIC_SMEM <= tk.SMEM_LIMIT

@@ -37,6 +37,7 @@ import numpy as np
 
 from ..metrics.tenant import current_tenant
 from .exposition import register_debug_route
+from .tracer import NOOP_SPAN, TRACER
 
 # funnel stages in elimination order (documented in docs/observability.md)
 FUNNEL_STAGES = ("catalog", "resource_fit", "requirements", "zone_mask",
@@ -82,69 +83,71 @@ class ExplainRecorder:
                 or enc.G > self.MAX_GROUPS_PER_SOLVE:
             self.stats["skipped"] += 1
             return
-        tenant = current_tenant()
-        self.stats["solves"] += 1
-        funnels: Dict[int, dict] = {}
-        pod_group: Dict[str, int] = {}
-        for gi, grp in enumerate(enc.groups):
-            for p in grp.pods:
-                pod_group.setdefault(f"{p.namespace}/{p.name}", gi)
-        solve_seq = self.stats["solves"]
+        with (TRACER.span("explain.record") if TRACER.enabled
+              else NOOP_SPAN):
+            tenant = current_tenant()
+            self.stats["solves"] += 1
+            funnels: Dict[int, dict] = {}
+            pod_group: Dict[str, int] = {}
+            for gi, grp in enumerate(enc.groups):
+                for p in grp.pods:
+                    pod_group.setdefault(f"{p.namespace}/{p.name}", gi)
+            solve_seq = self.stats["solves"]
 
-        def funnel_for(gi: int) -> dict:
-            hit = funnels.get(gi)
-            if hit is None:
-                hit = funnels[gi] = _group_funnel(cat, enc, gi)
-            return hit
+            def funnel_for(gi: int) -> dict:
+                hit = funnels.get(gi)
+                if hit is None:
+                    hit = funnels[gi] = _group_funnel(cat, enc, gi)
+                return hit
 
-        # chosen/runner-up per launched node, keyed by its pods
-        for launch in out.launches:
-            chosen = {"instance_type": launch.instance_type,
-                      "zone": launch.zone,
-                      "capacity_type": launch.capacity_type,
-                      "price": launch.price}
-            runner_up = None
-            for row in launch.overrides:
-                if (row[0], row[1], row[2]) != (launch.instance_type,
-                                                launch.zone,
-                                                launch.capacity_type):
-                    runner_up = {"instance_type": row[0], "zone": row[1],
-                                 "capacity_type": row[2], "price": row[3]}
-                    break
-            for key in launch.pod_keys:
+            # chosen/runner-up per launched node, keyed by its pods
+            for launch in out.launches:
+                chosen = {"instance_type": launch.instance_type,
+                          "zone": launch.zone,
+                          "capacity_type": launch.capacity_type,
+                          "price": launch.price}
+                runner_up = None
+                for row in launch.overrides:
+                    if (row[0], row[1], row[2]) != (launch.instance_type,
+                                                    launch.zone,
+                                                    launch.capacity_type):
+                        runner_up = {"instance_type": row[0], "zone": row[1],
+                                     "capacity_type": row[2], "price": row[3]}
+                        break
+                for key in launch.pod_keys:
+                    gi = pod_group.get(key)
+                    self._put(tenant, key, {
+                        "outcome": "placed_new_node",
+                        "chosen": chosen, "runner_up": runner_up,
+                        "solve_seq": solve_seq,
+                        "funnel": funnel_for(gi)["stages"] if gi is not None
+                        else None,
+                        "binding_constraint": (funnel_for(gi)["binding"]
+                                               if gi is not None
+                                               else "colocation_bundle"),
+                    })
+            for node_name, keys in out.existing_placements.items():
+                for key in keys:
+                    gi = pod_group.get(key)
+                    self._put(tenant, key, {
+                        "outcome": "placed_existing_node", "node": node_name,
+                        "solve_seq": solve_seq,
+                        "funnel": funnel_for(gi)["stages"] if gi is not None
+                        else None,
+                        "binding_constraint": "existing_headroom",
+                    })
+            dropped = set(enc.dropped_keys or ())
+            for key in out.unschedulable:
                 gi = pod_group.get(key)
+                fun = funnel_for(gi) if gi is not None else None
                 self._put(tenant, key, {
-                    "outcome": "placed_new_node",
-                    "chosen": chosen, "runner_up": runner_up,
+                    "outcome": "unschedulable",
                     "solve_seq": solve_seq,
-                    "funnel": funnel_for(gi)["stages"] if gi is not None
-                    else None,
-                    "binding_constraint": (funnel_for(gi)["binding"]
-                                           if gi is not None
-                                           else "colocation_bundle"),
+                    "funnel": fun["stages"] if fun else None,
+                    "binding_constraint": ("taints" if key in dropped
+                                           else (fun["binding"] if fun
+                                                 else "unknown")),
                 })
-        for node_name, keys in out.existing_placements.items():
-            for key in keys:
-                gi = pod_group.get(key)
-                self._put(tenant, key, {
-                    "outcome": "placed_existing_node", "node": node_name,
-                    "solve_seq": solve_seq,
-                    "funnel": funnel_for(gi)["stages"] if gi is not None
-                    else None,
-                    "binding_constraint": "existing_headroom",
-                })
-        dropped = set(enc.dropped_keys or ())
-        for key in out.unschedulable:
-            gi = pod_group.get(key)
-            fun = funnel_for(gi) if gi is not None else None
-            self._put(tenant, key, {
-                "outcome": "unschedulable",
-                "solve_seq": solve_seq,
-                "funnel": fun["stages"] if fun else None,
-                "binding_constraint": ("taints" if key in dropped
-                                       else (fun["binding"] if fun
-                                             else "unknown")),
-            })
 
     def note_throttle(self, tenant: str, pod_keys: List[str]) -> None:
         """A fleet in-flight-cap refusal: the solve never ran, but the

@@ -125,6 +125,21 @@ _SPAN_PHASE: Dict[str, str] = {
     "federation.wire": "wire",
 }
 
+# spans only the port emits (the facade's output passes, the explain
+# recorder, the delta plane's lookup and record, the reserved-capacity
+# retry's pass over the unschedulable pods): decode and solve-path glue,
+# not the queue wait of the fleet spans around them
+_PORT_SPAN_PHASE: Dict[str, str] = {
+    "solve.output": "decode",
+    "output.assign": "decode",
+    "output.overrides": "decode",
+    "output.merge_plan": "decode",
+    "explain.record": "solver_overhead",
+    "delta.lookup": "solver_overhead",
+    "delta.record": "solver_overhead",
+    "solve.reserved_retry": "solver_overhead",
+}
+
 COVERAGE_TARGET = 0.99
 
 
@@ -162,7 +177,7 @@ def span_bucket(span: Span, trace: Trace) -> Optional[str]:
         return "reconcile_other"
     if span.name.startswith("fault."):
         return "reconcile_other"
-    return _SPAN_PHASE.get(span.name)
+    return _SPAN_PHASE.get(span.name) or _PORT_SPAN_PHASE.get(span.name)
 
 
 class PhaseLedger:

@@ -19,6 +19,11 @@ Design constraints, in order:
   what a flame graph decomposes), while each span ALSO stamps `ts` from
   an injectable clock (FakeClock in the sim), so a trace aligns with the
   simulated timeline that produced it.
+- **One clock with the device trace.** The Chrome export can place
+  spans on torch.profiler's clock (wall microseconds less the profile's
+  `baseTimeNanoseconds`) through a (wall, perf_counter) anchor that
+  `utils/profiling.maybe_trace` reads when its profiled block starts, so
+  it writes the block's spans as a host track beside its kernels.
 - **Nesting via contextvars**, so the same tracer is correct under the
   asyncio runtime and plain synchronous engines without thread-locals.
 
@@ -184,6 +189,12 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+def clock_anchor() -> Tuple[float, float]:
+    """(time.time(), time.perf_counter()) read together: puts spans'
+    perf_counter stamps on the wall clock (to_chrome_events)."""
+    return time.time(), time.perf_counter()
+
+
 class _SpanCtx:
     """Context manager for one live span; pushes itself as the current
     span for the dynamic extent of the `with` block."""
@@ -291,6 +302,17 @@ class Tracer:
             self._open[trace_id] = [span]
         return _SpanCtx(self, span, is_root=True)
 
+    def closed_since(self, t0: float) -> List[Span]:
+        """The current trace's spans that opened at or after perf_counter
+        `t0` and have closed, in start order (none while tracing is off
+        or outside a trace)."""
+        cur = self._current.get() if self.enabled else None
+        if cur is None:
+            return []
+        with self._lock:
+            spans = list(self._open.get(cur.trace_id, ()))
+        return [s for s in spans if s.t0 >= t0 and s.t1 >= s.t0]
+
     def current_trace_id(self) -> Optional[str]:
         """Trace id of the active span, for histogram exemplars."""
         if not self.enabled:
@@ -328,15 +350,31 @@ TRACER = Tracer()
 # --- exporters ---------------------------------------------------------
 
 
-def to_chrome_events(traces: List[Trace]) -> List[dict]:
+def to_chrome_events(traces: List[Trace], base_ns: Optional[int] = None,
+                     anchor: Optional[Tuple[float, float]] = None
+                     ) -> List[dict]:
     """Chrome trace-event JSON (the `chrome://tracing` / Perfetto array
     format): complete events ("ph": "X") with microsecond ts/dur. Each
     trace gets its own tid so concurrent traces don't interleave; ts is
-    relative to the earliest root so the file opens at t=0."""
+    relative to the earliest root so the file opens at t=0.
+
+    base_ns: torch.profiler's clock instead: ts is wall microseconds less
+    this `baseTimeNanoseconds` of the profile's export, each span put on
+    the wall clock through `anchor` (a clock_anchor() read as near the
+    profile's start as can be; by default, one read now), and the spans'
+    process is named "host spans"."""
     events: List[dict] = []
     if not traces:
         return events
-    epoch = min(t.root.t0 for t in traces)
+    if base_ns is None:
+        epoch = min(t.root.t0 for t in traces)
+    else:
+        wall, pc = anchor or clock_anchor()
+        # seconds from the profile's base to the anchor, kept small so
+        # the microseconds keep their precision
+        epoch = pc - (wall - base_ns * 1e-9)
+        events.append({"name": "process_name", "ph": "M", "pid": 1,
+                       "args": {"name": "host spans"}})
     for tid, trace in enumerate(traces, start=1):
         for s in trace.spans:
             events.append({
@@ -353,13 +391,16 @@ def to_chrome_events(traces: List[Trace]) -> List[dict]:
 
 
 def write_chrome_trace(traces: List[Trace], path: str,
-                       metadata: Optional[dict] = None) -> str:
+                       metadata: Optional[dict] = None,
+                       base_ns: Optional[int] = None,
+                       anchor: Optional[Tuple[float, float]] = None) -> str:
     """Write {"traceEvents": [...]} — the schema both chrome://tracing
     and Perfetto ingest directly. `metadata` lands under the standard
     top-level "metadata" key (both viewers ignore it): the run stamp —
     schema_version/run_id/seed/provenance — that lets the perf archive
-    key this artifact to the bench run that produced it."""
-    payload = {"traceEvents": to_chrome_events(traces),
+    key this artifact to the bench run that produced it. `base_ns` and
+    `anchor` put the spans on torch.profiler's clock (to_chrome_events)."""
+    payload = {"traceEvents": to_chrome_events(traces, base_ns, anchor),
                "displayTimeUnit": "ms"}
     if metadata:
         payload["metadata"] = dict(metadata)

@@ -836,10 +836,12 @@ class Solver:
         # dispatching; miss/audit marks the prep so finish_solve
         # settles the memo protocol
         from .delta import existing_context_fingerprint
-        ex_fp = existing_context_fingerprint(existing)
-        served = self._delta_serve_solve(prep, post_fp, ex_fp)
-        if served is not None:
-            return served
+        with _span("delta.lookup"):
+            ex_fp = existing_context_fingerprint(existing)
+            hit = self._delta_serve_solve(prep, post_fp, ex_fp)
+        if hit is not None:
+            # the served request's decode, verified like any other
+            return PreparedSolve(output=self.finish_solve(prep, *hit))
         # the FULL solve input identity a dispatch is about to grind —
         # encoded content AND the standing-fleet context (two what-ifs
         # over the same pods against different hypothetical clusters
@@ -935,13 +937,14 @@ class Solver:
                 prep.blocks_gated, prep.ds_fp, ex_fp)
 
     def _delta_serve_solve(self, prep: PreparedSolve, post_fp: int,
-                           ex_fp: int) -> Optional[PreparedSolve]:
+                           ex_fp: int) -> Optional[Tuple[SolveResult, str]]:
         """Solve-memo serve half. None = not served (miss, audit due,
         ineligible) — the caller dispatches normally and finish_solve
         settles the memo via the prep's delta_* fields. A clean hit
-        decodes the memoized SolveResult against the CURRENT prep
-        (fresh pod identities) through the full finish_solve pipeline —
-        the integrity oracle validates every served result."""
+        returns a copy of the memoized (SolveResult, backend), which the
+        caller decodes against the CURRENT prep (fresh pod identities)
+        through the full finish_solve pipeline — the integrity oracle
+        validates every served result."""
         from .delta import (DELTA, copy_solve_result,
                             solve_memo_fingerprint,
                             solve_result_fingerprint)
@@ -971,8 +974,7 @@ class Solver:
         from ..obs.recompute import RECOMPUTE
         RECOMPUTE.classify("solve", served=True)
         prep.delta_served = True
-        out = self.finish_solve(prep, copy_solve_result(result), backend)
-        return PreparedSolve(output=out)
+        return copy_solve_result(result), backend
 
     def _delta_record_solve(self, prep: PreparedSolve,
                             result: SolveResult, backend: str) -> None:
@@ -1182,7 +1184,8 @@ class Solver:
         result, backend = self._verify_integrity(prep, result, backend)
         # delta plane: memoize (or audit-settle) the verified result —
         # an unchanged-input reconcile serves it without a dispatch
-        self._delta_record_solve(prep, result, backend)
+        with _span("delta.record"):
+            self._delta_record_solve(prep, result, backend)
 
         with _span("solve.output"):  # decode to launches, merge the plan
             out = self._decode(cat, enc, result, prep.nodepool, prep.dropped)
@@ -1215,22 +1218,23 @@ class Solver:
         double-count headroom."""
         if not blocks_gated or not out.unschedulable:
             return out
-        by_key = {_pod_key(p): p for p in all_pods}
-        retry = [by_key[k] for k in out.unschedulable
-                 if k in by_key
-                 and targets_reserved(by_key[k].scheduling_requirements())]
-        if not retry:
+        with _span("solve.reserved_retry"):
+            by_key = {_pod_key(p): p for p in all_pods}
+            retry = [by_key[k] for k in out.unschedulable
+                     if k in by_key and targets_reserved(
+                         by_key[k].scheduling_requirements())]
+            if not retry:
+                return out
+            second = self.solve(retry, nodepool, node_class,
+                                spread_occupancy=spread_occupancy,
+                                daemonsets=daemonsets, _gate_blocks=False)
+            retried = {_pod_key(p) for p in retry}
+            out.launches += second.launches
+            for name, keys in second.existing_placements.items():
+                out.existing_placements.setdefault(name, []).extend(keys)
+            out.unschedulable = [k for k in out.unschedulable
+                                 if k not in retried] + second.unschedulable
             return out
-        second = self.solve(retry, nodepool, node_class,
-                            spread_occupancy=spread_occupancy,
-                            daemonsets=daemonsets, _gate_blocks=False)
-        retried = {_pod_key(p) for p in retry}
-        out.launches += second.launches
-        for name, keys in second.existing_placements.items():
-            out.existing_placements.setdefault(name, []).extend(keys)
-        out.unschedulable = [k for k in out.unschedulable
-                             if k not in retried] + second.unschedulable
-        return out
 
     # --- solution-integrity plane (integrity/) ----------------------------
     def _verify_integrity(self, prep: PreparedSolve, result: SolveResult,
@@ -1566,30 +1570,32 @@ class Solver:
         price-sorted overrides, same launch contract as solver nodes)."""
         if plan is None:
             return out
-        for b in plan.bundles:
-            vn = VirtualNode(type_idx=b.type_idx, zone_mask=b.zone_mask,
-                             cap_mask=b.cap_mask, cum=b.cum)
-            masked = np.where(
-                b.zone_mask[:, None] & b.cap_mask[None, :]
-                & cat.available[b.type_idx],
-                cat.price[b.type_idx], np.inf)
-            zi, ci = np.unravel_index(np.argmin(masked), masked.shape)
-            reqs = Resources()
-            for p in b.pods:
-                reqs = reqs.add(p.requests)
-            out.launches.append(NodeLaunch(
-                instance_type=cat.names[b.type_idx], zone=cat.zones[int(zi)],
-                capacity_type=cat.captypes[int(ci)],
-                price=float(masked[zi, ci]),
-                overrides=self._overrides(cat, vn, b.group_compat,
-                                          nodepool.requirements),
-                pod_keys=[_pod_key(p) for p in b.pods], requests=reqs,
-                labels=self._node_labels(cat, vn, nodepool)))
-        for name, placed in plan.existing_placements.items():
-            keys = out.existing_placements.setdefault(name, [])
-            keys.extend(_pod_key(p) for p in placed)
-        out.unschedulable.extend(_pod_key(p) for p in plan.unschedulable)
-        return out
+        with _span("output.merge_plan"):
+            for b in plan.bundles:
+                vn = VirtualNode(type_idx=b.type_idx, zone_mask=b.zone_mask,
+                                 cap_mask=b.cap_mask, cum=b.cum)
+                masked = np.where(
+                    b.zone_mask[:, None] & b.cap_mask[None, :]
+                    & cat.available[b.type_idx],
+                    cat.price[b.type_idx], np.inf)
+                zi, ci = np.unravel_index(np.argmin(masked), masked.shape)
+                reqs = Resources()
+                for p in b.pods:
+                    reqs = reqs.add(p.requests)
+                out.launches.append(NodeLaunch(
+                    instance_type=cat.names[b.type_idx],
+                    zone=cat.zones[int(zi)],
+                    capacity_type=cat.captypes[int(ci)],
+                    price=float(masked[zi, ci]),
+                    overrides=self._overrides(cat, vn, b.group_compat,
+                                              nodepool.requirements),
+                    pod_keys=[_pod_key(p) for p in b.pods], requests=reqs,
+                    labels=self._node_labels(cat, vn, nodepool)))
+            for name, placed in plan.existing_placements.items():
+                keys = out.existing_placements.setdefault(name, [])
+                keys.extend(_pod_key(p) for p in placed)
+            out.unschedulable.extend(_pod_key(p) for p in plan.unschedulable)
+            return out
 
     @staticmethod
     def _spread_constraints(enc: EncodedPods, cat: CatalogTensors,
@@ -1768,6 +1774,10 @@ class Solver:
     def _decode(self, cat: CatalogTensors, enc: EncodedPods,
                 result: SolveResult, nodepool: NodePool,
                 dropped: List[str]) -> SolveOutput:
+        # Two passes over result.nodes, in order, each under a span of its
+        # own: output.assign puts the pods onto the nodes (keys, request
+        # sums, labels, the groups' compat mask), then output.overrides
+        # builds each launch's price-sorted alternates.
         # Per-group pod cursors for deterministic nomination. Keyed by the
         # PodGroup object, not the row index: split_spread_groups emits
         # multiple rows referencing ONE PodGroup, and those rows must draw
@@ -1781,38 +1791,44 @@ class Solver:
             cursors[k] = at + cnt
             return grp.pods[at: at + cnt]
         launches: List[NodeLaunch] = []
+        # (launch, node, group compat) of each launch, for the second pass
+        pending: List[Tuple[NodeLaunch, VirtualNode, np.ndarray]] = []
         existing_placements: Dict[str, List[str]] = {}
-        li = 0
-        for node in result.nodes:
-            keys = []
-            reqs = Resources()
-            for g, cnt in sorted(node.pods_by_group.items()):
-                take = take_pods(g, cnt)
-                keys.extend(_pod_key(p) for p in take)
-                for p in take:
-                    reqs = reqs.add(p.requests)
-            if node.existing_name is not None:
-                if keys:
-                    existing_placements[node.existing_name] = keys
-                continue
-            t, zi, ci, price = result.launches[li]
-            li += 1
-            it_name = cat.names[node.type_idx]
-            labels = self._node_labels(cat, node, nodepool)
-            # alternates must satisfy every pod on the node, not just fit its
-            # resource sum — AND the groups' compat masks
-            group_compat = np.ones(cat.T, bool)
-            for g in node.pods_by_group:
-                group_compat &= enc.compat[g]
-            launches.append(NodeLaunch(
-                instance_type=it_name, zone=cat.zones[zi],
-                capacity_type=cat.captypes[ci], price=price,
-                overrides=self._overrides(cat, node, group_compat,
-                                          nodepool.requirements),
-                pod_keys=keys, requests=reqs, labels=labels))
-        unschedulable = list(dropped)
-        for g, cnt in result.unschedulable.items():
-            unschedulable.extend(_pod_key(p) for p in take_pods(g, cnt))
+        with _span("output.assign"):
+            li = 0
+            for node in result.nodes:
+                keys = []
+                reqs = Resources()
+                for g, cnt in sorted(node.pods_by_group.items()):
+                    take = take_pods(g, cnt)
+                    keys.extend(_pod_key(p) for p in take)
+                    for p in take:
+                        reqs = reqs.add(p.requests)
+                if node.existing_name is not None:
+                    if keys:
+                        existing_placements[node.existing_name] = keys
+                    continue
+                _, zi, ci, price = result.launches[li]
+                li += 1
+                # alternates must satisfy every pod on the node, not just
+                # fit its resource sum — AND the groups' compat masks
+                group_compat = np.ones(cat.T, bool)
+                for g in node.pods_by_group:
+                    group_compat &= enc.compat[g]
+                launch = NodeLaunch(
+                    instance_type=cat.names[node.type_idx],
+                    zone=cat.zones[zi], capacity_type=cat.captypes[ci],
+                    price=price, overrides=[], pod_keys=keys, requests=reqs,
+                    labels=self._node_labels(cat, node, nodepool))
+                launches.append(launch)
+                pending.append((launch, node, group_compat))
+            unschedulable = list(dropped)
+            for g, cnt in result.unschedulable.items():
+                unschedulable.extend(_pod_key(p) for p in take_pods(g, cnt))
+        with _span("output.overrides"):
+            for launch, node, group_compat in pending:
+                launch.overrides = self._overrides(cat, node, group_compat,
+                                                   nodepool.requirements)
         return SolveOutput(launches=launches,
                            existing_placements=existing_placements,
                            unschedulable=unschedulable)

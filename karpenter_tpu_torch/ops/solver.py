@@ -1199,7 +1199,9 @@ def prepare_batchable(cat: CatalogTensors, enc: EncodedPods,
     if dcat is None or not _dcat_fits(dcat, cat, R, dev):
         dcat = _auto_dcat(cat, R, dev)
     Gp = _bucket(enc.G, 8)
-    n_max = _auto_node_budget(cat, enc, 0)
+    with _span("solve.prep") as sp:  # the serial path's node budget
+        n_max = _auto_node_budget(cat, enc, 0)
+        sp.set(n_max=int(n_max), groups_padded=int(Gp))
     k_max = _bucket(2 * n_max)
     cols = _request_cols(enc, cat)
     track = enc.conflict is not None

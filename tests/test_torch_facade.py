@@ -770,9 +770,10 @@ def test_over_capacity_input_recovers_like_the_reference(_quiet_planes):
 def test_traced_solve_spans_every_stage(_quiet_planes):
     """With tracing on, one facade solve yields a span for each stage
     (the split chip_smoke.py prints): catalog view, colocation, encode,
-    affinity and spread, the backend run with solve_device's own stages
-    inside it, the integrity checks and the decode to launches; tracing
-    leaves the answer unchanged."""
+    affinity and spread, the delta plane's lookup, the backend run with
+    solve_device's own stages inside it, the integrity checks, the delta
+    plane's record, the decode to launches and the explain recorder;
+    tracing leaves the answer unchanged."""
     from karpenter_tpu_torch.obs.tracer import TRACER
     pprov, pc = _port_side(scenario("colocation"))
     f = PortSolver(pprov, backend="device", device="cpu")
@@ -789,8 +790,9 @@ def test_traced_solve_spans_every_stage(_quiet_planes):
     tr, = TRACER.recorder.slowest(1)
     top = [s.name for s in tr.children(tr.root)]
     assert set(top) == {"solve.tensors", "solve.colocate", "solve.encode",
-                        "solve.spread", "solve.run", "integrity.verify",
-                        "solve.output"}
+                        "solve.spread", "delta.lookup", "solve.run",
+                        "integrity.verify", "delta.record", "solve.output",
+                        "explain.record"}
     run, = [s for s in tr.children(tr.root) if s.name == "solve.run"]
     # the view's catalog upload (the facade's device cache was cold), then
     # solve_device's own stages under its solve.device span

@@ -648,6 +648,15 @@ DELTA_MEMO = REGISTRY.counter(
     "output, byte-for-byte by content fingerprint. A confirmed/audit "
     "ratio below 1.0 means divergences — see "
     "delta_invalidations_total", ("stage", "event"))
+OVERRIDES_ROWS = REGISTRY.counter(
+    "karpenter_tpu_overrides_rows_total",
+    "Launches of the facade's decode by how their price-sorted override "
+    "rows were made: 'computed' = built for the first launch of a decode "
+    "with its (type, load, groups, zone mask, capacity-type mask), "
+    "'shared' = copied from an earlier launch of the same decode with "
+    "equal inputs. shared / (computed + shared) is how often identical "
+    "nodes skip the build. Port only: the reference has no such family",
+    ("event",))
 DELTA_INVALIDATIONS = REGISTRY.counter(
     "karpenter_tpu_delta_invalidations_total",
     "Delta-memo entries dropped, by stage and ladder reason: "

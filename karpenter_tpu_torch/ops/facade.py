@@ -1776,8 +1776,8 @@ class Solver:
                 dropped: List[str]) -> SolveOutput:
         # Two passes over result.nodes, in order, each under a span of its
         # own: output.assign puts the pods onto the nodes (keys, request
-        # sums, labels, the groups' compat mask), then output.overrides
-        # builds each launch's price-sorted alternates.
+        # sums, labels), then output.overrides builds each launch's
+        # price-sorted alternates.
         # Per-group pod cursors for deterministic nomination. Keyed by the
         # PodGroup object, not the row index: split_spread_groups emits
         # multiple rows referencing ONE PodGroup, and those rows must draw
@@ -1791,8 +1791,8 @@ class Solver:
             cursors[k] = at + cnt
             return grp.pods[at: at + cnt]
         launches: List[NodeLaunch] = []
-        # (launch, node, group compat) of each launch, for the second pass
-        pending: List[Tuple[NodeLaunch, VirtualNode, np.ndarray]] = []
+        # (launch, node) of each launch, for the second pass
+        pending: List[Tuple[NodeLaunch, VirtualNode]] = []
         existing_placements: Dict[str, List[str]] = {}
         with _span("output.assign"):
             li = 0
@@ -1810,25 +1810,41 @@ class Solver:
                     continue
                 _, zi, ci, price = result.launches[li]
                 li += 1
-                # alternates must satisfy every pod on the node, not just
-                # fit its resource sum — AND the groups' compat masks
-                group_compat = np.ones(cat.T, bool)
-                for g in node.pods_by_group:
-                    group_compat &= enc.compat[g]
                 launch = NodeLaunch(
                     instance_type=cat.names[node.type_idx],
                     zone=cat.zones[zi], capacity_type=cat.captypes[ci],
                     price=price, overrides=[], pod_keys=keys, requests=reqs,
                     labels=self._node_labels(cat, node, nodepool))
                 launches.append(launch)
-                pending.append((launch, node, group_compat))
+                pending.append((launch, node))
             unschedulable = list(dropped)
             for g, cnt in result.unschedulable.items():
                 unschedulable.extend(_pod_key(p) for p in take_pods(g, cnt))
         with _span("output.overrides"):
-            for launch, node, group_compat in pending:
-                launch.overrides = self._overrides(cat, node, group_compat,
-                                                   nodepool.requirements)
+            # _overrides reads only the catalog and the pool (fixed for this
+            # call), the node's type, load and masks, and its groups' compat
+            # rows: launches with equal inputs share one computation. FFD
+            # fills many identical full nodes of one group, so most repeat.
+            # The table lives for this call only, so it is never stale.
+            rows_of: Dict[tuple, List[Tuple[str, str, str, float]]] = {}
+            for launch, node in pending:
+                key = (node.type_idx, node.cum.tobytes(),
+                       tuple(sorted(node.pods_by_group)),
+                       node.zone_mask.tobytes(), node.cap_mask.tobytes())
+                rows = rows_of.get(key)
+                if rows is None:
+                    # alternates must satisfy every pod on the node, not
+                    # just fit its resource sum — AND the groups' compat
+                    group_compat = np.ones(cat.T, bool)
+                    for g in node.pods_by_group:
+                        group_compat &= enc.compat[g]
+                    rows = rows_of[key] = self._overrides(
+                        cat, node, group_compat, nodepool.requirements)
+                # each launch its own list: consumers reassign it
+                launch.overrides = list(rows)
+            from ..metrics import OVERRIDES_ROWS
+            OVERRIDES_ROWS.inc(len(rows_of), event="computed")
+            OVERRIDES_ROWS.inc(len(pending) - len(rows_of), event="shared")
         return SolveOutput(launches=launches,
                            existing_placements=existing_placements,
                            unschedulable=unschedulable)

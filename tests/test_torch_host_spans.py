@@ -26,7 +26,7 @@ import torch
 from karpenter_tpu_torch.catalog import CatalogProvider, small_catalog
 from karpenter_tpu_torch.fleet.service import SolverService
 from karpenter_tpu_torch.integrity import INTEGRITY
-from karpenter_tpu_torch.metrics import DELTA_MEMO
+from karpenter_tpu_torch.metrics import DELTA_MEMO, OVERRIDES_ROWS
 from karpenter_tpu_torch.models import labels as L
 from karpenter_tpu_torch.models.nodepool import NodePool
 from karpenter_tpu_torch.models.instancetype import Offering
@@ -40,7 +40,8 @@ from karpenter_tpu_torch.obs import profile as P
 from karpenter_tpu_torch.obs import tracer as T
 from karpenter_tpu_torch.obs.explain import RECORDER
 from karpenter_tpu_torch.ops import facade as F
-from karpenter_tpu_torch.ops.binpack import solve_host
+from karpenter_tpu_torch.ops.binpack import (SolveResult, VirtualNode,
+                                            solve_host)
 from karpenter_tpu_torch.ops.delta import DELTA
 from karpenter_tpu_torch.ops.encode import encode_catalog, encode_pods
 from karpenter_tpu_torch.ops.facade import NodeLaunch, SolveOutput, Solver
@@ -356,6 +357,12 @@ def _spread_pods(rng):
                      label_selector={"app": "web"})]) + _grid(rng, 20, "p")
 
 
+def _one_shape(n, cpu, prefix):
+    """n pods of one shape: FFD fills many identical full nodes."""
+    return [Pod(name=f"{prefix}-{i}", requests=Resources.parse(
+        {"cpu": cpu, "memory": "1Gi"})) for i in range(n)]
+
+
 def _huge_pods(rng):
     return _grid(rng, 10, "p") + [Pod(name=f"big-{i}", requests=Resources.parse(
         {"cpu": "4000", "memory": "1Gi"})) for i in range(3)]
@@ -364,6 +371,11 @@ def _huge_pods(rng):
 MIN_VALUES = NodePool(name="mv", requirements=Requirements(
     Requirement(L.INSTANCE_TYPE, Operator.EXISTS, min_values=6),
     Requirement(L.ZONE, Operator.EXISTS, min_values=2)))
+# floors on the type, the zone and one label of the type
+MIN_VALUES_LABEL = NodePool(name="mvl", requirements=Requirements(
+    Requirement(L.INSTANCE_TYPE, Operator.EXISTS, min_values=6),
+    Requirement(L.ZONE, Operator.EXISTS, min_values=2),
+    Requirement(L.INSTANCE_FAMILY, Operator.EXISTS, min_values=3)))
 
 DECODE_CASES = {
     "plain": (lambda rng: _grid(rng, 60, "p"), POOL),
@@ -371,6 +383,8 @@ DECODE_CASES = {
     "spread": (_spread_pods, POOL),
     "unschedulable": (_huge_pods, POOL),
     "min_values": (lambda rng: _grid(rng, 50, "p"), MIN_VALUES),
+    "min_values_label": (lambda rng: _grid(rng, 50, "p"), MIN_VALUES_LABEL),
+    "repeats": (lambda rng: _one_shape(90, "1", "r"), POOL),
 }
 
 
@@ -392,14 +406,19 @@ def _standing_nodes(types, n: int):
 def test_two_pass_decode_equals_the_one_pass(case, rung, monkeypatch):
     """Every decode of a solve, and of one onto existing nodes, gives a
     SolveOutput equal to the one-pass decode's: launches in the same
-    order with the same overrides, keys, requests and labels, the same
-    existing placements and unschedulable pods."""
+    order with the same overrides (each a fresh `_overrides` call's
+    rows, element for element and in order, where launches with equal
+    inputs share one computation), keys, requests and labels, the same
+    existing placements and unschedulable pods. No two launches hold
+    one list object."""
     make, pool = DECODE_CASES[case]
     calls = []
     real = Solver._decode
 
     def spy(self, *args):
         out = real(self, *args)
+        lists = {id(launch.overrides) for launch in out.launches}
+        assert len(lists) == len(out.launches)
         # as decoded: the plan's merge appends its bundles afterwards
         calls.append((self, args, copy.deepcopy(out)))
         return out
@@ -407,6 +426,7 @@ def test_two_pass_decode_equals_the_one_pass(case, rung, monkeypatch):
     types = small_catalog()
     f = Solver(CatalogProvider(lambda: types), backend=rung,
                device="cpu" if rung == "device" else None)
+    counted = _rows_counted()
     assert f.solve(make(random.Random(0)), pool).launches
     f.solve(make(random.Random(1)), pool,
             existing=_standing_nodes(types, 12))
@@ -416,6 +436,92 @@ def test_two_pass_decode_equals_the_one_pass(case, rung, monkeypatch):
     assert calls[1][2].existing_placements
     if case == "unschedulable":
         assert all(out.unschedulable for _, _, out in calls)
+    if case == "repeats":
+        assert _rows_counted(since=counted)["shared"] > 0
+
+
+def _rows_counted(since=None):
+    """karpenter_tpu_overrides_rows_total by event, less `since`."""
+    since = since or {"computed": 0, "shared": 0}
+    return {e: OVERRIDES_ROWS.value(event=e) - n for e, n in since.items()}
+
+
+def _two_group_decode(differs: str):
+    """A hand-made solve result of three launches of one type and one
+    load: the second differs from the first in exactly one input of
+    `_overrides` (its zone mask, its capacity-type mask or its group,
+    whose compat row is narrower), the third equals the first."""
+    types = small_catalog()
+    cat = encode_catalog(types)
+    req = {"cpu": "1", "memory": "1Gi"}
+    pods = ([Pod(name=f"a-{i}", requests=Resources.parse(req))
+             for i in range(2)]
+            + [Pod(name=f"b-{i}", requests=Resources.parse(req),
+                   node_selector={L.INSTANCE_FAMILY: "c5"})
+               for i in range(2)])
+    enc = encode_pods(pods, cat)
+    ga, gb = (next(g for g, grp in enumerate(enc.groups)
+                   if grp.pods[0].name.startswith(p)) for p in "ab")
+    assert (enc.requests[ga] == enc.requests[gb]).all()
+    assert (enc.compat[ga] != enc.compat[gb]).any()
+    t = cat.names.index("c5.xlarge")
+    assert enc.compat[ga][t] and enc.compat[gb][t]
+    Z, C = len(cat.zones), len(cat.captypes)
+
+    def node(group=ga, zones=Z, caps=C):
+        return VirtualNode(type_idx=t, zone_mask=np.arange(Z) < zones,
+                           cap_mask=np.arange(C) < caps,
+                           cum=enc.requests[ga].astype(np.float32),
+                           pods_by_group={group: 1})
+    second = {"zone_mask": node(zones=1), "cap_mask": node(caps=1),
+              "group": node(group=gb)}[differs]
+    nodes = [node(), second, node()]
+    result = SolveResult(nodes=nodes, unschedulable={}, launches=[
+        (t, 0, 0, float(cat.price[t, 0, 0]))] * 3)
+    compat = [enc.compat[next(iter(n.pods_by_group))] for n in nodes]
+    return cat, enc, result, compat
+
+
+@pytest.mark.parametrize("differs", ("zone_mask", "cap_mask", "group"))
+def test_launches_that_differ_in_one_input_get_their_own_overrides(differs):
+    """Two launches of one type and one load that differ in only their
+    zone mask, capacity-type mask or group each get their own rows (a key
+    that left that input out would hand the second the first's); a third
+    equal to the first shares its rows, in a list of its own."""
+    f = _facade()
+    cat, enc, result, compat = _two_group_decode(differs)
+    counted = _rows_counted()
+    out = f._decode(cat, enc, result, POOL, [])
+    got = [launch.overrides for launch in out.launches]
+    want = [f._overrides(cat, n, c, POOL.requirements)
+            for n, c in zip(result.nodes, compat)]
+    assert got == want
+    assert got[0] != got[1] and got[0] == got[2]
+    assert got[0] is not got[2]
+    assert _rows_counted(since=counted) == {"computed": 2, "shared": 1}
+
+
+@pytest.mark.parametrize("pods,shares", [
+    # many identical full nodes of one group
+    (lambda: _one_shape(120, "1", "g"), True),
+    # each pod more than half the largest type: one node each, and no two
+    # with one load
+    (lambda: [Pod(name=f"d-{c}", requests=Resources.parse(
+        {"cpu": str(c), "memory": "1Gi"})) for c in range(17, 22)], False),
+], ids=("identical", "distinct"))
+@pytest.mark.parametrize("rung", ("host", "device"))
+def test_overrides_counter_counts_every_launch(pods, shares, rung):
+    """Every launch of the decode counts once, as computed or shared, in
+    the registry's karpenter_tpu_overrides_rows_total; launches share
+    rows only where their inputs repeat."""
+    types = small_catalog()
+    f = Solver(CatalogProvider(lambda: types), backend=rung,
+               device="cpu" if rung == "device" else None)
+    counted = _rows_counted()
+    out = f.solve(pods(), POOL)
+    counted = _rows_counted(since=counted)
+    assert counted["computed"] + counted["shared"] == len(out.launches) > 0
+    assert (counted["shared"] > 0) == shares
 
 
 # --- the phase ledger --------------------------------------------------------

@@ -15,7 +15,14 @@ sits:
   degrades to the greedy path only for an `InjectedFault`, where the
   reference absorbs every exception. A fruitless search is memoized in
   the delta plane (`ops/delta`, audited every `audit_every`-th serve), or
-  in `_optimizer_noop` with the plane disarmed, as in the reference.
+  in `_optimizer_noop` with the plane disarmed, as in the reference;
+- each executed decision's placements are charged to the node views the
+  rest of its pass solves against (`_charge`), where the reference solves
+  every decision of a pass against the views as the pass built them, so
+  two of its decisions can each fill the same free capacity (ROADMAP §6);
+- what a pass produced stays readable after it: `plans` (each pool's
+  last `optimizer.RepackPlan`) and `decisions` (the disruptions the last
+  reconcile executed).
 
 Reference behavior (website/docs concepts/disruption.md:9-130 +
 designs/consolidation.md): each pass builds disruptable candidates
@@ -73,6 +80,19 @@ class PendingDisruption:
 
 
 @dataclass
+class Decision:
+    """One disruption a pass executed: its victims' claim names, the
+    exact solve that placed their pods (None for an empty node) and the
+    replacements it launched."""
+
+    pool: str
+    reason: str
+    victims: List[str]
+    output: object = None
+    replacements: List[str] = field(default_factory=list)
+
+
+@dataclass
 class DisruptionController:
     store: Store
     solver: Solver
@@ -96,8 +116,14 @@ class DisruptionController:
     stats: Dict[str, int] = field(default_factory=lambda: {
         "empty": 0, "drift": 0, "expired": 0, "consolidated": 0,
         "multi_consolidated": 0})
+    # what the last pass produced, readable after it: each pool's last
+    # subset search (`optimizer.RepackPlan`, kept until the pool's next
+    # search) and the disruptions the last reconcile executed, in order
+    plans: Dict[str, object] = field(default_factory=dict)
+    decisions: List[Decision] = field(default_factory=list)
 
     def reconcile(self, now: float) -> float:
+        self.decisions = []
         self._advance_pending(now)
         if (self.store.adopted_at is not None
                 and now - self.store.adopted_at < ADOPTION_SETTLE):
@@ -222,8 +248,12 @@ class DisruptionController:
         self._hash_memo = {}  # templates may have mutated since last pass
         node_class = self.store.nodeclasses.get(pool.node_class)
         cat = self.solver.tensors(node_class)
-        views = [v for v in build_node_views(self.store, cat, now)
-                 if v.claim.nodepool == pool.name]
+        sp = (TRACER.span("disruption.views", pool=pool.name)
+              if TRACER.enabled else NOOP_SPAN)
+        with sp:
+            views = [v for v in build_node_views(self.store, cat, now)
+                     if v.claim.nodepool == pool.name]
+            sp.set(nodes=len(views))
         if not views:
             return
         # work provenance of the drift/expiry/candidate classification
@@ -254,9 +284,13 @@ class DisruptionController:
         # UNLESS the claim carries a terminationGracePeriod, which the
         # reference treats as the operator's "this node WILL eventually
         # go" override (disruption.md:260-268: with it set, drift may
-        # disrupt past blocking PDBs / do-not-disrupt)
+        # disrupt past blocking PDBs / do-not-disrupt). The budget moves
+        # only when a replacement executes, so it is read again only then
+        # (a read walks every claim; a read a view made the loop
+        # O(claims^2))
+        drift_budget = budget_for("Drifted")
         for v in views:
-            if budget_for("Drifted") <= 0:
+            if drift_budget <= 0:
                 break
             forced = v.claim.termination_grace_period is not None
             if not forced and (self._pdb_blocked(v)
@@ -265,10 +299,12 @@ class DisruptionController:
             if self._is_drifted(v, node_class, pool):
                 self._replace(pool, [v], "Drifted", now, cat, views,
                               forced=forced)
+                drift_budget = budget_for("Drifted")
             elif (pool.expire_after is not None
                   and now - v.claim.created_at > pool.expire_after):
                 self._replace(pool, [v], "Expired", now, cat, views,
                               stat="expired", forced=forced)
+                drift_budget = budget_for("Drifted")
 
         if pool.disruption.consolidation_policy == "WhenEmpty":
             self._empty_pass(pool, views, now)
@@ -316,6 +352,7 @@ class DisruptionController:
                     and not self._is_pending_victim(v.name)
                     and now - v.claim.initialized_at >= settle):
                 self.termination.delete_nodeclaim(v.claim, now, "Empty")
+                self.decisions.append(Decision(pool.name, "Empty", [v.name]))
                 self.stats["empty"] += 1
                 budget -= 1
 
@@ -471,7 +508,8 @@ class DisruptionController:
                 continue
             if out.launches and not self._spot_floor_ok(v, out, cat):
                 continue
-            self._execute(pool, [v], out, "Underutilized", now)
+            self._execute(pool, [v], out, "Underutilized", now,
+                          views=views)
             self._pdb_commit([v])
             self.stats["consolidated"] += 1
             done += 1
@@ -521,36 +559,41 @@ class DisruptionController:
         all_pods = [p for v in views for p in v.pods]
         if not all_pods:
             return None
-        # the screen judges other nodes' headroom — charge daemonset
-        # overhead to their allocatable exactly like the solve does
-        # (shared transform), or the screen over-admits candidates the
-        # re-solve then rejects (wasted exact solves)
-        from ..ops.facade import apply_daemonset_overhead
-        template = pool.template_labels()
-        cat = apply_daemonset_overhead(
-            cat, list(self.store.daemonsets.values()), pool, template)
         from ..obs.recompute import RECOMPUTE, fingerprint_bytes
-        fp = self._screen_fingerprint(pool, cat, views)
-        hit = self._screen_cache.get(pool.name)
-        if hit is not None and hit[0] == fp:
-            self.stats["screen_cache_hits"] = (
-                self.stats.get("screen_cache_hits", 0) + 1)
-            RECOMPUTE.classify("optimizer", served=True)
-            return hit[1]
-        enc = encode_pods(all_pods, cat,
-                          extra_requirements=pool.requirements,
-                          taints=pool.taints + pool.startup_taints,
-                          template_labels=template)
-        if enc.G == 0:
-            return None
-        sig_to_g = {g.representative.constraint_signature(): i
-                    for i, g in enumerate(enc.groups)}
-        counts = np.zeros((len(views), enc.G), np.int32)
-        for i, v in enumerate(views):
-            for p in v.pods:
-                gi = sig_to_g.get(p.constraint_signature())
-                if gi is not None:
-                    counts[i, gi] += 1
+        esp = (TRACER.span("disruption.encode", nodes=len(views),
+                           pods=len(all_pods))
+               if TRACER.enabled else NOOP_SPAN)
+        with esp:
+            # the screen judges other nodes' headroom — charge daemonset
+            # overhead to their allocatable exactly like the solve does
+            # (shared transform), or the screen over-admits candidates the
+            # re-solve then rejects (wasted exact solves)
+            from ..ops.facade import apply_daemonset_overhead
+            template = pool.template_labels()
+            cat = apply_daemonset_overhead(
+                cat, list(self.store.daemonsets.values()), pool, template)
+            fp = self._screen_fingerprint(pool, cat, views)
+            hit = self._screen_cache.get(pool.name)
+            if hit is not None and hit[0] == fp:
+                self.stats["screen_cache_hits"] = (
+                    self.stats.get("screen_cache_hits", 0) + 1)
+                RECOMPUTE.classify("optimizer", served=True)
+                esp.set(cached=True)
+                return hit[1]
+            enc = encode_pods(all_pods, cat,
+                              extra_requirements=pool.requirements,
+                              taints=pool.taints + pool.startup_taints,
+                              template_labels=template)
+            if enc.G == 0:
+                return None
+            sig_to_g = {g.representative.constraint_signature(): i
+                        for i, g in enumerate(enc.groups)}
+            counts = np.zeros((len(views), enc.G), np.int32)
+            for i, v in enumerate(views):
+                for p in v.pods:
+                    gi = sig_to_g.get(p.constraint_signature())
+                    if gi is not None:
+                        counts[i, gi] += 1
         sp = (TRACER.span("disruption.screen", nodes=len(views),
                           candidates=len(views))
               if TRACER.enabled else NOOP_SPAN)
@@ -690,6 +733,7 @@ class DisruptionController:
                                    device=self.solver.device)
             sp.set(scored=plan.scored, feasible=plan.feasible,
                    backend=plan.backend)
+            self.plans[pool.name] = plan
             RECOMPUTE.classify("optimizer", fingerprint(
                 noop_key[0], tuple(sorted(noop_key[1])), noop_key[2]))
         except InjectedFault:
@@ -900,12 +944,13 @@ class DisruptionController:
         out, ok = self._simulate_removal(pool, victims, cat, views, None)
         if not ok:
             return
-        self._execute(pool, victims, out, reason, now)
+        self._execute(pool, victims, out, reason, now, views=views)
         self._pdb_commit(victims)
         self.stats[stat if stat in self.stats else "drift"] += 1
 
     def _execute(self, pool: NodePool, victims: List[NodeView], out,
-                 reason: str, now: float, source: str = "greedy") -> None:
+                 reason: str, now: float, source: str = "greedy",
+                 views: Optional[List[NodeView]] = None) -> None:
         node_class = self.store.nodeclasses.get(pool.node_class)
         launched, failed = self.provisioner._launch(pool, node_class,
                                                     out.launches, now)
@@ -916,6 +961,8 @@ class DisruptionController:
                 self.termination.delete_nodeclaim(claim, now, "ReplacementAborted")
             return
         repl_names = [c.name for c in launched]
+        if views is not None:
+            _charge(views, victims, out)
         if reason == "Underutilized":
             # realized $/hr delta of an EXECUTED consolidation, by
             # decision source — the optimizer-vs-greedy headline bench
@@ -925,6 +972,9 @@ class DisruptionController:
             if savings > 0:
                 from ..metrics import CONSOLIDATION_SAVINGS
                 CONSOLIDATION_SAVINGS.inc(savings, source=source)
+        self.decisions.append(Decision(pool.name, reason,
+                                       [v.name for v in victims], out,
+                                       repl_names))
         if not out.launches:
             # no replacement needed: drain immediately
             for v in victims:
@@ -974,3 +1024,28 @@ class DisruptionController:
 
     def _is_pending_victim(self, name: str) -> bool:
         return any(name in pd.victim_claims for pd in self._pending)
+
+
+def _charge(views: List[NodeView], victims: List[NodeView], out) -> None:
+    """Put an executed decision's placements onto the surviving views it
+    filled: their pods and `cum` then hold the moved pods, so a later
+    exact solve of the same pass sees the headroom already taken (views
+    are built once a pass; without this two decisions of one pass could
+    each fill the same free capacity)."""
+    if not out.existing_placements:
+        return
+    from ..models.resources import Resources
+    moved = {f"{p.namespace}/{p.name}": p for v in victims for p in v.pods}
+    by_name = {v.name: v for v in views}
+    for name, keys in out.existing_placements.items():
+        view = by_name.get(name)
+        pods = [moved[k] for k in keys if k in moved]
+        if view is None or not pods:
+            continue
+        add = Resources()
+        for p in pods:
+            add = add.add(p.requests)
+        vec = np.asarray(add.to_vector(), np.float32)
+        n = min(len(view.virtual.cum), len(vec))
+        view.virtual.cum[:n] += vec[:n]
+        view.pods = view.pods + pods

@@ -36,6 +36,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..obs.tracer import NOOP_SPAN, TRACER
 from .relax import RELAX_ITERS
 from .stats import OPTIMIZER
 from .subsets import MAX_K, MAX_SUBSETS, evictability, generate_subsets
@@ -63,7 +64,10 @@ def optimizer_enabled() -> bool:
 class RepackPlan:
     """Ranked output of one subset search: `subsets` are view-index
     tuples ordered by expected value (feasible, low relaxation residual,
-    high savings first) — the exact-verify queue."""
+    high savings first) — the exact-verify queue. `nodes` names the
+    views (claim names, in view order), and `scored_*` hold every scored
+    subset in generation order: its victims, its replacement-free
+    feasibility and its savings as the tournament gave them."""
 
     subsets: List[Tuple[int, ...]] = field(default_factory=list)
     savings: List[float] = field(default_factory=list)
@@ -73,6 +77,10 @@ class RepackPlan:
     exhaustive: bool = True
     backend: str = "host"
     search_s: float = 0.0
+    nodes: List[str] = field(default_factory=list)
+    scored_subsets: List[Tuple[int, ...]] = field(default_factory=list)
+    scored_feasible: List[bool] = field(default_factory=list)
+    scored_savings: List[float] = field(default_factory=list)
 
 
 def rank_subsets(feasible: np.ndarray, savings: np.ndarray,
@@ -122,25 +130,29 @@ def plan_repack(cat, enc, views: Sequence, counts: np.ndarray,
     masks = np.zeros((len(subs), N), np.float32)
     for si, s in enumerate(subs):
         masks[si, cand[list(s)]] = 1.0
-    if use_device:
-        feasible, savings, residual, repl_lb = score_subsets_device(
-            cat, enc, views, counts, prices, masks, mesh=mesh,
-            iters=iters, exclude=exclude, device=device)
-        backend = "mesh" if mesh is not None else "device"
-        if exclude is not None and exclude.any():
-            # supply-side exclusion rode the active bit into the kernel
-            # (same as the host path); subsets CONTAINING an excluded
-            # node as a victim are struck host-side
-            bad = masks[:, exclude].any(axis=1)
-            feasible = feasible & ~bad
-            savings = np.where(bad, np.float32(0.0), savings)
-    else:
-        headroom, group_req, _elig, k, _active = repack_inputs(
-            cat, enc, views, counts, exclude=exclude)
-        feasible, savings, residual, repl_lb = score_subsets_host(
-            headroom, group_req, k, counts, prices, masks, per_slot,
-            iters=iters)
-        backend = "host"
+    backend = ("mesh" if mesh is not None else "device") if use_device \
+        else "host"
+    sp = (TRACER.span("optimizer.tournament", subsets=len(subs), nodes=N,
+                      groups=G, backend=backend)
+          if TRACER.enabled else NOOP_SPAN)
+    with sp:
+        if use_device:
+            feasible, savings, residual, repl_lb = score_subsets_device(
+                cat, enc, views, counts, prices, masks, mesh=mesh,
+                iters=iters, exclude=exclude, device=device)
+            if exclude is not None and exclude.any():
+                # supply-side exclusion rode the active bit into the
+                # kernel (same as the host path); subsets CONTAINING an
+                # excluded node as a victim are struck host-side
+                bad = masks[:, exclude].any(axis=1)
+                feasible = feasible & ~bad
+                savings = np.where(bad, np.float32(0.0), savings)
+        else:
+            headroom, group_req, _elig, k, _active = repack_inputs(
+                cat, enc, views, counts, exclude=exclude)
+            feasible, savings, residual, repl_lb = score_subsets_host(
+                headroom, group_req, k, counts, prices, masks, per_slot,
+                iters=iters)
     order, repack_free = rank_subsets(feasible, savings, residual, repl_lb)
     search_s = time.perf_counter() - t0
     plan = RepackPlan(
@@ -149,7 +161,11 @@ def plan_repack(cat, enc, views: Sequence, counts: np.ndarray,
         savings=[float(savings[i]) for i in order],
         residuals=[float(residual[i]) for i in order],
         scored=len(subs), feasible=int(np.count_nonzero(repack_free)),
-        exhaustive=exhaustive, backend=backend, search_s=search_s)
+        exhaustive=exhaustive, backend=backend, search_s=search_s,
+        nodes=[v.name for v in views],
+        scored_subsets=[tuple(int(c) for c in cand[list(s)]) for s in subs],
+        scored_feasible=[bool(f) for f in feasible],
+        scored_savings=[float(x) for x in savings])
     OPTIMIZER.record_scored(len(subs), search_s)
     from ..metrics import OPTIMIZER_SUBSETS
     OPTIMIZER_SUBSETS.inc(len(subs), event="scored")

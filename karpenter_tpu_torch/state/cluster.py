@@ -137,7 +137,17 @@ def cluster_occupancy(store: Store,
 
 def build_node_views(store: Store, cat: CatalogTensors,
                      clock_now: float) -> List[NodeView]:
+    """A view of every live claim with a known type: its node's pods (in
+    the store's order), then the pods nominated to it and still unbound
+    (in the store's order), their summed requests as `cum`. One pass over
+    the store's pods gathers the nominated ones of every claim; a node's
+    pods come from the store's index."""
     views: List[NodeView] = []
+    nominated: Dict[str, List[Pod]] = {}
+    for p in store.pods.values():
+        c = p.annotations.get(L.NOMINATED)
+        if c is not None and p.node_name is None:
+            nominated.setdefault(c, []).append(p)
     for claim in store.nodeclaims.values():
         if claim.is_deleting() or claim.phase not in (Phase.LAUNCHED,
                                                       Phase.REGISTERED,
@@ -149,13 +159,13 @@ def build_node_views(store: Store, cat: CatalogTensors,
         node = store.node_for_nodeclaim(claim)
         pods = store.pods_on_node(node.name) if node else []
         # nominated-but-unbound pods also occupy the claim
-        from ..controllers.provisioner import NOMINATED
-        for p in store.pods.values():
-            if p.annotations.get(NOMINATED) == claim.name and p.node_name is None:
-                pods.append(p)
+        pods.extend(nominated.get(claim.name, ()))
+        # summed in place, in pod order: the same float64 sums (so the
+        # same float32 cum) as adding one Resources at a time
         cum_res = Resources()
         for p in pods:
-            cum_res = cum_res.add(p.requests)
+            for k, v in p.requests.items():
+                cum_res[k] = cum_res.get(k, 0.0) + v
         vec = cum_res.to_vector()
         cum = np.zeros(len(cat.resources), np.float32)
         cum[: len(vec)] = vec[: len(cum)]

@@ -1,7 +1,9 @@
 """In-memory cluster state store — the sim's API server.
 
 The port's own copy of `karpenter_tpu/state/store.py`, unchanged in
-semantics.
+semantics. Two indexes the reference does not keep answer its scans in
+time proportional to the answer: pods by node name (`pods_on_node`, in
+the order of `pods`) and nodes by provider id (`node_for_nodeclaim`).
 
 Plays the role the Kubernetes API server plays for the reference (its
 coordination bus; SURVEY.md §5 'distributed communication backend'):
@@ -26,6 +28,14 @@ from ..models.pod import Pod
 class Store:
     def __init__(self) -> None:
         self.pods: Dict[str, Pod] = {}
+        # node name -> {pod key -> pod} of the pods bound there, and each
+        # key's place in `pods` (dict order: a same-key replacement keeps
+        # its place, a delete and re-add moves it last), so pods_on_node
+        # returns a node's pods in the order a scan of `pods` would. Kept
+        # by add/bind/unbind/delete_pod, the only writers of node_name
+        self._pods_by_node: Dict[str, Dict[str, Pod]] = {}
+        self._pod_seq: Dict[str, int] = {}
+        self._next_seq = 0
         # admission-time pending-group index: gid -> {key -> pod} holding
         # exactly the provisioner's input set (Pending, unbound,
         # un-nominated). Maintained on every pod state transition so the
@@ -43,6 +53,9 @@ class Store:
         # storms resolve claims O(1), not O(claims) per message
         self._claims_by_iid: Dict[str, str] = {}
         self.nodes: Dict[str, Node] = {}
+        # provider id -> names of the nodes under it, in the order they
+        # were added: node_for_nodeclaim in one lookup
+        self._nodes_by_pid: Dict[str, List[str]] = {}
         self.daemonsets: Dict[str, object] = {}
         self.pdbs: Dict[str, object] = {}
         self.pvcs: Dict[str, object] = {}  # PersistentVolumeClaims by key
@@ -80,6 +93,7 @@ class Store:
             # as a ghost pod every reconcile, forever); its PVC refs go
             # too, or add_pvc events re-decorate a ghost forever
             self._index_discard(old, key)
+            self._node_discard(old, key)
             for pname in set(old.pvc_names):
                 refs = self._pods_by_pvc.get(f"{old.namespace}/{pname}")
                 if refs is not None:
@@ -87,6 +101,10 @@ class Store:
                     if not refs:
                         del self._pods_by_pvc[f"{old.namespace}/{pname}"]
         self.pods[key] = pod
+        if old is None:
+            self._pod_seq[key] = self._next_seq
+            self._next_seq += 1
+        self._node_index(pod, key)
         if old is not None and old is not pod:
             # a same-key replacement is a MUTATION of cluster state, not a
             # plain arrival — the warm-path delta tracker (and any other
@@ -200,9 +218,23 @@ class Store:
             if not g:
                 del self._pending_groups[pod._gid]
 
+    def _node_index(self, pod: Pod, key: str) -> None:
+        if pod.node_name is not None:
+            self._pods_by_node.setdefault(pod.node_name, {})[key] = pod
+
+    def _node_discard(self, pod: Pod, key: str) -> None:
+        bucket = self._pods_by_node.get(pod.node_name)
+        if bucket is not None and bucket.get(key) is pod:
+            del bucket[key]
+            if not bucket:
+                del self._pods_by_node[pod.node_name]
+
     def delete_pod(self, namespace: str, name: str) -> None:
         key = f"{namespace}/{name}"
         pod = self.pods.pop(key, None)
+        if pod is not None:
+            self._pod_seq.pop(key, None)
+            self._node_discard(pod, key)
         if pod:
             for pname in set(pod.pvc_names):
                 refs = self._pods_by_pvc.get(f"{namespace}/{pname}")
@@ -224,20 +256,34 @@ class Store:
         return [list(g.values()) for g in self._pending_groups.values() if g]
 
     def pods_on_node(self, node_name: str) -> List[Pod]:
-        return [p for p in self.pods.values() if p.node_name == node_name]
+        """The pods bound to `node_name`, in the order of `pods`."""
+        bucket = self._pods_by_node.get(node_name)
+        if not bucket:
+            return []
+        seq = self._pod_seq
+        return [bucket[k] for k in sorted(bucket, key=seq.__getitem__)]
 
     def bind_pod(self, pod: Pod, node_name: str) -> None:
+        key = f"{pod.namespace}/{pod.name}"
+        stored = self.pods.get(key) is pod
+        if stored:
+            self._node_discard(pod, key)
         pod.node_name = node_name
         pod.phase = "Running"
-        self._index_update(pod, f"{pod.namespace}/{pod.name}")
+        if stored:
+            self._node_index(pod, key)
+        self._index_update(pod, key)
         self._notify("pod", "bind", pod)
 
     def unbind_pod(self, pod: Pod) -> None:
         """Eviction: the pod returns to the pending pool (and the
         pending-group index, unless still nominated elsewhere)."""
+        key = f"{pod.namespace}/{pod.name}"
+        if self.pods.get(key) is pod:
+            self._node_discard(pod, key)
         pod.node_name = None
         pod.phase = "Pending"
-        self._index_update(pod, f"{pod.namespace}/{pod.name}")
+        self._index_update(pod, key)
         self._notify("pod", "unbind", pod)
 
     def nominate_pod(self, pod: Pod, claim_name: str) -> None:
@@ -414,17 +460,34 @@ class Store:
 
     # --- nodes ---
     def add_node(self, node: Node) -> Node:
+        old = self.nodes.get(node.name)
+        if old is not None and old is not node:
+            self._pid_discard(old)
         self.nodes[node.name] = node
+        names = self._nodes_by_pid.setdefault(node.provider_id, [])
+        if node.name not in names:
+            names.append(node.name)
         self._notify("node", "add", node)
         return node
+
+    def _pid_discard(self, node: Node) -> None:
+        names = self._nodes_by_pid.get(node.provider_id)
+        if names is not None and node.name in names:
+            names.remove(node.name)
+            if not names:
+                del self._nodes_by_pid[node.provider_id]
 
     def delete_node(self, name: str) -> None:
         node = self.nodes.pop(name, None)
         if node:
+            self._pid_discard(node)
             self._notify("node", "delete", node)
 
     def node_for_nodeclaim(self, claim: NodeClaim) -> Optional[Node]:
-        for n in self.nodes.values():
-            if n.provider_id == claim.provider_id:
+        # the first node added under the claim's provider id, as a scan
+        # of `nodes` in order would find it
+        for name in self._nodes_by_pid.get(claim.provider_id, ()):
+            n = self.nodes.get(name)
+            if n is not None and n.provider_id == claim.provider_id:
                 return n
         return None

@@ -657,6 +657,15 @@ OVERRIDES_ROWS = REGISTRY.counter(
     "equal inputs. shared / (computed + shared) is how often identical "
     "nodes skip the build. Port only: the reference has no such family",
     ("event",))
+EXPLAIN_FUNNELS = REGISTRY.counter(
+    "karpenter_tpu_explain_funnels_total",
+    "Groups the explain recorder's records touched, by how their "
+    "elimination funnel was made: 'computed' = run over the catalog view, "
+    "'shared' = taken from the recorder's memo, kept from an earlier solve "
+    "against the same view with the same encoded group rows. shared / "
+    "(computed + shared) is the memo's hit share. Port only: the "
+    "reference has no such family",
+    ("event",))
 DELTA_INVALIDATIONS = REGISTRY.counter(
     "karpenter_tpu_delta_invalidations_total",
     "Delta-memo entries dropped, by stage and ladder reason: "

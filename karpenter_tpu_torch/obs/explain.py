@@ -20,6 +20,17 @@ most recent per-pod records, skips solves larger than
 funnel pass), and never mutates solver state — chaos determinism
 (end-state hashes, fault fingerprints) is unchanged with it enabled.
 
+Funnel memo: a funnel is a pure function of the catalog view and the
+group's four encoded rows, and a fleet re-solves the same groups against
+the same view every round, so the recorder keeps each funnel it computes
+under (view, the rows' exact bytes) in a bounded process-wide memo
+(`MAX_FUNNELS`, least recent out first). Views enter it only with a
+`cache_token`, and the view's content backs the token: two facades'
+fresh providers can stamp one token on different catalogs, so a token
+whose content changed names a new view. Records are unchanged; a memo
+hit shares the stored stages list, which no reader mutates. Counter:
+`karpenter_tpu_explain_funnels_total{event=computed|shared}`.
+
 Throttle provenance: a solve refused by the fleet's in-flight cap never
 reaches the solver, so `note_throttle` records the refusal per pod; the
 eventual successful solve overwrites the outcome but PRESERVES the
@@ -35,6 +46,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..metrics import EXPLAIN_FUNNELS
 from ..metrics.tenant import current_tenant
 from .exposition import register_debug_route
 from .tracer import NOOP_SPAN, TRACER
@@ -53,11 +65,18 @@ class ExplainRecorder:
     # G x [T,Z,C], not pods — a 2000-signature cluster must not pay
     # 2000 offering-tensor passes per solve for diagnostics
     MAX_GROUPS_PER_SOLVE = 512
+    MAX_FUNNELS = 4096  # process-wide funnel memo bound (LRU)
+    MAX_VIEWS = 64      # catalog views the memo's keys can name
 
     def __init__(self):
         self._lock = threading.Lock()
         # (tenant, pod_key) -> record dict (LRU: most recent last)
         self._pods: "OrderedDict[tuple, dict]" = OrderedDict()
+        # (view serial, the group's rows) -> {"stages", "binding"}
+        self._funnels: "OrderedDict[tuple, dict]" = OrderedDict()
+        # cache_token -> (the view's content, its serial)
+        self._views: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._view_seq = 0
         self.enabled = True
         self.stats: Dict[str, int] = {"solves": 0, "skipped": 0,
                                       "throttles": 0, "errors": 0}
@@ -93,11 +112,14 @@ class ExplainRecorder:
                 for p in grp.pods:
                     pod_group.setdefault(f"{p.namespace}/{p.name}", gi)
             solve_seq = self.stats["solves"]
+            serial = self._view_serial(cat)
+            made = {"computed": 0, "shared": 0}
 
             def funnel_for(gi: int) -> dict:
                 hit = funnels.get(gi)
                 if hit is None:
-                    hit = funnels[gi] = _group_funnel(cat, enc, gi)
+                    hit = funnels[gi] = self._memo_funnel(serial, cat, enc,
+                                                          gi, made)
                 return hit
 
             # chosen/runner-up per launched node, keyed by its pods
@@ -148,6 +170,55 @@ class ExplainRecorder:
                                            else (fun["binding"] if fun
                                                  else "unknown")),
                 })
+            for event, n in made.items():
+                EXPLAIN_FUNNELS.inc(n, event=event)
+
+    def _view_serial(self, cat) -> Optional[int]:
+        """A number for the catalog view's content, or None for a view
+        without a cache_token (its funnels are computed fresh and not
+        kept). A token whose content changed gets a new number, so no
+        two contents share one; an evicted view's funnels age out."""
+        token = getattr(cat, "cache_token", None)
+        if token is None:
+            return None
+        content = _view_content(cat)
+        with self._lock:
+            hit = self._views.get(token)
+            if hit is not None and hit[0] == content:
+                self._views.move_to_end(token)
+                return hit[1]
+            self._view_seq += 1
+            self._views[token] = (content, self._view_seq)
+            self._views.move_to_end(token)
+            while len(self._views) > self.MAX_VIEWS:
+                self._views.popitem(last=False)
+            return self._view_seq
+
+    def _memo_funnel(self, serial: Optional[int], cat, enc, gi: int,
+                     made: Dict[str, int]) -> dict:
+        """The funnel's stages and binding from the memo, or computed and
+        kept: both are a pure function of the view and the group's rows
+        (the key holds their exact bytes, dtype and shape)."""
+        key = None
+        if serial is not None:
+            key = (serial,) + tuple(_exact(a[gi]) for a in (
+                enc.requests, enc.compat, enc.allow_zone, enc.allow_cap))
+            with self._lock:
+                hit = self._funnels.get(key)
+                if hit is not None:
+                    self._funnels.move_to_end(key)
+            if hit is not None:
+                made["shared"] += 1
+                return hit
+        fun = _group_funnel(cat, enc, gi)
+        hit = {"stages": fun["stages"], "binding": fun["binding"]}
+        made["computed"] += 1
+        if key is not None:
+            with self._lock:
+                self._funnels[key] = hit
+                while len(self._funnels) > self.MAX_FUNNELS:
+                    self._funnels.popitem(last=False)
+        return hit
 
     def note_throttle(self, tenant: str, pod_keys: List[str]) -> None:
         """A fleet in-flight-cap refusal: the solve never ran, but the
@@ -213,8 +284,23 @@ class ExplainRecorder:
     def reset(self) -> None:
         with self._lock:
             self._pods.clear()
+            self._funnels.clear()
+            self._views.clear()
             self.stats = {"solves": 0, "skipped": 0, "throttles": 0,
                           "errors": 0}
+
+
+def _exact(a) -> tuple:
+    """An array as a key: equal keys mean equal arrays, bit for bit."""
+    a = np.asarray(a)
+    return (a.dtype.str, a.shape, a.tobytes())
+
+
+def _view_content(cat) -> tuple:
+    """Everything `_group_funnel` reads from the catalog view, exactly."""
+    return (tuple(cat.names), tuple(cat.zones), tuple(cat.captypes),
+            _exact(cat.allocatable), _exact(cat.available),
+            _exact(cat.price))
 
 
 def _group_funnel(cat, enc, gi: int) -> dict:

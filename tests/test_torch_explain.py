@@ -9,7 +9,9 @@ placement; the fleet client's throttle notes; the skipping of oversize
 solves; and the `/debug/explain` route. Then the records themselves: the
 same pods through both packages' `Solver.solve` on each rung must leave
 equal records (outcome, funnel counts, chosen offering, runner-up, binding
-constraint, node) for every pod, exactly.
+constraint, node) for every pod, exactly. Last, the port's funnel memo:
+the records it writes from kept funnels equal those a recorder with an
+empty memo writes for the same solve.
 """
 
 from __future__ import annotations
@@ -187,24 +189,25 @@ class TestExplain:
 
 # --- records equal to the reference's -------------------------------------
 
-def _mix(P, seed: int):
+def _mix(P, seed: int, tag: str = ""):
     """A seeded pod mix that reaches every outcome: placed on new nodes
     (several shapes), placed on existing headroom, unschedulable past
-    every type, dropped by the pool's taint, and a zone-pinned group."""
+    every type, dropped by the pool's taint, and a zone-pinned group.
+    `tag` prefixes every name: the same groups under other pods."""
     import numpy as np
     rng = np.random.default_rng(seed)
     cpus = ("250m", "500m", "1", "2")
     mems = ("256Mi", "1Gi", "2Gi", "4Gi")
     pods = []
     for i in range(24):
-        pods.append(P.Pod(name=f"mix-{i}", requests=P.Resources.parse(
+        pods.append(P.Pod(name=f"{tag}mix-{i}", requests=P.Resources.parse(
             {"cpu": cpus[int(rng.integers(4))],
              "memory": mems[int(rng.integers(4))]})))
-    pods.append(P.Pod(name="giant-0", requests=P.Resources.parse(
+    pods.append(P.Pod(name=f"{tag}giant-0", requests=P.Resources.parse(
         {"cpu": "4000", "memory": "99999Gi"})))
     for i in range(3):
         pods.append(P.Pod(
-            name=f"zoned-{i}", requests=P.Resources.parse(
+            name=f"{tag}zoned-{i}", requests=P.Resources.parse(
                 {"cpu": "500m", "memory": "512Mi"}),
             node_affinity=[{"key": P.L.ZONE, "operator": "In",
                             "values": ["zone-b"]}]))
@@ -241,8 +244,12 @@ def _run(pkg, backend: str, seed: int):
     more = [P.Pod(name=f"more-{i}", requests=P.Resources.parse(
         {"cpu": "100m", "memory": "128Mi"})) for i in range(6)]
     solver.solve(more, pool, existing=existing)
+    # the first solve's groups again under other pods: the port's
+    # records come from its funnel memo, the reference's are computed
+    solver.solve(_mix(P, seed, tag="again-"), pool)
     keys = ([f"default/{p.name}" for p in _mix(P, seed)]
-            + [f"default/more-{i}" for i in range(6)])
+            + [f"default/more-{i}" for i in range(6)]
+            + [f"default/{p.name}" for p in _mix(P, seed, tag="again-")])
     return {k: RECORDER.explain(k) for k in keys}, dict(RECORDER.stats)
 
 
@@ -251,9 +258,11 @@ def _run(pkg, backend: str, seed: int):
 def test_records_equal_the_reference(backend, seed):
     _reset_planes()
     ref, ref_stats = _run("karpenter_tpu", backend, seed)
+    since = _funnels_counted({})
     port, port_stats = _run("karpenter_tpu_torch", backend, seed)
+    assert _funnels_counted(since)["shared"] > 0  # the memo answered
     assert port_stats == ref_stats
-    assert port_stats["solves"] == 2 and port_stats["errors"] == 0
+    assert port_stats["solves"] == 3 and port_stats["errors"] == 0
     assert port == ref
     outcomes = {r["outcome"] for r in port.values() if r is not None}
     assert {"placed_new_node", "placed_existing_node",
@@ -291,3 +300,295 @@ def test_group_funnel_equals_the_reference():
     for g in range(port_enc.G):
         assert port_funnel(port_cat, port_enc, g) == \
             ref_funnel(ref_cat, ref_enc, g), g
+
+
+# --- the port's funnel memo ------------------------------------------------
+
+def _funnels_counted(since: dict) -> dict:
+    """karpenter_tpu_explain_funnels_total by event, less `since`."""
+    from karpenter_tpu_torch.metrics import EXPLAIN_FUNNELS
+    return {e: EXPLAIN_FUNNELS.value(event=e) - since.get(e, 0.0)
+            for e in ("computed", "shared")}
+
+
+class TestFunnelMemo:
+    """Every record the memo answers equals the record a recorder with an
+    empty memo writes for the same solve: every field, `solve_seq`
+    included, in the same LRU order."""
+
+    def _solver(self, backend="host"):
+        from karpenter_tpu_torch.catalog import small_catalog
+        from karpenter_tpu_torch.catalog.provider import CatalogProvider
+        from karpenter_tpu_torch.ops.facade import Solver
+        return Solver(CatalogProvider(lambda: small_catalog()),
+                      backend=backend, device="cpu")
+
+    def _pods(self, prefix: str):
+        """Twelve pods of four (cpu, memory) groups."""
+        from karpenter_tpu_torch.models.pod import Pod
+        from karpenter_tpu_torch.models.resources import Resources
+        shapes = (("250m", "256Mi"), ("500m", "1Gi"), ("1", "2Gi"),
+                  ("2", "4Gi"))
+        return [Pod(name=f"{prefix}-{i}", requests=Resources.parse(
+            {"cpu": shapes[i % 4][0], "memory": shapes[i % 4][1]}))
+            for i in range(12)]
+
+    def _shadowed(self, monkeypatch):
+        """RECORDER records every solve as before; each solve is also
+        recorded by a recorder with an empty memo at the same solve_seq,
+        and the two recorders' records are compared on the spot (the
+        encode's arrays may be reused by the next solve). Returns the
+        funnel counter's deltas of RECORDER's own record, a solve each."""
+        from karpenter_tpu_torch.obs.explain import RECORDER, ExplainRecorder
+        RECORDER.reset()
+        counted = []
+        real = RECORDER.record_solve
+
+        def both(cat, enc, out):
+            since = _funnels_counted({})
+            real(cat, enc, out)
+            counted.append(_funnels_counted(since))
+            fresh = ExplainRecorder()
+            fresh.stats["solves"] = RECORDER.stats["solves"] - 1
+            fresh.record_solve(cat, enc, out)
+            assert fresh.stats == RECORDER.stats
+            assert fresh._pods
+            for (tenant, key), rec in fresh._pods.items():
+                assert RECORDER.explain(key, tenant) == rec, key
+            assert list(RECORDER._pods)[-len(fresh._pods):] == \
+                list(fresh._pods)
+        monkeypatch.setattr(RECORDER, "record_solve", both)
+        return counted
+
+    @pytest.mark.parametrize("backend", ["host", "device"])
+    def test_repeated_groups_share_their_funnels(self, monkeypatch,
+                                                 backend):
+        from karpenter_tpu_torch.models.nodepool import NodePool
+        from karpenter_tpu_torch.obs.explain import RECORDER
+        counted = self._shadowed(monkeypatch)
+        solver = self._solver(backend)
+        for prefix in ("one", "two", "three"):
+            solver.solve(self._pods(prefix), NodePool(name="default"))
+        assert len(counted) == 3
+        assert counted[0] == {"computed": 4, "shared": 0}
+        for c in counted[1:]:
+            assert c == {"computed": 0, "shared": 4}
+        # the third solve's records hold the first solve's stages list
+        assert RECORDER.explain("default/three-0")["funnel"] is \
+            RECORDER.explain("default/one-0")["funnel"]
+        RECORDER.reset()
+
+    @pytest.mark.parametrize("change", ["price", "daemonset"])
+    def test_a_new_catalog_view_computes_its_funnels_again(
+            self, monkeypatch, change):
+        from karpenter_tpu_torch.models.nodepool import NodePool
+        from karpenter_tpu_torch.models.pod import DaemonSet
+        from karpenter_tpu_torch.models.resources import Resources
+        from karpenter_tpu_torch.obs.explain import RECORDER
+        counted = self._shadowed(monkeypatch)
+        solver = self._solver()
+        pool = NodePool(name="default")
+        kw = {}
+        solver.solve(self._pods("before"), pool)
+        token = solver.tensors(None).cache_token
+        if change == "price":
+            # the spot price of a group's cheapest type, in every zone,
+            # far above every other offering's
+            chosen = RECORDER.explain("default/before-3")["funnel"][-1][
+                "chosen"]
+            assert chosen["capacity_type"] == "spot"
+            solver.catalog.pricing.update_spot(
+                {(chosen["instance_type"], z): 100.0
+                 for z in solver.tensors(None).zones})
+            assert solver.tensors(None).cache_token != token
+        else:
+            # reserved on every node: the 4-vCPU types no longer fit
+            # a 2-vCPU pod
+            kw["daemonsets"] = [DaemonSet(name="agent", requests=(
+                Resources.parse({"cpu": "3", "memory": "6Gi"})))]
+        solver.solve(self._pods("after"), pool, **kw)
+        solver.solve(self._pods("again"), pool, **kw)
+        assert counted == [{"computed": 4, "shared": 0},
+                           {"computed": 4, "shared": 0},
+                           {"computed": 0, "shared": 4}]
+        before = RECORDER.explain("default/before-3")["funnel"]
+        after = RECORDER.explain("default/after-3")["funnel"]
+        assert after != before  # the new view's stages, not the old
+        RECORDER.reset()
+
+    @pytest.mark.parametrize("row", ["requests", "compat", "allow_zone",
+                                     "allow_cap"])
+    def test_groups_that_differ_in_one_row_get_their_own_funnels(
+            self, monkeypatch, row):
+        from karpenter_tpu_torch.models import labels as L
+        from karpenter_tpu_torch.models.nodepool import NodePool
+        from karpenter_tpu_torch.models.pod import Pod
+        from karpenter_tpu_torch.models.resources import Resources
+        from karpenter_tpu_torch.ops.encode import encode_pods
+        term = {"compat": (L.INSTANCE_TYPE, "NotIn", ["c5.large"]),
+                "allow_zone": (L.ZONE, "In", ["zone-b"]),
+                "allow_cap": (L.CAPACITY_TYPE, "In", ["on-demand"])}
+
+        def pod(name, other):
+            mem = "1025Mi" if other and row == "requests" else "1Gi"
+            aff = ([dict(zip(("key", "operator", "values"), term[row]))]
+                   if other and row in term else [])
+            return Pod(name=name, requests=Resources.parse(
+                {"cpu": "500m", "memory": mem}), node_affinity=aff)
+        counted = self._shadowed(monkeypatch)
+        solver = self._solver()
+        # the two groups' encoded rows differ in `row` alone
+        enc = encode_pods([pod("a", False), pod("b", True)],
+                          solver.tensors(None))
+        assert enc.G == 2
+        differ = [name for name in ("requests", "compat", "allow_zone",
+                                    "allow_cap")
+                  if (getattr(enc, name)[0] != getattr(enc, name)[1]).any()]
+        assert differ == [row]
+        pool = NodePool(name="default")
+        solver.solve([pod("base", False)], pool)
+        solver.solve([pod("other", True)], pool)
+        assert counted == [{"computed": 1, "shared": 0},
+                           {"computed": 1, "shared": 0}]
+
+    def _direct(self, n_groups=4):
+        """An encode against the generated catalog (no cache_token) and
+        an output that leaves every pod unschedulable, so a record
+        touches every group."""
+        from karpenter_tpu_torch.catalog import generate_catalog
+        from karpenter_tpu_torch.models.pod import Pod
+        from karpenter_tpu_torch.models.resources import Resources
+        from karpenter_tpu_torch.ops.encode import encode_catalog, encode_pods
+        from karpenter_tpu_torch.ops.facade import SolveOutput
+        cat = encode_catalog(generate_catalog())
+        pods = [Pod(name=f"d-{i}", requests=Resources.parse(
+            {"cpu": f"{250 * (1 + i % n_groups)}m", "memory": "512Mi"}))
+            for i in range(2 * n_groups)]
+        enc = encode_pods(pods, cat)
+        assert enc.G == n_groups
+        out = SolveOutput([], {}, [f"default/{p.name}" for p in pods])
+        return cat, enc, out
+
+    def test_a_view_without_a_token_is_never_kept(self):
+        from karpenter_tpu_torch.obs.explain import ExplainRecorder
+        cat, enc, out = self._direct()
+        assert cat.cache_token is None
+        rec = ExplainRecorder()
+        for _ in range(2):
+            since = _funnels_counted({})
+            rec.record_solve(cat, enc, out)
+            assert _funnels_counted(since) == {"computed": 4, "shared": 0}
+        assert not rec._funnels and not rec._views
+        assert rec.stats["errors"] == 0
+
+    def test_a_token_on_other_content_names_another_view(self):
+        """Two facades' fresh providers can stamp one token on different
+        catalogs: the content decides, not the token."""
+        from dataclasses import replace
+
+        from karpenter_tpu_torch.obs.explain import ExplainRecorder
+        cat, enc, out = self._direct()
+        cat.cache_token = ("view",)
+        rec = ExplainRecorder()
+        rec.record_solve(cat, enc, out)
+        first = rec.explain("default/d-0")["funnel"]
+        dearer = replace(cat, price=cat.price * 2)
+        since = _funnels_counted({})
+        rec.record_solve(dearer, enc, out)
+        assert _funnels_counted(since) == {"computed": 4, "shared": 0}
+        second = rec.explain("default/d-0")["funnel"]
+        assert second[-1]["chosen"]["price"] == pytest.approx(
+            2 * first[-1]["chosen"]["price"])
+        fresh = ExplainRecorder()
+        fresh.stats["solves"] = 1
+        fresh.record_solve(dearer, enc, out)
+        assert fresh.explain("default/d-0") == rec.explain("default/d-0")
+
+    def test_reset_empties_the_memo(self):
+        from karpenter_tpu_torch.obs.explain import ExplainRecorder
+        cat, enc, out = self._direct()
+        cat.cache_token = ("view",)
+        rec = ExplainRecorder()
+        rec.record_solve(cat, enc, out)
+        assert len(rec._funnels) == 4 and len(rec._views) == 1
+        rec.reset()
+        assert not rec._funnels and not rec._views
+        since = _funnels_counted({})
+        rec.record_solve(cat, enc, out)
+        assert _funnels_counted(since) == {"computed": 4, "shared": 0}
+
+    def test_the_memo_trims_the_least_recent_first(self):
+        from karpenter_tpu_torch.obs.explain import ExplainRecorder, _exact
+        from karpenter_tpu_torch.ops.facade import SolveOutput
+        cat, enc, out = self._direct(n_groups=6)
+        cat.cache_token = ("view",)
+        rec = ExplainRecorder()
+        rec.MAX_FUNNELS = 4
+        rec.record_solve(cat, enc, out)
+        group_of = {f"{p.namespace}/{p.name}": gi
+                    for gi, grp in enumerate(enc.groups) for p in grp.pods}
+        # the record touches the groups in its pods' order, d-0 to d-5
+        order = [group_of[f"default/d-{i}"] for i in range(6)]
+
+        def kept():
+            return [next(g for g in range(6) if k[1:] == tuple(
+                _exact(a[g]) for a in (enc.requests, enc.compat,
+                                       enc.allow_zone, enc.allow_cap)))
+                for k in rec._funnels]
+
+        def touch(i):
+            since = _funnels_counted({})
+            rec.record_solve(cat, enc, SolveOutput([], {},
+                                                   [f"default/d-{i}"]))
+            return _funnels_counted(since)
+        assert kept() == order[2:]
+        assert touch(2) == {"computed": 0, "shared": 1}  # a hit refreshes
+        assert kept() == order[3:] + order[2:3]
+        assert touch(0) == {"computed": 1, "shared": 0}
+        assert kept() == order[4:] + [order[2], order[0]]
+
+    def test_threads_share_the_memo(self):
+        """The federation server records from more than one thread: under
+        a churning memo (two views, a bound of 4, six groups) every
+        record still equals a fresh recorder's and the bound holds."""
+        import sys
+        import threading
+        from dataclasses import replace
+
+        from karpenter_tpu_torch.obs.explain import ExplainRecorder
+        cat, enc, out = self._direct(n_groups=6)
+        views = [replace(cat, cache_token=("a",)),
+                 replace(cat, price=cat.price * 2, cache_token=("b",))]
+        want = []
+        for view in views:
+            fresh = ExplainRecorder()
+            fresh.record_solve(view, enc, out)
+            want.append({k: (r["funnel"], r["binding_constraint"])
+                         for (_, k), r in fresh._pods.items()})
+        rec = ExplainRecorder()
+        rec.MAX_FUNNELS = 4
+
+        def work(i):
+            for n in range(30):
+                view = n % 2 if i % 2 else 1 - n % 2
+                rec.record_solve(views[view], enc, out)
+        saved = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            threads = [threading.Thread(target=work, args=(i,))
+                       for i in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            assert not any(t.is_alive() for t in threads)
+        finally:
+            sys.setswitchinterval(saved)
+        assert rec.stats["errors"] == 0
+        assert len(rec._funnels) <= 4
+        # one more record of each view, after the churn, from the memo
+        for view, expect in zip(views, want):
+            rec.record_solve(view, enc, out)
+            got = {k: (r["funnel"], r["binding_constraint"])
+                   for (_, k), r in rec._pods.items()}
+            assert got == expect, view.cache_token
